@@ -5,17 +5,27 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the main path from ``src/repro_torch/csrc``
-(one ``nvcc`` per source, started together), holds each kernel against its
-plain PyTorch version on the card at the main path's shapes and times both,
-then drives the main path — ``ExperimentEngine(device="cuda").build`` over
-all ten apps and the staged sweeps (srs, and rfv / bbv / dg with
-``Centroid``) — with the kernels' launch counters set to 0 just before and
-read just after. It rebuilds the same state through the plain versions to
-hold the path's results against them, then once more through the kernels
-(warm, as the plain build was) to time both builds alike, and traces one
-more kernel build with ``torch.profiler`` for the card's busy time. Any
-failure raises and exits non-zero.
+It builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
+source, started together), holds each kernel against its plain PyTorch
+version on the card at the main paths' shapes and times both, then drives
+the port's two paths, each with the kernels' launch counters set to 0 just
+before it and read just after:
+
+* the simulation path — ``ExperimentEngine(device="cuda").build`` over all
+  ten apps and the staged sweeps (srs, and rfv / bbv / dg with
+  ``Centroid``). It rebuilds the same state through the plain versions to
+  hold the path's results against them, then once more through the
+  kernels (warm, as the plain build was) to time both builds alike, and
+  traces one more kernel build with ``torch.profiler`` for the card's busy
+  time;
+* the LM serving path at the full width of ``llama3.2-3b`` (bf16, random
+  weights from a seeded generator): prefill of 4 x 4096 tokens through the
+  flash-attention kernel and through the plain attention route, prefill
+  of 1 x 32768 tokens, the serve loop of ``repro_torch.launch.serve``, and
+  ``SampledEval`` over 64 eval batches, whose k-means runs the two
+  clustering kernels.
+
+Any failure raises and exits non-zero.
 
 Output: progress lines, then the card's name and power limit (as
 ``nvidia-smi`` reports them), one JSON line with each kernel's numbers and,
@@ -37,12 +47,16 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # tensor cores. Bounds use these whatever the card's power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12      # dense tensor-core rate
 
 # tolerances of the kernel checks (see CHANGES.md for the reasons)
 ASSIGN_TIE_RTOL = 1e-5        # labels may differ only at such near-ties
 ASSIGN_D2_RTOL, ASSIGN_D2_ATOL = 1e-5, 1e-6
 SEGMENT_RTOL = 1e-5           # relative to the sum of |terms| per segment
 MIN_LABEL_AGREEMENT = 0.999   # kernel build vs plain build, per app & fit
+# flash attention vs its plain version: float32 differs only in the order
+# of the sums; bf16 adds one rounding of the output (atol and rtol each)
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def log(msg: str) -> None:
@@ -72,10 +86,11 @@ def time_ms(fn, *, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS
+          ) -> tuple[float, str]:
     """Least time (ms) for the work and what sets it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -209,6 +224,89 @@ def check_segment_stats(gen) -> dict:
     return out
 
 
+def flash_bound(b, hq, hkv, sq, skv, d, dtype) -> tuple[float, str, float]:
+    """Least time (ms) of one causal attention and what sets it, plus its
+    FLOP: 4 d FLOP per visible (row, column) pair (q.k and p.v), the
+    pairs of end-aligned causal rows; each of q, k, v read once and o
+    written once. bf16 counts at the tensor-core rate, float32 at the
+    float32 FMA rate."""
+    import torch
+    pairs = sq * (skv - sq + 1) + sq * (sq - 1) // 2
+    flops = 4.0 * b * hq * d * pairs
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    ms, by = bound(nbytes, flops, peak)
+    return ms, by, flops
+
+
+def check_flash(gen) -> dict:
+    """The kernel against its plain version (``flash_attention_ref``) at the
+    cases of ``tests/test_kernels.py`` in both types, at the LM's prefill
+    shape and at the longest sequence the plain version fits; timings at
+    the prefill shape, beside ``scaled_dot_product_attention``."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    def qkv(b, hq, hkv, sq, skv, d, dtype):
+        return tuple(torch.randn(s, generator=gen, device="cuda").to(dtype)
+                     for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                               (b, hkv, skv, d)))
+
+    cases = [(s, dt) for s in ((1, 4, 2, 256, 256, 64),
+                               (2, 8, 4, 300, 300, 32),
+                               (1, 4, 1, 1, 512, 64),
+                               (1, 2, 2, 1, 700, 128),
+                               (1, 4, 4, 512, 512, 128))
+             for dt in (torch.float32, torch.bfloat16)]
+    main_shape = (4, 24, 8, 4096, 4096, 128)
+    cases += [(main_shape, torch.bfloat16),
+              ((1, 1, 1, 32768, 32768, 128), torch.bfloat16)]
+    out = {}
+    for shape, dtype in cases:
+        q, k, v = qkv(*shape, dtype)
+        got = ops.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v)
+        tol = FLASH_TOL[str(dtype).split(".")[-1]]
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if not bool(torch.isfinite(got).all()) or bool(
+                (diff > tol + tol * want.float().abs()).any()):
+            raise AssertionError(f"flash_attention {shape} {dtype}: max "
+                                 f"error {err:.3g} above {tol}")
+        line = (f"flash_attention {shape} {str(dtype)[6:]}: max |err| "
+                f"{err:.3g} (tol {tol})")
+        if shape[3] >= 4096:
+            ms = time_ms(lambda: ops.flash_attention(q, k, v))
+            plain_ms = time_ms(lambda: flash_attention_ref(q, k, v),
+                               warmup=1, iters=3)
+            bound_ms, bound_by, flops = flash_bound(*shape, dtype)
+            line += (f"; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                     f"TFLOP/s), plain {plain_ms:.4f} ms, bound "
+                     f"{bound_ms:.4f} ms ({bound_by}), bound share "
+                     f"{bound_ms / ms:.4f}")
+            rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            if shape == main_shape:
+                # the yardstick: one PyTorch call for the same function
+                # (sq == skv, so its top-left causal mask is end-aligned)
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                              enable_gqa=True))
+                line += f", scaled_dot_product_attention {lib_ms:.4f} ms"
+                rec["library_ms"] = lib_ms
+                out["main"] = rec
+            else:
+                out["long"] = rec
+        log(line)
+        del q, k, v, got, want, diff
+    torch.cuda.empty_cache()
+    return out
+
+
+
 # ------------------------------------------------------------------ phase 3
 SCHEMES = ("srs", "rfv", "bbv", "dg")
 FITS = ("bbv_labels", "rfv_labels", "dg_labels")
@@ -241,18 +339,16 @@ def drive_main_path(backend: str):
     return engine, tables, secs
 
 
-def trace_build() -> None:
-    """One more (warm) kernel build under ``torch.profiler``: the card's
-    busy time against the wall time, and the kernels that fill it."""
+def traced(label: str, fn, top: int = 10) -> None:
+    """Run ``fn`` once under ``torch.profiler``: the card's busy time
+    against the wall time, and the kernels that fill it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.experiments import ExperimentEngine
-    from repro_torch.simcpu import APP_NAMES
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ExperimentEngine(device="cuda").build(APP_NAMES)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, list] = {}
@@ -263,15 +359,23 @@ def trace_build() -> None:
             rec[1] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(ms for _, ms in by_name.values())
     if not by_name:
-        log(f"traced build: {wall_ms:.1f} ms wall; the profiler saw no "
+        log(f"traced {label}: {wall_ms:.1f} ms wall; the profiler saw no "
             "device activity, so busy time is not measured")
         return
-    log(f"traced build: {wall_ms:.1f} ms wall (profiler on), device busy "
+    log(f"traced {label}: {wall_ms:.1f} ms wall (profiler on), device busy "
         f"{busy_ms:.1f} ms in {sum(n for n, _ in by_name.values())} "
         f"device events, idle share {1 - busy_ms / wall_ms:.3f}")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    for name, (n, ms) in top:
+    for name, (n, ms) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:top]:
         log(f"  {ms:9.2f} ms {n:7d}x  {name[:90]}")
+
+
+def trace_build() -> None:
+    """One more (warm) kernel build under the profiler."""
+    from repro_torch.experiments import ExperimentEngine
+    from repro_torch.simcpu import APP_NAMES
+
+    traced("build", lambda: ExperimentEngine(device="cuda").build(APP_NAMES))
 
 
 def check_tables(tables, n_apps: int, n_cfgs: int) -> None:
@@ -371,6 +475,191 @@ def phase_main_path() -> tuple[dict, object, dict]:
     return launches, engine, secs
 
 
+# ------------------------------------------------------------------ phase 4
+LM_ARCH = "llama3.2-3b"
+EVAL_BATCHES, EVAL_SEQ, EVAL_BATCH = 64, 2048, 4
+
+
+_LM_PEAKS: list[float] = []
+
+
+def _step(name: str, t0: float) -> float:
+    """Print a step's seconds and its own peak memory, then start the
+    next step's peak afresh."""
+    import torch
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _LM_PEAKS.append(peak)
+    log(f"LM {name}: {s:.3f} s, peak memory {peak / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    return s
+
+
+def compare_logits(tag: str, got, want) -> dict:
+    """Report max |got - want| over want's std and the argmax agreement;
+    a differing argmax must sit where want's top two logits lie closer
+    than max |got - want| (a near-tie)."""
+    import torch
+    got, want = got.float(), want.float()
+    delta = float((got - want).abs().max())
+    rel = delta / float(want.std())
+    top2 = torch.topk(want, 2, dim=-1).values
+    agree = got.argmax(-1) == want.argmax(-1)
+    tie = (top2[:, 0] - top2[:, 1]) < delta
+    if bool((~agree & ~tie).any()):
+        raise AssertionError(f"{tag}: argmax differs away from near-ties")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag}: non-finite logits")
+    log(f"{tag}: max |delta| {delta:.4g} = {rel:.4g} std; argmax agrees on "
+        f"{int(agree.sum())}/{agree.numel()} rows "
+        f"({int((~agree).sum())} near-ties)")
+    return {"max_delta": delta, "rel": rel,
+            "agree": int(agree.sum()), "rows": agree.numel()}
+
+
+def phase_lm() -> dict:
+    """The LM serving path at full width; returns the launches of the
+    three kernels in it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+    from repro_torch.launch.serve import generate, make_prompts
+    from repro_torch.models.registry import init_params, loss_fn
+    from repro_torch.train.sampled_eval import SampledEval
+    from repro_torch.train.step import make_prefill_fn
+
+    cfg = get_config(LM_ARCH)
+    for ops in (flash_ops, assign_ops, segment_ops):
+        ops.reset_launch_count()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_forwards = 0
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, generator=gen)
+    n_params = sum(p.numel() for p in params.parameters())
+    _step(f"init {n_params / 1e9:.3f} B parameters "
+          f"(config counts {cfg.param_count() / 1e9:.3f} B)", t0)
+
+    # 1. prefill 4 x 4096: kernel route and plain route
+    batch = make_pipeline(cfg, 4096, 4, seed=0, device="cuda").batch(0)
+    t0 = time.perf_counter()
+    kern = make_prefill_fn(cfg)(params, batch)
+    kernel_forwards += 1
+    _step("prefill 4 x 4096 (flash kernel)", t0)
+    t0 = time.perf_counter()
+    plain = make_prefill_fn(cfg, backend="plain")(params, batch)
+    _step("prefill 4 x 4096 (plain attention)", t0)
+    compare_logits("prefill 4 x 4096 kernel vs plain", kern, plain)
+    del kern, plain
+
+    # 2. prefill 1 x 32768 (the prefill_32k cell's sequence length)
+    long_batch = make_pipeline(cfg, 32768, 1, seed=1,
+                               device="cuda").batch(0)
+    t0 = time.perf_counter()
+    logits = make_prefill_fn(cfg)(params, long_batch)
+    kernel_forwards += 1
+    if logits.shape != (1, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("prefill 1 x 32768: bad logits")
+    _step("prefill 1 x 32768 (flash kernel)", t0)
+    del logits, long_batch
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    traced("prefill 4 x 4096 (flash kernel)",
+           lambda: make_prefill_fn(cfg)(params, batch), top=6)
+    kernel_forwards += 1
+    _step("traced prefill 4 x 4096", t0)
+
+    # 3. the serve loop: teacher-forced prefill through decode, greedy gen
+    prompts = make_prompts(cfg, 4, 128, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompts, gen=32, cache_len=256)
+    _step(f"serve loop (batch 4, prompt 128, gen 32, cache 256): "
+          f"teacher-forced prefill {out.prefill_s:.3f} s, generation "
+          f"{out.decode_s:.3f} s = {out.tokens_per_s:.1f} tokens/s", t0)
+    if out.tokens.shape != (4, 32) or not bool(
+            ((out.tokens >= 0) & (out.tokens < cfg.vocab)).all()):
+        raise AssertionError("serve loop: bad tokens")
+    t0 = time.perf_counter()
+    traced("serve loop, 8 generated tokens",
+           lambda: generate(params, cfg, prompts[:, :1], gen=8,
+                            cache_len=16), top=6)
+    _step("traced serve loop", t0)
+    ref = make_prefill_fn(cfg)(params, {"tokens": prompts})
+    kernel_forwards += 1
+    compare_logits("serve first step (decode) vs prefill (flash kernel)",
+                   out.first_logits, ref)
+
+    # 4. sampled evaluation over a 64-batch corpus, each batch forwarded
+    # once (memoised); the census first, then the three estimates
+    pipe = make_pipeline(cfg, EVAL_SEQ, EVAL_BATCH, seed=999, device="cuda")
+    loss_of = loss_fn(cfg)
+    memo, calls = {}, {"n": 0}
+
+    def eval_batch(i: int):
+        calls["n"] += 1
+        if i not in memo:
+            b = pipe.batch(i)
+            loss = float(loss_of(params, b))
+            toks = b["tokens"].float()
+            memo[i] = (loss, np.array([
+                loss, float((b["tokens"] == 0).float().mean()),
+                float(toks.std(unbiased=False))]))
+        return memo[i]
+
+    t0 = time.perf_counter()
+    census = float(np.mean([eval_batch(i)[0] for i in range(EVAL_BATCHES)]))
+    kernel_forwards += len(memo)
+    _step(f"eval census: {len(memo)} forwards of {EVAL_BATCH} x {EVAL_SEQ}"
+          f" tokens, mean loss {census:.6f}", t0)
+    se = SampledEval(n_batches=EVAL_BATCHES, eval_batch=eval_batch,
+                     num_strata=4, device="cuda")
+    t0 = time.perf_counter()
+    c0 = calls["n"]
+    est1 = se.characterize(n_phase1=32)
+    n1, c0 = calls["n"] - c0, calls["n"]
+    quick = se.quick_estimate()
+    nq, c0 = calls["n"] - c0, calls["n"]
+    ci = se.ci_check(per_stratum=2)
+    nc = calls["n"] - c0
+    _step("SampledEval characterize / quick_estimate / ci_check", t0)
+    for name, val in (("phase-1", est1.mean), ("quick", quick),
+                      ("ci", ci.mean)):
+        if not np.isfinite(val):
+            raise AssertionError(f"SampledEval {name} estimate {val}")
+    log(f"SampledEval (random weights: shows the path runs, not a trained "
+        f"model's eval): census {census:.6f} over {EVAL_BATCHES} forwards; "
+        f"phase-1 {est1.mean:.6f} +- {est1.margin_pct:.3f}% ({n1} "
+        f"forwards); quick {quick:.6f} ({nq}); ci {ci.mean:.6f} +- "
+        f"{ci.margin_pct:.3f}% ({nc}); strata weights "
+        f"{np.round(se._weights, 4).tolist()}")
+
+    launches = {"flash_attention": flash_ops.launch_count(),
+                "kmeans_assign": assign_ops.launch_count(),
+                "segment_stats": segment_ops.launch_count()}
+    log(f"LM path launches {launches}; peak memory "
+        f"{max(_LM_PEAKS) / 2**30:.2f} GiB")
+    if launches["flash_attention"] != cfg.n_layers * kernel_forwards:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times, expected"
+                             f" {cfg.n_layers} x {kernel_forwards}")
+    for name in ("kmeans_assign", "segment_stats"):
+        if launches[name] <= 0:
+            raise AssertionError(f"SampledEval never launched {name}")
+    if max(_LM_PEAKS) >= 80e9:
+        raise AssertionError("peak memory at or above 80 GB")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -390,23 +679,36 @@ def main() -> int:
 
     card = gpu_name_and_limit()
     log(f"card: {card}")
+    # full float32 products everywhere (the plain versions and the checks)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     phase_build(backend_mod)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     assign = check_kmeans_assign(gen)
     segment = check_segment_stats(gen)
-    launches, _, _ = phase_main_path()
+    flash = check_flash(gen)
+    by_path = {"simulation": phase_main_path()[0], "lm": phase_lm()}
+
+    def launches(name: str) -> dict:
+        per = {path: n.get(name, 0) for path, n in by_path.items()}
+        return {"launches": sum(per.values()), "launches_by_path": per}
 
     rows = [
         {"name": "kmeans_assign", "route": "cuda",
          "source": "src/repro_torch/csrc/kmeans_assign.cu",
          "replaces": "src/repro/kernels/kmeans_assign/kmeans_assign.py:41",
-         "launches": launches["kmeans_assign"], **assign["bbv"],
+         **launches("kmeans_assign"), **assign["bbv"],
          "library_ms": None},
         {"name": "segment_stats", "route": "cuda",
          "source": "src/repro_torch/csrc/segment_stats.cu",
          "replaces": "src/repro/kernels/segment_stats/segment_stats.py:28",
-         "launches": launches["segment_stats"], **segment["bbv_update"]},
+         **launches("segment_stats"), **segment["bbv_update"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces":
+             "src/repro/kernels/flash_attention/flash_attention.py:32",
+         **launches("flash_attention"), **flash["main"]},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -41,6 +41,7 @@ from ..core.clustering import kmeans_bank, random_project
 from ..core.ordered import seq_sum
 from ..core.sampling import dalenius_gurney_strata, draw_srs
 from ..core.sampling import plan as sampling_plan
+from ..device import resolve_device
 from ..kernels.segment_stats.ops import segment_stats
 from ..simcpu import (CONFIGS, NUM_BLOCKS, CachedSimulator, MemoBank,
                       config_matrix, cpi_bank, get_bbvs, get_population_bank,
@@ -51,18 +52,7 @@ PHASE1_SEED = 42
 BBV_DIMS = 15
 
 __all__ = ["NUM_STRATA", "PHASE1_SEED", "AppExperiment", "SweepStack",
-           "ExperimentEngine", "plan_selection", "plan_selection_bank",
-           "resolve_device"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """The engine's device: the card unless the caller names another."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "ExperimentEngine runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run on the CPU")
-    return dev
+           "ExperimentEngine", "plan_selection", "plan_selection_bank"]
 
 
 @dataclasses.dataclass
@@ -140,7 +130,7 @@ class ExperimentEngine:
                  num_strata: int = NUM_STRATA,
                  phase1_seed: int = PHASE1_SEED, precision=None,
                  device=None, backend: str = "auto"):
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, what="ExperimentEngine")
         self.configs = tuple(configs)
         self.num_strata = num_strata
         self.phase1_seed = phase1_seed

@@ -1,0 +1,118 @@
+"""Serving launcher: batched prefill + greedy decode loop on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
+        --smoke --device cpu --batch 4 --prompt-len 32 --gen 16
+
+Counterpart of ``repro.launch.serve``, with ``--device`` (the card by
+default). It keeps the reference's loop: the prompt is fed one token at a
+time through the decode path (teacher-forced prefill, which exercises the
+cache), then ``--gen`` tokens are generated greedily; it prints the
+generation rate in tokens/s. Weights are random, drawn from ``--seed``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..configs import get_config
+from ..device import resolve_device
+from ..models.common import ModelConfig
+from ..models.registry import decode_fn, init_params, make_decode_state
+
+__all__ = ["Generation", "generate", "make_prompts", "main"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Generation:
+    tokens: torch.Tensor        # (b, gen) int32 greedy tokens
+    first_logits: torch.Tensor  # (b, vocab) float32 logits of the first
+    #                             generated step (position prompt_len - 1)
+    prefill_s: float            # teacher-forced prefill, seconds
+    decode_s: float             # greedy generation, seconds
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.tokens.numel() / self.decode_s
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
+                 device) -> torch.Tensor:
+    """The reference's prompts: ``default_rng(seed)`` integers."""
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, (batch, prompt_len))
+    return torch.as_tensor(prompts, dtype=torch.int32, device=device)
+
+
+@torch.no_grad()
+def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *, gen: int,
+             cache_len: int) -> Generation:
+    """The reference's serve loop on ``prompts`` ``(b, prompt_len)``."""
+    batch, prompt_len = prompts.shape
+    if prompt_len + gen - 1 > cache_len:
+        raise ValueError(f"cache of {cache_len} cannot hold {prompt_len} "
+                         f"prompt and {gen} generated tokens")
+    device = prompts.device
+    dfn = decode_fn(cfg)
+    caches = make_decode_state(cfg, batch, cache_len, device=device)
+    t0 = time.perf_counter()
+    for t in range(prompt_len - 1):
+        _, caches = dfn(params, prompts[:, t:t + 1], caches, t)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    tok = prompts[:, -1:]
+    start_pos = prompt_len - 1
+    out_tokens = []
+    first: Optional[torch.Tensor] = None
+    t0 = time.perf_counter()
+    for i in range(gen):
+        logits, caches = dfn(params, tok, caches, start_pos + i)
+        if first is None:
+            first = logits[:, -1, :].float()
+        tok = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+        out_tokens.append(tok[:, 0])
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    return Generation(tokens=torch.stack(out_tokens, dim=1),
+                      first_logits=first, prefill_s=prefill_s,
+                      decode_s=decode_s)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--cache-len", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    device = resolve_device(args.device, what="repro_torch.launch.serve")
+    gen_ = torch.Generator(device=device).manual_seed(args.seed)
+    params = init_params(cfg, generator=gen_, device=device)
+    prompts = make_prompts(cfg, args.batch, args.prompt_len, args.seed,
+                           device)
+    out = generate(params, cfg, prompts, gen=args.gen,
+                   cache_len=args.cache_len)
+    print(f"generated {tuple(out.tokens.shape)} tokens in "
+          f"{out.decode_s * 1e3:.1f} ms ({out.tokens_per_s:.1f} tok/s)")
+    print("sample:", out.tokens[0][:16].cpu().numpy())
+
+
+if __name__ == "__main__":
+    main()

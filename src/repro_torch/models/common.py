@@ -1,0 +1,126 @@
+"""Shared model-definition utilities.
+
+Counterpart of ``repro.models.common``. Parameters are ``nn.Module``s
+(see ``transformer.LM``) whose weights keep the reference's
+``(in, out)`` layout, so a layer computes ``x @ w`` as the reference
+does. Weights are drawn with the reference's distributions from a
+``torch.Generator``: ``normal x 0.02`` in the model's dtype, norm gains
+``normal x 1.0`` in float32. Activations and weights are bf16 for full
+configs and float32 for smoke ones. Nothing here has a backward: the
+parameters do not require gradients.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+__all__ = ["ModelConfig", "rms_norm", "rope", "cross_entropy_loss",
+           "new_param", "normal_"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | hybrid | ssm | encdec
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 128
+    # MoE
+    moe_experts: int = 0
+    moe_topk: int = 0
+    moe_capacity_factor: float = 1.25
+    # hybrid (RG-LRU) / local attention
+    window: Optional[int] = None
+    rnn_width: Optional[int] = None
+    hybrid_period: int = 3
+    # ssm (RWKV6)
+    rwkv_head_dim: int = 64
+    # enc-dec
+    encoder_layers: int = 0
+    # misc
+    rope_theta: float = 500_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: torch.dtype = torch.bfloat16
+    embed_frontend: bool = False
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // max(self.n_kv_heads, 1)
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + layers), as the
+        reference counts it."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "moe":
+            ffn = self.moe_experts * 3 * d * f + d * self.moe_experts
+        else:
+            ffn = 3 * d * f
+        qkvo = d * (self.n_heads * self.head_dim) * 2 + \
+            d * (self.n_kv_heads * self.head_dim) * 2
+        per_layer = ffn + qkvo + 2 * d
+        total = emb + self.n_layers * per_layer
+        if self.encoder_layers:
+            total += self.encoder_layers * per_layer
+        return int(total)
+
+
+def new_param(shape, dtype: torch.dtype, device) -> torch.nn.Parameter:
+    """An uninitialised parameter that takes no gradient."""
+    return torch.nn.Parameter(torch.empty(tuple(shape), dtype=dtype,
+                                          device=device),
+                              requires_grad=False)
+
+
+@torch.no_grad()
+def normal_(p: torch.Tensor, generator: torch.Generator,
+            scale: float = 0.02) -> torch.Tensor:
+    """Fill ``p`` with ``normal x scale``, drawn in float32 on ``p``'s
+    device and rounded to its dtype (the reference's ``leaf``)."""
+    draw = torch.randn(p.shape, generator=generator, device=p.device,
+                       dtype=torch.float32)
+    return p.copy_(draw.mul_(scale))
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * scale).to(dt) * gamma.to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Rotary embedding. x: ``(..., s, h, d)``; positions: ``(s,)`` or
+    ``(b, s)``."""
+    d = x.shape[-1]
+    half = d // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(theta, exps)      # a Python base: no host copy
+    angles = positions.to(torch.float32)[..., None] * freqs  # (..., s, half)
+    cos = torch.cos(angles)[..., None, :]    # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1.to(x.dtype), y2.to(x.dtype)], dim=-1)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+    """Mean token cross-entropy in float32. logits: ``(b, s, v)``; labels:
+    ``(b, s)``. On one device the gold logit is a gather (the reference's
+    iota-compare form exists for vocab sharding and adds only zeros)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

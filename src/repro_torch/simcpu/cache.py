@@ -25,6 +25,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .perfmodel import cpi_bank
 from .simulator import CycleAccurateSimulator, Ledger
 from .uarch import UarchConfig
@@ -35,8 +36,8 @@ __all__ = ["MemoBank", "CachedSimulator"]
 class MemoBank:
     """Growable ``(A, C, N)`` mask + CPI memo with per-app ledgers."""
 
-    def __init__(self, *, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, *, device=None):
+        self.device = resolve_device(device, what="MemoBank")
         self.names: list[str] = []
         self.ledgers: list[Optional[Ledger]] = []
         self.n_regions: list[int] = []

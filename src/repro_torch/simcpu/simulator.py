@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from ..device import resolve_device
 from .perfmodel import evaluate_regions_batch
 from .uarch import UarchConfig
 from .workload import REGION_LEN_INSTR, AppPopulation, get_population
@@ -37,13 +38,14 @@ class Ledger:
 
 
 class CycleAccurateSimulator:
-    """Detailed-simulation stand-in for one application, on ``device``."""
+    """Detailed-simulation stand-in for one application, on ``device``
+    (the card when None)."""
 
     def __init__(self, pop: AppPopulation, ledger: Optional[Ledger] = None,
-                 *, device="cpu"):
+                 *, device=None):
         self.pop = pop
         self.ledger = ledger if ledger is not None else Ledger()
-        self.device = torch.device(device)
+        self.device = resolve_device(device, what="CycleAccurateSimulator")
 
     @property
     def features(self) -> torch.Tensor:
@@ -65,6 +67,6 @@ class CycleAccurateSimulator:
 
 def make_simulator(app_name: str, *, seed: int = 0,
                    ledger: Optional[Ledger] = None,
-                   device="cpu") -> CycleAccurateSimulator:
+                   device=None) -> CycleAccurateSimulator:
     return CycleAccurateSimulator(get_population(app_name, seed=seed), ledger,
                                   device=device)

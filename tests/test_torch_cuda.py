@@ -12,12 +12,16 @@ relative (a float32 near-tie), distances to rtol 1e-5 / atol 1e-6;
 ``segment_stats`` counts exactly, sums within 1e-5 of the sum of the
 terms' magnitudes per segment, sums of squares to 1e-5 relative — and,
 at the main path's shapes, bitwise, since the kernel and the plain
-version on both devices add in row order.
+version on both devices add in row order. ``flash_attention`` against
+its plain version (``flash_attention_ref``): 1e-4 (atol and rtol) in
+float32, where only the order of the sums differs, and 2e-2 in bfloat16,
+one bf16 rounding of the output.
 """
 
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.kmeans_assign import ops as assign_ops
 from repro_torch.kernels.segment_stats import ops as segment_ops
 
@@ -30,6 +34,8 @@ def cuda():
         pytest.skip("needs a CUDA device and nvcc: the kernels run only on "
                     "the card (python -m pytest -m cuda "
                     "tests/test_torch_cuda.py there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -132,3 +138,59 @@ def test_segment_kernel_partition_edges_bitwise(cuda, pattern, b, n, d, k):
     for w, g in zip(want, got):
         assert g.shape == w.shape
         assert torch.equal(g.cpu(), w)
+
+
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _qkv(shape, dtype, device, seed):
+    b, hq, hkv, sq, skv, d = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device=device).to(dtype)
+                 for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                           (b, hkv, skv, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 4, 2, 256, 256, 64), (2, 8, 4, 300, 300, 32),
+    (1, 4, 1, 1, 512, 64), (1, 2, 2, 1, 700, 128),
+    (1, 4, 4, 512, 512, 128),                    # tests/test_kernels.py
+    (1, 2, 2, 1, 700, 64),                       # decode, 700-long cache
+    (1, 2, 1, 100, 612, 64),                     # append to a cache
+    (1, 2, 2, 200, 200, 64), (1, 4, 2, 200, 200, 64),
+    (1, 6, 2, 200, 200, 64), (1, 8, 2, 200, 200, 64),  # GQA groups 1-4
+    (1, 2, 1, 130, 130, 8), (1, 2, 1, 130, 130, 40),   # d padded in-kernel
+    (4, 24, 8, 1024, 1024, 128),                 # far more blocks than SMs
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, shape, dtype):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q, k, v = _qkv(shape, dtype, cuda, seed=sum(shape))
+    before = flash_ops.launch_count()
+    out = flash_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_ops.launch_count() == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(),
+                               flash_attention_ref(q, k, v).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["non_causal", "sq_gt_skv", "heads",
+                                  "d_over_128", "d_not_8", "dtypes"])
+def test_flash_kernel_raises(cuda, case):
+    shape = {"sq_gt_skv": (1, 2, 2, 65, 64, 64),
+             "heads": (1, 3, 2, 8, 8, 64),
+             "d_over_128": (1, 2, 2, 8, 8, 136),
+             "d_not_8": (1, 2, 2, 8, 8, 60)}.get(case, (1, 2, 2, 8, 8, 64))
+    q, k, v = _qkv(shape, torch.float32, cuda, seed=1)
+    if case == "dtypes":
+        q = q.to(torch.bfloat16)
+    before = flash_ops.launch_count()
+    with pytest.raises(NotImplementedError if case == "non_causal"
+                       else ValueError):
+        flash_ops.flash_attention(q, k, v, causal=case != "non_causal")
+    assert flash_ops.launch_count() == before

@@ -164,7 +164,7 @@ def test_unknown_backend_raises(name):
 
 def test_kernel_sources_present():
     names = sorted(p.stem for p in backend.CSRC_DIR.glob("*.cu"))
-    assert names == ["kmeans_assign", "segment_stats"]
+    assert names == ["flash_attention", "kmeans_assign", "segment_stats"]
     for name in names:
         text = (backend.CSRC_DIR / f"{name}.cu").read_text()
         assert f"src/repro/kernels/{name}/{name}.py" in text

@@ -141,7 +141,7 @@ def test_memobank_restore_rejects_other_apps():
 
 def test_cached_simulator_charges_once():
     ref = R.make_cached_simulator(APPS[0])
-    cached = T.CachedSimulator(T.make_simulator(APPS[0]))
+    cached = T.CachedSimulator(T.make_simulator(APPS[0], device="cpu"))
     a = cached.simulate_cpi([1, 2, 3, 3], T.CONFIGS[0])
     b = cached.simulate_cpi_batch([3, 4], T.CONFIGS[:2])
     ref.simulate_cpi([1, 2, 3, 3], R.CONFIGS[0])
@@ -151,3 +151,22 @@ def test_cached_simulator_charges_once():
     assert (cached.misses, cached.hits) == (ref.misses, ref.hits) == (6, 2)
     np.testing.assert_allclose(b.numpy(), want, rtol=1e-5)
     assert a[2] == a[3] == b[0, 0]
+
+
+_NO_DEVICE_ENTRIES = {
+    "make_simulator": lambda **kw: T.make_simulator(APPS[0], **kw),
+    "CycleAccurateSimulator": lambda **kw: T.CycleAccurateSimulator(
+        T.get_population(APPS[0]), **kw),
+    "MemoBank": lambda **kw: T.MemoBank(**kw),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_NO_DEVICE_ENTRIES))
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """With no device named they ask for the card: without one they raise
+    the clear error; ``device="cpu"`` runs on the CPU."""
+    build = _NO_DEVICE_ENTRIES[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        build()
+    assert build(device="cpu").device == torch.device("cpu")
