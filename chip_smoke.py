@@ -54,9 +54,11 @@ ASSIGN_TIE_RTOL = 1e-5        # labels may differ only at such near-ties
 ASSIGN_D2_RTOL, ASSIGN_D2_ATOL = 1e-5, 1e-6
 SEGMENT_RTOL = 1e-5           # relative to the sum of |terms| per segment
 MIN_LABEL_AGREEMENT = 0.999   # kernel build vs plain build, per app & fit
-# flash attention vs its plain version: float32 differs only in the order
-# of the sums; bf16 adds one rounding of the output (atol and rtol each)
-FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# flash attention vs its plain version, as (rtol, atol): float32 differs
+# only in the order of the sums; bf16 adds one rounding of the output, at
+# most one bf16 unit in the last place, 2^-7 of the value (the atol covers
+# outputs near zero, where the float32 sums' own difference shows)
+FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-3, 1e-3)}
 
 
 def log(msg: str) -> None:
@@ -242,9 +244,10 @@ def flash_bound(b, hq, hkv, sq, skv, d, dtype) -> tuple[float, str, float]:
 
 def check_flash(gen) -> dict:
     """The kernel against its plain version (``flash_attention_ref``) at the
-    cases of ``tests/test_kernels.py`` in both types, at the LM's prefill
-    shape and at the longest sequence the plain version fits; timings at
-    the prefill shape, beside ``scaled_dot_product_attention``."""
+    cases of ``tests/test_kernels.py``, at the LM's prefill shape and at
+    the longest sequence the plain version fits, each in float32 and bf16;
+    bf16 timings at the two long shapes, beside
+    ``scaled_dot_product_attention`` at the prefill shape."""
     import torch
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -261,24 +264,27 @@ def check_flash(gen) -> dict:
                                (1, 4, 4, 512, 512, 128))
              for dt in (torch.float32, torch.bfloat16)]
     main_shape = (4, 24, 8, 4096, 4096, 128)
-    cases += [(main_shape, torch.bfloat16),
-              ((1, 1, 1, 32768, 32768, 128), torch.bfloat16)]
+    cases += [(s, dt) for s in (main_shape, (1, 1, 1, 32768, 32768, 128))
+              for dt in (torch.bfloat16, torch.float32)]
     out = {}
     for shape, dtype in cases:
         q, k, v = qkv(*shape, dtype)
         got = ops.flash_attention(q, k, v)
         torch.cuda.synchronize()
         want = flash_attention_ref(q, k, v)
-        tol = FLASH_TOL[str(dtype).split(".")[-1]]
+        rtol, atol = FLASH_TOL[str(dtype).split(".")[-1]]
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
-        if not bool(torch.isfinite(got).all()) or bool(
-                (diff > tol + tol * want.float().abs()).any()):
+        # the largest error as a share of what the tolerance allows there
+        share = float((diff / (atol + rtol * want.float().abs())).max())
+        if not bool(torch.isfinite(got).all()) or share > 1.0:
             raise AssertionError(f"flash_attention {shape} {dtype}: max "
-                                 f"error {err:.3g} above {tol}")
+                                 f"error {err:.3g}, {share:.3g} of the "
+                                 f"tolerance (rtol {rtol}, atol {atol})")
         line = (f"flash_attention {shape} {str(dtype)[6:]}: max |err| "
-                f"{err:.3g} (tol {tol})")
-        if shape[3] >= 4096:
+                f"{err:.3g}, {share:.3g} of the tolerance (rtol {rtol}, "
+                f"atol {atol})")
+        if shape[3] >= 4096 and dtype == torch.bfloat16:
             ms = time_ms(lambda: ops.flash_attention(q, k, v))
             plain_ms = time_ms(lambda: flash_attention_ref(q, k, v),
                                warmup=1, iters=3)

@@ -53,6 +53,14 @@ constexpr int kThreads = kRows * kPerRow;  // 256
 constexpr float kNegInf = -1e30f;          // the reference's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
 
+// Blocks of 256 threads that must fit one SM at once, which caps the
+// registers a thread at 65536 / (256 * FLASH_MIN_BLOCKS): 128 at the default
+// 2. Other values build only for the comparison of
+// repro_torch.kernels.flash_attention.variants.
+#ifndef FLASH_MIN_BLOCKS
+#define FLASH_MIN_BLOCKS 2
+#endif
+
 // four consecutive elements as float32 (load) and back (store)
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -96,7 +104,7 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* src, int row0,
 }
 
 template <int DP, typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, FLASH_MIN_BLOCKS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int hq, int hkv, int sq,
           int skv, int d, float scale) {

@@ -98,15 +98,15 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, scale: Optional[float] = None,
-                    backend: str = "auto") -> torch.Tensor:
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Causal attention; ``scale`` defaults to 1/sqrt(d)."""
     _check(q, k, v, causal)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if _backend.resolve_route(q, backend) == "plain":
+    if _backend.resolve_route(q, "auto") == "plain":
         return flash_attention_ref(q, k, v, scale=scale)
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on the same device")

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from ..kernels import backend as _backend
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_ref
@@ -36,7 +37,7 @@ class Attention(nn.Module):
     """``wq`` ``(d, hq dh)``, ``wk``/``wv`` ``(d, hkv dh)``, ``wo``
     ``(hq dh, d)``."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
         d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
             cfg.head_dim
@@ -160,7 +161,9 @@ def _decode_attend(q, k, v, *, kv_len: int, window: Optional[int]
 def make_kv_cache(cfg: ModelConfig, batch: int, s_max: int, n_layers: int,
                   *, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Zeroed ``(n_layers, batch, hkv, s_max, dh)`` k and v caches in the
-    model's dtype. Decode writes into them in place."""
+    model's dtype on ``device`` (the card when None). Decode writes into
+    them in place."""
+    device = resolve_device(device, what="make_kv_cache")
     shape = (n_layers, batch, cfg.n_kv_heads, s_max, cfg.head_dim)
     return (torch.zeros(shape, dtype=cfg.dtype, device=device),
             torch.zeros(shape, dtype=cfg.dtype, device=device))

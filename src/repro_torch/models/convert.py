@@ -52,7 +52,8 @@ def _paths(tree, prefix: str = "") -> set[str]:
 def params_from_numpy(cfg: ModelConfig, tree: dict, *, device=None) -> LM:
     """The port's ``LM`` holding the reference tree's values, on
     ``device`` (the card when None)."""
-    model = LM(cfg, resolve_device(device, what="params_from_numpy"))
+    model = LM(cfg, device=resolve_device(device,
+                                          what="params_from_numpy"))
     want = {n.rstrip(".") for n in _paths(tree)}
     have = {".".join(n.split(".")[:1] + n.split(".")[2:])
             if n.startswith("layers.") else n

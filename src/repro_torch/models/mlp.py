@@ -13,7 +13,7 @@ __all__ = ["MLP", "mlp"]
 class MLP(nn.Module):
     """``w_gate``, ``w_up`` ``(d, f)`` and ``w_down`` ``(f, d)``."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
         self.w_gate = new_param((d, f), cfg.dtype, device)

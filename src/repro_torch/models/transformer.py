@@ -39,12 +39,12 @@ def check_family(cfg: ModelConfig) -> None:
 class Block(nn.Module):
     """One pre-norm layer: ``ln1``, ``attn``, ``ln2``, ``ffn``."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
         self.ln1 = new_param((cfg.d_model,), torch.float32, device)
         self.ln2 = new_param((cfg.d_model,), torch.float32, device)
-        self.attn = Attention(cfg, device)
-        self.ffn = MLP(cfg, device)
+        self.attn = Attention(cfg, device=device)
+        self.ffn = MLP(cfg, device=device)
 
 
 class LM(nn.Module):
@@ -53,7 +53,7 @@ class LM(nn.Module):
     configs) and ``layers[i]`` — the reference's ``layers`` leaves
     unstacked along their leading ``(n_layers,)`` axis."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
         check_family(cfg)
         self.cfg = cfg
@@ -62,7 +62,7 @@ class LM(nn.Module):
         self.final_norm = new_param((d,), torch.float32, device)
         if not cfg.tie_embeddings:
             self.lm_head = new_param((d, v), cfg.dtype, device)
-        self.layers = nn.ModuleList(Block(cfg, device)
+        self.layers = nn.ModuleList(Block(cfg, device=device)
                                     for _ in range(cfg.n_layers))
 
     def head(self) -> torch.Tensor:
@@ -79,7 +79,7 @@ def init_lm(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     dev = resolve_device(device, what="init_lm")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    model = LM(cfg, dev)
+    model = LM(cfg, device=dev)
     for name, p in model.named_parameters():
         gain = name.rsplit(".", 1)[-1] in _GAINS
         normal_(p, generator, 1.0 if gain else 0.02)

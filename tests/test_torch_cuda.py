@@ -14,8 +14,9 @@ terms' magnitudes per segment, sums of squares to 1e-5 relative — and,
 at the main path's shapes, bitwise, since the kernel and the plain
 version on both devices add in row order. ``flash_attention`` against
 its plain version (``flash_attention_ref``): 1e-4 (atol and rtol) in
-float32, where only the order of the sums differs, and 2e-2 in bfloat16,
-one bf16 rounding of the output.
+float32, where only the order of the sums differs; rtol 8e-3 and atol
+1e-3 in bfloat16, where one rounding of the output adds at most one bf16
+unit in the last place (2^-7 of the value).
 """
 
 import pytest
@@ -140,7 +141,7 @@ def test_segment_kernel_partition_edges_bitwise(cuda, pattern, b, n, d, k):
         assert torch.equal(g.cpu(), w)
 
 
-FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (8e-3, 1e-3)}
 
 
 def _qkv(shape, dtype, device, seed):
@@ -172,10 +173,10 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert flash_ops.launch_count() == before + 1
     assert out.dtype == dtype and out.shape == q.shape
-    tol = FLASH_TOL[dtype]
+    rtol, atol = FLASH_TOL[dtype]
     torch.testing.assert_close(out.float(),
                                flash_attention_ref(q, k, v).float(),
-                               rtol=tol, atol=tol)
+                               rtol=rtol, atol=atol)
 
 
 @pytest.mark.cuda

@@ -89,3 +89,26 @@ def test_flash_wrapper_raises(case):
     with pytest.raises(NotImplementedError if case == "non_causal"
                        else ValueError):
         ops.flash_attention(q, kv, kv, causal=case != "non_causal")
+
+
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__20936d09_18_flash_attention_cu_3a0ef7b99flash_fwdILi128E13__nv_bfloat16EEvPKT0_S4_S4_PS2_iiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__20936d09_18_flash_attention_cu_3a0ef7b99flash_fwdILi128E13__nv_bfloat16EEvPKT0_S4_S4_PS2_iiiiif
+    32 bytes stack frame, 36 bytes spill stores, 64 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 32 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__20936d09_18_flash_attention_cu_3a0ef7b99flash_fwdILi64EfEEvPKT0_S3_S3_PS1_iiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__20936d09_18_flash_attention_cu_3a0ef7b99flash_fwdILi64EfEEvPKT0_S3_S3_PS1_iiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 127 registers, used 1 barriers
+"""
+
+
+def test_variants_parse_ptxas_report():
+    """The register-budget comparison reads registers and spills per
+    ``flash_fwd<DP, T>`` instance from ``ptxas -v``."""
+    from repro_torch.kernels.flash_attention.variants import parse_ptxas
+    assert parse_ptxas(_PTXAS_LOG) == {
+        "128/bf16": {"registers": 128, "spill_stores": 36,
+                     "spill_loads": 64},
+        "64/f32": {"registers": 127, "spill_stores": 0, "spill_loads": 0}}

@@ -30,7 +30,10 @@ from repro_torch.configs.base import smoke_variant
 from repro_torch.data import make_pipeline
 from repro_torch.launch.serve import generate, make_prompts
 from repro_torch.models import registry as TR
+from repro_torch.models.attention import Attention, make_kv_cache
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.mlp import MLP
+from repro_torch.models.transformer import LM, Block
 from repro_torch.train.step import make_prefill_fn, make_serve_fn
 
 ARCH = "llama3.2-3b"
@@ -264,3 +267,34 @@ def test_init_params_distributions():
         if p.numel() > 10000:
             assert abs(float(p.float().std()) - (1.0 if gain else 0.02)) \
                 < 0.002
+
+
+_NO_DEVICE_ENTRIES = {
+    "init_params": lambda cfg, **kw: TR.init_params(cfg, **kw).embed,
+    "make_decode_state": lambda cfg, **kw: TR.make_decode_state(
+        cfg, 2, 8, **kw).kv[0],
+    "make_kv_cache": lambda cfg, **kw: make_kv_cache(cfg, 2, 8, 1, **kw)[0],
+    "make_pipeline": lambda cfg, **kw: make_pipeline(
+        cfg, 8, 2, **kw).batch(0)["tokens"],
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_NO_DEVICE_ENTRIES))
+def test_lm_entry_points_default_to_the_card(entry, monkeypatch):
+    """With no device named they ask for the card: without one they raise
+    the clear error; ``device="cpu"`` runs on the CPU."""
+    cfg = get_config(ARCH, smoke=True)
+    build = _NO_DEVICE_ENTRIES[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        build(cfg)
+    assert build(cfg, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("module", [LM, Block, Attention, MLP])
+def test_modules_take_an_explicit_device(module):
+    cfg = get_config(ARCH, smoke=True)
+    with pytest.raises(TypeError):
+        module(cfg)
+    params = list(module(cfg, device="cpu").parameters())
+    assert params and all(p.device == torch.device("cpu") for p in params)
