@@ -6,8 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
-source, started together), holds each kernel against its plain PyTorch
-version on the card at the main paths' shapes and times both, then drives
+source, started together), counts the ``wgmma`` (HGMMA) and TMA (UTMALDG)
+instructions of the bf16 flash-attention library, holds each kernel
+against its plain PyTorch version on the card at the main paths' shapes
+and times both, then drives
 the port's two paths, each with the kernels' launch counters set to 0 just
 before it and read just after:
 
@@ -242,35 +244,73 @@ def flash_bound(b, hq, hkv, sq, skv, d, dtype) -> tuple[float, str, float]:
     return ms, by, flops
 
 
-def check_flash(gen) -> dict:
-    """The kernel against its plain version (``flash_attention_ref``) at the
-    cases of ``tests/test_kernels.py``, at the LM's prefill shape and at
-    the longest sequence the plain version fits, each in float32 and bf16;
-    bf16 timings at the two long shapes, beside
-    ``scaled_dot_product_attention`` at the prefill shape."""
-    import torch
-    from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+def sass_counts(path) -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in a built
+    library, from ``cuobjdump -sass``."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: sum(op in line for line in sass.splitlines())
+            for op in ("HGMMA", "UTMALDG")}
 
-    def qkv(b, hq, hkv, sq, skv, d, dtype):
+
+def flash_case(gen, shape, dtype, *, layout: str = "bhsd"):
+    """Random q, k, v of a case: contiguous (b, h, s, d) tensors, or
+    ``layout="bshd"`` for (b, h, s, d) views of (b, s, h, d) tensors, as
+    the LM's projections make them."""
+    import torch
+    b, hq, hkv, sq, skv, d = shape
+    if layout == "bhsd":
         return tuple(torch.randn(s, generator=gen, device="cuda").to(dtype)
                      for s in ((b, hq, sq, d), (b, hkv, skv, d),
                                (b, hkv, skv, d)))
+    return tuple(torch.randn((b, s, h, d), generator=gen, device="cuda")
+                 .to(dtype).transpose(1, 2)
+                 for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
 
-    cases = [(s, dt) for s in ((1, 4, 2, 256, 256, 64),
-                               (2, 8, 4, 300, 300, 32),
-                               (1, 4, 1, 1, 512, 64),
-                               (1, 2, 2, 1, 700, 128),
-                               (1, 4, 4, 512, 512, 128))
-             for dt in (torch.float32, torch.bfloat16)]
+
+def check_flash(gen) -> dict:
+    """The kernels against their plain version (``flash_attention_ref``)
+    at the cases of ``tests/test_kernels.py``, at ragged lengths, appends,
+    GQA groups and head widths, and at the LM's shapes (prefill, eval
+    forward, the longest sequence the plain version fits), each in float32
+    and bf16; strided (projection-layout) inputs against contiguous ones,
+    bitwise; bf16 timings at the three LM shapes beside their bounds and
+    ``scaled_dot_product_attention``."""
+    import torch
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    counts = sass_counts(backend._target("flash_attention_sm90")[1])
+    log(f"flash_attention_sm90 SASS: {counts['HGMMA']} HGMMA, "
+        f"{counts['UTMALDG']} UTMALDG instructions")
+    if not all(counts.values()):
+        raise AssertionError(f"bf16 flash kernel lacks wgmma or TMA: {counts}")
+
+    small = [(1, 4, 2, 256, 256, 64), (2, 8, 4, 300, 300, 32),
+             (1, 4, 1, 1, 512, 64), (1, 2, 2, 1, 700, 128),
+             (1, 4, 4, 512, 512, 128),               # tests/test_kernels.py
+             (1, 3, 1, 7, 1000, 128), (2, 4, 1, 7, 129, 32),  # 7-row appends
+             (1, 4, 4, 1, 300, 40),                  # 1-row append, d 40
+             (2, 6, 2, 333, 333, 40), (1, 4, 1, 257, 385, 64)]  # ragged
     main_shape = (4, 24, 8, 4096, 4096, 128)
-    cases += [(s, dt) for s in (main_shape, (1, 1, 1, 32768, 32768, 128))
+    timed = {"main": main_shape, "eval": (4, 24, 8, 2048, 2048, 128),
+             "long": (1, 1, 1, 32768, 32768, 128)}
+    cases = [(s, dt, "bhsd") for s in small
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(s, dt, "bshd") for s in timed.values()
               for dt in (torch.bfloat16, torch.float32)]
     out = {}
-    for shape, dtype in cases:
-        q, k, v = qkv(*shape, dtype)
+    for shape, dtype, layout in cases:
+        q, k, v = flash_case(gen, shape, dtype, layout=layout)
         got = ops.flash_attention(q, k, v)
         torch.cuda.synchronize()
+        if got.shape != q.shape or not got.transpose(1, 2).is_contiguous():
+            raise AssertionError(f"flash_attention {shape}: output is not "
+                                 "the (b, hq, sq, d) view of a (b, sq, hq, "
+                                 "d) tensor")
         want = flash_attention_ref(q, k, v)
         rtol, atol = FLASH_TOL[str(dtype).split(".")[-1]]
         diff = (got.float() - want.float()).abs()
@@ -281,36 +321,54 @@ def check_flash(gen) -> dict:
             raise AssertionError(f"flash_attention {shape} {dtype}: max "
                                  f"error {err:.3g}, {share:.3g} of the "
                                  f"tolerance (rtol {rtol}, atol {atol})")
-        line = (f"flash_attention {shape} {str(dtype)[6:]}: max |err| "
-                f"{err:.3g}, {share:.3g} of the tolerance (rtol {rtol}, "
-                f"atol {atol})")
-        if shape[3] >= 4096 and dtype == torch.bfloat16:
+        line = (f"flash_attention {shape} {str(dtype)[6:]} {layout}: max "
+                f"|err| {err:.3g}, {share:.3g} of the tolerance (rtol "
+                f"{rtol}, atol {atol})")
+        tag = next((t for t, s in timed.items() if s == shape), None)
+        if tag is not None and dtype == torch.bfloat16:
             ms = time_ms(lambda: ops.flash_attention(q, k, v))
             plain_ms = time_ms(lambda: flash_attention_ref(q, k, v),
                                warmup=1, iters=3)
             bound_ms, bound_by, flops = flash_bound(*shape, dtype)
+            # the yardstick: one PyTorch call for the same function (sq ==
+            # skv, so its top-left causal mask is end-aligned)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+            lib_ms = time_ms(lambda: sdpa(qc, kc, vc, is_causal=True,
+                                          enable_gqa=True))
             line += (f"; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
                      f"TFLOP/s), plain {plain_ms:.4f} ms, bound "
                      f"{bound_ms:.4f} ms ({bound_by}), bound share "
-                     f"{bound_ms / ms:.4f}")
-            rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
-            if shape == main_shape:
-                # the yardstick: one PyTorch call for the same function
-                # (sq == skv, so its top-left causal mask is end-aligned)
-                sdpa = torch.nn.functional.scaled_dot_product_attention
-                lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                              enable_gqa=True))
-                line += f", scaled_dot_product_attention {lib_ms:.4f} ms"
-                rec["library_ms"] = lib_ms
-                out["main"] = rec
-            else:
-                out["long"] = rec
+                     f"{bound_ms / ms:.4f}, scaled_dot_product_attention "
+                     f"{lib_ms:.4f} ms")
+            out[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": lib_ms}
+            del qc, kc, vc
         log(line)
         del q, k, v, got, want, diff
     torch.cuda.empty_cache()
-    return out
 
+    # the projections' layout read in place gives the bits of contiguous
+    # copies, through both entries
+    for shape in (main_shape, (2, 6, 2, 300, 300, 128), (1, 4, 1, 7, 260, 64),
+                  (3, 3, 3, 64, 200, 32)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = flash_case(gen, shape, dtype, layout="bshd")
+            got = ops.flash_attention(q, k, v)
+            flat = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                       v.contiguous())
+            torch.cuda.synchronize()
+            if not torch.equal(got, flat):
+                raise AssertionError(f"flash_attention {shape} {dtype}: "
+                                     "strided views differ from contiguous "
+                                     "inputs")
+            del q, k, v, got, flat
+    log("flash_attention: (b, s, h, d)-layout views equal contiguous inputs "
+        "bitwise for both entries at 4 shapes")
+    torch.cuda.empty_cache()
+    out["sass"] = counts
+    return out
 
 
 # ------------------------------------------------------------------ phase 3
@@ -345,9 +403,11 @@ def drive_main_path(backend: str):
     return engine, tables, secs
 
 
-def traced(label: str, fn, top: int = 10) -> None:
+def traced(label: str, fn, top: int = 10) -> dict:
     """Run ``fn`` once under ``torch.profiler``: the card's busy time
-    against the wall time, and the kernels that fill it."""
+    against the wall time, and the kernels that fill it. Returns
+    ``{kernel name: [launches, ms]}`` (empty if the profiler saw no
+    device activity)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -367,13 +427,14 @@ def traced(label: str, fn, top: int = 10) -> None:
     if not by_name:
         log(f"traced {label}: {wall_ms:.1f} ms wall; the profiler saw no "
             "device activity, so busy time is not measured")
-        return
+        return by_name
     log(f"traced {label}: {wall_ms:.1f} ms wall (profiler on), device busy "
         f"{busy_ms:.1f} ms in {sum(n for n, _ in by_name.values())} "
         f"device events, idle share {1 - busy_ms / wall_ms:.3f}")
     for name, (n, ms) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:top]:
         log(f"  {ms:9.2f} ms {n:7d}x  {name[:90]}")
+    return by_name
 
 
 def trace_build() -> None:
@@ -578,9 +639,22 @@ def phase_lm() -> dict:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    traced("prefill 4 x 4096 (flash kernel)",
-           lambda: make_prefill_fn(cfg)(params, batch), top=6)
+    by_name = traced("prefill 4 x 4096 (flash kernel)",
+                     lambda: make_prefill_fn(cfg)(params, batch), top=8)
     kernel_forwards += 1
+    # direct copies between two dense tensors (casts) run the unrolled or
+    # vectorized kernels; a copy out of a strided view (a layout copy such
+    # as .contiguous() of a transposed q) runs the strided elementwise_kernel
+    copies = {"dense": [0, 0.0], "strided": [0, 0.0]}
+    for name, (n, ms) in by_name.items():
+        if "direct_copy" in name:
+            kind = "strided" if "at::native::elementwise_kernel<" in name \
+                else "dense"
+            copies[kind][0] += n
+            copies[kind][1] += ms
+    log(f"traced prefill 4 x 4096: direct copies {copies['dense'][0]} dense "
+        f"(casts, {copies['dense'][1]:.2f} ms), {copies['strided'][0]} out "
+        f"of strided views (layout copies, {copies['strided'][1]:.2f} ms)")
     _step("traced prefill 4 x 4096", t0)
 
     # 3. the serve loop: teacher-forced prefill through decode, greedy gen
@@ -711,10 +785,12 @@ def main() -> int:
          "replaces": "src/repro/kernels/segment_stats/segment_stats.py:28",
          **launches("segment_stats"), **segment["bbv_update"]},
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces":
              "src/repro/kernels/flash_attention/flash_attention.py:32",
-         **launches("flash_attention"), **flash["main"]},
+         **launches("flash_attention"), **flash["main"],
+         "other_shapes": {"eval": flash["eval"], "long": flash["long"]},
+         "sass": flash["sass"]},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

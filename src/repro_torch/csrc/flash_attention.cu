@@ -1,22 +1,23 @@
-// Causal flash attention (online softmax), forward only.
+// Causal flash attention (online softmax) in float32, forward only.
 //
 // Replaces the TPU kernel `_flash_kernel` / `flash_attention_padded` in
-// src/repro/kernels/flash_attention/flash_attention.py (wrapper ops.py). For
+// src/repro/kernels/flash_attention/flash_attention.py (wrapper ops.py) for
+// float32 inputs; bf16 inputs take the tensor-core kernel of
+// flash_attention_sm90.cu. For
 // every (batch, query head) and query row i it writes
 //   o[i] = sum_j softmax_j(q_i . k_j * scale) v_j
 // over the visible key columns j <= i + skv - sq (causal, end-aligned, so the
 // same kernel serves sq == skv prefill and short appends to a cache). GQA:
 // query head h reads kv head h / (hq / hkv); K and V are never repeated.
-// Inputs are float32 or bfloat16, upcast on load; every product, sum, max and
-// exp is float32; the output is written in the inputs' type.
+// Every product, sum, max and exp is float32. q, k, v and o are read and
+// written through their batch, head and row strides (d contiguous).
 //
 // What bounds it on an H100: operations. At the main path's prefill shape
-// (b = 4, hq = 24, hkv = 8, sq = skv = 4096, d = 128, bf16) the visible
-// pairs need 4 * b * hq * d * sq (sq + 1) / 2 = 4.1e11 FLOP, 0.42 ms at the
-// card's 989 TFLOP/s for bf16, against 0.27 GB of q, k, v and o, 0.08 ms at
-// 3.35 TB/s. This first design stays off the tensor cores on purpose (TF32
-// would change the float32 numbers; the bf16 tensor-core design comes later),
-// so its own ceiling is the 67 TFLOP/s of float32 FMAs. What it does:
+// (b = 4, hq = 24, hkv = 8, sq = skv = 4096, d = 128) the visible pairs need
+// 4 * b * hq * d * sq (sq + 1) / 2 = 4.1e11 FLOP, 6.1 ms at the 67 TFLOP/s
+// of float32 FMAs, against 0.54 GB of q, k, v and o, 0.16 ms at 3.35 TB/s.
+// It stays off the tensor cores on purpose (TF32 would change the float32
+// numbers). What it does:
 //   * one block per (b * hq, 64-row query tile); tiles are issued heaviest
 //     first (the last query tile sees the most columns);
 //   * 64-row K and V tiles staged in shared memory as float32 (64 KB at
@@ -25,10 +26,7 @@
 //     float32 accumulator in registers (d / 4 values each). A score is four
 //     partial dots joined by two shuffles; the thread (j mod 4) of the row
 //     keeps score j, and the row's max and sum come from two more shuffles;
-//   * at most 128 registers a thread, so that two blocks share an SM: at
-//     d = 128 that spills a few bytes, and still ran 27.6 ms against 31.5 ms
-//     for one block of 146 registers per SM (chip_smoke.py on an H100 at
-//     700 W, at the prefill shape);
+//   * at most 128 registers a thread, so that two blocks share an SM;
 //   * a thread's columns are the float4 chunks t, t + 4, t + 8, ... of a row,
 //     so the four threads of a row read 64 contiguous bytes of shared memory
 //     at a time (no bank conflicts) while the row groups of a warp broadcast;
@@ -40,7 +38,6 @@
 // d is padded (in registers and shared memory only) to 32, 64 or 128, a
 // template parameter; the wrapper accepts d <= 128 that is a multiple of 8.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,44 +49,27 @@ constexpr int kPerRow = 4;                 // threads per query row
 constexpr int kThreads = kRows * kPerRow;  // 256
 constexpr float kNegInf = -1e30f;          // the reference's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMinBlocks = 2;              // blocks that share an SM
 
-// Blocks of 256 threads that must fit one SM at once, which caps the
-// registers a thread at 65536 / (256 * FLASH_MIN_BLOCKS): 128 at the default
-// 2. Other values build only for the comparison of
-// repro_torch.kernels.flash_attention.variants.
-#ifndef FLASH_MIN_BLOCKS
-#define FLASH_MIN_BLOCKS 2
-#endif
+// batch, head and row strides of a (b, h, s, d) tensor, in elements
+struct Strides {
+  long long b, h, s;
+};
 
-// four consecutive elements as float32 (load) and back (store)
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&a);
-  raw.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
 
-// Stage rows [row0, row0 + kKeys) of a (rows, d) matrix as float32 into
-// shared memory (kKeys, DP); rows past `rows` and columns past d are zeros.
-template <int DP, typename T>
-__device__ __forceinline__ void stage_tile(float* dst, const T* src, int row0,
-                                           int rows, int d) {
+// Stage rows [row0, row0 + kKeys) of a (rows, d) matrix with row stride
+// `ld` into shared memory (kKeys, DP); rows past `rows` and columns past d
+// are zeros.
+template <int DP>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           long long ld, int row0, int rows,
+                                           int d) {
   constexpr int kChunks = kKeys * DP / 4;  // float4 chunks in the tile
 #pragma unroll
   for (int c = threadIdx.x; c < kChunks; c += kThreads) {
@@ -97,16 +77,17 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* src, int row0,
     const int col = (c % (DP / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < rows && col < d) {
-      v = load4(src + (size_t)(row0 + r) * d + col);
+      v = load4(src + (row0 + r) * ld + col);
     }
     *reinterpret_cast<float4*>(dst + r * DP + col) = v;
   }
 }
 
-template <int DP, typename T>
-__global__ void __launch_bounds__(kThreads, FLASH_MIN_BLOCKS)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int hq, int hkv, int sq,
+template <int DP>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o, Strides qs,
+          Strides ks, Strides vs, Strides os, int hq, int hkv, int sq,
           int skv, int d, float scale) {
   constexpr int kChunks = DP / 16;  // float4 chunks of a row per thread
   extern __shared__ float4 smem[];
@@ -124,9 +105,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int qrow = q0 + row;              // row in [0, sq) when valid
   const int offset = skv - sq;            // end alignment
 
-  const T* qb = q + (size_t)bh * sq * d;
-  const T* kb = k + (size_t)(batch * hkv + kv_head) * skv * d;
-  const T* vb = v + (size_t)(batch * hkv + kv_head) * skv * d;
+  const float* qb = q + batch * qs.b + head * qs.h;
+  const float* kb = k + batch * ks.b + kv_head * ks.h;
+  const float* vb = v + batch * vs.b + kv_head * vs.h;
 
   // this thread's quarter of its query row: chunks part, part + 4, ...
   float4 qr[kChunks];
@@ -134,7 +115,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kChunks; ++i) {
     const int col = (part + 4 * i) * 4;
     qr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (qrow < sq && col < d) qr[i] = load4(qb + (size_t)qrow * d + col);
+    if (qrow < sq && col < d) qr[i] = load4(qb + qrow * qs.s + col);
   }
   float4 acc[kChunks];
 #pragma unroll
@@ -149,8 +130,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int kv0 = t * kKeys;
     __syncthreads();  // the previous tile's readers are done
-    stage_tile<DP>(sk, kb, kv0, skv, d);
-    stage_tile<DP>(sv, vb, kv0, skv, d);
+    stage_tile<DP>(sk, kb, ks.s, kv0, skv, d);
+    stage_tile<DP>(sv, vb, vs.s, kv0, skv, d);
     __syncthreads();
 
     // scores: thread `part` keeps s[jj] for key column kv0 + 4 jj + part
@@ -221,7 +202,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qrow >= sq) return;
   const float denom = fmaxf(l, 1e-30f);
-  T* ob = o + ((size_t)bh * sq + qrow) * d;
+  float* ob = o + batch * os.b + head * os.h + qrow * os.s;
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
     const int col = (part + 4 * i) * 4;
@@ -232,61 +213,67 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int DP, typename T>
-int launch_dp(const T* q, const T* k, const T* v, T* o, int b, int hq,
-              int hkv, int sq, int skv, int d, float scale,
-              cudaStream_t stream) {
+template <int DP>
+int launch_dp(const float* q, const float* k, const float* v, float* o,
+              const Strides& qs, const Strides& ks, const Strides& vs,
+              const Strides& os, int b, int hq, int hkv, int sq, int skv,
+              int d, float scale, cudaStream_t stream) {
   const size_t smem = 2u * kKeys * DP * sizeof(float);
   static bool attribute_set = false;
   if (!attribute_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<DP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     attribute_set = true;
   }
   const dim3 grid(b * hq, (sq + kRows - 1) / kRows);
-  flash_fwd<DP, T><<<grid, kThreads, smem, stream>>>(q, k, v, o, hq, hkv, sq,
-                                                     skv, d, scale);
+  flash_fwd<DP><<<grid, kThreads, smem, stream>>>(q, k, v, o, qs, ks, vs, os,
+                                                  hq, hkv, sq, skv, d, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int sq, int skv, int d, float scale,
-           void* stream) {
+Strides strides(const long long* s) { return Strides{s[0], s[1], s[2]}; }
+
+}  // namespace
+
+// q: (b, hq, sq, d); k, v: (b, hkv, skv, d); o: (b, hq, sq, d); float32,
+// d contiguous, each read and written through its batch, head and row
+// strides in elements (qs, ks, vs, os: three each, multiples of 4 so that
+// rows stay 16-byte aligned), bases 16-byte aligned. Returns a cudaError_t
+// as int.
+extern "C" int flash_attention_f32(const void* q, const void* k,
+                                   const void* v, void* o,
+                                   const long long* qs, const long long* ks,
+                                   const long long* vs, const long long* os,
+                                   int b, int hq, int hkv, int sq, int skv,
+                                   int d, float scale, void* stream) {
   if (b < 0 || hq < 1 || hkv < 1 || hq % hkv || d < 8 || d > 128 || d % 8 ||
       sq < 1 || sq > skv || (sq + kRows - 1) / kRows > 65535) {
     return (int)cudaErrorInvalidValue;
   }
+  for (const void* p : {q, k, v, static_cast<const void*>(o)}) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  for (const long long* st : {qs, ks, vs, os}) {
+    for (int i = 0; i < 3; ++i) {
+      if (st[i] % 4 != 0) return (int)cudaErrorInvalidValue;
+    }
+  }
   if (b == 0) return 0;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(o);
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  float* ot = static_cast<float*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 32) return launch_dp<32>(qt, kt, vt, ot, b, hq, hkv, sq, skv, d,
-                                    scale, s);
-  if (d <= 64) return launch_dp<64>(qt, kt, vt, ot, b, hq, hkv, sq, skv, d,
-                                    scale, s);
-  return launch_dp<128>(qt, kt, vt, ot, b, hq, hkv, sq, skv, d, scale, s);
-}
-
-}  // namespace
-
-// q: (b, hq, sq, d); k, v: (b, hkv, skv, d); o: (b, hq, sq, d); all
-// contiguous, 16-byte aligned, one type. Returns a cudaError_t as int.
-extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int b, int hq,
-                                   int hkv, int sq, int skv, int d,
-                                   float scale, void* stream) {
-  return launch<float>(q, k, v, o, b, hq, hkv, sq, skv, d, scale, stream);
-}
-
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int b, int hq,
-                                    int hkv, int sq, int skv, int d,
-                                    float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, b, hq, hkv, sq, skv, d, scale,
-                               stream);
+  const Strides a = strides(qs), bk = strides(ks), c = strides(vs),
+                e = strides(os);
+  if (d <= 32) return launch_dp<32>(qt, kt, vt, ot, a, bk, c, e, b, hq, hkv,
+                                    sq, skv, d, scale, s);
+  if (d <= 64) return launch_dp<64>(qt, kt, vt, ot, a, bk, c, e, b, hq, hkv,
+                                    sq, skv, d, scale, s);
+  return launch_dp<128>(qt, kt, vt, ot, a, bk, c, e, b, hq, hkv, sq, skv, d,
+                        scale, s);
 }

@@ -1,19 +1,31 @@
-"""Public wrapper of the causal flash-attention kernel.
+"""Public wrapper of the causal flash-attention kernels.
 
 Counterpart of ``repro.kernels.flash_attention.ops``: q ``(b, hq, sq, d)``,
 k and v ``(b, hkv, skv, d)``, causal with end alignment (row i sees key
 columns j <= i + skv - sq), grouped-query heads (query head h reads kv
 head h // (hq // hkv)), float32 arithmetic from float32 or bfloat16
 inputs, output in q's type. A CPU tensor takes the plain version
-(``ref.flash_attention_ref``); a CUDA tensor launches
-``csrc/flash_attention.cu`` or raises (``repro_torch.kernels.backend``).
+(``ref.flash_attention_ref``); a CUDA tensor launches a kernel or raises
+(``repro_torch.kernels.backend``): bf16 goes to the tensor-core kernel of
+``csrc/flash_attention_sm90.cu`` (TMA + ``wgmma``), float32 to the SIMT
+kernel of ``csrc/flash_attention.cu``.
 
-The kernel reads the real sequence lengths and head width and masks the
-ragged edge itself, so nothing is padded and the reference's ``kv_start``
-front-padding mask has no counterpart. Unlike the reference's wrapper,
-this one refuses sq > skv: those rows would see no column (the
-reference's oracle gives NaN there, its Pallas kernel a masked average),
-and no caller of the model makes them.
+Layout contract (both routes, both types): q, k and v may be any strided
+views whose last dimension is contiguous, whose other strides are
+multiples of 8 elements and whose data start on a 16-byte boundary — the
+``(b, h, s, d)`` views that ``x.reshape(b, s, h, d).transpose(1, 2)``
+makes of a projection's output qualify, and are read in place. Anything
+else raises ``ValueError``; nothing is copied behind the caller's back.
+The output is allocated ``(b, sq, hq, d)`` and returned as its
+``transpose(1, 2)`` view, so the caller's transpose back to
+``(b, sq, hq * d)`` is a view too.
+
+The kernels read the real sequence lengths and head width and mask the
+ragged edge themselves, so nothing is padded and the reference's
+``kv_start`` front-padding mask has no counterpart. Unlike the
+reference's wrapper, this one refuses sq > skv: those rows would see no
+column (the reference's oracle gives NaN there, its Pallas kernel a
+masked average), and no caller of the model makes them.
 """
 
 from __future__ import annotations
@@ -28,13 +40,17 @@ from .. import backend as _backend
 from .ref import flash_attention_ref
 
 __all__ = ["flash_attention", "last_dispatch", "launch_count",
-           "reset_launch_count", "MAX_HEAD_DIM"]
+           "reset_launch_count", "tensor_map_args", "MAX_HEAD_DIM",
+           "BF16_ROWS"]
 
 MAX_HEAD_DIM = 128
-_ENTRY = {torch.float32: "flash_attention_f32",
-          torch.bfloat16: "flash_attention_bf16"}
+BF16_ROWS = 128          # query rows per block and keys per K/V tile (bf16)
+F32_ROWS = 64            # query rows per block of the float32 kernel
+# (source, C entry) of each type's kernel
+_ENTRY = {torch.float32: ("flash_attention", "flash_attention_f32"),
+          torch.bfloat16: ("flash_attention_sm90", "flash_attention_bf16")}
 
-# launches of the CUDA kernel in this process, and the latest one's shape
+# launches of the CUDA kernels in this process, and the latest one's shape
 _launches = 0
 _last_dispatch: Optional[dict] = None
 
@@ -51,18 +67,52 @@ def reset_launch_count() -> None:
 
 def last_dispatch() -> Optional[dict]:
     """Shape record of the latest kernel launch (``None`` before any):
-    ``b``, ``hq``, ``hkv``, ``sq``, ``skv``, ``d``, ``dtype`` and
-    ``grid``. Plain calls leave it untouched."""
+    ``b``, ``hq``, ``hkv``, ``sq``, ``skv``, ``d``, ``dtype``, ``source``
+    and ``grid``. Plain calls leave it untouched."""
     return None if _last_dispatch is None else dict(_last_dispatch)
 
 
-def _entry(dtype: torch.dtype):
-    fn = getattr(_backend.library("flash_attention"), _ENTRY[dtype])
-    if fn.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, ctypes.c_float, vp]
-        fn.restype = ctypes.c_int
-    return fn
+def _strides(shape, strides) -> tuple[int, int, int, int]:
+    """Element strides of a ``(b, h, s, d)`` tensor, with each size-1
+    dimension's (meaningless) stride replaced by the stride it would have
+    if the tensor were contiguous."""
+    out, step = [], 1
+    for size, stride in reversed(list(zip(shape, strides))):
+        out.append(stride if size > 1 else step)
+        step *= size
+    return tuple(reversed(out))
+
+
+def tensor_map_args(shape, strides, itemsize: int = 2
+                    ) -> tuple[tuple[int, ...], tuple[int, ...],
+                               tuple[int, ...]]:
+    """Arguments of the bf16 kernel's 4-D TMA tensor map for a
+    ``(b, h, s, d)`` tensor of these element strides: dims
+    ``(d, h, s, b)``, the byte strides of h, s and b (d is contiguous),
+    and the box the kernel loads, ``(cols, 1, 128, 1)`` with cols 32 for
+    d <= 32 (64-byte swizzle) and 64 otherwise (128-byte swizzle; d > 64
+    takes two boxes). Size-1 dimensions get the stride of a contiguous
+    tensor."""
+    b, h, s, d = shape
+    sb, sh, ss, _ = _strides(shape, strides)
+    dims = (d, h, s, b)
+    byte_strides = (sh * itemsize, ss * itemsize, sb * itemsize)
+    box = (32 if d <= 32 else 64, 1, BF16_ROWS, 1)
+    return dims, byte_strides, box
+
+
+def _check_layout(name: str, t: torch.Tensor) -> None:
+    b, h, s, d = t.shape
+    if t.stride(3) != 1:
+        raise ValueError(f"{name}: the last dimension must be contiguous "
+                         f"(strides {tuple(t.stride())})")
+    bad = [st for size, st in zip(t.shape[:3], t.stride()[:3])
+           if size > 1 and st % 8]
+    if bad:
+        raise ValueError(f"{name}: strides {tuple(t.stride())} must be "
+                         "multiples of 8 elements")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data must start on a 16-byte boundary")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -90,36 +140,74 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share one of {sorted(map(str, _ENTRY))}"
                          f"; got {q.dtype}, {k.dtype}, {v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_layout(name, t)
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+def bind(fn):
+    """Declare a C entry's arguments (both entries share one signature:
+    q, k, v, o, the q, k, v layout words, o's strides, b, hq, hkv, sq,
+    skv, d, scale, stream)."""
+    if fn.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        words = ctypes.POINTER(ctypes.c_longlong)
+        fn.argtypes = [vp, vp, vp, vp, words, words, words, words,
+                       i, i, i, i, i, i, ctypes.c_float, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _entry(dtype: torch.dtype):
+    source, name = _ENTRY[dtype]
+    return bind(getattr(_backend.library(source), name))
+
+
+def _words(values) -> ctypes.Array:
+    return (ctypes.c_longlong * len(values))(*values)
+
+
+def launch(q, k, v, out, scale: float, entry=None) -> tuple:
+    """Launch the kernel of q's type (or the bound C ``entry`` given, of
+    the same signature) on checked q, k, v into ``out``; returns its
+    grid."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16:
+        args = [_words(sum(tensor_map_args(t.shape, t.stride()), ()))
+                for t in (q, k, v)]
+        grid = (-(-sq // BF16_ROWS) * b * hq,)
+    else:
+        args = [_words(_strides(t.shape, t.stride())[:3]) for t in (q, k, v)]
+        grid = (b * hq, -(-sq // F32_ROWS))
+    args.append(_words(_strides(out.shape, out.stride())[:3]))
+    entry = entry or _entry(q.dtype)
+    code = entry(_backend.ptr(q), _backend.ptr(k), _backend.ptr(v),
+                 _backend.ptr(out), *args, b, hq, hkv, sq, skv, d,
+                 float(scale), _backend.stream_handle(q.device))
+    _backend.check_launch("flash_attention", code)
+    return grid
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Causal attention; ``scale`` defaults to 1/sqrt(d)."""
+    """Causal attention; ``scale`` defaults to 1/sqrt(d). Returns the
+    ``(b, hq, sq, d)`` view of a ``(b, sq, hq, d)`` tensor."""
     _check(q, k, v, causal)
     b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if _backend.resolve_route(q, "auto") == "plain":
-        return flash_attention_ref(q, k, v, scale=scale)
+    route = _backend.resolve_route(q, "auto")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on the same device")
-    qc, kc, vc = _aligned(q), _aligned(k), _aligned(v)
-    out = torch.empty_like(qc)
-    code = _entry(q.dtype)(_backend.ptr(qc), _backend.ptr(kc),
-                           _backend.ptr(vc), _backend.ptr(out), b, hq, hkv,
-                           sq, skv, d, float(scale),
-                           _backend.stream_handle(q.device))
-    _backend.check_launch("flash_attention", code)
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if route == "plain":
+        return out.copy_(flash_attention_ref(q, k, v, scale=scale))
+    grid = launch(q, k, v, out, scale)
     global _launches, _last_dispatch
     _launches += 1
-    _last_dispatch = {"b": b, "hq": hq, "hkv": hkv, "sq": sq, "skv": skv,
-                      "d": d, "dtype": q.dtype,
-                      "grid": (b * hq, -(-sq // 64))}
+    _last_dispatch = {"b": b, "hq": hq, "hkv": k.shape[1], "sq": sq,
+                      "skv": k.shape[2], "d": d, "dtype": q.dtype,
+                      "source": _ENTRY[q.dtype][0], "grid": grid}
     return out

@@ -53,11 +53,15 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: Optional[float] = None) -> torch.Tensor:
-    """The kernel's function: q ``(b, hq, sq, d)``, k/v ``(b, hkv, skv, d)``,
-    causal and end-aligned, all in float32, output in q's type."""
+    """The kernels' function: q ``(b, hq, sq, d)``, k/v ``(b, hkv, skv,
+    d)``, causal and end-aligned, all in float32, output in q's type
+    (contiguous)."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
-    qg = q.float().reshape(b, hkv, hq // hkv, sq, d)
-    out = attention_ref(qg, k.float()[:, :, None], v.float()[:, :, None],
-                        causal=True, scale=scale)
+    # contiguous float32 copies: strided views of the same values give the
+    # same products, bit for bit
+    qg = q.float().contiguous().reshape(b, hkv, hq // hkv, sq, d)
+    out = attention_ref(qg, k.float().contiguous()[:, :, None],
+                        v.float().contiguous()[:, :, None], causal=True,
+                        scale=scale)
     return out.reshape(b, hq, sq, d).to(q.dtype)

@@ -2,7 +2,10 @@
 
 Counterpart of ``repro.models.attention``. Prefill attention (no window,
 more than one query row) launches the hand-written flash-attention kernel
-on a CUDA tensor — the route the reference built for its accelerator.
+on a CUDA tensor — the route the reference built for its accelerator. The
+kernel reads q, k and v in the projections' ``(b, s, h, dh)`` layout
+through ``(b, h, s, dh)`` views and returns the ``(b, h, s, dh)`` view of
+a ``(b, s, h, dh)`` output, so no layout copy is made around it.
 Everywhere else, and for ``backend="plain"``, it takes the reference's
 CPU path: kv heads repeated, then ``attention_ref``, or the streaming
 softmax of ``_attend_chunked`` once the keys pass
@@ -114,7 +117,7 @@ def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     k = rope((x @ params.wk).reshape(b, s, hkv, dh), positions,
              cfg.rope_theta)
     v = (x @ params.wv).reshape(b, s, hkv, dh)
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))   # (b, h, s, dh)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))   # (b, h, s, dh) views
 
     if cache is not None:
         ck, cv = cache
@@ -126,6 +129,7 @@ def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
         return out @ params.wo, (ck, cv)
 
     out = _attend(q, k, v, window=window, backend=backend)
+    # a view on the kernel route, whose output is (b, s, hq, dh) underneath
     out = out.transpose(1, 2).reshape(b, s, hq * dh)
     return out @ params.wo
 

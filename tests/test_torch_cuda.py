@@ -163,6 +163,8 @@ def _qkv(shape, dtype, device, seed):
     (1, 6, 2, 200, 200, 64), (1, 8, 2, 200, 200, 64),  # GQA groups 1-4
     (1, 2, 1, 130, 130, 8), (1, 2, 1, 130, 130, 40),   # d padded in-kernel
     (4, 24, 8, 1024, 1024, 128),                 # far more blocks than SMs
+    (1, 3, 1, 7, 1000, 128), (2, 4, 1, 7, 129, 32),    # 7-row appends
+    (2, 6, 2, 333, 333, 40), (1, 4, 1, 257, 385, 64),  # ragged tiles
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, shape, dtype):
@@ -194,4 +196,46 @@ def test_flash_kernel_raises(cuda, case):
     with pytest.raises(NotImplementedError if case == "non_causal"
                        else ValueError):
         flash_ops.flash_attention(q, k, v, causal=case != "non_causal")
+    assert flash_ops.launch_count() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 6, 2, 300, 300, 128),
+                                   (1, 4, 1, 7, 260, 64),
+                                   (1, 8, 2, 130, 130, 40),
+                                   (3, 3, 3, 64, 200, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_projection_layout(cuda, shape, dtype):
+    """(b, h, s, d) views of (b, s, h, d) tensors, read in place, give
+    the same bits as contiguous copies; the output is the (b, hq, sq, d)
+    view of a contiguous (b, sq, hq, d) tensor."""
+    b, hq, hkv, sq, skv, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    views = [torch.randn((b, s, h, d), generator=gen, device=cuda)
+             .to(dtype).transpose(1, 2)
+             for s, h in ((sq, hq), (skv, hkv), (skv, hkv))]
+    got = flash_ops.flash_attention(*views)
+    want = flash_ops.flash_attention(*(t.contiguous() for t in views))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.shape == (b, hq, sq, d) and got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["last_dim_strided", "row_stride_not_8",
+                                  "unaligned_base"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_rejects_layout(cuda, case, dtype):
+    b, h, s, d = 1, 2, 16, 64
+    good = torch.zeros((b, h, s, d), dtype=dtype, device=cuda)
+    bad = {"last_dim_strided": lambda: torch.zeros(
+               (b, h, s, 2 * d), dtype=dtype, device=cuda)[..., ::2],
+           "row_stride_not_8": lambda: torch.zeros(
+               (b, h, s, d + 4), dtype=dtype, device=cuda)[..., :d],
+           "unaligned_base": lambda: torch.zeros(
+               b * h * s * d + 2, dtype=dtype, device=cuda)[2:]
+           .reshape(b, h, s, d)}[case]()
+    before = flash_ops.launch_count()
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(bad, good, good)
     assert flash_ops.launch_count() == before

@@ -162,10 +162,17 @@ def test_unknown_backend_raises(name):
                                   2, backend=name)
 
 
+# each CUDA source and the TPU kernel it replaces
+KERNEL_SOURCES = {"flash_attention": "flash_attention",
+                  "flash_attention_sm90": "flash_attention",
+                  "kmeans_assign": "kmeans_assign",
+                  "segment_stats": "segment_stats"}
+
+
 def test_kernel_sources_present():
     names = sorted(p.stem for p in backend.CSRC_DIR.glob("*.cu"))
-    assert names == ["flash_attention", "kmeans_assign", "segment_stats"]
-    for name in names:
+    assert names == sorted(KERNEL_SOURCES)
+    for name, tpu in KERNEL_SOURCES.items():
         text = (backend.CSRC_DIR / f"{name}.cu").read_text()
-        assert f"src/repro/kernels/{name}/{name}.py" in text
+        assert f"src/repro/kernels/{tpu}/{tpu}.py" in text
         assert "atomicAdd(" not in text
