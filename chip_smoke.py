@@ -9,9 +9,15 @@ It builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, started together), counts the ``wgmma`` (HGMMA) and TMA (UTMALDG)
 instructions of the bf16 flash-attention library, holds each kernel
 against its plain PyTorch version on the card at the main paths' shapes
-and times both, then drives
-the port's two paths, each with the kernels' launch counters set to 0 just
-before it and read just after:
+and times both, then measures the card's dependent float32 add latency (a
+``clock64``-timed add chain beside ``nvidia-smi``'s SM clock) and holds
+both clustering kernels bitwise against their plain versions on the
+simulation build's own inputs -- the last Lloyd step of its BBV and RFV
+fits, captured from ``ExperimentEngine.build`` -- timing them pass by pass
+beside ``index_add_``, their bytes bound and the order bound of the
+longest in-order add chain. Then it drives the port's two paths, each
+with the kernels' launch counters set to 0 just before it and read just
+after:
 
 * the simulation path — ``ExperimentEngine(device="cuda").build`` over all
   ten apps and the staged sweeps (srs, and rfv / bbv / dg with
@@ -88,6 +94,29 @@ def time_ms(fn, *, warmup: int = 3, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, names, *, iters: int = 10) -> dict:
+    """Device milliseconds per call of each kernel whose name holds one of
+    ``names`` (``torch.profiler``), over ``iters`` warmed calls of
+    ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                if f"::{name}" in e.name:
+                    out[name] = out.get(name, 0.0) + \
+                        e.time_range.elapsed_us() / 1e3 / iters
+    return out
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS
@@ -225,6 +254,222 @@ def check_segment_stats(gen) -> dict:
         out[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": lib_ms}
+    return out
+
+
+def sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0].split()[0])
+
+
+def measure_add_latency() -> dict:
+    """The card's dependent float32 add latency: a one-warp add chain
+    timed by ``clock64``, the SM clock read by ``nvidia-smi`` while the
+    chain runs, and the chain's CUDA-event time as a cross-check."""
+    import torch
+    from repro_torch.kernels.segment_stats import ops
+
+    adds = 1 << 26                       # about 0.1 s at 4 cycles an add
+    ops.add_chain_cycles(1 << 16, "cuda")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    cycles = ops.add_chain_cycles(adds, "cuda")
+    end.record()
+    mhz = sm_clock_mhz()                 # read while the chain runs
+    torch.cuda.synchronize()
+    per_add = int(cycles.item()) / adds
+    event_ns = start.elapsed_time(end) * 1e6 / adds
+    ns = per_add / mhz * 1e3
+    log(f"float32 add latency: {per_add:.4f} cycles (clock64, one warp, "
+        f"{adds} dependent adds) at SM clock {mhz:.0f} MHz (nvidia-smi) = "
+        f"{ns:.4f} ns; CUDA events over the chain {event_ns:.4f} ns an add")
+    return {"cycles": per_add, "sm_mhz": mhz, "ns": ns, "event_ns": event_ns}
+
+
+def capture_fit_steps() -> dict:
+    """Build all ten apps through ``ExperimentEngine.build`` with a hook on
+    the k-means centroid update: the inputs of each fit's last Lloyd step
+    (the BBV fit, then the RFV fit) and, for every step, the longest
+    chain of one (lane, segment) with all rows and with weight-0 rows
+    dropped."""
+    import importlib
+
+    import torch
+    from repro_torch.experiments import ExperimentEngine
+    from repro_torch.simcpu import APP_NAMES
+
+    km = importlib.import_module("repro_torch.core.clustering.kmeans")
+    fits: dict[tuple, dict] = {}
+    update = km._update_centroids
+
+    def longest(flat, k, b):
+        return torch.bincount(flat, minlength=b * k).reshape(b, k).amax(1)
+
+    def hook(x, labels, k, old, w, backend):
+        rec = fits.setdefault(tuple(x.shape), {"all": [], "weighted": []})
+        b = x.shape[0]
+        flat = labels.long() + k * torch.arange(b, device=x.device)[:, None]
+        rec["all"].append(longest(flat.reshape(-1), k, b).cpu())
+        rec["weighted"].append(longest(flat[w != 0], k, b).cpu())
+        rec.update(x=x, labels=labels, k=k, old=old, w=w)
+        return update(x, labels, k, old, w, backend)
+
+    km._update_centroids = hook
+    t0 = time.perf_counter()
+    try:
+        ExperimentEngine(device="cuda").build(APP_NAMES)
+    finally:
+        km._update_centroids = update
+    torch.cuda.synchronize()
+    log(f"capture build (the process's first, cold): "
+        f"{time.perf_counter() - t0:.2f} s")
+    if len(fits) != 2:
+        raise AssertionError(f"expected the BBV and RFV fits, saw "
+                             f"{list(fits)}")
+    return dict(zip(("bbv", "rfv"), fits.values()))
+
+
+def check_main_path_inputs(latency: dict) -> dict:
+    """Both clustering kernels on the inputs the simulation build gives
+    them: one ``kmeans_assign`` and one ``segment_stats`` launch of each
+    fit's last Lloyd step. Each is held bitwise against its plain version
+    and timed beside its bounds; ``segment_stats`` with all rows (as the
+    update gave them before weight-0 rows were dropped) and with them
+    dropped, pass by pass, beside ``index_add_``. The order bound of a
+    launch is its longest chain of one (lane, segment) times the add
+    latency."""
+    import torch
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+    from repro_torch.kernels.segment_stats import ops as seg_ops
+    from repro_torch.kernels.segment_stats.ref import segment_stats_ref
+    from repro_torch.simcpu import APP_NAMES
+
+    ns_per_add = latency["ns"]
+    out = {}
+    for tag, rec in capture_fit_steps().items():
+        x, labels, k, old, w = (rec[key] for key in
+                                ("x", "labels", "k", "old", "w"))
+        b, n, d = x.shape
+        chains = {v: torch.stack(rec[v]) for v in ("all", "weighted")}
+        per_launch = {v: c.amax(1) for v, c in chains.items()}
+        log(f"{tag} fit: {len(rec['all'])} centroid updates; longest chain "
+            "a launch, all rows / weight-0 rows dropped: median "
+            f"{int(per_launch['all'].median())} / "
+            f"{int(per_launch['weighted'].median())}, max "
+            f"{int(per_launch['all'].max())} / "
+            f"{int(per_launch['weighted'].max())}, total over the build "
+            f"{int(per_launch['all'].sum())} / "
+            f"{int(per_launch['weighted'].sum())}")
+        log(f"  {tag} last update, longest chain by app (all / weight-0 "
+            "dropped): " + ", ".join(
+                f"{name} {int(a)} / {int(c)}" for name, a, c in
+                zip(APP_NAMES, chains["all"][-1], chains["weighted"][-1])))
+        row = {"updates": len(rec["all"]),
+               "chain_total": int(per_launch["weighted"].sum()),
+               "chain_total_all_rows": int(per_launch["all"].sum())}
+
+        # kmeans_assign of the last step: the fit's points, the centroids
+        # that labelled them
+        lab_k, d2_k = assign_ops.kmeans_assign(x, old)
+        lab_p, d2_p = assign_ops.kmeans_assign(x, old, backend="plain")
+        if not (torch.equal(lab_k, lab_p) and torch.equal(d2_k, d2_p)):
+            raise AssertionError(f"kmeans_assign {tag} main-path input: not "
+                                 "bitwise equal to the plain version")
+        ms = time_ms(lambda: assign_ops.kmeans_assign(x, old))
+        on_card = device_ms(lambda: assign_ops.kmeans_assign(x, old),
+                            ["assign_kernel"]).get("assign_kernel")
+        plain_ms = time_ms(lambda: assign_ops.kmeans_assign(
+            x, old, backend="plain"), iters=5)
+        bound_ms, bound_by = bound(4 * (b * n * d + b * k * d + 2 * b * n),
+                                   2.0 * b * n * k * d + 2.0 * b * n * d)
+        log(f"kmeans_assign {tag} main-path input (b={b}, n={n}, d={d}, "
+            f"k={k}): bitwise equal to plain; kernel {ms:.4f} ms (on the "
+            f"card {on_card:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), bound "
+            f"share {bound_ms / ms:.3f}; grid "
+            f"{assign_ops.last_dispatch()['grid']}")
+        err = float((d2_k - d2_p).abs().max())
+        row["kmeans_assign"] = {"max_abs_err": err, "ms": ms,
+                                "device_ms": on_card,
+                                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": None}
+
+        # segment_stats of the last step's centroid update
+        vals = torch.cat([x * w[..., None], w[..., None]], dim=-1)
+        dv = d + 1
+        first = None
+        for variant, lab in (("all_rows", labels),
+                             ("weighted", torch.where(w != 0, labels, -1))):
+            got = seg_ops.segment_stats(vals, lab, k)
+            again = seg_ops.segment_stats(vals, lab, k)
+            want = segment_stats_ref(vals.cpu(), lab.cpu(), k)
+            if not all(torch.equal(g.cpu(), v) and torch.equal(g, a)
+                       for g, a, v in zip(got, again, want)):
+                raise AssertionError(f"segment_stats {tag} {variant}: not "
+                                     "bitwise equal to the plain version on "
+                                     "the CPU, or two launches differ")
+            err = max(float((g.cpu() - v).abs().max()) if g.numel() else 0.0
+                      for g, v in zip(got[:2], want[:2]))
+            if first is None:
+                first = got
+            elif not (torch.equal(got[0], first[0])
+                      and torch.equal(got[1], first[1])):
+                raise AssertionError(f"segment_stats {tag}: dropping weight-0"
+                                     " rows changed the sums")
+            ms = time_ms(lambda: seg_ops.segment_stats(vals, lab, k))
+            plain_ms = time_ms(lambda: segment_stats_ref(vals, lab, k),
+                               iters=5)
+            # each pass on its own, on the state a full launch left
+            xb, lb = vals.contiguous(), lab.contiguous()
+            work = seg_ops._launch(xb, lb, k)[3]
+            passes = {}
+            # the later passes read what count and scan left, which count
+            # and scan rewrite: they go last
+            order = [p for p in seg_ops.PASSES if p not in ("count", "scan")]
+            for name in order + ["count", "scan"]:
+                bit = seg_ops.PASSES[name]
+                passes[name] = time_ms(
+                    lambda: seg_ops._launch(xb, lb, k, bit, work))
+            del work
+            on_card = device_ms(lambda: seg_ops.segment_stats(vals, lab, k),
+                                CLUSTER_KERNELS)
+            valid = lab >= 0
+            flat = (torch.where(valid, lab, 0).long()
+                    + k * torch.arange(b, device="cuda")[:, None]).reshape(-1)
+            wv = torch.where(valid[..., None], vals, 0.0).reshape(b * n, dv)
+            acc = torch.zeros((b * k, dv), device="cuda")
+            lib_ms = time_ms(lambda: acc.zero_().index_add_(0, flat, wv))
+            rows = int(valid.sum())
+            bound_ms, bound_by = bound(
+                4 * (rows * dv + b * n + 2 * b * k * dv + b * k),
+                3.0 * rows * dv + rows)
+            chain = int(per_launch["all" if variant == "all_rows"
+                                   else "weighted"][-1])
+            order_ms = chain * ns_per_add * 1e-6
+            log(f"segment_stats {tag} update {variant} (b={b}, n={n}, "
+                f"d={dv}, k={k}, {rows} rows read): bitwise equal to plain on "
+                f"the CPU; kernel {ms:.4f} ms ("
+                + ", ".join(f"{p} {t:.4f}" for p, t in passes.items())
+                + " ms alone; on the card: " + ", ".join(
+                    f"{p.split('_')[0]} {t:.4f}" for p, t in on_card.items())
+                + f" ms), plain {plain_ms:.4f} ms, index_add_ "
+                f"{lib_ms:.4f} ms; bytes bound {bound_ms:.4f} ms "
+                f"({bound_by}), order bound {order_ms:.4f} ms (longest chain "
+                f"{chain}); sum pass / larger bound "
+                f"{passes['sum'] / max(bound_ms, order_ms):.3f}")
+            row[f"segment_stats_{variant}"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms, "order_bound_ms": order_ms,
+                "longest_chain": chain, "pass_ms": passes,
+                "pass_device_ms": on_card}
+        out[tag] = row
+        del x, labels, old, w, vals, rec
+    torch.cuda.empty_cache()
     return out
 
 
@@ -437,12 +682,30 @@ def traced(label: str, fn, top: int = 10) -> dict:
     return by_name
 
 
-def trace_build() -> None:
-    """One more (warm) kernel build under the profiler."""
+# the clustering kernels' passes, as the profiler names them
+CLUSTER_KERNELS = ("count_kernel", "scan_kernel", "scatter_kernel",
+                   "order_kernel", "sum_kernel", "assign_kernel")
+
+
+def trace_build() -> dict:
+    """One more (warm) kernel build under the profiler; returns the
+    clustering kernels' [launches, ms] by pass."""
     from repro_torch.experiments import ExperimentEngine
     from repro_torch.simcpu import APP_NAMES
 
-    traced("build", lambda: ExperimentEngine(device="cuda").build(APP_NAMES))
+    by_name = traced("build",
+                     lambda: ExperimentEngine(device="cuda").build(APP_NAMES))
+    passes = {p: [0, 0.0] for p in CLUSTER_KERNELS}
+    for name, (n, ms) in by_name.items():
+        for p in CLUSTER_KERNELS:
+            if f"::{p}" in name:
+                passes[p][0] += n
+                passes[p][1] += ms
+    log("traced build, clustering kernels: " + ", ".join(
+        f"{p} {ms:.2f} ms ({n})" for p, (n, ms) in passes.items())
+        + " (the sum pass before each chain had its own thread: 61.87 ms "
+        "in 99 launches)")
+    return passes
 
 
 def check_tables(tables, n_apps: int, n_cfgs: int) -> None:
@@ -532,14 +795,15 @@ def phase_main_path() -> tuple[dict, object, dict]:
         if not np.array_equal(tables[s].column("estimate"),
                               warm_tables[s].column("estimate")):
             raise AssertionError(f"{s}: two kernel runs differ")
-    log(f"build s: kernels cold {secs['build']:.2f}, plain warm "
+    log(f"build s: kernels {secs['build']:.2f} (after the capture build), "
+        f"plain warm "
         f"{plain_secs['build']:.2f}, kernels warm {warm_secs['build']:.2f}; "
         "sweeps s (plain / kernels warm): " + ", ".join(
             f"{s} {plain_secs['sweep_' + s]:.3f} / "
             f"{warm_secs['sweep_' + s]:.3f}" for s in SCHEMES)
         + "; second kernel build bitwise equal to the first")
-    trace_build()
-    return launches, engine, secs
+    traced_passes = trace_build()
+    return launches, engine, secs, traced_passes
 
 
 # ------------------------------------------------------------------ phase 4
@@ -767,23 +1031,39 @@ def main() -> int:
     gen.manual_seed(0)
     assign = check_kmeans_assign(gen)
     segment = check_segment_stats(gen)
+    main_inputs = check_main_path_inputs(measure_add_latency())
     flash = check_flash(gen)
-    by_path = {"simulation": phase_main_path()[0], "lm": phase_lm()}
+    simulation, _, _, traced_passes = phase_main_path()
+    by_path = {"simulation": simulation, "lm": phase_lm()}
 
     def launches(name: str) -> dict:
         per = {path: n.get(name, 0) for path, n in by_path.items()}
         return {"launches": sum(per.values()), "launches_by_path": per}
 
+    # the clustering kernels' rows: the BBV fit's last Lloyd step as the
+    # build gives it; the RFV step, synthetic labels and the traced
+    # build's pass totals beside it
+    traced = {p: {"launches": n, "ms": ms}
+              for p, (n, ms) in traced_passes.items()}
     rows = [
         {"name": "kmeans_assign", "route": "cuda",
          "source": "src/repro_torch/csrc/kmeans_assign.cu",
          "replaces": "src/repro/kernels/kmeans_assign/kmeans_assign.py:41",
-         **launches("kmeans_assign"), **assign["bbv"],
-         "library_ms": None},
+         **launches("kmeans_assign"), **main_inputs["bbv"]["kmeans_assign"],
+         "other_shapes": {"rfv": main_inputs["rfv"]["kmeans_assign"],
+                          "synthetic": assign},
+         "traced_build": traced["assign_kernel"]},
         {"name": "segment_stats", "route": "cuda",
          "source": "src/repro_torch/csrc/segment_stats.cu",
          "replaces": "src/repro/kernels/segment_stats/segment_stats.py:28",
-         **launches("segment_stats"), **segment["bbv_update"]},
+         **launches("segment_stats"),
+         **main_inputs["bbv"]["segment_stats_weighted"],
+         "other_shapes": {
+             "bbv_all_rows": main_inputs["bbv"]["segment_stats_all_rows"],
+             "rfv": main_inputs["rfv"]["segment_stats_weighted"],
+             "synthetic": segment},
+         "traced_build": {p: traced[p] for p in CLUSTER_KERNELS
+                          if p != "assign_kernel"}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces":

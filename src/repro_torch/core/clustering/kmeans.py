@@ -72,6 +72,9 @@ def _update_centroids(x: torch.Tensor, labels: torch.Tensor, k: int,
     """Weighted mean of each lane's assigned points from one
     ``segment_stats`` launch; empty clusters keep their old centroid."""
     vals = torch.cat([x * w[..., None], w[..., None]], dim=-1)
+    # a weight-0 row adds w·x = ±0 (x finite) and w = 0 to sums that start
+    # at +0 and so are never -0: label -1 (never read) changes no bit
+    labels = torch.where(w != 0, labels, -1)
     sums, _, _ = segment_stats(vals, labels, k, backend=backend)
     counts = sums[..., -1]
     means = sums[..., :-1] / torch.clamp_min(counts, 1.0)[..., None]

@@ -42,8 +42,10 @@ def reset_launch_count() -> None:
 
 def last_dispatch() -> Optional[dict]:
     """Shape record of the latest kernel launch (``None`` before any):
-    ``batch``, ``batch_shape``, ``n``, ``k``, ``d`` and ``grid``. Plain
-    calls leave it untouched."""
+    ``batch``, ``batch_shape``, ``n``, ``k``, ``d``, ``grid`` (the
+    persistent blocks), ``tiles`` (the (lane, point tile) items they walk)
+    and ``split`` (threads that share a point, each scanning a share of
+    the centroids). Plain calls leave it untouched."""
     return None if _last_dispatch is None else dict(_last_dispatch)
 
 
@@ -57,7 +59,7 @@ def _lib():
     fn = lib.kmeans_assign_f32
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, i, i, i, i, vp, vp, vp]
+        fn.argtypes = [vp, vp, i, i, i, i, vp, vp, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -92,15 +94,19 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, *,
     k = centroids.shape[-2]
     b = math.prod(batch_shape)
     xb = x.reshape(b, n, d).float().contiguous()
+    if xb.data_ptr() % 16:
+        xb = xb.clone()            # the tiles' bulk copies read 16-byte units
     cb = centroids.reshape(b, k, d).float().contiguous()
     labels = torch.empty((b, n), dtype=torch.int32, device=x.device)
     mind2 = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    geometry = (ctypes.c_int * 3)()
     code = _lib()(_backend.ptr(xb), _backend.ptr(cb), b, n, k, d,
-                  _backend.ptr(labels), _backend.ptr(mind2),
+                  _backend.ptr(labels), _backend.ptr(mind2), geometry,
                   _backend.stream_handle(x.device))
     _backend.check_launch("kmeans_assign", code)
     global _launches, _last_dispatch
     _launches += 1
     _last_dispatch = {"batch": b, "batch_shape": batch_shape, "n": n,
-                      "k": k, "d": d, "grid": (-(-n // 128), b)}
+                      "k": k, "d": d, "grid": (geometry[0],),
+                      "tiles": geometry[1], "split": geometry[2]}
     return (labels.reshape(*batch_shape, n), mind2.reshape(*batch_shape, n))

@@ -41,9 +41,18 @@ def reset_launch_count() -> None:
 def last_dispatch() -> Optional[dict]:
     """Shape record of the latest kernel launch (``None`` before any):
     ``batch``, ``batch_shape``, ``n``, ``k``, ``d``, ``tiles`` (row tiles
-    of the partition passes) and ``grid`` of the sum pass (segments,
-    lanes, column chunks). Plain calls leave it untouched."""
+    of the partition passes), ``grid`` of the sum pass (blocks of two
+    (lane, segment, 16-column chunk) items) and ``ordered`` (whether the
+    items went longest segment first, which only a launch of more blocks
+    than fit on the card at once needs). Plain calls leave it
+    untouched."""
     return None if _last_dispatch is None else dict(_last_dispatch)
+
+
+# the kernel's passes, as bits of the launch's pass mask ("sum" includes
+# the item order, where one is needed)
+PASSES = {"count": 1, "scan": 2, "scatter": 4, "sum": 8}
+ALL_PASSES = sum(PASSES.values())
 
 
 def _lib():
@@ -51,11 +60,57 @@ def _lib():
     fn, work = lib.segment_stats_f32, lib.segment_stats_workspace
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, i, i, i, i, vp, vp, vp, vp, vp]
+        fn.argtypes = [vp, vp, i, i, i, i, vp, vp, vp, vp, i, vp, vp]
         fn.restype = ctypes.c_int
-        work.argtypes = [i, i, i]
+        work.argtypes = [i, i, i, i]
         work.restype = ctypes.c_longlong
+        lat = lib.segment_stats_add_latency
+        lat.argtypes = [i, vp, vp, vp]
+        lat.restype = ctypes.c_int
     return fn, work
+
+
+def _launch(xb: torch.Tensor, lb: torch.Tensor, k: int,
+            passes: int = ALL_PASSES, work: Optional[torch.Tensor] = None):
+    """Launch the kernel's passes on contiguous ``xb (b, n, d)`` float32
+    and ``lb (b, n)`` int32; returns ``(sums, sumsq, counts, work,
+    geometry)``, geometry being (partition tiles, sum-pass blocks,
+    ordered). A later call with the same ``work`` may run a single pass
+    (``passes`` mask) on the state the earlier passes left: a timing
+    hook."""
+    b, n, d = xb.shape
+    dev = xb.device
+    f32 = torch.float32
+    sums = torch.empty((b, k, d), dtype=f32, device=dev)
+    sumsq = torch.empty((b, k, d), dtype=f32, device=dev)
+    counts = torch.empty((b, k), dtype=f32, device=dev)
+    launch, workspace = _lib()
+    if work is None:
+        work = torch.empty(max(int(workspace(b, n, k, d)), 1),
+                           dtype=torch.int32, device=dev)
+    geometry = (ctypes.c_int * 3)()
+    p = _backend.ptr
+    code = launch(p(xb), p(lb), b, n, k, d, p(sums), p(sumsq), p(counts),
+                  p(work), passes, geometry, _backend.stream_handle(dev))
+    _backend.check_launch("segment_stats", code)
+    return sums, sumsq, counts, work, tuple(geometry)
+
+
+def add_chain_cycles(adds: int, device) -> torch.Tensor:
+    """Launch a one-warp chain of ``adds`` (a multiple of 8) dependent
+    float32 adds, timed by ``clock64``; returns the int64 device tensor
+    that receives its SM clock cycles (divide by ``adds`` for the add
+    latency that bounds the sum pass's longest chain). Does not wait."""
+    if adds <= 0 or adds % 8:
+        raise ValueError(f"adds must be a positive multiple of 8: {adds}")
+    cycles = torch.zeros(1, dtype=torch.int64, device=device)
+    out = torch.empty(32, dtype=torch.float32, device=device)
+    _lib()                                   # declares the entry's types
+    code = _backend.library("segment_stats").segment_stats_add_latency(
+        adds, _backend.ptr(cycles), _backend.ptr(out),
+        _backend.stream_handle(cycles.device))
+    _backend.check_launch("segment_stats add latency", code)
+    return cycles
 
 
 def segment_stats(x: torch.Tensor, labels: torch.Tensor, num_segments: int,
@@ -87,23 +142,12 @@ def segment_stats(x: torch.Tensor, labels: torch.Tensor, num_segments: int,
     b = math.prod(batch_shape)
     xb = x.reshape(b, n, d).float().contiguous()
     lb = labels.reshape(b, n).to(torch.int32).contiguous()
-    dev = x.device
-    f32 = torch.float32
-    sums = torch.empty((b, k, d), dtype=f32, device=dev)
-    sumsq = torch.empty((b, k, d), dtype=f32, device=dev)
-    counts = torch.empty((b, k), dtype=f32, device=dev)
-    launch, workspace = _lib()
-    work = torch.empty(max(int(workspace(b, n, k)), 1), dtype=torch.int32,
-                       device=dev)
-    p = _backend.ptr
-    code = launch(p(xb), p(lb), b, n, k, d, p(sums), p(sumsq), p(counts),
-                  p(work), _backend.stream_handle(dev))
-    _backend.check_launch("segment_stats", code)
+    sums, sumsq, counts, _, (tiles, blocks, ordered) = _launch(xb, lb, k)
     global _launches, _last_dispatch
     _launches += 1
     _last_dispatch = {"batch": b, "batch_shape": batch_shape, "n": n,
-                      "k": k, "d": d, "tiles": -(-n // 256),
-                      "grid": (k, b, -(-d // 128))}
+                      "k": k, "d": d, "tiles": tiles, "grid": (blocks,),
+                      "ordered": bool(ordered)}
     return (sums.reshape(*batch_shape, k, d),
             sumsq.reshape(*batch_shape, k, d),
             counts.reshape(*batch_shape, k))

@@ -20,10 +20,15 @@ from repro.core.clustering import kmeans_bank as jax_bank
 from repro.core.clustering import kmeans_batch as jax_batch
 from repro.core.clustering import random_project as jax_project
 from repro.core.clustering import Standardizer as JaxStandardizer
+import importlib
+
 from repro_torch.core import ordered
 from repro_torch.core.clustering import (Standardizer, kmeans, kmeans_bank,
                                          kmeans_batch, random_project)
+from repro_torch.kernels.segment_stats.ops import segment_stats
 from repro_torch import prng
+
+km_module = importlib.import_module("repro_torch.core.clustering.kmeans")
 
 TIE_RTOL = 1e-5
 
@@ -140,3 +145,54 @@ def test_ordered_products_match_xla(d):
     np.testing.assert_array_equal(
         ordered.sum_sq(torch.from_numpy(x)).numpy(),
         np.asarray(jax.jit(lambda a: jnp.sum(a * a, axis=2))(x)))
+
+
+def _update_unmasked(x, labels, k, old, w, backend):
+    """The centroid update with weight-0 rows left in their clusters (the
+    port's update before it dropped them)."""
+    vals = torch.cat([x * w[..., None], w[..., None]], dim=-1)
+    sums, _, _ = segment_stats(vals, labels, k, backend=backend)
+    counts = sums[..., -1]
+    means = sums[..., :-1] / torch.clamp_min(counts, 1.0)[..., None]
+    return torch.where((counts > 0)[..., None], means, old)
+
+
+def test_update_centroids_drops_weight_zero_rows_exactly():
+    """Dropping weight-0 rows (label -1) changes no bit of the update:
+    they add w x = +-0 and w = 0 to sums that start at +0. Negative values
+    of weight 0 give -0 terms; one cluster holds only weight-0 rows."""
+    rng = np.random.default_rng(11)
+    b, n, d, k = 3, 2000, 15, 20
+    x = torch.from_numpy(rng.normal(size=(b, n, d)).astype(np.float32))
+    w = torch.from_numpy((rng.random((b, n)) < 0.6).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, k, (b, n)).astype(np.int32))
+    labels[0, :300] = 4                      # cluster 4 of lane 0: all
+    w[0, :300] = 0.0                         # weight 0, mostly negative
+    labels[0, 300:][labels[0, 300:] == 4] = 5
+    x[0, :300] = -x[0, :300].abs()
+    old = torch.from_numpy(rng.normal(size=(b, k, d)).astype(np.float32))
+    terms = x * w[..., None]
+    assert bool((torch.signbit(terms) & (terms == 0)).any())   # -0 terms
+    got = km_module._update_centroids(x, labels, k, old, w, "plain")
+    want = _update_unmasked(x, labels, k, old, w, "plain")
+    assert torch.equal(got, want)
+    assert torch.equal(got[0, 4], old[0, 4])
+
+
+@pytest.mark.parametrize("shape", [(2, 3001, 15), (3, 1201, 38)])
+def test_kmeans_bank_fit_unchanged_by_dropping_weight_zero_rows(
+        monkeypatch, shape):
+    """A whole padded fit: centroids, labels, inertia and iterations are
+    bitwise those of the update that keeps weight-0 rows."""
+    x = _clustered(shape[-1] + 1, shape)
+    w = np.ones(shape[:2], np.float32)
+    w[1, -401:] = 0.0                         # a padded, ragged lane
+    x[1, -401:] = 0.0
+    w[0, ::7] = 0.0                           # weight-0 rows with values
+    got = kmeans_bank(torch.from_numpy(x), 20, weights=torch.from_numpy(w),
+                      seed=0)
+    monkeypatch.setattr(km_module, "_update_centroids", _update_unmasked)
+    want = kmeans_bank(torch.from_numpy(x), 20, weights=torch.from_numpy(w),
+                       seed=0)
+    for field in ("centroids", "labels", "inertia", "iterations"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field

@@ -141,6 +141,110 @@ def test_segment_kernel_partition_edges_bitwise(cuda, pattern, b, n, d, k):
         assert torch.equal(g.cpu(), w)
 
 
+def _update_inputs(case, gen, device):
+    """(x, labels, k) of a centroid update as the simulation build gives
+    it: (b, n, d) points with a weight column, labels in [0, k)."""
+    if case == "padding_skew":
+        # two thirds of lane 0 are weight-0 padding rows in one segment
+        b, n, d, k = 2, 30000, 15, 20
+        x = torch.randn((b, n, d), generator=gen, device=device)
+        lab = torch.randint(0, k, (b, n), generator=gen, device=device,
+                            dtype=torch.int32)
+        w = torch.ones((b, n), device=device)
+        pad = torch.zeros((b, n), dtype=torch.bool, device=device)
+        pad[0, n // 3:] = True
+        x[pad] = 0.0
+        w[pad] = 0.0
+        lab[pad] = 7
+        vals = torch.cat([x * w[..., None], w[..., None]], dim=-1)
+        return vals, lab, k
+    b, n, d, k = {"long_d16": (2, 64000, 16, 20),
+                  "d39": (3, 6861, 39, 20),
+                  "k1": (2, 5000, 16, 1),
+                  "k300": (2, 9000, 16, 300),
+                  "n0": (3, 0, 16, 20)}[case]
+    x = torch.randn((b, n, d), generator=gen, device=device)
+    lab = torch.randint(-1, k, (b, n), generator=gen, device=device,
+                        dtype=torch.int32)
+    if case == "long_d16":
+        lab[0, 1000:62000] = 3            # one 61,000-row segment
+    return x, lab, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["padding_skew", "long_d16", "d39", "k1",
+                                  "k300", "n0"])
+def test_segment_kernel_update_shapes_bitwise(cuda, case):
+    """The sum pass's chains at the centroid update's shapes: a weight-0
+    segment holding two thirds of a lane (dropped or not, the sums are the
+    same bits), one 61,000-row segment at d = 16, d = 39 (4-byte copies),
+    one segment, 300 segments, no rows: bitwise equal to the plain version
+    on the CPU, and two launches bitwise equal."""
+    from repro_torch.kernels.segment_stats.ref import segment_stats_ref
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    x, lab, k = _update_inputs(case, gen, cuda)
+    got = segment_ops.segment_stats(x, lab, k)
+    again = segment_ops.segment_stats(x, lab, k)
+    want = segment_stats_ref(x.cpu(), lab.cpu(), k)
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape
+        assert torch.equal(g.cpu(), w)
+        assert torch.equal(g, a)
+    if case == "padding_skew":
+        dropped = torch.where(x[..., -1] != 0, lab, -1)
+        sums, sumsq, counts = segment_ops.segment_stats(x, dropped, k)
+        assert torch.equal(sums, got[0]) and torch.equal(sumsq, got[1])
+        assert counts[0, 7] < got[2][0, 7]
+
+
+@pytest.mark.cuda
+def test_segment_kernel_orders_items_beyond_one_wave(cuda):
+    """More sum-pass blocks than fit on the card at once: the items go
+    longest segment first, and the result is the same bits."""
+    from repro_torch.kernels.segment_stats.ref import segment_stats_ref
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, n, d, k = 40, 4000, 40, 300
+    x = torch.randn((b, n, d), generator=gen, device=cuda)
+    lab = torch.randint(0, k, (b, n), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    lab[:, :1500] = 11
+    got = segment_ops.segment_stats(x, lab, k)
+    assert segment_ops.last_dispatch()["ordered"]
+    want = segment_stats_ref(x.cpu(), lab.cpu(), k)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,k", [
+    (3, 1001, 15, 20),      # n d 4 = 60060: tiles off 16 bytes per lane
+    (5, 777, 38, 7),        # odd lanes start 8 bytes off 16
+    (10, 6861, 38, 20),     # the RFV fit's shape: split k
+    (2, 3000, 1, 6), (2, 2000, 128, 20),
+    (2, 4000, 15, 1), (2, 3000, 16, 300), (1, 5, 3, 300)])
+def test_assign_kernel_bitwise(cuda, b, n, d, k):
+    """Labels and distances bitwise equal to the plain version on the
+    CPU, ties included (two centroids repeated), at tile boundaries off
+    16 bytes, through the split-k path, at d = 1 and 128, k = 1 and 300."""
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
+    gen = torch.Generator(device=cuda).manual_seed(n + d + k)
+    x = torch.randn((b, n, d), generator=gen, device=cuda)
+    c = torch.randn((b, k, d), generator=gen, device=cuda)
+    if k > 3:
+        c[:, 3] = c[:, 1]                # exact ties go to the lower index,
+        c[:, -1] = c[:, 1]               # across shares of k too
+    lab, d2 = assign_ops.kmeans_assign(x, c)
+    want_lab, want_d2 = kmeans_assign_ref(x.cpu(), c.cpu())
+    assert torch.equal(lab.cpu(), want_lab)
+    assert torch.equal(d2.cpu(), want_d2)
+    if k > 3:
+        assert not ((lab == 3) | (lab == k - 1)).any()
+    rec = assign_ops.last_dispatch()
+    assert rec["tiles"] >= rec["grid"][0] >= 1
+    if (b, n, d) == (10, 6861, 38):
+        assert rec["split"] > 1
+
+
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (8e-3, 1e-3)}
 
 

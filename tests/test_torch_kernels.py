@@ -26,6 +26,8 @@ from repro.kernels.segment_stats.ops import segment_stats as jax_segment
 from repro.kernels.segment_stats.ref import segment_stats_ref as jax_seg_ref
 from repro_torch.kernels import backend
 from repro_torch.kernels.kmeans_assign import ops as assign_ops
+from repro_torch.kernels.kmeans_assign.ref import (kmeans_assign_ref,
+                                                   pairwise_d2)
 from repro_torch.kernels.segment_stats import ops as segment_ops
 
 TIE_RTOL = 1e-5
@@ -78,6 +80,60 @@ def test_assign_shape_errors():
         assign_ops.kmeans_assign(torch.zeros(2, 4, 3), torch.zeros(3, 2, 3))
     with pytest.raises(ValueError):
         assign_ops.kmeans_assign(torch.zeros(4, 3), torch.zeros(2, 4))
+
+
+def _split_k_argmin(d2: torch.Tensor, split: int):
+    """The CUDA kernel's split-k argmin, emulated: ``split`` threads share
+    a point, thread s scans centroids [s k / split, (s + 1) k / split) in
+    order with a strict <, starting from (inf, its first index); a
+    butterfly of xor shuffles then keeps the lower (d2, index) pair."""
+    n, k = d2.shape
+    best = torch.full((n, split), float("inf"))
+    arg = torch.zeros((n, split), dtype=torch.int64)
+    for s in range(split):
+        lo, hi = s * k // split, (s + 1) * k // split
+        arg[:, s] = lo
+        for kk in range(lo, hi):
+            better = d2[:, kk] < best[:, s]
+            best[:, s] = torch.where(better, d2[:, kk], best[:, s])
+            arg[:, s] = torch.where(better, kk, arg[:, s])
+    lanes = torch.arange(split)
+    m = split // 2
+    while m:
+        ob, oa = best[:, lanes ^ m], arg[:, lanes ^ m]
+        take = (ob < best) | ((ob == best) & (oa < arg))
+        best, arg = torch.where(take, ob, best), torch.where(take, oa, arg)
+        m //= 2
+    assert bool((arg == arg[:, :1]).all())    # every share agrees
+    return arg[:, 0].to(torch.int32), torch.clamp_min(best[:, 0], 0.0)
+
+
+# (split, n, d, k): the kernel's shares are a power of two, at most 32 and
+# at most k
+SPLIT_CASES = [(split, n, d, k)
+               for n, d, k in [(300, 15, 20), (257, 38, 20), (64, 1, 6),
+                               (40, 3, 300), (33, 16, 32), (9, 2, 1)]
+               for split in (1, 2, 4, 8, 32) if split <= k]
+
+
+@pytest.mark.parametrize("split,n,d,k", SPLIT_CASES)
+def test_split_k_argmin_equals_plain(split, n, d, k):
+    """Shares of k, then a lexicographic (d2, index) minimum, equal the
+    plain version's argmin bitwise, ties included: repeated centroids in
+    different shares, and points that sit on a centroid."""
+    rng = np.random.default_rng(n + d + k + split)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32))
+    if k > 3:
+        c[k - 1] = c[1]                       # a tie across shares
+        c[k // 2] = c[0]
+        x[:5] = c[1]                          # points on a tied centroid
+    want_lab, want_d2 = kmeans_assign_ref(x, c)
+    got_lab, got_d2 = _split_k_argmin(pairwise_d2(x, c), split)
+    assert torch.equal(got_lab, want_lab)
+    assert torch.equal(got_d2, want_d2)
+    if k > 3:
+        assert not bool(((want_lab == k - 1) | (want_lab == k // 2)).any())
 
 
 @pytest.mark.parametrize("shape,d,k", [
