@@ -26,6 +26,15 @@ after:
   kernels (warm, as the plain build was) to time both builds alike, and
   traces one more kernel build with ``torch.profiler`` for the card's busy
   time;
+* on the same ten-app engine, the fused sweeps of every stratifier (bbv,
+  rfv, dg) and policy (centroid, mean, random) — cold (eager run and CUDA
+  graph capture) and warm (replay, under ``torch.profiler``, which counts
+  the ``segment_stats`` launches inside the graph: the wrapper makes
+  none there) — each against the staged sweep from the same memo state,
+  bit for bit, with the graph's ``segment_stats`` summary against its
+  plain version; the paper's Fig 5/8/10/11 rows; the
+  Monte-Carlo trials chunked against unchunked, bit for bit; and 10^5
+  and 10^6 streamed trials under the reference's coverage gate;
 * the LM serving path at the full width of ``llama3.2-3b`` (bf16, random
   weights from a seeded generator): prefill of 4 x 4096 tokens through the
   flash-attention kernel and through the plain attention route, prefill
@@ -43,6 +52,7 @@ rest of the repository, it prints no result and exits non-zero.
 
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -648,11 +658,10 @@ def drive_main_path(backend: str):
     return engine, tables, secs
 
 
-def traced(label: str, fn, top: int = 10) -> dict:
-    """Run ``fn`` once under ``torch.profiler``: the card's busy time
-    against the wall time, and the kernels that fill it. Returns
-    ``{kernel name: [launches, ms]}`` (empty if the profiler saw no
-    device activity)."""
+def device_kernels(fn) -> tuple[dict, float]:
+    """Run ``fn`` once under ``torch.profiler``; returns the card's
+    ``{kernel name: [launches, ms]}`` and the wall milliseconds of the
+    call (profiler on)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -668,6 +677,22 @@ def traced(label: str, fn, top: int = 10) -> dict:
             rec = by_name.setdefault(e.name, [0, 0.0])
             rec[0] += 1
             rec[1] += e.time_range.elapsed_us() / 1e3
+    return by_name, wall_ms
+
+
+def segment_launches_seen(by_name: dict) -> int:
+    """``segment_stats`` launches in a profiler trace: every launch runs
+    the sum pass once, so one ``sum_kernel`` event each."""
+    return sum(n for name, (n, _) in by_name.items()
+               if "::sum_kernel" in name)
+
+
+def traced(label: str, fn, top: int = 10) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: the card's busy time
+    against the wall time, and the kernels that fill it. Returns
+    ``{kernel name: [launches, ms]}`` (empty if the profiler saw no
+    device activity)."""
+    by_name, wall_ms = device_kernels(fn)
     busy_ms = sum(ms for _, ms in by_name.values())
     if not by_name:
         log(f"traced {label}: {wall_ms:.1f} ms wall; the profiler saw no "
@@ -721,7 +746,7 @@ def check_tables(tables, n_apps: int, n_cfgs: int) -> None:
             f"{np.median(err):.4f}")
 
 
-def phase_main_path() -> tuple[dict, object, dict]:
+def phase_main_path() -> tuple[dict, object, dict, dict, dict]:
     import numpy as np
     import torch
     from repro_torch.core.clustering import kmeans_bank
@@ -803,7 +828,275 @@ def phase_main_path() -> tuple[dict, object, dict]:
             f"{warm_secs['sweep_' + s]:.3f}" for s in SCHEMES)
         + "; second kernel build bitwise equal to the first")
     traced_passes = trace_build()
-    return launches, engine, secs, traced_passes
+    return launches, engine, secs, traced_passes, tables
+
+
+# ---------------------------------------------------------------- phase 3b
+STRATIFIERS = ("bbv", "rfv", "dg")
+POLICIES = ("centroid", "mean", "random")
+# the reference's streaming-trials gate: coverage of its one app, 505.mcf_r
+# (tests/test_streaming_trials.py); every other app's is printed
+MIN_COVERAGE, GATE_APP = 0.90, "505.mcf_r"
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (NaN payloads included)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.contiguous().view(ints[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def memo_record(engine) -> dict:
+    """The memo's tables and accounting (without its version) and the
+    ledgers, as numpy arrays."""
+    import numpy as np
+    from repro_torch.simcpu import APP_NAMES
+    tree, _ = engine.memo.state()
+    out = {k: v for k, v in tree.items() if k != "version"}
+    out["ledgers"] = np.asarray([e.sim.ledger.regions_simulated
+                                 for e in engine.build(APP_NAMES)])
+    return out
+
+
+def fused_vs_staged(engine, plan) -> dict:
+    """One fused sweep (cold: eager run + capture), the same sweep again
+    (warm: a replay that must capture and charge nothing), then the
+    staged sweep from the memo state the fused one started from; all
+    equal bit for bit. The warm sweep runs under the profiler, which
+    counts the segment_stats launches its replay makes: they must be the
+    cold sweep's eager launches, and the wrapper must count none. Returns
+    the seconds, the table and those replayed launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.sampling import plan as splan
+    from repro_torch.experiments import (SweepSpec, fused,
+                                         plan_selection_bank, run_sweep)
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+    from repro_torch.kernels.segment_stats.ref import segment_stats_ref
+    from repro_torch.simcpu import APP_NAMES
+
+    tag = f"{plan.scheme}/{plan.policy_name}"
+    spec = SweepSpec(apps=APP_NAMES, plan=plan)
+    snap = engine.memo.state()
+    captures = fused.program_captures()
+    splan._reset_sweep_dispatch()
+    n0 = segment_ops.launch_count()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    table = run_sweep(engine, spec)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    above = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    marker = splan.last_sweep_dispatch()
+    if not (marker["fused"] and marker["count"] == 1 and marker["captured"]
+            and fused.program_captures() == captures + 1):
+        raise AssertionError(f"fused {tag}: marker {marker}, captures "
+                             f"{fused.program_captures() - captures}")
+    eager_launches = segment_ops.launch_count() - n0
+    out = {k: v.clone() for k, v in engine.fused_outputs.items()}
+    after_fused = memo_record(engine)
+    charges = engine.memo.total_charges()
+    n0 = segment_ops.launch_count()
+    warm_run = {}
+    by_name, warm_ms = device_kernels(
+        lambda: warm_run.update(table=run_sweep(engine, spec)))
+    warm_table, warm = warm_run["table"], warm_ms / 1e3
+    replayed = segment_launches_seen(by_name)
+    if segment_ops.launch_count() != n0 or replayed != eager_launches \
+            or replayed <= 0:
+        raise AssertionError(
+            f"fused {tag}: the replay made {replayed} segment_stats "
+            f"launches (profiler) and the wrapper counted "
+            f"{segment_ops.launch_count() - n0}; the eager run made "
+            f"{eager_launches}")
+    if fused.program_captures() != captures + 1 \
+            or engine.memo.total_charges() != charges \
+            or not (memo_record(engine)["ledgers"]
+                    == after_fused["ledgers"]).all():
+        raise AssertionError(f"fused {tag}: the warm sweep captured or "
+                             "charged")
+    for field in ("estimate", "err_pct"):
+        if not np.array_equal(table.column(field),
+                              warm_table.column(field)):
+            raise AssertionError(f"fused {tag}: replay {field} differs")
+    # the kernel inside the graph: the replay's stratum summary against
+    # the plain version on the same inputs
+    bank = engine.stratum_bank(plan.stratifier, APP_NAMES)
+    lab = torch.where(bank.valid, bank.labels,
+                      torch.full_like(bank.labels, -1)).int()
+    sums, _, counts = segment_stats_ref(bank.baseline.float(), lab,
+                                        engine.num_strata)
+    replay_out = engine.fused_outputs
+    if not (same_bits(replay_out["sums"], sums[..., 0].double())
+            and same_bits(replay_out["counts"], counts.double())):
+        raise AssertionError(f"fused {tag}: the graph's segment_stats "
+                             "differs from its plain version")
+    engine.memo.load_state(*snap)
+    t0 = time.perf_counter()
+    staged = run_sweep(engine, dataclasses.replace(spec, fused=False))
+    torch.cuda.synchronize()
+    staged_s = time.perf_counter() - t0
+    after_staged = memo_record(engine)
+    picks, valid, _ = plan_selection_bank(engine.build(APP_NAMES), plan)
+    for field in ("estimate", "err_pct", "n_units"):
+        if not np.array_equal(table.column(field), staged.column(field)):
+            raise AssertionError(f"fused {tag}: {field} differs from staged")
+    if not (torch.equal(out["picks"], picks)
+            and torch.equal(out["valid"], valid)):
+        raise AssertionError(f"fused {tag}: picks differ from staged")
+    for key, value in after_fused.items():
+        if not np.array_equal(value, after_staged[key]):
+            raise AssertionError(f"fused {tag}: memo {key} differs from "
+                                 "staged")
+    log(f"fused {tag}: cold {cold:.4f} s (eager run + capture), warm "
+        f"{warm:.4f} s (replay, profiler on), staged {staged_s:.4f} s; "
+        f"segment_stats launches: {eager_launches} eager, {replayed} in "
+        f"the replay (profiler); cold peak "
+        f"{above:.3f} GiB above the resident state; estimates, "
+        f"picks, memo tables, charges, counters and ledgers bitwise equal "
+        f"to staged; in-graph segment_stats bitwise equal to plain; "
+        f"marker {marker}")
+    return {"table": table, "cold": cold, "warm": warm, "staged": staged_s,
+            "replayed": replayed}
+
+
+def paper_rows(main_tables: dict, fused_tables: dict) -> None:
+    """Fig 5 (SRS margins) and Figs 10/11 (max error per app, centroid
+    and mean selection) from this run's sweeps."""
+    srs = main_tables["srs"]
+    apps = list(dict.fromkeys(srs.column("app")))
+    for app in apps:
+        rows = srs.filter(app=app)
+        log(f"  fig5 {app}: max err {rows.column('err_pct').max():.3f} %, "
+            f"max 95% margin {rows.column('margin_pct').max():.3f} %")
+    for fig, policy in (("fig10", "centroid"), ("fig11", "mean")):
+        worst = {}
+        for scheme in STRATIFIERS:
+            table = fused_tables[(scheme, policy)]
+            per_app = [table.filter(app=a).column("err_pct").max()
+                       for a in apps]
+            worst[scheme] = max(per_app)
+            log(f"  {fig} {scheme}/{policy} max err per app: " + ", ".join(
+                f"{a} {e:.3f}" for a, e in zip(apps, per_app)))
+        log(f"  {fig}: worst BBV {worst['bbv']:.3f} %, worst RFV "
+            f"{worst['rfv']:.3f} %, worst DG {worst['dg']:.3f} %")
+
+
+def phase_fused_and_trials(engine, main_tables: dict) -> dict:
+    """The fused sweeps against the staged ones on the ten-app engine of
+    the main path, the paper rows, and the streaming trials. Returns the
+    launches of segment_stats in the phase: the wrapper's count (eager
+    launches) plus the launches inside graph replays, which the wrapper
+    does not make, as the profiler saw them in a trace of every replay
+    that holds the kernel."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.sampling.plan import SamplingPlan
+    from repro_torch.experiments import (SweepSpec, TrialSpec, fused,
+                                         montecarlo, run_sweep, run_trials)
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+    from repro_torch.simcpu import APP_NAMES
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    segment_ops.reset_launch_count()
+    fused_tables, replayed = {}, 0
+    for scheme in STRATIFIERS:
+        for policy in POLICIES:
+            rec = fused_vs_staged(engine,
+                                  SamplingPlan.from_strings(scheme, policy))
+            fused_tables[(scheme, policy)] = rec["table"]
+            replayed += rec["replayed"]
+    log(f"fused sweeps: {fused.program_captures()} graphs captured, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"segment_stats launches {segment_ops.launch_count()} by the "
+        f"wrapper (eager fused and staged sweeps), {replayed} in replays "
+        "(profiler)")
+    traced_spec = SweepSpec(apps=APP_NAMES,
+                            plan=SamplingPlan.from_strings("rfv", "centroid"))
+    replayed += segment_launches_seen(traced(
+        "fused sweep rfv/centroid (warm replay)",
+        lambda: run_sweep(engine, traced_spec)))
+    traced("staged sweep rfv/centroid",
+           lambda: run_sweep(engine, dataclasses.replace(traced_spec,
+                                                         fused=False)))
+    paper_rows(main_tables, fused_tables)
+
+    # Fig 8: the paper's 1000 trials of all four schemes, kept
+    t0 = time.perf_counter()
+    fig8 = run_trials(engine, TrialSpec(trials=1000), apps=APP_NAMES)
+    torch.cuda.synchronize()
+    fig8_s = time.perf_counter() - t0
+    for scheme in fig8.spec.schemes:
+        p95 = fig8.p95(scheme)
+        log(f"  fig8 {scheme}: mean coverage "
+            f"{np.mean(fig8.coverage[scheme]):.4f}; p95 |err| % " + ", ".join(
+                f"{a} {v:.3f}" for a, v in zip(APP_NAMES, p95)))
+        if not np.isfinite(fig8.estimates[scheme]).all():
+            raise AssertionError(f"fig8 {scheme}: non-finite estimates")
+    # chunking must not change a bit
+    chunked = run_trials(engine, TrialSpec(trials=1000, chunk_size=256),
+                         apps=APP_NAMES)
+    for scheme in fig8.spec.schemes:
+        for a, b in zip(fig8.stats[scheme].leaves(),
+                        chunked.stats[scheme].leaves()):
+            if not same_bits(a, b):
+                raise AssertionError(f"trials {scheme}: chunked stats differ")
+        for field in ("estimates", "errors", "half_widths"):
+            if not np.array_equal(getattr(fig8, field)[scheme],
+                                  getattr(chunked, field)[scheme],
+                                  equal_nan=True):
+                raise AssertionError(f"trials {scheme}: chunked {field} "
+                                     "differ")
+    log(f"fig8 run: {fig8_s:.3f} s for 1000 trials x 4 schemes x "
+        f"{len(APP_NAMES)} apps; chunk_size=256 equal bit for bit in every "
+        "TrialStats leaf and kept array")
+
+    streamed = {}
+    for trials in (100_000, 1_000_000):
+        spec = TrialSpec(trials=trials, schemes=("random", "rfv"))
+        captures = montecarlo.program_captures()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run_trials(engine, spec, apps=APP_NAMES)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for scheme in spec.schemes:
+            st = res.stats[scheme]
+            cov = res.coverage[scheme]
+            if not (st.count == trials).all():
+                raise AssertionError(f"{trials} trials {scheme}: count "
+                                     f"{st.count.tolist()}")
+            gate = cov[APP_NAMES.index(GATE_APP)]
+            if not gate >= MIN_COVERAGE:
+                raise AssertionError(f"{trials} trials {scheme}: coverage "
+                                     f"{gate} of {GATE_APP} below "
+                                     f"{MIN_COVERAGE}")
+            log(f"  {trials} trials {scheme}: coverage {GATE_APP} "
+                f"{gate:.5f} (gate {MIN_COVERAGE}); by app " + ", ".join(
+                    f"{a} {c:.5f}" for a, c in zip(APP_NAMES, cov))
+                + f"; p95 |err| % max {np.max(res.p95(scheme)):.3f}")
+        streamed[trials] = secs
+        log(f"streamed {trials} trials x 2 schemes x {len(APP_NAMES)} apps:"
+            f" {secs:.3f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"{montecarlo.program_captures() - captures} graphs captured")
+    traced("100000 trials x 2 schemes (warm: graph replays)",
+           lambda: run_trials(engine, TrialSpec(trials=100_000,
+                                                schemes=("random", "rfv")),
+                              apps=APP_NAMES))
+    wrapper = segment_ops.launch_count()
+    log(f"fused sweeps and trials phase: {time.perf_counter() - phase_t0:.1f}"
+        f" s; segment_stats launches {wrapper + replayed}: {wrapper} by the "
+        f"wrapper, {replayed} inside graph replays (profiler)")
+    return {"segment_stats": wrapper + replayed}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1033,8 +1326,22 @@ def main() -> int:
     segment = check_segment_stats(gen)
     main_inputs = check_main_path_inputs(measure_add_latency())
     flash = check_flash(gen)
-    simulation, _, _, traced_passes = phase_main_path()
-    by_path = {"simulation": simulation, "lm": phase_lm()}
+    before = torch.cuda.memory_allocated()
+    simulation, engine, _, traced_passes, main_tables = phase_main_path()
+    fused_path = phase_fused_and_trials(engine, main_tables)
+    del engine
+    gc.collect()
+    left = torch.cuda.memory_allocated() - before
+    # torch keeps a cuBLAS workspace for every stream that ran a GEMM,
+    # the graphs' capture stream among them; free them, to tell them
+    # apart from anything else the phases left
+    torch._C._cuda_clearCublasWorkspaces()
+    log("allocated after the simulation phases, the engine dropped: "
+        f"{left / 2**20:.1f} MiB more than before them, "
+        f"{(torch.cuda.memory_allocated() - before) / 2**20:.1f} MiB "
+        "once cuBLAS's workspaces are freed")
+    by_path = {"simulation": simulation, "fused_and_trials": fused_path,
+               "lm": phase_lm()}
 
     def launches(name: str) -> dict:
         per = {path: n.get(name, 0) for path, n in by_path.items()}
@@ -1057,6 +1364,11 @@ def main() -> int:
          "source": "src/repro_torch/csrc/segment_stats.cu",
          "replaces": "src/repro/kernels/segment_stats/segment_stats.py:28",
          **launches("segment_stats"),
+         "launch_counting": "the wrapper's count of the launches it makes "
+                            "(none while a CUDA graph is captured) plus, "
+                            "on the fused path, the launches inside graph "
+                            "replays: sum_kernel events in a torch.profiler "
+                            "trace of each replay",
          **main_inputs["bbv"]["segment_stats_weighted"],
          "other_shapes": {
              "bbv_all_rows": main_inputs["bbv"]["segment_stats_all_rows"],

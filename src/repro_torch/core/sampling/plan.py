@@ -6,21 +6,28 @@ sweep runs. A ``SamplingPlan`` is three frozen dataclasses:
 * a ``Stratifier`` (``BBVClusters`` / ``RFVClusters`` /
   ``DaleniusGurney``) whose ``resolve`` stacks the engine-built
   stratification of each app into one ``StratumBank``;
-* a ``SelectionPolicy`` (``Centroid``) — a batched callable mapping a
-  ``SelectionContext`` to one pick per stratum per app;
+* a ``SelectionPolicy`` (``Centroid``, ``StratumMean``, ``RandomUnit``)
+  — a batched callable mapping a ``SelectionContext`` to one pick per
+  stratum per app;
 * an ``Estimator`` (``WeightedPoint``) turning the picked units' CPI into
   sweep estimates on the device.
 
 New designs plug in through ``register_stratifier`` /
 ``register_policy``; ``SamplingPlan.from_strings`` resolves names through
-the same registry. Tensors stay on the engine's device throughout.
+the same registry. Tensors stay on the engine's device throughout, and
+nothing here reads a tensor back to the host, so the fused sweep
+(``repro_torch.experiments.fused``) can capture selection and estimates
+into one CUDA graph. ``last_sweep_dispatch`` records the latest sweep
+estimate, staged or fused.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Callable, ClassVar, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import tables as _tables
@@ -28,10 +35,12 @@ from . import tables as _tables
 __all__ = [
     "SamplingPlan", "Stratifier", "SelectionPolicy", "Estimator",
     "BBVClusters", "RFVClusters", "DaleniusGurney",
-    "Centroid", "WeightedPoint",
+    "Centroid", "StratumMean", "RandomUnit", "WeightedPoint",
     "StratumBank", "SelectionContext", "build_selection_context",
     "register_stratifier", "register_policy",
+    "registered_stratifiers", "registered_policies",
     "make_stratifier", "make_policy", "stack_ragged_tensors",
+    "trial_scheme_index", "last_sweep_dispatch",
 ]
 
 
@@ -55,6 +64,17 @@ def register_policy(name: str, factory: Callable) -> Callable:
     """Register a ``SelectionPolicy`` factory under ``name``."""
     _POLICIES[name] = factory
     return factory
+
+
+def registered_stratifiers() -> tuple[str, ...]:
+    """Registered stratifier scheme names (aliases omitted), in
+    registration order."""
+    return tuple(_STRATIFIERS)
+
+
+def registered_policies() -> tuple[str, ...]:
+    """Registered selection-policy names, in registration order."""
+    return tuple(_POLICIES)
 
 
 def _lookup(table: dict, kind: str, name: str) -> Callable:
@@ -209,12 +229,25 @@ register_stratifier("dg", DaleniusGurney, aliases=("cpi",))
 
 
 # ----------------------------------------------------------------- policies
+def stratum_order(labels: torch.Tensor, valid: torch.Tensor,
+                  num_strata: int) -> torch.Tensor:
+    """(A, n) positions sorted by stratum, index order within a stratum,
+    invalid entries last: a stable sort on the device."""
+    key = torch.where(valid, labels, torch.full_like(labels, num_strata))
+    return torch.argsort(key, dim=1, stable=True)
+
+
 @dataclasses.dataclass
 class SelectionContext:
     """Everything a batched selection policy may read, app-stacked.
 
     ``member`` (lazy) marks unit ``i`` of app ``a`` as a valid member of
-    stratum ``h``.
+    stratum ``h``. ``order``/``offsets``/``counts`` are the gather tables:
+    stratum ``h`` of app ``a`` owns ``order[a, offsets[a, h] :
+    offsets[a, h] + counts[a, h]]`` in index order (trailing empty strata
+    put their offset at the row width; gathers clamp). ``uniforms``
+    optionally carries pre-drawn ``(A, L)`` uniforms for ``RandomUnit``
+    (the fused sweep passes the host rng's draws in).
     """
 
     labels: torch.Tensor       # (A, n)
@@ -225,8 +258,12 @@ class SelectionContext:
     base_means: torch.Tensor   # (A, L)
     counts: torch.Tensor       # (A, L) int64
     num_strata: int
+    seed: int = 0
+    uniforms: Optional[torch.Tensor] = None    # (A, L) float64 U[0, 1)
     _member: Optional[torch.Tensor] = dataclasses.field(default=None,
                                                         repr=False)
+    _order: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                       repr=False)
 
     @property
     def member(self) -> torch.Tensor:
@@ -237,15 +274,31 @@ class SelectionContext:
                 & self.valid[:, :, None]
         return self._member
 
+    @property
+    def order(self) -> torch.Tensor:
+        """(A, n) stratum-sorted gather table (cached on first read)."""
+        if self._order is None:
+            self._order = stratum_order(self.labels, self.valid,
+                                        self.num_strata)
+        return self._order
 
-def build_selection_context(bank: StratumBank, *,
-                            summarize: Callable) -> SelectionContext:
+    @property
+    def offsets(self) -> torch.Tensor:
+        """(A, L) per-stratum start positions into ``order``."""
+        return torch.cumsum(self.counts, dim=1) - self.counts
+
+
+def build_selection_context(bank: StratumBank, *, summarize: Callable,
+                            seed: int = 0,
+                            uniforms: Optional[torch.Tensor] = None
+                            ) -> SelectionContext:
     """Selection context for a ``StratumBank``: ONE stratum-summary
     dispatch serves the counts, the stratum-mean baselines and, for banks
     without centroids, the Dalenius-Gurney centroids.
 
     ``summarize(labels, valid, L, values) -> (sums, counts)`` is the
-    engine's ``segment_stats``-backed summary.
+    engine's ``segment_stats``-backed summary. ``seed`` seeds
+    ``RandomUnit``'s host draw unless ``uniforms`` carries it.
     """
     L = bank.num_strata
     base_sums, countsf = summarize(bank.labels, bank.valid, L, bank.baseline)
@@ -257,15 +310,19 @@ def build_selection_context(bank: StratumBank, *,
     return SelectionContext(
         labels=bank.labels, valid=bank.valid, feats=feats, centroids=cents,
         baseline=bank.baseline, base_means=base_means,
-        counts=countsf.long(), num_strata=L)
+        counts=countsf.long(), num_strata=L, seed=seed, uniforms=uniforms)
 
 
 @dataclasses.dataclass(frozen=True)
 class SelectionPolicy:
     """Base class: ``policy(ctx) -> (A, L)`` pool positions, one per
-    stratum (empty strata may return anything; the caller masks them)."""
+    stratum (empty strata may return anything; the caller masks them).
+    ``uses_uniforms`` declares that the policy reads per-(app, stratum)
+    uniform draws (``SelectionContext.uniforms``), which the fused sweep
+    draws on the host and passes in."""
 
     name: ClassVar[str] = "?"
+    uses_uniforms: ClassVar[bool] = False
 
     def __call__(self, ctx: SelectionContext) -> torch.Tensor:
         raise NotImplementedError
@@ -290,11 +347,79 @@ class Centroid(SelectionPolicy):
         c2 = (cents ** 2).sum(dim=2)
         d2 = x2[:, :, None] - 2.0 * torch.einsum("and,ald->anl", feats,
                                                  cents) + c2[:, None, :]
-        inf = torch.tensor(float("inf"), dtype=d2.dtype, device=d2.device)
-        return torch.where(ctx.member, d2, inf).argmin(dim=1)
+        return torch.where(ctx.member, d2, float("inf")).argmin(dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class StratumMean(SelectionPolicy):
+    """Mean selection (paper V.B.2, Fig 11): the member whose baseline CPI
+    is nearest its stratum's mean baseline CPI."""
+
+    name: ClassVar[str] = "mean"
+
+    def __call__(self, ctx: SelectionContext) -> torch.Tensor:
+        """Argmin of |baseline - stratum mean baseline| over members."""
+        d = torch.abs(ctx.baseline[:, :, None] - ctx.base_means[:, None, :])
+        return torch.where(ctx.member, d, float("inf")).argmin(dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomUnit(SelectionPolicy):
+    """Textbook stratified sampling (Fig 9): one uniformly random member
+    per stratum."""
+
+    name: ClassVar[str] = "random"
+    uses_uniforms: ClassVar[bool] = True
+
+    def __call__(self, ctx: SelectionContext) -> torch.Tensor:
+        """One draw per (app, stratum) through the gather tables: the
+        ``(A, L)`` float64 uniforms of ``np.random.default_rng(seed)``,
+        or ``ctx.uniforms`` when the caller drew them already."""
+        u = ctx.uniforms
+        if u is None:
+            u = torch.as_tensor(
+                np.random.default_rng(ctx.seed).random(
+                    tuple(ctx.counts.shape)), device=ctx.counts.device)
+        pos = ctx.offsets + torch.minimum(
+            (u * ctx.counts).long(), torch.clamp_min(ctx.counts - 1, 0))
+        # trailing empty strata put offsets at the row width: clamp (the
+        # caller's validity mask discards the pick)
+        pos = torch.clamp_max(pos, max(ctx.order.shape[1] - 1, 0))
+        return torch.take_along_dim(ctx.order, pos, dim=1)
 
 
 register_policy("centroid", Centroid)
+register_policy("mean", StratumMean)
+register_policy("random", RandomUnit)
+
+
+# ------------------------------------------------------- dispatch marker
+_last_sweep_dispatch: Optional[dict] = None
+
+
+def last_sweep_dispatch() -> Optional[dict]:
+    """The latest sweep-estimate dispatch (``None`` before any): the
+    ``batch_shape`` (A, C), ``num_strata``, ``x64`` (estimates in
+    float64), ``backend`` (the device type), ``fused`` (one program for
+    the whole sweep), ``in_place`` (the program updated the memo tables
+    in place), ``captured`` (the program is a CUDA graph) and ``count``
+    (dispatches since the last reset: one fused sweep records one)."""
+    return None if _last_sweep_dispatch is None \
+        else dict(_last_sweep_dispatch)
+
+
+def _record_sweep_dispatch(**fields) -> None:
+    """Write the marker, adding one to ``count``."""
+    global _last_sweep_dispatch
+    prior = 0 if _last_sweep_dispatch is None \
+        else _last_sweep_dispatch.get("count", 0)
+    _last_sweep_dispatch = {**fields, "count": prior + 1}
+
+
+def _reset_sweep_dispatch() -> None:
+    """Clear the marker (a test helper)."""
+    global _last_sweep_dispatch
+    _last_sweep_dispatch = None
 
 
 # --------------------------------------------------------------- estimators
@@ -325,8 +450,13 @@ class Estimator:
         pp = precision if precision is not None \
             else PrecisionPolicy.host_parity()
         dt = pp.trace_dtype
-        return self.estimate_stage(cpi.to(dt), valid.bool(),
-                                   weights.to(dt), truth.to(dt))
+        out = self.estimate_stage(cpi.to(dt), valid.bool(), weights.to(dt),
+                                  truth.to(dt))
+        _record_sweep_dispatch(
+            batch_shape=tuple(cpi.shape[:-1]), num_strata=int(cpi.shape[-1]),
+            x64=dt == torch.float64, backend=cpi.device.type, fused=False,
+            in_place=False, captured=False)
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,3 +491,13 @@ class SamplingPlan:
     def policy_name(self) -> str:
         """The selection policy's registered name (sweep-row label)."""
         return type(self.policy).name
+
+
+def trial_scheme_index(scheme: str, canonical: Sequence[str]) -> int:
+    """Stable PRNG fold-in index of a trial scheme: its position among
+    the canonical schemes, else a crc32 of its name past that range (so
+    no scheme's draws depend on registration order)."""
+    canonical = tuple(canonical)
+    if scheme in canonical:
+        return canonical.index(scheme)
+    return len(canonical) + zlib.crc32(scheme.encode()) % (2 ** 20)

@@ -10,20 +10,29 @@ them lane-wise. The sweep path needs the one-unit-per-stratum tables
 two-phase CI of sampled evaluation needs the float64 host constructor
 (``stratum_tables``), the scalar bridge (``tables_from_summaries``), the
 eq. (3) variance, Satterthwaite's df and the eq. (5)/(6) two-phase
-variance. Degenerate lanes give NaN, never an exception.
+variance. The Monte-Carlo trials need the eq. (4) collapsed-pairs
+variance (``collapsed_pairs_variance``) and the streaming accumulator
+``TrialStats`` with its log-histogram quantile sketches. Degenerate lanes
+give NaN, never an exception.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 __all__ = ["StratumTables", "stratum_tables", "tables_from_summaries",
            "sweep_point_tables", "covered_weight", "total_weight",
            "stratified_mean", "stratified_variance", "satterthwaite_df",
-           "two_phase_variance", "masked_srs_stats"]
+           "two_phase_variance", "masked_srs_stats",
+           "collapsed_pairs_variance", "fixed_sum", "TRIAL_HIST_BINS",
+           "TRIAL_HIST_LO", "TRIAL_HIST_HI", "TrialStats",
+           "trial_stats_init", "trial_stats_update", "trial_stats_merge",
+           "log_hist_quantile"]
 
 
 def _nan_like(t: torch.Tensor) -> torch.Tensor:
@@ -54,9 +63,11 @@ class StratumTables:
     def means(self) -> torch.Tensor:
         """(..., L) stratum sample means; NaN where n_h == 0."""
         safe = torch.clamp_min(self.counts, 1.0)
-        shift = torch.as_tensor(self.shift, dtype=self.sums.dtype,
-                                device=self.sums.device)
-        mean = shift[..., None] + self.sums / safe
+        # a float shift stays a Python scalar: no host-to-device copy, so
+        # the estimate can be captured into a CUDA graph
+        shift = self.shift.to(self.sums.dtype)[..., None] \
+            if isinstance(self.shift, torch.Tensor) else float(self.shift)
+        mean = shift + self.sums / safe
         return torch.where(self.counts > 0, mean, _nan_like(mean))
 
     @property
@@ -280,3 +291,252 @@ def masked_srs_stats(x: torch.Tensor, valid: torch.Tensor
                      _nan_like(ss))
     mean = torch.where(n > 0, mean, _nan_like(mean))
     return mean, s2 / safe_n, n
+
+
+# ------------------------------------------------ collapse (fn. 7, eq. 4)
+def collapsed_pairs_variance(y_sorted: torch.Tensor, w_sorted: torch.Tensor,
+                             n_valid: torch.Tensor, *, num_strata: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched pairwise collapsed-strata variance (paper eq. 4), lane-wise.
+
+    ``y_sorted (..., L)``: the one sampled value per stratum in key order,
+    the ``n_valid`` occupied strata first (later positions are ignored);
+    ``w_sorted``: the weights in the same order; ``n_valid (...)``: the
+    occupied-stratum count V (both broadcastable). Neighbours pair up; an
+    odd V makes the last three strata one group whose variance is their
+    sample variance; a pair gives ``s^2 = (y1 - y2)^2 / 4`` with n_h = 1.
+    Returns ``(variance, df)``, both NaN where V < 2; ``df = V - V // 2``.
+    """
+    L = int(num_strata)
+    v_cnt = torch.as_tensor(n_valid)
+    n_groups = v_cnt // 2
+    odd = (v_cnt % 2) == 1
+    shape = torch.broadcast_shapes(y_sorted.shape[:-1], w_sorted.shape[:-1],
+                                   v_cnt.shape)
+    var = torch.zeros(shape, dtype=y_sorted.dtype, device=y_sorted.device)
+    for j in range(max(L // 2, 1)):
+        p1, p2, p3 = 2 * j, 2 * j + 1, min(2 * j + 2, L - 1)
+        if p2 >= L:
+            break
+        in_grp = j < n_groups
+        has3 = odd & (n_groups - 1 == j)
+        y1, y2, y3 = (y_sorted[..., p] for p in (p1, p2, p3))
+        w1, w2, w3 = (w_sorted[..., p] for p in (p1, p2, p3))
+        s2_pair = (y1 - y2) ** 2 / 4.0
+        m3 = (y1 + y2 + y3) / 3.0
+        s2_tri = ((y1 - m3) ** 2 + (y2 - m3) ** 2 + (y3 - m3) ** 2) / 2.0
+        s2 = torch.where(has3, s2_tri, s2_pair)
+        wsq = w1 ** 2 + w2 ** 2 + torch.where(has3, w3 ** 2,
+                                              torch.zeros_like(w3))
+        var = var + torch.where(in_grp, wsq * s2, torch.zeros_like(s2))
+    bad = v_cnt < 2
+    var = torch.where(bad, _nan_like(var), var)
+    df = (v_cnt - n_groups).to(var.dtype)
+    df = torch.where(bad, _nan_like(df), df)
+    return var, df
+
+
+def fixed_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed order that no shape changes: the
+    axis is padded with zeros to a power of two and halved, one
+    elementwise add per level. A reduction kernel may pick its order from
+    the whole tensor's shape; this one gives every lane the same bits
+    whatever the other axes hold (the trials' chunk invariance)."""
+    m = x.shape[-1]
+    if m == 0:
+        return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    width = 1 << (m - 1).bit_length()
+    if width != m:
+        x = torch.nn.functional.pad(x, (0, width - m))
+    while width > 1:
+        width //= 2
+        x = x[..., :width] + x[..., width:]
+    return x[..., 0]
+
+
+# ----------------------------------------------- streaming trial statistics
+# the log-histogram sketch grid of every TrialStats: 4096 bins over
+# [1e-6, 1e6), about 0.68 % relative resolution; values outside clip into
+# the edge bins
+TRIAL_HIST_BINS = 4096
+TRIAL_HIST_LO = 1e-6
+TRIAL_HIST_HI = 1e6
+_HIST_LOG_LO = float(np.log(TRIAL_HIST_LO))
+_HIST_LOG_SPAN = float(np.log(TRIAL_HIST_HI) - np.log(TRIAL_HIST_LO))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrialStats:
+    """Streaming Monte-Carlo trial statistics over batch lanes (apps).
+
+    Every leaf is additive. The counters and histogram sketches are int32,
+    exact in any order. The float moments are added as
+    ``trial_stats_update`` describes: each block of trials is reduced to
+    partial sums in a fixed order, and the blocks are added into the
+    running sums one at a time in block order, so any chunking of the
+    same blocks gives the same bits. ``err_hist``/``half_hist`` are
+    log-spaced sketches over ``[TRIAL_HIST_LO, TRIAL_HIST_HI)``; the
+    readouts below return numpy arrays on the host.
+    """
+
+    count: torch.Tensor       # (...,) valid trials
+    cover: torch.Tensor       # (...,) trials whose CI covered the truth
+    err_sum: torch.Tensor     # (...,) sum of percent |error| (accum dtype)
+    err_sumsq: torch.Tensor   # (...,) sum of its squares
+    half_n: torch.Tensor      # (...,) trials with a finite half-width
+    half_sum: torch.Tensor    # (...,) sum of CI half-widths
+    half_sumsq: torch.Tensor  # (...,) sum of their squares
+    err_hist: torch.Tensor    # (..., B) log-bucketed error counts
+    half_hist: torch.Tensor   # (..., B) log-bucketed half-width counts
+
+    def leaves(self) -> tuple[torch.Tensor, ...]:
+        """The nine tensors, in field order."""
+        return tuple(getattr(self, f.name)
+                     for f in dataclasses.fields(self))
+
+    def map(self, fn) -> "TrialStats":
+        """A ``TrialStats`` of ``fn`` applied to every leaf."""
+        return TrialStats(*(fn(x) for x in self.leaves()))
+
+    @staticmethod
+    def _np(x) -> np.ndarray:
+        return x.detach().cpu().numpy()
+
+    @property
+    def coverage(self) -> np.ndarray:
+        """(...) covered / valid trials (NaN where no trial counted)."""
+        count, cover = self._np(self.count), self._np(self.cover)
+        denom = np.maximum(count, 1).astype(np.float64)
+        return np.where(count > 0, cover / denom, np.nan)
+
+    @property
+    def err_mean(self) -> np.ndarray:
+        """(...) mean percent |error| over trials with a finite error."""
+        n = self._np(self.err_hist).sum(axis=-1)
+        return np.where(n > 0, self._np(self.err_sum) / np.maximum(n, 1),
+                        np.nan)
+
+    @property
+    def half_mean(self) -> np.ndarray:
+        """(...) mean CI half-width over trials with a finite interval."""
+        n = self._np(self.half_n)
+        return np.where(n > 0, self._np(self.half_sum) / np.maximum(n, 1),
+                        np.nan)
+
+    def err_quantile(self, q: float) -> np.ndarray:
+        """(...) q-quantile of percent |error| from the sketch."""
+        return log_hist_quantile(self.err_hist, q)
+
+    def half_quantile(self, q: float) -> np.ndarray:
+        """(...) q-quantile of the CI half-width from the sketch."""
+        return log_hist_quantile(self.half_hist, q)
+
+
+def trial_stats_init(batch_shape, *, bins: int = TRIAL_HIST_BINS,
+                     accum_dtype: torch.dtype = torch.float32,
+                     device=None) -> TrialStats:
+    """Zeroed accumulator for ``batch_shape`` lanes: float moments in
+    ``accum_dtype``, counters and sketches int32."""
+    bs = tuple(batch_shape)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return TrialStats(
+        count=zeros(bs, torch.int32), cover=zeros(bs, torch.int32),
+        err_sum=zeros(bs, accum_dtype), err_sumsq=zeros(bs, accum_dtype),
+        half_n=zeros(bs, torch.int32), half_sum=zeros(bs, accum_dtype),
+        half_sumsq=zeros(bs, accum_dtype),
+        err_hist=zeros(bs + (int(bins),), torch.int32),
+        half_hist=zeros(bs + (int(bins),), torch.int32))
+
+
+def _log_bucket(x: torch.Tensor, bins: int) -> torch.Tensor:
+    """Histogram bin of ``x`` on the shared log grid (clipped), int64."""
+    pos = torch.isfinite(x) & (x > 0)
+    safe = torch.where(pos, x, torch.full_like(x, TRIAL_HIST_LO))
+    b = torch.floor((torch.log(safe) - _HIST_LOG_LO)
+                    * (bins / _HIST_LOG_SPAN))
+    return torch.clamp(b, 0, bins - 1).long()
+
+
+def _hist_add(hist: torch.Tensor, values: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """``hist`` plus the histogram of ``values[mask]``, lane-wise: all
+    lanes in one int32 ``index_add_`` (exact in any order)."""
+    bins = hist.shape[-1]
+    lanes = math.prod(hist.shape[:-1])
+    t = values.shape[-1]
+    idx = _log_bucket(values, bins).reshape(lanes, t)
+    flat = (idx + bins * torch.arange(lanes, device=idx.device)[:, None]
+            ).reshape(-1)
+    w = torch.broadcast_to(mask, values.shape).reshape(-1).to(torch.int32)
+    add = torch.zeros(lanes * bins, dtype=torch.int32, device=hist.device)
+    add.index_add_(0, flat, w)
+    return hist + add.reshape(hist.shape)
+
+
+def trial_stats_update(stats: TrialStats, err: torch.Tensor,
+                       half: torch.Tensor, covered: torch.Tensor, valid, *,
+                       block: int) -> TrialStats:
+    """Fold one chunk of per-trial outcomes into the running statistics.
+
+    ``err``/``half`` ``(..., Tc)`` per-trial percent errors and CI
+    half-widths, ``covered`` whether each CI covered the truth, ``valid``
+    a broadcastable mask of the trials that count (the chunk grid pads
+    the trial count up). Float moments are cast to the accumulator dtype,
+    reduced over each ``block`` of trials by ``fixed_sum`` and added into
+    the running sums one block at a time, in block order. Counters and
+    sketches are int32.
+    """
+    v = torch.broadcast_to(torch.as_tensor(valid, device=err.device).bool(),
+                           err.shape)
+    acc = stats.err_sum.dtype
+    err_ok = v & torch.isfinite(err)
+    half_ok = v & torch.isfinite(half)
+    t = err.shape[-1]
+    if t % block:
+        raise ValueError(f"{t} trials do not split into blocks of {block}")
+
+    def moments(total, x, m, square: bool):
+        xc = torch.where(m, x, torch.zeros_like(x)).to(acc)
+        if square:
+            xc = xc * xc
+        parts = fixed_sum(xc.reshape(*xc.shape[:-1], t // block, block))
+        for j in range(t // block):
+            total = total + parts[..., j]
+        return total
+
+    def count(total, m):
+        return total + m.sum(dim=-1, dtype=torch.int32)
+
+    return TrialStats(
+        count=count(stats.count, v),
+        cover=count(stats.cover, v & covered),
+        err_sum=moments(stats.err_sum, err, err_ok, False),
+        err_sumsq=moments(stats.err_sumsq, err, err_ok, True),
+        half_n=count(stats.half_n, half_ok),
+        half_sum=moments(stats.half_sum, half, half_ok, False),
+        half_sumsq=moments(stats.half_sumsq, half, half_ok, True),
+        err_hist=_hist_add(stats.err_hist, err, err_ok),
+        half_hist=_hist_add(stats.half_hist, half, half_ok))
+
+
+def trial_stats_merge(a: TrialStats, b: TrialStats) -> TrialStats:
+    """Leafwise sum of two partial accumulations."""
+    return TrialStats(*(x + y for x, y in zip(a.leaves(), b.leaves())))
+
+
+def log_hist_quantile(hist, q: float) -> np.ndarray:
+    """(...) q-quantile from a log-histogram sketch, on the host: the
+    geometric centre of the bin holding the q-th order statistic; NaN for
+    empty lanes. Good to one bin width (about 0.68 %)."""
+    h = (hist.detach().cpu().numpy() if isinstance(hist, torch.Tensor)
+         else np.asarray(hist)).astype(np.float64)
+    bins = h.shape[-1]
+    tot = h.sum(axis=-1)
+    cum = np.cumsum(h, axis=-1)
+    idx = np.argmax(cum >= q * tot[..., None], axis=-1)
+    centers = np.exp(_HIST_LOG_LO
+                     + (np.arange(bins) + 0.5) * (_HIST_LOG_SPAN / bins))
+    return np.where(tot > 0, centers[idx], np.nan)

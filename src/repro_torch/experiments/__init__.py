@@ -1,21 +1,30 @@
-"""Batched experiment engine and staged sweeps, on the card.
+"""Batched experiment engine, sweeps and Monte-Carlo trials, on the card.
 
 ``ExperimentEngine(device=...).build(names)`` constructs per-app state for
 a stack of apps on one device (census truth, phase-1 sample, BBV/RFV/DG
 stratifications) over one shared ``MemoBank``;
 ``run_sweep(engine, SweepSpec(...))`` runs apps x configs for one
-``SamplingPlan`` (or the phase-1 SRS) through the staged path.
+``SamplingPlan`` (or the phase-1 SRS), fused into one program by default;
+``run_trials(engine, TrialSpec(...))`` streams the Monte-Carlo selection
+trials of Fig 8.
 """
 
 from .engine import (NUM_STRATA, PHASE1_SEED, AppExperiment,
                      ExperimentEngine, SweepStack, plan_selection,
                      plan_selection_bank)
+from .fused import fused_sweep_program, program_captures, run_fused_sweep
+from .montecarlo import (SRS_DRAWS, TRIAL_BLOCK, TRIAL_SCHEMES, TrialResult,
+                         TrialSpec, run_trials, trial_uniforms)
 from .sweep import (SRS_SCHEME, ResultsTable, SweepRow, SweepSpec,
-                    assemble_rows, run_sweep)
+                    assemble_rows, known_schemes, run_sweep)
 
 __all__ = [
     "ExperimentEngine", "AppExperiment", "SweepStack",
     "plan_selection", "plan_selection_bank",
     "SweepSpec", "SweepRow", "ResultsTable", "assemble_rows", "run_sweep",
-    "SRS_SCHEME", "NUM_STRATA", "PHASE1_SEED",
+    "fused_sweep_program", "run_fused_sweep", "program_captures",
+    "SRS_SCHEME", "known_schemes",
+    "TrialSpec", "TrialResult", "run_trials", "trial_uniforms",
+    "SRS_DRAWS", "TRIAL_SCHEMES", "TRIAL_BLOCK",
+    "NUM_STRATA", "PHASE1_SEED",
 ]

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,7 +52,8 @@ PHASE1_SEED = 42
 BBV_DIMS = 15
 
 __all__ = ["NUM_STRATA", "PHASE1_SEED", "AppExperiment", "SweepStack",
-           "ExperimentEngine", "plan_selection", "plan_selection_bank"]
+           "ExperimentEngine", "plan_selection", "plan_selection_bank",
+           "stratum_tables"]
 
 
 @dataclasses.dataclass
@@ -90,6 +91,7 @@ class SweepStack:
 
     names: tuple[str, ...]
     rows: np.ndarray               # (A,) MemoBank rows
+    n_regions: torch.Tensor        # (A,) int64 population sizes
     feats: torch.Tensor            # (A, N_max, F) float32, zero-padded
     idx1: torch.Tensor             # (A, n1_max) phase-1 indices (padded)
     idx1_valid: torch.Tensor       # (A, n1_max) bool
@@ -115,12 +117,32 @@ def _segment_sums_counts(labels: torch.Tensor, valid: torch.Tensor,
 
 
 def _offset_bincount(labels: torch.Tensor, valid: torch.Tensor,
-                     num_strata: int, *, backend: str) -> torch.Tensor:
+                     num_strata: int, *, backend: str = "auto"
+                     ) -> torch.Tensor:
     """(A, L) per-app stratum counts over valid entries."""
     return _segment_sums_counts(labels, valid, num_strata,
                                 torch.ones(labels.shape,
                                            device=labels.device),
                                 backend=backend)[1]
+
+
+def stratum_tables(labels: torch.Tensor, valid: torch.Tensor,
+                   num_strata: int, counts: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-stratum gather tables ``(order, offsets, counts)`` for an
+    (A, n) label stack: stratum ``h`` of app ``a`` owns
+    ``order[a, offsets[a, h] : offsets[a, h] + counts[a, h]]`` in index
+    order (a stable sort on the device, invalid entries last). Shared
+    with the selection context (``plan.stratum_order``), so draw indexing
+    cannot drift between selection and the trials. ``counts`` from a
+    ``_segment_sums_counts`` summary saves a second launch. Trailing
+    empty strata put their offset at the row width: gathers clamp."""
+    if counts is None:
+        counts = _offset_bincount(labels, valid, num_strata)
+    counts = counts.long()
+    order = sampling_plan.stratum_order(labels, valid, num_strata)
+    offsets = torch.cumsum(counts, dim=1) - counts
+    return order, offsets, counts
 
 
 class ExperimentEngine:
@@ -140,6 +162,13 @@ class ExperimentEngine:
         self.memo = MemoBank(device=self.device)
         self._apps: dict[tuple[str, int], AppExperiment] = {}
         self._stacks: dict[tuple[tuple[str, ...], int], SweepStack] = {}
+        self._banks: dict[tuple, sampling_plan.StratumBank] = {}
+        # CUDA graphs of the fused sweeps and the trial chunks, keyed by
+        # their modules (experiments.fused, experiments.montecarlo); held
+        # here so that they, their pools and buffers go with the engine
+        self.graphs: dict[tuple, object] = {}
+        # the latest fused sweep's outputs (experiments.fused)
+        self.fused_outputs: Optional[dict] = None
 
     def build(self, names: Sequence[str],
               kmeans_seed: int = 0) -> list[AppExperiment]:
@@ -151,6 +180,16 @@ class ExperimentEngine:
         if todo:
             self._build_stacked(todo, kmeans_seed)
         return [self._apps[(n, kmeans_seed)] for n in names]
+
+    def stratum_bank(self, stratifier: sampling_plan.Stratifier,
+                     names: Sequence[str]) -> sampling_plan.StratumBank:
+        """``stratifier.resolve`` over the built apps ``names``, kept per
+        (stratifier, apps) so repeated sweeps see the same tensors (the
+        fused sweep's graphs read them in place)."""
+        key = (stratifier, tuple(names))
+        if key not in self._banks:
+            self._banks[key] = stratifier.resolve(self.build(names))
+        return self._banks[key]
 
     def stack(self, names: Sequence[str],
               kmeans_seed: int = 0) -> SweepStack:
@@ -166,6 +205,8 @@ class ExperimentEngine:
             self._stacks[key] = SweepStack(
                 names=names,
                 rows=np.asarray([e.sim.row for e in exps], np.int64),
+                n_regions=torch.as_tensor(bank.n_regions, dtype=torch.int64,
+                                          device=dev),
                 feats=torch.as_tensor(bank.features, device=dev),
                 idx1=idx1, idx1_valid=idx1_valid,
                 truth=torch.stack([e.truth for e in exps]))
@@ -263,7 +304,7 @@ class ExperimentEngine:
 
 # --------------------------------------------------------------- selection
 def plan_selection_bank(exps: Sequence[AppExperiment],
-                        plan: sampling_plan.SamplingPlan, *,
+                        plan: sampling_plan.SamplingPlan, *, seed: int = 0,
                         backend: str = "auto"
                         ) -> tuple[torch.Tensor, torch.Tensor,
                                    torch.Tensor]:
@@ -271,14 +312,15 @@ def plan_selection_bank(exps: Sequence[AppExperiment],
 
     The plan's stratifier resolves the engine-built artifacts into a
     ``StratumBank``; ONE ``segment_stats`` launch serves the counts and
-    stratum-mean baselines; the plan's policy picks one unit per stratum.
-    Returns ``(picks, valid, weights)``: (A, L) population indices, an
-    (A, L) mask (False for empty strata) and the (A, L) weights.
+    stratum-mean baselines; the plan's policy picks one unit per stratum
+    (``seed`` seeds ``RandomUnit``'s draw). Returns ``(picks, valid,
+    weights)``: (A, L) population indices, an (A, L) mask (False for
+    empty strata) and the (A, L) weights.
     """
     bank = plan.stratifier.resolve(exps)
     ctx = sampling_plan.build_selection_context(
-        bank, summarize=functools.partial(_segment_sums_counts,
-                                          backend=backend))
+        bank, seed=seed,
+        summarize=functools.partial(_segment_sums_counts, backend=backend))
     local = plan.policy(ctx)
     valid = ctx.counts > 0
     picks = local if bank.pool is None \
@@ -288,10 +330,11 @@ def plan_selection_bank(exps: Sequence[AppExperiment],
 
 
 def plan_selection(exp: AppExperiment, plan: sampling_plan.SamplingPlan,
-                   *, backend: str = "auto"
+                   *, seed: int = 0, backend: str = "auto"
                    ) -> tuple[list[torch.Tensor], torch.Tensor]:
     """Population indices per stratum + weights for one app's plan."""
-    picks, valid, weights = plan_selection_bank([exp], plan, backend=backend)
+    picks, valid, weights = plan_selection_bank([exp], plan, seed=seed,
+                                                backend=backend)
     sel = [picks[0, h:h + 1] if bool(valid[0, h])
            else picks.new_empty(0) for h in range(exp.num_strata)]
     return sel, weights[0]

@@ -29,7 +29,9 @@ _last_dispatch: Optional[dict] = None
 
 
 def launch_count() -> int:
-    """Number of CUDA kernel launches since the last reset."""
+    """Number of CUDA kernel launches since the last reset. A call made
+    while a CUDA graph is being captured only records the launch, which
+    runs when the graph is replayed, so it is not counted."""
     return _launches
 
 
@@ -144,7 +146,8 @@ def segment_stats(x: torch.Tensor, labels: torch.Tensor, num_segments: int,
     lb = labels.reshape(b, n).to(torch.int32).contiguous()
     sums, sumsq, counts, _, (tiles, blocks, ordered) = _launch(xb, lb, k)
     global _launches, _last_dispatch
-    _launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        _launches += 1
     _last_dispatch = {"batch": b, "batch_shape": batch_shape, "n": n,
                       "k": k, "d": d, "tiles": tiles, "grid": (blocks,),
                       "ordered": bool(ordered)}

@@ -76,10 +76,17 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in`` with a 32-bit integer ``data``."""
-    b1, b2 = _threefry2x32(key[..., 0], key[..., 1], 0, int(data) & _M32)
-    return torch.stack([b1, b2], dim=-1)
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: ``data`` is a Python int or an integer
+    tensor, read as uint32 and broadcast against the key's lanes
+    (``key (..., 2)``, ``data (...)``), so one call folds a whole batch
+    of block or app indices -- a device tensor needs no host read."""
+    if isinstance(data, torch.Tensor):
+        data = data.to(device=key.device, dtype=torch.int64) & _M32
+    else:
+        data = int(data) & _M32
+    b1, b2 = _threefry2x32(key[..., 0], key[..., 1], 0, data)
+    return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
 
 def bits(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
@@ -90,11 +97,16 @@ def bits(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
 
 def uniform(key: torch.Tensor, shape: Sequence[int] = (), minval=0.0,
             maxval=1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in float32 on ``[minval, maxval)``."""
+    """``jax.random.uniform`` in float32 on ``[minval, maxval)``; a batch
+    of keys ``(..., 2)`` gives ``(..., *shape)``, one draw per lane (the
+    reference's ``vmap`` over keys)."""
     mant = (bits(key, shape) >> 9) | 0x3F800000
     floats = mant.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    span = torch.tensor(maxval, dtype=torch.float32, device=key.device) - lo
+    # scalars made on the device by a fill, not copied from the host, so
+    # that the draw can be captured into a CUDA graph
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    span = torch.full((), maxval, dtype=torch.float32,
+                      device=key.device) - lo
     return torch.maximum(lo, fma32(floats, span, lo))
 
 

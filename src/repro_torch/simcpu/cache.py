@@ -1,12 +1,14 @@
 """Device-resident memoizing simulation cache (app x config x region).
 
-Counterpart of ``repro.simcpu.cache`` for the staged sweep. ``MemoBank``
+Counterpart of ``repro.simcpu.cache`` for the sweeps. ``MemoBank``
 is the cost-accounting heart of the engine: one ``(A, C, N)`` mask and
 CPI table, held as tensors on the engine's device, covering every
 (application, config, region) the experiments have paid for. The ledger
 is charged for misses only — a real simulation farm keeps the results it
 already paid for — and because the perf model is deterministic the bank
-can be filled by any batched path.
+can be filled by any batched path: the staged ``fill``, or the fused
+sweep's in-place update of its picked cells (``write_selected`` on the
+card, ``charge_selected`` on the host), whose accounting is ``fill``'s.
 
 ``state()`` / ``load_state()`` snapshot and restore the full bank,
 cost accounting included, as numpy arrays and plain dicts: the same
@@ -145,6 +147,63 @@ class MemoBank:
             if ledger is not None:
                 ledger.charge(int(n_miss[i].sum()))
         return torch.gather(self.cpi[sub], 2, gather), n_miss
+
+    # -- the fused sweep's in-place update ------------------------------------
+    def write_selected(self, rows: torch.Tensor, cols: torch.Tensor,
+                       picks: torch.Tensor, valid: torch.Tensor,
+                       miss_sel: torch.Tensor, values: torch.Tensor) -> None:
+        """Write a fused sweep's selected cells into the tables in place.
+
+        ``rows (R,)``/``cols (C,)`` device index tensors, ``picks (R, K)``
+        region indices (invalid ones point anywhere in range), ``valid
+        (R, K)``, ``miss_sel (R, C, K)`` newly computed cells and
+        ``values (R, C, K)`` the CPI at the picks (stored on hits). Every
+        pick is written (hits write back their stored value); where two
+        picks of a row name one region, both write the values of the
+        first valid one, so the result does not depend on which write
+        lands last. No host read: the fused sweep captures this into its
+        CUDA graph. The counterpart of the reference's
+        ``absorb_selected``, with its accounting in ``charge_selected``.
+        """
+        r_n, c_n, k = miss_sel.shape
+        same = (picks[:, :, None] == picks[:, None, :]) & valid[:, None, :]
+        first = torch.where(same.any(dim=2), same.int().argmax(dim=2),
+                            torch.arange(k, device=picks.device))
+        src = first[:, None, :].expand(r_n, c_n, k)
+        miss_sel = torch.gather(miss_sel, 2, src)
+        values = torch.gather(values, 2, src)
+        cells = (rows[:, None, None].expand(r_n, c_n, k),
+                 cols[None, :, None].expand(r_n, c_n, k),
+                 picks[:, None, :].expand(r_n, c_n, k))
+        self.mask.index_put_(cells, self.mask[cells] | miss_sel)
+        self.cpi.index_put_(cells, values.to(self.cpi.dtype))
+
+    def charge_selected(self, rows, cols, n_miss, requested) -> None:
+        """Account a fused sweep as ``fill`` would: ``n_miss (R, C)`` the
+        dedup-exact newly computed counts, ``requested (R,)`` the valid
+        picks times the configs (duplicates included). Charges, hit/miss
+        counters and ledgers advance exactly as one equivalent ``fill``;
+        ``version`` moves when a cell was written."""
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        n_miss = np.asarray(n_miss, np.int64)
+        requested = np.asarray(requested, np.int64)
+        for i, row in enumerate(rows.tolist()):
+            row_miss = int(n_miss[i].sum())
+            self.miss_count[row] += row_miss
+            self.hit_count[row] += int(requested[i]) - row_miss
+        if not n_miss.any():
+            return
+        self.charges[rows[:, None], cols[None, :]] += n_miss
+        self.version += 1
+        for i, row in enumerate(rows.tolist()):
+            ledger = self.ledgers[row]
+            if ledger is not None:
+                ledger.charge(int(n_miss[i].sum()))
+
+    def touch(self) -> None:
+        """Mark the tables changed by a direct write (bumps ``version``)."""
+        self.version += 1
 
     # -- snapshot / restore ---------------------------------------------------
     def state(self) -> tuple[dict, dict]:

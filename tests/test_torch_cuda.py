@@ -343,3 +343,147 @@ def test_flash_kernel_rejects_layout(cuda, case, dtype):
     with pytest.raises(ValueError):
         flash_ops.flash_attention(bad, good, good)
     assert flash_ops.launch_count() == before
+
+
+# --------------------------------------- fused sweep and trials as graphs
+SWEEP_APPS = ("505.mcf_r", "520.omnetpp_r")
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (NaN payloads included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.contiguous().view(ints[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def sweep_engine():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from repro_torch.experiments import ExperimentEngine
+    engine = ExperimentEngine(device="cuda")
+    engine.build(SWEEP_APPS)
+    engine.memo.cols_for(engine.configs)
+    return engine
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,policy", [("bbv", "centroid"),
+                                           ("rfv", "random"),
+                                           ("dg", "mean")])
+def test_fused_graph_replays_its_eager_run_bitwise(cuda, sweep_engine,
+                                                  scheme, policy):
+    """The first fused sweep runs eagerly and captures its graph; the
+    same sweep from the same memo state, replayed, gives the same
+    outputs and memo tables bit for bit and captures nothing new."""
+    from repro_torch.core.sampling.plan import SamplingPlan
+    from repro_torch.experiments import SweepSpec, fused, run_sweep
+    engine = sweep_engine
+    spec = SweepSpec(apps=SWEEP_APPS,
+                     plan=SamplingPlan.from_strings(scheme, policy))
+    snap = engine.memo.state()
+    captures = fused.program_captures()
+    eager = run_sweep(engine, spec)
+    out_eager = {k: v.clone() for k, v in engine.fused_outputs.items()}
+    tree_eager, _ = engine.memo.state()
+    assert fused.program_captures() == captures + 1
+    engine.memo.load_state(*snap)
+    replayed = run_sweep(engine, spec)
+    tree_replay, _ = engine.memo.state()
+    assert fused.program_captures() == captures + 1
+    for k, v in out_eager.items():
+        assert _same_bits(engine.fused_outputs[k], v), k
+    assert list(replayed.column("estimate")) == list(eager.column("estimate"))
+    for k in ("mask", "cpi", "charges", "hit_count", "miss_count",
+              "ledger_regions"):
+        assert (tree_eager[k] == tree_replay[k]).all(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["random", "rfv"])
+def test_trial_chunk_graph_equals_eager_chunks(cuda, sweep_engine, scheme):
+    """Chunks replayed from a captured graph equal the same chunks run
+    eagerly, in every carry leaf and kept array; a warm run captures
+    nothing new."""
+    from repro_torch.core.sampling.tables import trial_stats_init
+    from repro_torch.experiments import montecarlo as mc
+    engine = sweep_engine
+    spec = mc.TrialSpec(trials=1500, schemes=(scheme,), chunk_size=512)
+    truth, _, setups = mc._scheme_setup(engine, spec, SWEEP_APPS)
+    chunk_fn, draws, crit, tables = setups[scheme]
+    prog = mc._StreamingProgram(chunk_fn, 2, draws, torch.float32, True)
+    x = mc._program_inputs(spec, scheme, truth.float(), crit, tables)
+    carry = trial_stats_init((len(SWEEP_APPS),), device=cuda)
+    eager = []
+    for c in range(3):
+        carry, ys = prog.step(carry, {**x, "b0": torch.full(
+            (), 2 * c, dtype=torch.int64, device=cuda)})
+        eager.append(ys)
+    captures = mc.program_captures()
+    for run in range(2):
+        stats, chunks = prog.run(x, chunk0=0, n_chunks=3,
+                                 graphs=engine.graphs)
+        assert mc.program_captures() == captures + 1
+        for a, b in zip(stats.leaves(), carry.leaves()):
+            assert _same_bits(a, b)
+        for got, want in zip(chunks, eager):
+            for g, w in zip(got, want):
+                assert _same_bits(g, w)
+
+
+@pytest.mark.cuda
+def test_graphs_are_freed_with_their_engine(cuda):
+    """The fused sweep's and the trial chunks' graphs (their pools and
+    static buffers) belong to the engine: deleting it gives all of the
+    card's memory back."""
+    import gc
+    from repro_torch.core.sampling.plan import SamplingPlan
+    from repro_torch.experiments import (ExperimentEngine, SweepSpec,
+                                         TrialSpec, run_sweep, run_trials)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    engine = ExperimentEngine(device="cuda")
+    run_sweep(engine, SweepSpec(apps=SWEEP_APPS,
+                                plan=SamplingPlan.from_strings("bbv")))
+    run_trials(engine, TrialSpec(trials=512, schemes=("random", "rfv")),
+               apps=SWEEP_APPS)
+    assert len(engine.graphs) == 3
+    del engine
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+
+
+@pytest.mark.cuda
+def test_fused_graph_recaptures_when_the_memo_grows(cuda):
+    """A graph writes into the memo tables it was captured on; when the
+    memo grows (a new app), the next fused sweep captures anew on the new
+    tables and still equals the staged sweep bit for bit."""
+    import dataclasses
+    from repro_torch.core.sampling.plan import SamplingPlan
+    from repro_torch.experiments import (ExperimentEngine, SweepSpec, fused,
+                                         run_sweep)
+    engine = ExperimentEngine(device="cuda")
+    spec = SweepSpec(apps=SWEEP_APPS[:1],
+                     plan=SamplingPlan.from_strings("rfv", "centroid"))
+    run_sweep(engine, spec)
+    captures = fused.program_captures()
+    mask = engine.memo.mask
+    engine.build(SWEEP_APPS)
+    assert engine.memo.mask is not mask
+    engine.memo.cols_for(engine.configs)
+    snap = engine.memo.state()
+    got = run_sweep(engine, spec)
+    assert fused.program_captures() == captures + 1
+    tree_fused, _ = engine.memo.state()
+    engine.memo.load_state(*snap)
+    want = run_sweep(engine, dataclasses.replace(spec, fused=False))
+    tree_staged, _ = engine.memo.state()
+    assert list(got.column("estimate")) == list(want.column("estimate"))
+    for k in ("mask", "cpi", "charges"):
+        assert (tree_fused[k] == tree_staged[k]).all(), k
+

@@ -139,13 +139,6 @@ def test_restored_bank_serves_sweeps_free(engines):
     np.testing.assert_array_equal(restored.memo.charges, ref.memo.charges)
 
 
-def test_fused_sweep_is_not_ported(engines):
-    _, port, _ = engines
-    spec = T.SweepSpec(apps=APPS, plan=tplan.SamplingPlan.from_strings("rfv"))
-    with pytest.raises(NotImplementedError):
-        T.run_sweep(port, spec)
-
-
 def test_engine_defaults_to_the_card():
     if torch.cuda.is_available():
         assert T.ExperimentEngine().device.type == "cuda"
