@@ -15,8 +15,8 @@ both clustering kernels bitwise against their plain versions on the
 simulation build's own inputs -- the last Lloyd step of its BBV and RFV
 fits, captured from ``ExperimentEngine.build`` -- timing them pass by pass
 beside ``index_add_``, their bytes bound and the order bound of the
-longest in-order add chain. Then it drives the port's two paths, each
-with the kernels' launch counters set to 0 just before it and read just
+longest in-order add chain. Then it drives the port's paths, each with
+the kernels' launch counters set to 0 just before it and read just
 after:
 
 * the simulation path — ``ExperimentEngine(device="cuda").build`` over all
@@ -35,12 +35,20 @@ after:
   plain version; the paper's Fig 5/8/10/11 rows; the
   Monte-Carlo trials chunked against unchunked, bit for bit; and 10^5
   and 10^6 streamed trials under the reference's coverage gate;
-* the LM serving path at the full width of ``llama3.2-3b`` (bf16, random
-  weights from a seeded generator): prefill of 4 x 4096 tokens through the
-  flash-attention kernel and through the plain attention route, prefill
-  of 1 x 32768 tokens, the serve loop of ``repro_torch.launch.serve``, and
-  ``SampledEval`` over 64 eval batches, whose k-means runs the two
-  clustering kernels.
+* on the same engine, the paper's two-phase flow (``TwoPhaseFlow``) on
+  every app at Table II's phase-1 size, then every paper figure and
+  table (``repro_torch.experiments.paper_figs``) through the kernels and,
+  on the plain-route engine, through the plain versions: the two held
+  equal, and the kernels' numbers held against the reference's committed
+  in ``paper_figs_reference.json``; both clustering kernels bitwise
+  against their plain versions at the figures' new shapes (k = 50 over
+  gcc's 120,000 BBVs, k = 500 over a phase-1 sample);
+* the LM serving path at the full width of ``llama3.2-3b`` and 4 of its 28
+  layers (bf16, random weights from a seeded generator): prefill of
+  4 x 4096 tokens through the flash-attention kernel and through the
+  plain attention route, prefill of 1 x 32768 tokens, the serve loop of
+  ``repro_torch.launch.serve``, and ``SampledEval`` over 64 eval batches,
+  whose k-means runs the two clustering kernels.
 
 Any failure raises and exits non-zero.
 
@@ -52,6 +60,7 @@ rest of the repository, it prints no result and exits non-zero.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import pathlib
@@ -746,7 +755,7 @@ def check_tables(tables, n_apps: int, n_cfgs: int) -> None:
             f"{np.median(err):.4f}")
 
 
-def phase_main_path() -> tuple[dict, object, dict, dict, dict]:
+def phase_main_path() -> tuple[dict, object, dict, dict, dict, object]:
     import numpy as np
     import torch
     from repro_torch.core.clustering import kmeans_bank
@@ -828,7 +837,7 @@ def phase_main_path() -> tuple[dict, object, dict, dict, dict]:
             f"{warm_secs['sweep_' + s]:.3f}" for s in SCHEMES)
         + "; second kernel build bitwise equal to the first")
     traced_passes = trace_build()
-    return launches, engine, secs, traced_passes, tables
+    return launches, engine, secs, traced_passes, tables, plain
 
 
 # ---------------------------------------------------------------- phase 3b
@@ -1099,8 +1108,370 @@ def phase_fused_and_trials(engine, main_tables: dict) -> dict:
     return {"segment_stats": wrapper + replayed}
 
 
+# ---------------------------------------------------------------- phase 3c
+FLOW_N_PER_STRATUM = 8          # ci_check units per stratum
+
+
+def _sync(engine) -> None:
+    import torch
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_flows(engine, apps=None) -> dict:
+    """``TwoPhaseFlow`` on each of the ten apps at Table II's phase-1
+    size, through the engine's memo: RFV, BBV and Dalenius-Gurney strata,
+    four selection policies, point estimates on configs 0-6, the
+    collapsed CI on config 6 and a ``ci_check`` of 8 units a stratum.
+    Every estimate must be finite; prints each step's seconds and ledger
+    charges."""
+    import numpy as np
+    from repro_torch.core.sampling import (BBVClusters, Centroid,
+                                           DaleniusGurney, RandomUnit,
+                                           RankedSetUnit, RFVClusters,
+                                           StratumMean, TwoPhaseFlow)
+    from repro_torch.simcpu import APP_NAMES, APP_SPECS
+
+    policies = {"centroid": Centroid(), "mean": StratumMean(),
+                "random": RandomUnit(), "ranked_set": RankedSetUnit()}
+    n1_of = {s.name: s.phase1_n for s in APP_SPECS}
+    steps = {}
+    out = {}
+
+    def step(name, fn):
+        c0, t0 = engine.memo.total_charges(), time.perf_counter()
+        res = fn()
+        _sync(engine)
+        rec = steps.setdefault(name, [0.0, 0])
+        rec[0] += time.perf_counter() - t0
+        rec[1] += engine.memo.total_charges() - c0
+        return res
+
+    for app in apps or APP_NAMES:
+        exp = engine.build((app,))[0]
+        sim, cfgs = exp.sim, engine.configs
+        flow = TwoPhaseFlow(population_size=sim.pop.n_regions,
+                            rng=np.random.default_rng(11),
+                            device=engine.device)
+        idx1, y0, rfv, est1 = step("characterize", lambda: flow.characterize(
+            lambda i: sim.simulate_rfv(i, cfgs[0]), n1_of[app]))
+        feats = {"rfv": rfv, "bbv": exp.bbv_feats[idx1], "dg": None}
+        schemes = {"rfv": RFVClusters(num_strata=20),
+                   "bbv": BBVClusters(num_strata=20),
+                   "dg": DaleniusGurney(num_strata=20)}
+        rec = {"phase1_margin_pct": est1.margin_pct}
+        for scheme, strat_obj in schemes.items():
+            strat = step(f"stratify {scheme}", lambda: flow.stratify(
+                idx1, y0, feats[scheme], scheme=strat_obj))
+            for pname, policy in policies.items():
+                sel = step("select", lambda: flow.select(strat, policy=policy,
+                                                        seed=5))
+                ests = step("point_estimate", lambda: [
+                    flow.point_estimate(
+                        strat, sel, lambda i, c=c: sim.simulate_cpi(i, c))
+                    for c in cfgs])
+                if not np.isfinite(ests).all():
+                    raise AssertionError(f"flow {app} {scheme}/{pname}: "
+                                         f"estimates {ests}")
+                truth = exp.truth.cpu().numpy()
+                rec[f"{scheme}/{pname}_maxerr_pct"] = float(
+                    np.max(np.abs(np.asarray(ests) - truth) / truth) * 100)
+            sel = flow.select(strat, policy=policies["random"], seed=5)
+            ci = step("collapsed_ci", lambda: flow.collapsed_ci(
+                strat, sel, lambda i: sim.simulate_cpi(i, cfgs[6])))
+            check = step("ci_check", lambda: flow.ci_check(
+                strat, lambda i: sim.simulate_cpi(i, cfgs[6]),
+                per_stratum_sizes=np.full(20, FLOW_N_PER_STRATUM)))
+            for tag, est in (("collapsed", ci), ("ci_check", check)):
+                if not (np.isfinite(est.mean) and np.isfinite(est.margin)):
+                    raise AssertionError(f"flow {app} {scheme} {tag}: {est}")
+                rec[f"{scheme}/{tag}_margin_pct"] = est.margin_pct
+                rec[f"{scheme}/{tag}_covers"] = est.covers(
+                    float(exp.truth[6]))
+        out[app] = rec
+        log(f"  flow {app}: n1 {n1_of[app]}, phase-1 margin "
+            f"{est1.margin_pct:.3f} %; max err % over configs 0-6 "
+            + ", ".join(f"{k.split('_maxerr')[0]} {v:.3f}"
+                        for k, v in rec.items() if "maxerr" in k)
+            + "; collapsed / ci_check margin % " + ", ".join(
+                f"{s} {rec[s + '/collapsed_margin_pct']:.2f} / "
+                f"{rec[s + '/ci_check_margin_pct']:.2f}" for s in schemes))
+    log("flow steps over ten apps (seconds, ledger charges): " + ", ".join(
+        f"{k} {v[0]:.3f} s / {v[1]}" for k, v in steps.items()))
+    return {"steps": steps, "apps": out}
+
+
+def check_new_shapes(engine, record: dict) -> dict:
+    """Both clustering kernels bitwise against their plain versions at the
+    figure path's new shapes, on its own inputs: gcc's 120,000 projected
+    BBVs against the k = 50 fit's centroids, and the largest phase-1 RFV
+    sample (523.xalancbmk_r, n1 = 6861, d = 38) against the Fig 12/13
+    k = 500 fit's; the update's weighted sums for the labels that gives.
+    Each timed with CUDA events beside its bytes bound (and index_add_
+    for segment_stats)."""
+    import torch
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+    from repro_torch.kernels.segment_stats.ref import segment_stats_ref
+
+    cases = {"gcc_k50": record["gcc/502.gcc_r/50"],
+             "fig12_k500": record["fig12/523.xalancbmk_r/500"]}
+    out = {"kmeans_assign": {}, "segment_stats": {}}
+    n_launch = (assign_ops.launch_count(), segment_ops.launch_count())
+    for tag, fit in cases.items():
+        x = fit["z"].float().contiguous()[None]
+        c = fit["centroids"].float().contiguous()[None]
+        b, n, d = x.shape
+        k = c.shape[1]
+        lab_k, d2_k = assign_ops.kmeans_assign(x, c)
+        lab_p, d2_p = assign_ops.kmeans_assign(x, c, backend="plain")
+        if not (torch.equal(lab_k, lab_p) and same_bits(d2_k, d2_p)):
+            raise AssertionError(
+                f"kmeans_assign {tag}: {int((lab_k != lab_p).sum())} labels,"
+                f" {int((d2_k != d2_p).sum())} distances differ from plain")
+        ms = time_ms(lambda: assign_ops.kmeans_assign(x, c))
+        plain_ms = time_ms(lambda: assign_ops.kmeans_assign(
+            x, c, backend="plain"), iters=3)
+        bound_ms, bound_by = bound(4 * (b * n * d + b * k * d + 2 * b * n),
+                                   2.0 * b * n * k * d + 2.0 * b * n * d)
+        out["kmeans_assign"][tag] = {
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": [b, n, k, d]}
+        log(f"kmeans_assign {tag} (b={b}, n={n}, d={d}, k={k}): labels and "
+            f"distances bitwise equal to plain; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"bound share {bound_ms / ms:.3f}")
+        # the centroid update of that step: [x, 1] summed by label
+        vals = torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+        lab = lab_k.int()
+        s_k, q_k, c_k = segment_ops.segment_stats(vals, lab, k)
+        s_p, q_p, c_p = segment_stats_ref(vals, lab, k)
+        if not all(same_bits(g, w) for g, w in
+                   ((s_k, s_p), (q_k, q_p), (c_k, c_p))):
+            raise AssertionError(f"segment_stats {tag}: differs from plain")
+        ms = time_ms(lambda: segment_ops.segment_stats(vals, lab, k))
+        plain_ms = time_ms(lambda: segment_stats_ref(vals, lab, k), iters=3)
+        flat = lab.long().reshape(-1)
+        w = vals.reshape(b * n, d + 1)
+        acc = torch.zeros((b * k, d + 1), device="cuda")
+        lib_ms = time_ms(lambda: acc.zero_().index_add_(0, flat, w))
+        bound_ms, bound_by = bound(
+            4 * (b * n * (d + 1) + b * n + 2 * b * k * (d + 1) + b * k),
+            3.0 * b * n * (d + 1) + b * n)
+        out["segment_stats"][tag] = {
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "shape": [b, n, k, d + 1]}
+        log(f"segment_stats {tag} (b={b}, n={n}, d={d + 1}, k={k}): bitwise "
+            f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"index_add_ {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), bound share {bound_ms / ms:.3f}")
+    # these launches hold the kernels against plain: they are not the path's
+    assign_ops._launches, segment_ops._launches = n_launch
+    return out
+
+
+def fig12_breakdown(engine, app: str = "523.xalancbmk_r") -> dict:
+    """Where Fig 12/13's seconds go for one app at k = 500 (the largest
+    phase-1 sample): the k-means++ seeding alone (500 sequential draws),
+    the whole fit, the centroid picks (a host loop over 500 strata) and
+    the 500 one-region memo reads of the figure."""
+    from repro_torch import prng
+    from repro_torch.core.clustering import kmeans
+    from repro_torch.core.clustering.kmeans import _kmeanspp_init
+    from repro_torch.core.sampling import select_centroid
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+
+    n_launch = (assign_ops.launch_count(), segment_ops.launch_count())
+    exp = engine.app(app)
+    k = min(500, exp.idx1.numel() // 2)
+    secs = {}
+
+    def timed(name, fn):
+        _sync(engine)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(engine)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    timed("seeding", lambda: _kmeanspp_init(
+        prng.PRNGKey(0, device=engine.device)[None],
+        exp.rfv_z.float()[None], k, None))
+    km = timed("whole fit", lambda: kmeans(exp.rfv_z, k, seed=0))
+    local = timed("centroid picks", lambda: select_centroid(
+        km.labels, exp.rfv_z, km.centroids))
+    timed("memo reads", lambda: [float(exp.cpi(0, exp.idx1[lo])[0])
+                                 for lo in local if lo.numel()])
+    log(f"Fig 12/13 at k = {k} on {app}: " + ", ".join(
+        f"{name} {s:.3f} s" for name, s in secs.items())
+        + f" ({km.iterations} Lloyd steps)")
+    assign_ops._launches, segment_ops._launches = n_launch
+    return secs
+
+
+def phase_flow_and_figures(engine, plain) -> tuple[dict, dict]:
+    """The paper's two-phase flow on every app, then every paper figure
+    and table on the card: through the kernels (on the main path's
+    engine), through the plain versions (on its plain-route engine), and
+    against the reference's numbers committed in
+    ``paper_figs_reference.json``. Returns this path's kernel launches and
+    the kernel rows' entries at its new shapes."""
+    import torch
+    from repro_torch.experiments import paper_figs as pf
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    for ops in (flash_ops, assign_ops, segment_ops):
+        ops.reset_launch_count()
+    run_flows(engine)
+    flow_launches = (assign_ops.launch_count(), segment_ops.launch_count())
+    log(f"flow: {time.perf_counter() - phase_t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"kmeans_assign {flow_launches[0]}, segment_stats "
+        f"{flow_launches[1]}")
+
+    figure_s = {}
+
+    def figures(eng, record: dict, route: str) -> dict:
+        out = {}
+        for name in pf.FIGURES:
+            t0 = time.perf_counter()
+            out[name] = pf.run_figure(eng, name, record=record)
+            _sync(eng)
+            figure_s.setdefault(name, {})[route] = time.perf_counter() - t0
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    record_k = {}
+    t0 = time.perf_counter()
+    got = figures(engine, record_k, "kernels")
+    figs_s = time.perf_counter() - t0
+    launches = {"kmeans_assign": assign_ops.launch_count(),
+                "segment_stats": segment_ops.launch_count(),
+                "flash_attention": flash_ops.launch_count()}
+    log(f"figures through the kernels: {figs_s:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; path "
+        f"launches {launches}")
+    for name in ("kmeans_assign", "segment_stats"):
+        if launches[name] <= 0:
+            raise AssertionError(f"flow and figures never launched {name}")
+    sel_k = pf.selection_record(engine)
+
+    # the same figures through the plain versions, on the plain engine
+    record_p = {}
+    t0 = time.perf_counter()
+    got_p = figures(plain, record_p, "plain")
+    log(f"figures through the plain versions: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, secs in figure_s.items():
+        log(f"  {name}: kernels {secs['kernels']:.3f} s, plain "
+            f"{secs['plain']:.3f} s")
+    if pf.selection_record(plain) != sel_k:
+        raise AssertionError("kernel and plain engines pick differently")
+    ties = 0
+    for key, fit in record_k.items():
+        other = record_p[key]
+        if not torch.equal(fit["labels"], other["labels"]):
+            raise AssertionError(f"{key}: kernel and plain fit labels "
+                                 "differ")
+        differing, near = pf.pick_ties(fit, other["picks"])
+        if differing != near:
+            raise AssertionError(f"{key}: {differing - near} picks differ "
+                                 "away from near-ties")
+        ties += near
+    diffs = pf.compare(got, got_p)
+    explained = [d for d in diffs
+                 if pf.explain(d, record_k, pf.fit_summary(record_p))]
+    if len(explained) != len(diffs):
+        raise AssertionError(f"kernel vs plain figures differ: "
+                             f"{[d for d in diffs if d not in explained]}")
+    log(f"figures, kernels vs plain versions on the card: labels, picks, "
+        f"Table IV sizes and the Fig 7/9 counts equal, floats within rtol "
+        f"{pf.RTOL}; {ties} near-tie pick exceptions, {len(diffs)} figure "
+        "numbers resting on them")
+
+    hold_against_reference(got, record_k, sel_k, pf.load_reference())
+    fig12_breakdown(engine)
+    new_shapes = check_new_shapes(engine, record_k)
+    log(f"flow and figures phase: {time.perf_counter() - phase_t0:.1f} s")
+    return {"kmeans_assign": launches["kmeans_assign"],
+            "segment_stats": launches["segment_stats"]}, new_shapes
+
+
+def hold_against_reference(got: dict, record: dict, selection: dict,
+                           ref: dict) -> None:
+    """The card's figure numbers against the reference's: integers
+    exactly, floats as ``paper_figs.compare`` holds them. The engine's
+    picks must agree for every app. A figure fit of the card's own may
+    part from the reference's labels only at k >= 50, and then only
+    through the reference's dot order: refitted with it
+    (``paper_figs.refit_in_reference_order``) it must give the
+    reference's labels. Where the labels agree, picks may differ only at
+    near-ties. Every difference is printed with its app and both values,
+    and one that no such fit explains fails."""
+    from repro_torch.experiments import paper_figs as pf
+
+    picks_agree = {app: selection.get(app) == want
+                   for app, want in ref["selection"].items()}
+    if not all(picks_agree.values()):
+        apart = [a for a, ok in picks_agree.items() if not ok]
+        raise AssertionError(f"engine picks differ from the reference's "
+                             f"in {apart}")
+    fits_k = pf.fit_summary(record)
+    parted = sorted(k for k, w in ref["fits"].items()
+                    if fits_k[k]["labels"] != w["labels"])
+    below = [k for k in parted if int(k.split("/")[-1]) < 50]
+    if below:
+        raise AssertionError(f"figure fits at k < 50 parted: {below}")
+    for key in parted:
+        t0 = time.perf_counter()
+        if pf.refit_in_reference_order(record[key]) != \
+                ref["fits"][key]["labels"]:
+            raise AssertionError(f"{key}: parts from the reference beyond "
+                                 "its dot order")
+        log(f"  {key}: refitted in the reference's dot order, the "
+            f"reference's labels ({time.perf_counter() - t0:.1f} s)")
+    fit_ties = {k: pf.pick_ties(record[k], w["picks"])
+                for k, w in ref["fits"].items() if k not in parted}
+    log(f"against the reference: engine picks agree for all "
+        f"{len(picks_agree)} apps; figure fits whose labels parted (each "
+        f"only through the dot order): {parted}; picks at near-ties by "
+        "fit: " + ", ".join(f"{k} {n}" for k, (_, n) in fit_ties.items()
+                            if n))
+    for k, (differing, near) in fit_ties.items():
+        if differing != near:
+            raise AssertionError(f"{k}: labels agree with the reference "
+                                 f"but {differing - near} picks differ "
+                                 "away from near-ties")
+    diffs = pf.compare(got, ref["figures"], near_ties=ref["fig8_near_ties"])
+    failed = []
+    for d in diffs:
+        why = pf.explain(d, record, ref["fits"], ref["gcc_app"])
+        log(f"  differs from the reference: {d['figure']} {d['path']} "
+            f"(app {d['app']}): card {d['got']!r}, reference "
+            f"{d['want']!r}; {why or 'no fit of its own parted'}")
+        if why is None:
+            failed.append(d)
+    if failed:
+        raise AssertionError(f"{len(failed)} figure numbers differ from "
+                             "the reference with no fit to explain them")
+    log(f"figures against the reference: {len(diffs)} of "
+        f"{len(list(pf._leaves(ref['figures'])))} numbers differ, each "
+        "where a fit of the figure's own parted through the dot order or "
+        "picked at near-ties")
+
+
 # ------------------------------------------------------------------ phase 4
 LM_ARCH = "llama3.2-3b"
+# the LM path runs at full width but 4 of the model's 28 layers, so that
+# the whole script stays near its time budget beside the figure path
+LM_LAYERS = 4
 EVAL_BATCHES, EVAL_SEQ, EVAL_BATCH = 64, 2048, 4
 
 
@@ -1143,8 +1514,8 @@ def compare_logits(tag: str, got, want) -> dict:
 
 
 def phase_lm() -> dict:
-    """The LM serving path at full width; returns the launches of the
-    three kernels in it."""
+    """The LM serving path at full width and ``LM_LAYERS`` layers; returns
+    the launches of the three kernels in it."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1157,7 +1528,7 @@ def phase_lm() -> dict:
     from repro_torch.train.sampled_eval import SampledEval
     from repro_torch.train.step import make_prefill_fn
 
-    cfg = get_config(LM_ARCH)
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
     for ops in (flash_ops, assign_ops, segment_ops):
         ops.reset_launch_count()
     torch.cuda.reset_peak_memory_stats()
@@ -1319,17 +1690,31 @@ def main() -> int:
     # full float32 products everywhere (the plain versions and the checks)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build(backend_mod)
+    started = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build, backend_mod)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    assign = check_kmeans_assign(gen)
-    segment = check_segment_stats(gen)
-    main_inputs = check_main_path_inputs(measure_add_latency())
-    flash = check_flash(gen)
+    assign = timed("kmeans_assign checks", check_kmeans_assign, gen)
+    segment = timed("segment_stats checks", check_segment_stats, gen)
+    main_inputs = timed("main-path inputs", lambda: check_main_path_inputs(
+        measure_add_latency()))
+    flash = timed("flash checks", check_flash, gen)
     before = torch.cuda.memory_allocated()
-    simulation, engine, _, traced_passes, main_tables = phase_main_path()
-    fused_path = phase_fused_and_trials(engine, main_tables)
-    del engine
+    simulation, engine, _, traced_passes, main_tables, plain = \
+        timed("simulation path", phase_main_path)
+    fused_path = timed("fused sweeps and trials", phase_fused_and_trials,
+                       engine, main_tables)
+    flow_path, new_shapes = timed("flow and figures",
+                                  phase_flow_and_figures, engine, plain)
+    del engine, plain
     gc.collect()
     left = torch.cuda.memory_allocated() - before
     # torch keeps a cuBLAS workspace for every stream that ran a GEMM,
@@ -1341,7 +1726,11 @@ def main() -> int:
         f"{(torch.cuda.memory_allocated() - before) / 2**20:.1f} MiB "
         "once cuBLAS's workspaces are freed")
     by_path = {"simulation": simulation, "fused_and_trials": fused_path,
-               "lm": phase_lm()}
+               "flow_and_figures": flow_path,
+               "lm": timed("LM path", phase_lm)}
+    log("seconds by phase: " + ", ".join(
+        f"{name} {s:.1f}" for name, s in seconds.items())
+        + f"; the whole script {time.perf_counter() - started:.1f}")
 
     def launches(name: str) -> dict:
         per = {path: n.get(name, 0) for path, n in by_path.items()}
@@ -1358,6 +1747,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/kmeans_assign/kmeans_assign.py:41",
          **launches("kmeans_assign"), **main_inputs["bbv"]["kmeans_assign"],
          "other_shapes": {"rfv": main_inputs["rfv"]["kmeans_assign"],
+                          **new_shapes["kmeans_assign"],
                           "synthetic": assign},
          "traced_build": traced["assign_kernel"]},
         {"name": "segment_stats", "route": "cuda",
@@ -1373,6 +1763,7 @@ def main() -> int:
          "other_shapes": {
              "bbv_all_rows": main_inputs["bbv"]["segment_stats_all_rows"],
              "rfv": main_inputs["rfv"]["segment_stats_weighted"],
+             **new_shapes["segment_stats"],
              "synthetic": segment},
          "traced_build": {p: traced[p] for p in CLUSTER_KERNELS
                           if p != "assign_kernel"}},

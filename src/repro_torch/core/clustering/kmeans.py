@@ -38,7 +38,7 @@ from ...kernels.segment_stats.ops import segment_stats
 from ..ordered import sum_sq, tree_sum
 
 __all__ = ["KMeansResult", "KMeansBank", "kmeans", "kmeans_batch",
-           "kmeans_bank", "best_of"]
+           "kmeans_multi_seed", "kmeans_bank", "best_of"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,29 +86,52 @@ def _kmeanspp_init(keys: torch.Tensor, x: torch.Tensor, k: int,
     """Batched k-means++ seeding: ``keys (B, 2)``, ``x (B, n, d)``,
     ``w (B, n)`` or None; returns ``(B, k, d)`` seeds. Point ``i`` is drawn
     with probability proportional to ``w_i`` times its squared distance
-    to the nearest seed so far."""
+    to the nearest seed so far.
+
+    The reference draws step ``i`` from the ``i``-th subkey of a chain of
+    splits; the chain and the uniforms depend on the keys alone, so they
+    are made up front (``prng.split_chain``, one ``uniform`` call) and a
+    draw is left with its data-dependent work. On the card the draws run
+    as replays of one CUDA graph of that work: a draw is a few hundred
+    small launches in the reference's float32 order, which Python would
+    otherwise launch one by one."""
     b, n, d = x.shape
     rows = torch.arange(b, device=x.device)
     tiny = torch.tensor(1e-30, dtype=torch.float32, device=x.device)
-
-    def draw(sub, p):
-        return prng.choice(sub, p / torch.maximum(tree_sum(p), tiny)[:, None])
-
-    ks = prng.split(keys)
-    key, sub = ks[:, 0], ks[:, 1]
+    subs = prng.split_chain(keys, k)
     if w is None:
-        first = prng.randint(sub, (), 0, n)
+        first = prng.randint(subs[:, 0], (), 0, n)
     else:
-        first = draw(sub, w)
+        first = prng.choice(subs[:, 0], w / torch.maximum(
+            tree_sum(w), tiny)[:, None])
+    u = prng.uniform(subs[:, 1:], ())
     cents = torch.zeros((b, k, d), dtype=torch.float32, device=x.device)
     cents[:, 0] = x[rows, first]
     min_d2 = sum_sq(x - cents[:, :1])
+    u_step = torch.empty(b, dtype=torch.float32, device=x.device)
+    new_c = torch.empty((b, d), dtype=torch.float32, device=x.device)
+
+    def draw():
+        p = min_d2 if w is None else min_d2 * w
+        idx = prng.choice_u(u_step, p / torch.maximum(tree_sum(p),
+                                                      tiny)[:, None])
+        new_c.copy_(x[rows, idx])
+        min_d2.copy_(torch.minimum(min_d2, sum_sq(x - new_c[:, None])))
+
+    graph = None
     for i in range(1, k):
-        ks = prng.split(key)
-        key, sub = ks[:, 0], ks[:, 1]
-        idx = draw(sub, min_d2 if w is None else min_d2 * w)
-        cents[:, i] = x[rows, idx]
-        min_d2 = torch.minimum(min_d2, sum_sq(x - cents[:, i:i + 1]))
+        u_step.copy_(u[:, i - 1])
+        if graph is not None:
+            graph.replay()
+        else:
+            draw()
+            if x.is_cuda and k > 2:
+                # the eager draw warmed every op up; the capture records
+                # the next draws without running them
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    draw()
+        cents[:, i] = new_c
     return cents
 
 
@@ -205,6 +228,15 @@ def kmeans(features, k: int, *, key=None, seed: int = 0,
     return best_of(kmeans_batch(x, k, keys=torch.stack(subs),
                                 max_iters=max_iters, backend=backend,
                                 tol=tol))
+
+
+def kmeans_multi_seed(features, k: int, *, seeds, max_iters: int = 100,
+                      backend: str = "auto", device=None
+                      ) -> list[KMeansResult]:
+    """One fit per seed (the paper's 10-seed repetitions for Figs 7-8),
+    all seeds as the lanes of one stacked Lloyd loop."""
+    return kmeans_batch(features, k, seeds=list(seeds), max_iters=max_iters,
+                        backend=backend, device=device)
 
 
 def best_of(results: list[KMeansResult]) -> KMeansResult:

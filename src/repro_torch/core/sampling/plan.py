@@ -1,16 +1,20 @@
 """Composable sampling plans: stratifier x selection policy x estimator.
 
-Counterpart of the part of ``repro.core.sampling.plan`` that the staged
-sweep runs. A ``SamplingPlan`` is three frozen dataclasses:
+Counterpart of ``repro.core.sampling.plan``. A ``SamplingPlan`` is three
+frozen dataclasses:
 
 * a ``Stratifier`` (``BBVClusters`` / ``RFVClusters`` /
   ``DaleniusGurney``) whose ``resolve`` stacks the engine-built
-  stratification of each app into one ``StratumBank``;
-* a ``SelectionPolicy`` (``Centroid``, ``StratumMean``, ``RandomUnit``)
-  — a batched callable mapping a ``SelectionContext`` to one pick per
-  stratum per app;
-* an ``Estimator`` (``WeightedPoint``) turning the picked units' CPI into
-  sweep estimates on the device.
+  stratification of each app into one ``StratumBank``, and whose ``fit``
+  stratifies one app's phase-1 sample anew (the ``TwoPhaseFlow``
+  path: standardize, then k-means through the clustering kernels, or the
+  Dalenius-Gurney boundary search on the host);
+* a ``SelectionPolicy`` (``Centroid``, ``StratumMean``, ``RandomUnit``,
+  ``RankedSetUnit``) — a batched callable mapping a ``SelectionContext``
+  to one pick per stratum per app, with ``select_local`` for one app's
+  flow;
+* an ``Estimator`` (``WeightedPoint``, ``CollapsedPairsCI``,
+  ``TwoPhaseCI``) turning the picked units' values into estimates.
 
 New designs plug in through ``register_stratifier`` /
 ``register_policy``; ``SamplingPlan.from_strings`` resolves names through
@@ -24,6 +28,7 @@ estimate, staged or fused.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 import zlib
 from typing import Callable, ClassVar, Optional, Sequence
 
@@ -31,16 +36,18 @@ import numpy as np
 import torch
 
 from . import tables as _tables
+from .types import Estimate, critical_values
 
 __all__ = [
     "SamplingPlan", "Stratifier", "SelectionPolicy", "Estimator",
     "BBVClusters", "RFVClusters", "DaleniusGurney",
-    "Centroid", "StratumMean", "RandomUnit", "WeightedPoint",
+    "Centroid", "StratumMean", "RandomUnit", "RankedSetUnit",
+    "WeightedPoint", "CollapsedPairsCI", "TwoPhaseCI",
     "StratumBank", "SelectionContext", "build_selection_context",
     "register_stratifier", "register_policy",
     "registered_stratifiers", "registered_policies",
     "make_stratifier", "make_policy", "stack_ragged_tensors",
-    "trial_scheme_index", "last_sweep_dispatch",
+    "trial_scheme_index", "last_sweep_dispatch", "warn_string_dispatch",
 ]
 
 
@@ -153,16 +160,47 @@ class Stratifier:
 
     ``resolve(exps)`` stacks the engine-built artifacts this stratifier
     stands for (``exps`` are ``AppExperiment``-shaped, duck-typed) into a
-    ``StratumBank``. ``pool_kind`` says where its units come from: the
+    ``StratumBank``; ``fit(baseline_y, features)`` stratifies one app's
+    phase-1 sample anew and returns ``(labels, centroids,
+    features_used)``. ``pool_kind`` says where its units come from: the
     census (free) or the charged phase-1 sample.
     """
 
     name: ClassVar[str] = "?"
     pool_kind: ClassVar[str] = "phase1"
 
+    num_strata: int = 20
+    seed: int = 0
+
     def resolve(self, exps: Sequence) -> StratumBank:
         """Stack this stratifier's engine-built artifacts over apps."""
         raise NotImplementedError
+
+    def fit(self, baseline_y, features):
+        """Labels, centroids and the features used, from phase-1 data."""
+        raise NotImplementedError
+
+
+def _fit_kmeans(features, num_strata: int, seed: int, backend: str,
+                restarts: int):
+    """Standardize, then k-means with ``restarts`` seedings from the
+    threefry key of ``seed``; shared by the feature-space stratifiers.
+
+    The z-scores are the reference's: a float64 fit applied in float32
+    (its features reach the transform as float32). On a CUDA tensor every
+    Lloyd step launches ``kmeans_assign`` and ``segment_stats``.
+    """
+    from ... import prng
+    from ..clustering.kmeans import kmeans
+    from ..clustering.standardize import Standardizer
+
+    if features is None:
+        raise ValueError("feature-space stratifiers need a feature matrix")
+    x = torch.as_tensor(features)
+    z = Standardizer.fit(x).transform(x.float())
+    km = kmeans(z, num_strata, key=prng.PRNGKey(seed, device=z.device),
+                backend=backend, restarts=restarts)
+    return km.labels, km.centroids, z
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +210,14 @@ class BBVClusters(Stratifier):
 
     name: ClassVar[str] = "bbv"
     pool_kind: ClassVar[str] = "census"
+
+    restarts: int = 3
+    backend: str = "auto"
+
+    def fit(self, baseline_y, features):
+        """k-means on the standardized BBV features."""
+        return _fit_kmeans(features, self.num_strata, self.seed,
+                           self.backend, self.restarts)
 
     def resolve(self, exps: Sequence) -> StratumBank:
         labels, valid = stack_ragged_tensors([e.bbv_labels for e in exps])
@@ -191,6 +237,14 @@ class RFVClusters(Stratifier):
 
     name: ClassVar[str] = "rfv"
     pool_kind: ClassVar[str] = "phase1"
+
+    restarts: int = 3
+    backend: str = "auto"
+
+    def fit(self, baseline_y, features):
+        """k-means on the standardized RFVs."""
+        return _fit_kmeans(features, self.num_strata, self.seed,
+                           self.backend, self.restarts)
 
     def resolve(self, exps: Sequence) -> StratumBank:
         labels, valid = stack_ragged_tensors([e.rfv_labels for e in exps])
@@ -213,6 +267,23 @@ class DaleniusGurney(Stratifier):
     name: ClassVar[str] = "dg"
     pool_kind: ClassVar[str] = "phase1"
 
+    def fit(self, baseline_y, features):
+        """The boundary search on baseline y (a float64 host refinement);
+        each centroid is its stratum's mean (NaN where empty). Returns
+        tensors on ``baseline_y``'s device."""
+        from .dalenius import dalenius_gurney_strata
+
+        dev = baseline_y.device if isinstance(baseline_y, torch.Tensor) \
+            else torch.device("cpu")
+        y = _host(baseline_y).astype(np.float64)
+        labels = dalenius_gurney_strata(y, self.num_strata)
+        centroids = np.array([
+            [y[labels == h].mean()] if (labels == h).any() else [np.nan]
+            for h in range(self.num_strata)])
+        return (torch.as_tensor(labels, device=dev),
+                torch.as_tensor(centroids, device=dev),
+                torch.as_tensor(y[:, None], device=dev))
+
     def resolve(self, exps: Sequence) -> StratumBank:
         labels, valid = stack_ragged_tensors([e.dg_labels for e in exps])
         baseline, _ = stack_ragged_tensors([e.cpi0_1 for e in exps])
@@ -229,6 +300,32 @@ register_stratifier("dg", DaleniusGurney, aliases=("cpi",))
 
 
 # ----------------------------------------------------------------- policies
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def host_segment_sums_counts(labels, valid, num_strata: int, values
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact float64 stratum sums and counts, as the reference's host
+    default (an offset bincount in numpy), returned on ``labels``'
+    device. The one-app flow selection summarizes with it; the engine
+    passes its ``segment_stats`` summary instead."""
+    lab_np, ok = _host(labels), _host(valid).astype(bool)
+    lab = np.where(ok, lab_np, num_strata).astype(np.int64)
+    a_n = lab.shape[0]
+    flat = (lab + (num_strata + 1) * np.arange(a_n)[:, None]).ravel()
+    size = a_n * (num_strata + 1)
+    counts = np.bincount(flat, minlength=size)
+    sums = np.bincount(flat, weights=np.where(ok, _host(values), 0.0)
+                       .ravel(), minlength=size)
+    dev = labels.device
+    return (torch.as_tensor(sums.reshape(a_n, -1)[:, :num_strata]
+                            .astype(np.float64), device=dev),
+            torch.as_tensor(counts.reshape(a_n, -1)[:, :num_strata]
+                            .astype(np.float64), device=dev))
+
+
 def stratum_order(labels: torch.Tensor, valid: torch.Tensor,
                   num_strata: int) -> torch.Tensor:
     """(A, n) positions sorted by stratum, index order within a stratum,
@@ -288,7 +385,8 @@ class SelectionContext:
         return torch.cumsum(self.counts, dim=1) - self.counts
 
 
-def build_selection_context(bank: StratumBank, *, summarize: Callable,
+def build_selection_context(bank: StratumBank, *,
+                            summarize: Optional[Callable] = None,
                             seed: int = 0,
                             uniforms: Optional[torch.Tensor] = None
                             ) -> SelectionContext:
@@ -297,9 +395,11 @@ def build_selection_context(bank: StratumBank, *, summarize: Callable,
     without centroids, the Dalenius-Gurney centroids.
 
     ``summarize(labels, valid, L, values) -> (sums, counts)`` is the
-    engine's ``segment_stats``-backed summary. ``seed`` seeds
-    ``RandomUnit``'s host draw unless ``uniforms`` carries it.
+    engine's ``segment_stats``-backed summary (default: the exact float64
+    ``host_segment_sums_counts``). ``seed`` seeds ``RandomUnit``'s host
+    draw unless ``uniforms`` carries it.
     """
+    summarize = summarize or host_segment_sums_counts
     L = bank.num_strata
     base_sums, countsf = summarize(bank.labels, bank.valid, L, bank.baseline)
     base_means = base_sums / torch.clamp_min(countsf, 1.0)
@@ -327,12 +427,57 @@ class SelectionPolicy:
     def __call__(self, ctx: SelectionContext) -> torch.Tensor:
         raise NotImplementedError
 
+    def select_local(self, labels, *, features, centroids, baseline,
+                     num_strata: int, seed: int = 0,
+                     per_stratum: Optional[int] = None
+                     ) -> list[torch.Tensor]:
+        """Per-stratum local index tensors for one app (the flow path).
+
+        ``per_stratum=None`` defers to the policy's own configuration.
+        The default runs the batched callable on a one-lane context, so
+        it picks one unit per stratum; multi-unit policies override it.
+        """
+        if (per_stratum or 1) != 1:
+            raise NotImplementedError(
+                f"{type(self).name!r} selects one unit per stratum; "
+                "override select_local for multi-unit designs")
+        labels = torch.as_tensor(labels)
+        dev = labels.device
+
+        def lane(x):
+            return None if x is None else torch.as_tensor(x).to(dev)[None]
+
+        bank = StratumBank(
+            labels=labels[None],
+            valid=torch.ones((1, labels.numel()), dtype=torch.bool,
+                             device=dev),
+            weights=torch.full((1, num_strata), 1.0 / max(num_strata, 1),
+                               dtype=torch.float64, device=dev),
+            baseline=lane(baseline), feats=lane(features),
+            centroids=lane(centroids))
+        ctx = build_selection_context(bank, seed=seed)
+        local = self(ctx)[0]
+        return [local[h:h + 1].long() if int(ctx.counts[0, h]) > 0
+                else local.new_empty(0, dtype=torch.int64)
+                for h in range(num_strata)]
+
 
 @dataclasses.dataclass(frozen=True)
 class Centroid(SelectionPolicy):
     """SimPoint-style selection: the member nearest its stratum centroid."""
 
     name: ClassVar[str] = "centroid"
+
+    per_stratum: int = 1
+
+    def select_local(self, labels, *, features, centroids, baseline,
+                     num_strata: int, seed: int = 0,
+                     per_stratum: Optional[int] = None
+                     ) -> list[torch.Tensor]:
+        """Flow path: ``select_centroid``, the ``per_stratum`` nearest."""
+        from .selection import select_centroid
+        return select_centroid(labels, features, centroids,
+                               per_stratum=per_stratum or self.per_stratum)
 
     def __call__(self, ctx: SelectionContext) -> torch.Tensor:
         """Argmin over members of the squared distance to the centroid.
@@ -357,6 +502,17 @@ class StratumMean(SelectionPolicy):
 
     name: ClassVar[str] = "mean"
 
+    per_stratum: int = 1
+
+    def select_local(self, labels, *, features, centroids, baseline,
+                     num_strata: int, seed: int = 0,
+                     per_stratum: Optional[int] = None
+                     ) -> list[torch.Tensor]:
+        """Flow path: ``select_mean``, the ``per_stratum`` nearest."""
+        from .selection import select_mean
+        return select_mean(labels, baseline, num_strata=num_strata,
+                           per_stratum=per_stratum or self.per_stratum)
+
     def __call__(self, ctx: SelectionContext) -> torch.Tensor:
         """Argmin of |baseline - stratum mean baseline| over members."""
         d = torch.abs(ctx.baseline[:, :, None] - ctx.base_means[:, None, :])
@@ -370,6 +526,18 @@ class RandomUnit(SelectionPolicy):
 
     name: ClassVar[str] = "random"
     uses_uniforms: ClassVar[bool] = True
+
+    per_stratum: int = 1
+
+    def select_local(self, labels, *, features, centroids, baseline,
+                     num_strata: int, seed: int = 0,
+                     per_stratum: Optional[int] = None
+                     ) -> list[torch.Tensor]:
+        """Flow path: ``select_random`` from ``default_rng(seed)``."""
+        from .selection import select_random
+        return select_random(labels, num_strata,
+                             np.random.default_rng(seed),
+                             per_stratum=per_stratum or self.per_stratum)
 
     def __call__(self, ctx: SelectionContext) -> torch.Tensor:
         """One draw per (app, stratum) through the gather tables: the
@@ -388,9 +556,46 @@ class RandomUnit(SelectionPolicy):
         return torch.take_along_dim(ctx.order, pos, dim=1)
 
 
+@dataclasses.dataclass(frozen=True)
+class RankedSetUnit(SelectionPolicy):
+    """Order-statistic selection: the member at a fixed baseline-CPI rank
+    within each stratum (after *CPU Simulation with Ranked Set Sampling
+    and Repeated Subsampling*). ``rank_fraction`` 0.5 picks each
+    stratum's median unit, 0.0 / 1.0 the extremes. Deterministic, and it
+    needs only the scalar baseline. Registered through the public
+    registry, as a plug-in would be."""
+
+    name: ClassVar[str] = "ranked_set"
+
+    rank_fraction: float = 0.5
+
+    def __post_init__(self):
+        if not 0.0 <= self.rank_fraction <= 1.0:
+            raise ValueError(
+                f"rank_fraction must be in [0, 1], got {self.rank_fraction}")
+
+    def __call__(self, ctx: SelectionContext) -> torch.Tensor:
+        """The unit at the configured rank of each stratum: members
+        ordered by (stratum, baseline) with two stable sorts."""
+        primary = torch.where(ctx.valid, ctx.labels,
+                              torch.full_like(ctx.labels, ctx.num_strata))
+        by_base = torch.argsort(ctx.baseline, dim=1, stable=True)
+        rs_order = torch.take_along_dim(
+            by_base,
+            torch.argsort(torch.take_along_dim(primary, by_base, dim=1),
+                          dim=1, stable=True), dim=1)
+        # numpy's rint: halves round to even, as torch.round does
+        rank = torch.round(self.rank_fraction * torch.clamp_min(
+            ctx.counts - 1, 0).double()).long()
+        pos = torch.clamp_max(ctx.offsets + rank,
+                              max(rs_order.shape[1] - 1, 0))
+        return torch.take_along_dim(rs_order, pos, dim=1)
+
+
 register_policy("centroid", Centroid)
 register_policy("mean", StratumMean)
 register_policy("random", RandomUnit)
+register_policy("ranked_set", RankedSetUnit)
 
 
 # ------------------------------------------------------- dispatch marker
@@ -466,6 +671,56 @@ class WeightedPoint(Estimator):
     name: ClassVar[str] = "weighted_point"
 
 
+@dataclasses.dataclass(frozen=True)
+class CollapsedPairsCI(Estimator):
+    """One-unit-per-stratum interval by pairwise collapsed strata (paper
+    eq. 4), over ``tables.collapsed_pairs_variance``."""
+
+    name: ClassVar[str] = "collapsed_pairs"
+
+    confidence: float = 0.95
+
+    def interval(self, y_sorted, w_sorted, n_valid, *, num_strata: int):
+        """``(variance, df, half_width)`` lane-wise, occupied strata first
+        in key order (see ``tables.collapsed_pairs_variance``); the
+        critical values come from the host."""
+        var, df = _tables.collapsed_pairs_variance(
+            y_sorted, w_sorted, n_valid, num_strata=num_strata)
+        crit = torch.as_tensor(
+            critical_values(self.confidence, _host(df)), dtype=var.dtype,
+            device=var.device)
+        return var, df, crit * torch.sqrt(var)
+
+    def estimate(self, y_per_stratum, weights, *, order_by=None,
+                 strict: bool = False) -> Estimate:
+        """Scalar ``Estimate`` for one design."""
+        from .collapsed import collapsed_strata_estimate
+        return collapsed_strata_estimate(
+            y_per_stratum, weights, order_by=order_by,
+            confidence=self.confidence, strict=strict)
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoPhaseCI(Estimator):
+    """Multi-unit two-phase interval (paper eq. 5/6 with Satterthwaite's
+    df), over ``tables.two_phase_variance``."""
+
+    name: ClassVar[str] = "two_phase"
+
+    confidence: float = 0.95
+    formula: str = "phase2_only"
+
+    def estimate(self, tables: _tables.StratumTables, phase1_n: int, *,
+                 phase1_var: Optional[float] = None,
+                 strict: bool = False) -> Estimate:
+        """Scalar ``Estimate`` from one-lane tables (the
+        ``TwoPhaseFlow.ci_check`` view)."""
+        from .two_phase import two_phase_estimate_tables
+        return two_phase_estimate_tables(
+            tables, phase1_n, phase1_var=phase1_var,
+            confidence=self.confidence, formula=self.formula, strict=strict)
+
+
 # --------------------------------------------------------------------- plan
 @dataclasses.dataclass(frozen=True)
 class SamplingPlan:
@@ -501,3 +756,12 @@ def trial_scheme_index(scheme: str, canonical: Sequence[str]) -> int:
     if scheme in canonical:
         return canonical.index(scheme)
     return len(canonical) + zlib.crc32(scheme.encode()) % (2 ** 20)
+
+
+def warn_string_dispatch(where: str, repl: str) -> None:
+    """One ``DeprecationWarning`` for a legacy string shim
+    (``SweepSpec(scheme=...)``, ``TwoPhaseFlow.stratify(scheme=...)``,
+    ...), naming the replacement."""
+    warnings.warn(
+        f"{where} with scheme/policy strings is deprecated; {repl}",
+        DeprecationWarning, stacklevel=3)

@@ -1,20 +1,72 @@
-"""Within-stratum unit selection (the ported subset of
-``repro.core.sampling.selection``).
+"""Within-stratum sample-unit selection (paper Section V.B).
 
-``select_centroid`` is SimPoint's deterministic choice: the units whose
-feature vectors lie nearest their stratum's centroid (ties to the lower
-index). ``weighted_point_estimate`` is the weighted mean over the
-selected units. The random and mean policies wait for the flow modules
-(ROADMAP.md).
+Counterpart of ``repro.core.sampling.selection``. ``select_centroid`` is
+SimPoint's deterministic choice: the units whose feature vectors lie
+nearest their stratum's centroid (ties to the lower index).
+``select_random`` is textbook stratified sampling and ``select_mean`` the
+paper's mean selection (the unit whose baseline CPI is nearest its
+stratum's mean). ``weighted_point_estimate`` is the weighted mean over
+the selected units.
+
+The random and mean choices are host algorithms over one app's labels,
+as in the reference: they draw from the caller's ``np.random.Generator``
+and take the float32 stratum mean in numpy's order, so the same inputs
+pick the same units. Every function returns one int64 index tensor per
+stratum, on the labels' device.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .types import apply_coverage_contract
 
-__all__ = ["select_centroid", "weighted_point_estimate"]
+__all__ = ["select_random", "select_centroid", "select_mean",
+           "weighted_point_estimate"]
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def _device_of(x) -> torch.device:
+    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+
+
+def select_random(labels, num_strata: int, rng: np.random.Generator, *,
+                  per_stratum: int = 1) -> list[torch.Tensor]:
+    """Uniform without-replacement choice of ``per_stratum`` units per
+    stratum (fewer in a smaller stratum, none in an empty one), drawn as
+    the reference draws them from ``rng``."""
+    lab, dev = _host(labels), _device_of(labels)
+    out = []
+    for h in range(num_strata):
+        idx = np.flatnonzero(lab == h)
+        if idx.size:
+            idx = rng.choice(idx, size=min(per_stratum, idx.size),
+                             replace=False)
+        out.append(torch.as_tensor(idx.astype(np.int64), device=dev))
+    return out
+
+
+def select_mean(labels, baseline_y, *, num_strata: int,
+                per_stratum: int = 1) -> list[torch.Tensor]:
+    """Mean selection (paper V.B.2): the ``per_stratum`` units whose
+    baseline CPI lies nearest their stratum's mean baseline CPI (ties to
+    the lower index)."""
+    lab, dev = _host(labels), _device_of(labels)
+    base = _host(baseline_y)
+    out = []
+    for h in range(num_strata):
+        idx = np.flatnonzero(lab == h)
+        if idx.size:
+            d = np.abs(base[idx] - base[idx].mean())
+            idx = idx[np.argsort(d, kind="stable")[:min(per_stratum,
+                                                         idx.size)]]
+        out.append(torch.as_tensor(idx.astype(np.int64), device=dev))
+    return out
 
 
 def select_centroid(labels, features, centroids, *, per_stratum: int = 1

@@ -12,8 +12,17 @@ two-phase CI of sampled evaluation needs the float64 host constructor
 eq. (3) variance, Satterthwaite's df and the eq. (5)/(6) two-phase
 variance. The Monte-Carlo trials need the eq. (4) collapsed-pairs
 variance (``collapsed_pairs_variance``) and the streaming accumulator
-``TrialStats`` with its log-histogram quantile sketches. Degenerate lanes
-give NaN, never an exception.
+``TrialStats`` with its log-histogram quantile sketches. The two-phase
+flow needs the fn. 7 small-stratum merge (``collapse_small_strata``) and
+the Cochran 5.5-5.9 allocations (``proportional_allocation``,
+``neyman_allocation``). Degenerate lanes give NaN, never an exception.
+
+``stratum_tables`` has two routes: ``backend="numpy"`` (the default) is
+the float64 host constructor, the reference's exact path; ``"auto"`` /
+``"plain"`` build the tables where the samples lie through the
+``segment_stats`` kernel contract (on a CUDA tensor under ``"auto"``, the
+kernel) in the policy's trace dtype, with the reference's shifted
+moments.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ __all__ = ["StratumTables", "stratum_tables", "tables_from_summaries",
            "sweep_point_tables", "covered_weight", "total_weight",
            "stratified_mean", "stratified_variance", "satterthwaite_df",
            "two_phase_variance", "masked_srs_stats",
+           "collapse_small_strata", "proportional_allocation",
+           "neyman_allocation",
            "collapsed_pairs_variance", "fixed_sum", "TRIAL_HIST_BINS",
            "TRIAL_HIST_LO", "TRIAL_HIST_HI", "TrialStats",
            "trial_stats_init", "trial_stats_update", "trial_stats_merge",
@@ -82,15 +93,25 @@ class StratumTables:
 
 
 def stratum_tables(y, labels, *, weights=None,
-                   num_strata: Optional[int] = None) -> StratumTables:
-    """``StratumTables`` from samples + stratum labels, in float64 on the
-    host (the reference's numpy path, ``backend="numpy"``).
+                   num_strata: Optional[int] = None,
+                   backend: str = "numpy") -> StratumTables:
+    """``StratumTables`` from samples + stratum labels, batched.
 
     ``y`` ``(..., n)`` study values; ``labels`` aligned int stratum ids
     (negative = masked); ``weights`` ``(L,)`` or ``(..., L)`` population
-    weights (default: the per-lane sample proportions), which must sum to
-    1. Moments are centred on each lane's sample mean (shifted moments).
+    weights (default: the per-lane sample proportions). Moments are
+    centred on each lane's sample mean (shifted moments).
+
+    ``backend="numpy"`` is the float64 host path (a CUDA input is read
+    back to the host): it checks the label range and that the weights
+    sum to 1. ``"auto"`` / ``"plain"`` compute in float32 where ``y``
+    lies, through ``segment_stats``, and need ``num_strata`` or
+    ``weights``; a CUDA input stays on the card.
     """
+    if backend != "numpy":
+        return _stratum_tables_device(y, labels, weights=weights,
+                                      num_strata=num_strata,
+                                      backend=backend)
     yv = torch.as_tensor(y).to("cpu", torch.float64)
     lab = torch.as_tensor(labels).to("cpu", torch.int64)
     if yv.shape != lab.shape:
@@ -142,6 +163,39 @@ def stratum_tables(y, labels, *, weights=None,
         if not torch.allclose(tot, torch.ones_like(tot), rtol=0, atol=1e-6):
             raise ValueError(f"stratum weights sum to "
                              f"{tot.reshape(-1)[:8].tolist()}, expected 1")
+    return StratumTables(counts=counts, sums=sums, sumsqs=sumsqs, weights=w,
+                         shift=shift)
+
+
+def _stratum_tables_device(y, labels, *, weights, num_strata,
+                           backend: str) -> StratumTables:
+    """The ``segment_stats`` route of ``stratum_tables`` (reference
+    ``tables.py:196-224``, its default float32 policy): everything stays
+    on ``y``'s device."""
+    from ...kernels.segment_stats.ops import segment_stats
+    from ..ordered import tree_sum
+
+    dt = torch.float32
+    y = torch.as_tensor(y).to(dt)
+    lab = torch.as_tensor(labels).to(y.device, torch.int32)
+    if num_strata is None:
+        if weights is None:
+            raise ValueError("device backends need num_strata (or weights)")
+        num_strata = torch.as_tensor(weights).shape[-1]
+    n_strata = int(num_strata)
+    ok = (lab >= 0) & (lab < n_strata)
+    zero = torch.zeros((), dtype=dt, device=y.device)
+    n_ok = torch.clamp_min(ok.sum(dim=-1), 1).to(dt)
+    shift = tree_sum(torch.where(ok, y, zero)) / n_ok
+    sums, sumsqs, counts = segment_stats(y - shift[..., None], lab,
+                                         n_strata, backend=backend)
+    sums, sumsqs = sums[..., 0].to(dt), sumsqs[..., 0].to(dt)
+    counts = counts.to(dt)
+    if weights is None:
+        w = counts / torch.clamp_min(counts.sum(dim=-1, keepdim=True), 1.0)
+    else:
+        w = torch.broadcast_to(torch.as_tensor(weights).to(y.device, dt),
+                               counts.shape)
     return StratumTables(counts=counts, sums=sums, sumsqs=sumsqs, weights=w,
                          shift=shift)
 
@@ -218,11 +272,13 @@ def _covered_weights(tables: StratumTables) -> torch.Tensor:
                        torch.zeros_like(tables.weights))
 
 
-def stratified_variance(tables: StratumTables) -> torch.Tensor:
+def stratified_variance(tables: StratumTables, *, renormalize: bool = True
+                        ) -> torch.Tensor:
     """Eq. (3) variance ``sum_h W_h^2 s_h^2 / n_h`` lane-wise, the weights
-    renormalised by the covered weight; NaN where a stratum with positive
-    weight and sampled units has n_h < 2, or nothing is covered."""
-    w = _covered_weights(tables)
+    renormalised by the covered weight under ``renormalize``; NaN where a
+    stratum with positive weight and sampled units has n_h < 2, or
+    nothing is covered."""
+    w = _covered_weights(tables) if renormalize else tables.weights
     occupied = tables.counts > 0
     zero = torch.zeros_like(w)
     contrib = torch.where(
@@ -254,20 +310,20 @@ def satterthwaite_df(tables: StratumTables) -> torch.Tensor:
 
 
 def two_phase_variance(tables: StratumTables, phase1_n, *,
-                       formula: str = "phase2_only", phase1_var=None
-                       ) -> torch.Tensor:
+                       formula: str = "phase2_only", phase1_var=None,
+                       renormalize: bool = True) -> torch.Tensor:
     """Two-phase variance lane-wise: eq. (5) ``s^2 / n' + v_st``
     (``formula="with_phase1_var"``, needs ``phase1_var``) or eq. (6)
     ``(1 / n') sum_h W_h (mean_h - mean)^2 + v_st`` (``"phase2_only"``)."""
-    v2 = stratified_variance(tables)
+    v2 = stratified_variance(tables, renormalize=renormalize)
     if formula == "with_phase1_var":
         if phase1_var is None:
             raise ValueError("eq. (5) needs phase1_var")
         return torch.as_tensor(phase1_var, dtype=v2.dtype) / phase1_n + v2
     if formula != "phase2_only":
         raise ValueError(f"unknown formula {formula!r}")
-    mean = stratified_mean(tables)
-    w = _covered_weights(tables)
+    mean = stratified_mean(tables, renormalize=renormalize)
+    w = _covered_weights(tables) if renormalize else tables.weights
     dev = tables.means - mean[..., None]
     between = torch.where(tables.counts > 0, w * dev * dev,
                           torch.zeros_like(w)).sum(dim=-1)
@@ -334,6 +390,120 @@ def collapsed_pairs_variance(y_sorted: torch.Tensor, w_sorted: torch.Tensor,
     df = (v_cnt - n_groups).to(var.dtype)
     df = torch.where(bad, _nan_like(df), df)
     return var, df
+
+
+def _argsort(x: torch.Tensor) -> torch.Tensor:
+    return torch.argsort(x, dim=-1, stable=True)
+
+
+def collapse_small_strata(tables: StratumTables, order_key, *,
+                          min_count: float = 2):
+    """Merge under-sampled strata into their key-order neighbour,
+    lane-wise (paper fn. 7; ``TwoPhaseFlow.ci_check``'s remedy).
+
+    Strata are ordered by ``order_key`` (e.g. the baseline-CPI stratum
+    means); strata with no weight and no samples are dropped; walking the
+    order, each stratum closes a group (count >= ``min_count``), joins
+    the open group, or — undersized after a closed group — merges back
+    into it; a trailing undersized group merges back too. Returns
+    ``(merged, group_of, n_groups)``: tables whose group g sits in slot g
+    (later slots zero), the stratum -> group map (-1 = dropped) and the
+    per-lane group count (0 marks a lane with fewer than ``min_count``
+    samples in all).
+    """
+    n_strata = tables.num_strata
+    counts, weights = tables.counts, tables.weights
+    active = (weights > 0) | (counts > 0)
+    key = torch.broadcast_to(
+        torch.as_tensor(order_key).to(counts.device, counts.dtype),
+        counts.shape)
+    key = torch.where(active, key, torch.full_like(key, float("inf")))
+    order = _argsort(key)
+    c_s = torch.take_along_dim(counts, order, dim=-1)
+    a_s = torch.take_along_dim(active, order, dim=-1)
+
+    batch = counts.shape[:-1]
+    gid = torch.full(batch, -1, dtype=torch.int64, device=counts.device)
+    acc = torch.zeros(batch, dtype=counts.dtype, device=counts.device)
+    slots = []
+    for p in range(n_strata):
+        act = a_s[..., p]
+        c = c_s[..., p]
+        start = act & ((gid < 0) | ((acc >= min_count) & (c >= min_count)))
+        gid = torch.where(start, gid + 1, gid)
+        acc = torch.where(start, c, torch.where(act, acc + c, acc))
+        slots.append(torch.where(act, gid, torch.full_like(gid, -1)))
+    g_sorted = torch.stack(slots, dim=-1)
+    # a group after the first starts only on a stratum with c >= min_count,
+    # so only group 0 can end undersized: that lane is degenerate
+    n_groups = torch.where(gid < 0, torch.zeros_like(gid), gid + 1)
+    n_groups = torch.where((gid == 0) & (acc < min_count),
+                           torch.zeros_like(n_groups), n_groups)
+    group_of = torch.take_along_dim(g_sorted, _argsort(order), dim=-1)
+    onehot = (group_of[..., :, None] == torch.arange(
+        n_strata, device=counts.device)).to(counts.dtype)
+
+    def merge(t):
+        return (t[..., :, None] * onehot).sum(dim=-2)
+
+    merged = StratumTables(counts=merge(counts), sums=merge(tables.sums),
+                           sumsqs=merge(tables.sumsqs),
+                           weights=merge(weights), shift=tables.shift)
+    return merged, group_of, n_groups
+
+
+# ------------------------------------------------------------- allocation
+def _float_lanes(x) -> torch.Tensor:
+    x = torch.as_tensor(x)
+    return x if x.is_floating_point() else x.double()
+
+
+def proportional_allocation(weights, n_total, *, min_per_stratum: int = 2
+                            ) -> torch.Tensor:
+    """Proportional allocation lane-wise: n_h proportional to W_h, each
+    at least ``min_per_stratum``, rounded by largest remainder to the
+    ``n_total`` budget (overshoot accepted where the minima force it).
+    ``weights (..., L)``; ``n_total`` a number or ``(...)``. Returns
+    int64 ``(..., L)``."""
+    w = _float_lanes(weights)
+    nt = torch.as_tensor(n_total, dtype=w.dtype, device=w.device)
+    raw = w * (nt[..., None] if nt.dim() else nt)
+    n_h = torch.clamp_min(torch.floor(raw).long(), min_per_stratum)
+    return _largest_remainder_fixup(n_h, raw, nt)
+
+
+def neyman_allocation(weights, stds, n_total, *, min_per_stratum: int = 2
+                      ) -> torch.Tensor:
+    """Neyman allocation lane-wise: n_h proportional to W_h S_h; lanes
+    whose products are all zero take the proportional allocation."""
+    w = _float_lanes(weights)
+    s = torch.clamp_min(torch.as_tensor(stds).to(w.device, w.dtype), 0.0)
+    prod = w * s
+    tot = prod.sum(dim=-1, keepdim=True)
+    zero = tot <= 0
+    share = prod / torch.where(zero, torch.ones_like(tot), tot)
+    nt = torch.as_tensor(n_total, dtype=w.dtype, device=w.device)
+    raw = share * (nt[..., None] if nt.dim() else nt)
+    n_h = torch.clamp_min(torch.floor(raw).long(), min_per_stratum)
+    ney = _largest_remainder_fixup(n_h, raw, nt)
+    prop = proportional_allocation(w, nt, min_per_stratum=min_per_stratum)
+    return torch.where(zero, prop, ney)
+
+
+def _largest_remainder_fixup(n_h: torch.Tensor, raw: torch.Tensor,
+                             n_total) -> torch.Tensor:
+    """Hand out the budget's deficit one unit at a time in descending
+    order of fractional remainder, wrapping around (a negative deficit,
+    from the minima, is accepted)."""
+    n_strata = n_h.shape[-1]
+    nt = torch.as_tensor(n_total, device=n_h.device)
+    deficit = torch.clamp_min((nt - n_h.sum(dim=-1)).long(), 0)
+    frac = raw - torch.floor(raw)
+    # rank 0 = largest remainder (a stable sort of -frac)
+    rank = _argsort(_argsort(-frac))
+    extra = deficit[..., None] // n_strata \
+        + (rank < (deficit[..., None] % n_strata)).long()
+    return n_h + extra
 
 
 def fixed_sum(x: torch.Tensor) -> torch.Tensor:

@@ -6,12 +6,14 @@ stratifications) over one shared ``MemoBank``;
 ``run_sweep(engine, SweepSpec(...))`` runs apps x configs for one
 ``SamplingPlan`` (or the phase-1 SRS), fused into one program by default;
 ``run_trials(engine, TrialSpec(...))`` streams the Monte-Carlo selection
-trials of Fig 8.
+trials of Fig 8; ``paper_figs`` reproduces every paper figure and table.
 """
 
+from . import paper_figs
 from .engine import (NUM_STRATA, PHASE1_SEED, AppExperiment,
                      ExperimentEngine, SweepStack, plan_selection,
-                     plan_selection_bank)
+                     plan_selection_bank, scheme_selection,
+                     scheme_selection_bank)
 from .fused import fused_sweep_program, program_captures, run_fused_sweep
 from .montecarlo import (SRS_DRAWS, TRIAL_BLOCK, TRIAL_SCHEMES, TrialResult,
                          TrialSpec, run_trials, trial_uniforms)
@@ -21,6 +23,7 @@ from .sweep import (SRS_SCHEME, ResultsTable, SweepRow, SweepSpec,
 __all__ = [
     "ExperimentEngine", "AppExperiment", "SweepStack",
     "plan_selection", "plan_selection_bank",
+    "scheme_selection", "scheme_selection_bank", "paper_figs",
     "SweepSpec", "SweepRow", "ResultsTable", "assemble_rows", "run_sweep",
     "fused_sweep_program", "run_fused_sweep", "program_captures",
     "SRS_SCHEME", "known_schemes",

@@ -31,19 +31,21 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import prng
-from ..core.clustering import kmeans_bank, random_project
+from ..core.clustering import kmeans_bank, kmeans_batch, random_project
 from ..core.ordered import seq_sum
 from ..core.sampling import dalenius_gurney_strata, draw_srs
 from ..core.sampling import plan as sampling_plan
 from ..device import resolve_device
 from ..kernels.segment_stats.ops import segment_stats
-from ..simcpu import (CONFIGS, NUM_BLOCKS, CachedSimulator, MemoBank,
+from ..simcpu import (APP_NAMES, CONFIGS, NUM_BLOCKS, CachedSimulator,
+                      MemoBank,
                       config_matrix, cpi_bank, get_bbvs, get_population_bank,
                       make_simulator, rfv_bank, stack_ragged)
 
@@ -53,7 +55,7 @@ BBV_DIMS = 15
 
 __all__ = ["NUM_STRATA", "PHASE1_SEED", "AppExperiment", "SweepStack",
            "ExperimentEngine", "plan_selection", "plan_selection_bank",
-           "stratum_tables"]
+           "scheme_selection", "scheme_selection_bank", "stratum_tables"]
 
 
 @dataclasses.dataclass
@@ -83,6 +85,69 @@ class AppExperiment:
     def census(self, cfg_i: int) -> torch.Tensor:
         """(N,) census CPI for config ``cfg_i`` (free of charge)."""
         return self.census_mat[cfg_i]
+
+    def cpi(self, cfg_i: int, indices) -> torch.Tensor:
+        """(n,) CPI for one config, through the memo (misses charged)."""
+        return self.sim.simulate_cpi(indices, self.configs[cfg_i])
+
+    def cpi_for(self, indices,
+                config_indices: Optional[Sequence[int]] = None
+                ) -> torch.Tensor:
+        """(C', n) CPI for a config subset in one batched pass; only the
+        requested configs are simulated (and charged)."""
+        cfgs = (self.configs if config_indices is None
+                else tuple(self.configs[i] for i in config_indices))
+        return self.sim.simulate_cpi_batch(indices, cfgs)
+
+    def cpi_all(self, indices) -> torch.Tensor:
+        """(C, n) CPI across all configs in one batched pass."""
+        return self.cpi_for(indices)
+
+    def weighted_cpi_all(self, selected: Sequence, weights, *,
+                         config_indices: Optional[Sequence[int]] = None,
+                         strict: bool = False) -> torch.Tensor:
+        """(C',) float64 stratified weighted-mean CPI per config, one
+        batched pass.
+
+        ``selected``: per-stratum population index tensors (any count
+        per stratum). Strata with no selected unit renormalize the
+        estimate by the covered weight, with a ``UserWarning``
+        (``strict=True`` raises); when every stratum is empty there is
+        nothing to renormalize to: that raises under ``strict`` and
+        otherwise warns and gives NaN.
+        """
+        dev = self.sim.bank.device
+        n_cfg = len(self.configs) if config_indices is None \
+            else len(tuple(config_indices))
+        w = torch.as_tensor(weights).to(dev, torch.float64)
+        sel = [torch.as_tensor(s).to(dev, torch.int64).reshape(-1)
+               for s in selected]
+        nonempty = [s for s in sel if s.numel()]
+        if not nonempty:
+            msg = ("every stratum selection is empty; no units to "
+                   "estimate from")
+            if strict:
+                raise ValueError(msg)
+            warnings.warn(msg, UserWarning, stacklevel=2)
+            return torch.full((n_cfg,), float("nan"), dtype=torch.float64,
+                              device=dev)
+        flat = torch.cat(nonempty)
+        seg = torch.cat([torch.full((s.numel(),), h, dtype=torch.int64,
+                                    device=dev)
+                         for h, s in enumerate(sel) if s.numel()])
+        counts = torch.bincount(seg, minlength=len(sel))
+        covered = float(w[counts > 0].sum())
+        total = float(w.sum())
+        if covered < total * (1.0 - 1e-6):
+            msg = (f"selected units cover only {covered / total:.4f} of the "
+                   "stratum weight; renormalizing biases the estimate "
+                   "toward the covered strata")
+            if strict:
+                raise ValueError(msg)
+            warnings.warn(msg, UserWarning, stacklevel=2)
+        mat = self.cpi_for(flat, config_indices)
+        per_unit = w[seg] / torch.clamp_min(counts[seg], 1)
+        return (mat.double() * per_unit[None, :]).sum(dim=1) / covered
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +235,22 @@ class ExperimentEngine:
         # the latest fused sweep's outputs (experiments.fused)
         self.fused_outputs: Optional[dict] = None
 
+    def app(self, name: str, kmeans_seed: int = 0) -> AppExperiment:
+        """The ``AppExperiment`` of one app (built on demand)."""
+        return self.build((name,), kmeans_seed)[0]
+
+    def apps(self, names: Optional[Sequence[str]] = None
+             ) -> list[AppExperiment]:
+        """Views of ``names`` (default: all paper apps), built batched."""
+        return self.build(tuple(names or APP_NAMES))
+
+    def rfv_stratifications(self, name: str, seeds: Sequence[int]):
+        """k-means RFV fits of one app for many clustering seeds, as the
+        lanes of one stacked fit (the paper's Figs 7-8 repetitions)."""
+        exp = self.app(name)
+        return kmeans_batch(exp.rfv_z, self.num_strata, seeds=list(seeds),
+                            backend=self.backend)
+
     def build(self, names: Sequence[str],
               kmeans_seed: int = 0) -> list[AppExperiment]:
         """Every not-yet-built app in ``names`` is built in one stacked
@@ -205,9 +286,9 @@ class ExperimentEngine:
             self._stacks[key] = SweepStack(
                 names=names,
                 rows=np.asarray([e.sim.row for e in exps], np.int64),
-                n_regions=torch.as_tensor(bank.n_regions, dtype=torch.int64,
-                                          device=dev),
-                feats=torch.as_tensor(bank.features, device=dev),
+                n_regions=torch.tensor(bank.n_regions, dtype=torch.int64,
+                                       device=dev),
+                feats=torch.tensor(bank.features, device=dev),
                 idx1=idx1, idx1_valid=idx1_valid,
                 truth=torch.stack([e.truth for e in exps]))
         return self._stacks[key]
@@ -220,9 +301,11 @@ class ExperimentEngine:
         bank = get_population_bank(names)
         a_n = bank.num_apps
         ar = torch.arange(a_n, device=dev)
-        feats = torch.as_tensor(bank.features, device=dev)
-        mask = torch.as_tensor(bank.mask, device=dev)
-        n_regions = torch.as_tensor(bank.n_regions, device=dev)
+        # copies, on the CPU too: the population bank is a process-wide
+        # cache that the engine must never share a buffer with
+        feats = torch.tensor(bank.features, device=dev)
+        mask = torch.tensor(bank.mask, device=dev)
+        n_regions = torch.tensor(bank.n_regions, device=dev)
 
         sims = []
         for name, pop in zip(names, bank.pops):
@@ -338,3 +421,31 @@ def plan_selection(exp: AppExperiment, plan: sampling_plan.SamplingPlan,
     sel = [picks[0, h:h + 1] if bool(valid[0, h])
            else picks.new_empty(0) for h in range(exp.num_strata)]
     return sel, weights[0]
+
+
+def scheme_selection_bank(exps: Sequence[AppExperiment], scheme: str,
+                          policy: str, seed: int = 0, *,
+                          backend: str = "auto"
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Deprecated string shim over ``plan_selection_bank``: the plan
+    ``SamplingPlan.from_strings(scheme, policy)``, one
+    ``DeprecationWarning``."""
+    sampling_plan.warn_string_dispatch(
+        "scheme_selection_bank",
+        "use plan_selection_bank(exps, SamplingPlan.from_strings(...))")
+    return plan_selection_bank(
+        exps, sampling_plan.SamplingPlan.from_strings(scheme, policy),
+        seed=seed, backend=backend)
+
+
+def scheme_selection(exp: AppExperiment, scheme: str, policy: str,
+                     seed: int = 0, *, backend: str = "auto"
+                     ) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """Deprecated string shim over ``plan_selection``."""
+    sampling_plan.warn_string_dispatch(
+        "scheme_selection",
+        "use plan_selection(exp, SamplingPlan.from_strings(...))")
+    return plan_selection(
+        exp, sampling_plan.SamplingPlan.from_strings(scheme, policy),
+        seed=seed, backend=backend)

@@ -49,6 +49,14 @@ def known_schemes() -> tuple[str, ...]:
 class SweepSpec:
     """One sweep = apps x configs for one sampling plan (``None``: SRS).
 
+    ``SweepSpec(plan=SamplingPlan(...))`` is the modern spelling;
+    ``scheme``/``policy`` then carry the plan's registered names as row
+    labels (stale strings beside a plan raise). The legacy spelling
+    ``SweepSpec(scheme="rfv", policy="centroid")`` resolves the names
+    through the registry when the spec is made, so unknown names raise
+    there, and warns (``DeprecationWarning``); ``scheme="srs"`` is the
+    plan-less phase-1 estimate and takes no policy.
+
     ``fused=True`` (the default) runs a stratified sweep as one program;
     ``fused=False`` runs the staged selection -> fill -> estimate chain.
     ``selection_seed`` seeds ``RandomUnit``'s draw; ``trials`` attaches a
@@ -56,6 +64,8 @@ class SweepSpec:
     """
 
     apps: tuple[str, ...] = tuple(APP_NAMES)
+    scheme: str = SRS_SCHEME
+    policy: Optional[str] = None
     plan: Optional[sampling_plan.SamplingPlan] = None
     config_indices: Optional[tuple[int, ...]] = None
     selection_seed: int = 0
@@ -63,6 +73,30 @@ class SweepSpec:
     trials: Optional["TrialSpec"] = None     # noqa: F821
 
     def __post_init__(self):
+        if self.plan is not None:
+            if self.scheme not in (SRS_SCHEME, self.plan.scheme) \
+                    or self.policy not in (None, self.plan.policy_name):
+                raise ValueError(
+                    f"scheme={self.scheme!r}/policy={self.policy!r} "
+                    f"conflict with plan="
+                    f"({self.plan.scheme!r}, {self.plan.policy_name!r}); "
+                    "drop the strings when passing plan=")
+            object.__setattr__(self, "scheme", self.plan.scheme)
+            object.__setattr__(self, "policy", self.plan.policy_name)
+        elif self.scheme != SRS_SCHEME:
+            sampling_plan.warn_string_dispatch(
+                "SweepSpec(scheme=..., policy=...)",
+                "pass SweepSpec(plan=SamplingPlan.from_strings(...))")
+            # aliases (e.g. "cpi") normalize to the canonical name
+            object.__setattr__(self, "plan", sampling_plan.SamplingPlan
+                               .from_strings(self.scheme,
+                                             self.policy or "centroid"))
+            object.__setattr__(self, "scheme", self.plan.scheme)
+            object.__setattr__(self, "policy", self.plan.policy_name)
+        elif self.policy is not None:
+            raise ValueError(
+                "scheme='srs' takes no selection policy (phase-1 SRS has "
+                "no strata to select from)")
         if (self.trials is not None and self.config_indices is not None
                 and self.trials.config_index not in self.config_indices):
             raise ValueError(
@@ -70,12 +104,6 @@ class SweepSpec:
                 f"config_indices={self.config_indices}; the Monte-Carlo "
                 "study would run (and charge the ledger) with its result "
                 "attached to no row")
-
-    @property
-    def scheme(self) -> str:
-        """Row label: ``"srs"`` or the plan's stratifier name."""
-        return SRS_SCHEME if self.plan is None else self.plan.scheme
-
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,8 +22,9 @@ import torch
 
 from .core.ordered import blocked_cumsum, fma32
 
-__all__ = ["PRNGKey", "split", "fold_in", "bits", "uniform", "randint",
-           "choice", "normal", "normal_uniforms", "erf_inv"]
+__all__ = ["PRNGKey", "split", "split_chain", "fold_in", "bits", "uniform",
+           "randint", "choice", "choice_u", "normal", "normal_uniforms",
+           "erf_inv"]
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -74,6 +75,24 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``(..., 2)`` keys -> ``(..., num, 2)``."""
     b1, b2 = _hash_counts(key, (num,))
     return torch.stack([b1, b2], dim=-1)
+
+
+def split_chain(key: torch.Tensor, n: int) -> torch.Tensor:
+    """The subkeys of ``n`` successive ``key, sub = split(key)`` steps:
+    ``(..., 2)`` keys -> ``(..., n, 2)``, step ``i``'s ``sub`` at ``i``.
+    The chain depends on the keys alone, so it is walked on the host
+    (threefry on Python ints, one read of the keys) and returned in one
+    copy to the keys' device."""
+    lanes = key.reshape(-1, 2).tolist()
+    out = []
+    for k1, k2 in lanes:
+        subs = []
+        for _ in range(n):
+            subs.append(_threefry2x32(k1, k2, 0, 1))
+            k1, k2 = _threefry2x32(k1, k2, 0, 0)
+        out.append(subs)
+    return torch.tensor(out, dtype=torch.int64).reshape(
+        *key.shape[:-1], n, 2).to(key.device)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
@@ -131,8 +150,13 @@ def choice(key: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     in the reference's blocked order so that draws near a boundary land
     on the same side.
     """
+    return choice_u(uniform(key, ()), p)
+
+
+def choice_u(u: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``choice`` given its uniform draw ``u (...)``, so that the draws of
+    many steps can be made in one call (``uniform`` over their keys)."""
     cum = blocked_cumsum(p).contiguous()
-    u = uniform(key, ())
     r = cum[..., -1] * (1.0 - u)
     return torch.searchsorted(cum, r[..., None].contiguous())[..., 0]
 

@@ -17,7 +17,12 @@ bank restored from a reference snapshot serves the same fills with no new
 charges.
 
 ``CachedSimulator`` is a one-row view of a bank with the base simulator's
-surface (``simulate_cpi``, ``simulate_cpi_batch``).
+surface (``simulate``, ``simulate_cpi``, ``simulate_rfv`` and their
+batched forms). Full-metric requests (``simulate``, ``simulate_rfv``,
+``simulate_batch``) evaluate the perf model again each call and memoize
+their CPI, so they are charged for misses only, as CPI requests are.
+``census_stats`` and ``true_mean_cpi`` are analysis-only: free, and they
+never fill the memo.
 """
 
 from __future__ import annotations
@@ -28,11 +33,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .perfmodel import cpi_bank
-from .simulator import CycleAccurateSimulator, Ledger
+from .perfmodel import cpi_bank, evaluate_regions_batch
+from .simulator import CycleAccurateSimulator, Ledger, rfv_from_stats
 from .uarch import UarchConfig
+from .workload import get_population
 
-__all__ = ["MemoBank", "CachedSimulator"]
+__all__ = ["MemoBank", "CachedSimulator", "make_cached_simulator"]
 
 
 class MemoBank:
@@ -313,19 +319,65 @@ class CachedSimulator:
     def ledger(self) -> Ledger:
         return self.sim.ledger
 
-    def _fill(self, indices, cfgs: Sequence[UarchConfig]) -> torch.Tensor:
-        idx = torch.as_tensor(np.atleast_1d(np.asarray(indices, np.int64)),
-                              device=self.bank.device)
-        feats = self.sim.features[idx][None]
+    def _fill(self, idx: torch.Tensor, cfgs: Sequence[UarchConfig],
+              values=None) -> torch.Tensor:
+        feats = None if values is not None else self.sim.features[idx][None]
         cpi, _ = self.bank.fill([self.row], idx[None, :], None, tuple(cfgs),
-                                feats=feats)
+                                feats=feats, values=values)
         return cpi[0]
+
+    def _index(self, indices) -> torch.Tensor:
+        if isinstance(indices, torch.Tensor):
+            return indices.reshape(-1).long().to(self.bank.device)
+        return torch.as_tensor(np.atleast_1d(np.asarray(indices, np.int64)),
+                               device=self.bank.device)
+
+    def simulate(self, indices, cfg: UarchConfig) -> dict[str, torch.Tensor]:
+        """All 38 Table III counters; CPI memoized, misses charged once."""
+        stats = self.simulate_batch(indices, (cfg,))
+        return {m: v[0] for m, v in stats.items()}
 
     def simulate_cpi(self, indices, cfg: UarchConfig) -> torch.Tensor:
         """(n,) CPI for one config; misses charged once."""
-        return self._fill(indices, (cfg,))[0]
+        return self._fill(self._index(indices), (cfg,))[0]
+
+    def simulate_rfv(self, indices, cfg: UarchConfig
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(cpi, float64 (n, 38) RFV) for the regions; misses charged
+        once."""
+        return rfv_from_stats(self.simulate(indices, cfg))
+
+    def simulate_batch(self, indices, cfgs: Sequence[UarchConfig]
+                       ) -> dict[str, torch.Tensor]:
+        """Metric dict of ``(C, n)`` tensors for ``indices`` across
+        ``cfgs`` in one batched pass; misses charged per config."""
+        idx = self._index(indices)
+        stats = evaluate_regions_batch(self.sim.features, tuple(cfgs), idx)
+        self._fill(idx, tuple(cfgs), values=stats["cpi"][None])
+        return stats
 
     def simulate_cpi_batch(self, indices, cfgs: Sequence[UarchConfig]
                            ) -> torch.Tensor:
         """(C, n) CPI across configs in one batched pass."""
-        return self._fill(indices, cfgs)
+        return self._fill(self._index(indices), cfgs)
+
+    # -- ground truth (free of charge, never touches the charged memo) ------
+    def census_stats(self, cfg: UarchConfig) -> dict[str, torch.Tensor]:
+        return self.sim.census_stats(cfg)
+
+    def true_mean_cpi(self, cfg: UarchConfig) -> float:
+        return self.sim.true_mean_cpi(cfg)
+
+
+def make_cached_simulator(app_name: str, *, seed: int = 0,
+                          ledger: Optional[Ledger] = None,
+                          bank: Optional[MemoBank] = None,
+                          row: Optional[int] = None,
+                          device=None) -> CachedSimulator:
+    """A ``CachedSimulator`` of one app (a private bank unless ``bank``
+    and ``row`` are given), on ``device`` (the card when None)."""
+    if bank is not None:
+        device = bank.device
+    sim = CycleAccurateSimulator(get_population(app_name, seed=seed), ledger,
+                                 device=device)
+    return CachedSimulator(sim, bank=bank, row=row)

@@ -21,7 +21,9 @@ from .uarch import UarchConfig
 from .workload import NUM_FEATURES
 
 __all__ = ["NUM_CONFIG_FIELDS", "config_vector", "config_matrix",
-           "evaluate_regions_batch", "cpi_batch", "cpi_bank", "rfv_bank"]
+           "evaluate_regions_batch", "cpi_batch",
+           "cpi_only", "cpi_bank", "rfv_bank", "stats_matrix",
+           "evaluate_regions_approx"]
 
 NUM_CONFIG_FIELDS = 14
 
@@ -181,6 +183,12 @@ def _evaluate(features: torch.Tensor, cm: torch.Tensor, *,
     return {k: v.expand(shape) for k, v in out.items()}
 
 
+def cpi_only(features: torch.Tensor, cfg: UarchConfig,
+             indices=None) -> torch.Tensor:
+    """(n,) CPI for one config."""
+    return cpi_batch(features, (cfg,), indices)[0]
+
+
 def evaluate_regions_batch(features: torch.Tensor,
                            cfgs: Sequence[UarchConfig],
                            indices=None) -> dict[str, torch.Tensor]:
@@ -218,3 +226,38 @@ def rfv_bank(features: torch.Tensor, cfg: UarchConfig
                       counters=True)
     rfv = torch.stack([stats[m][..., 0, :] for m in RFV_METRICS], dim=-1)
     return stats["cpi"][..., 0, :], rfv
+
+
+def stats_matrix(stats) -> torch.Tensor:
+    """The metric dict as the canonical ``(n, 38)`` RFV matrix."""
+    return torch.stack([torch.as_tensor(stats[m]) for m in RFV_METRICS],
+                       dim=1)
+
+
+def evaluate_regions_approx(features: torch.Tensor, cfg: UarchConfig,
+                            indices=None) -> dict[str, torch.Tensor]:
+    """The deliberately degraded fast model of paper §VI.C ("cheaper
+    characterization with a faster simulator"): two-term CPI (core plus
+    unoverlapped memory), no branch or frontend terms, no prefetchers; six
+    float32 ``(n,)`` metrics, biased on purpose (only their correlation
+    with the accurate model matters for stratification)."""
+    x = torch.as_tensor(features)
+    x = (x if indices is None else x[indices]).float()
+    cv = config_matrix((cfg,), device=x.device)[0]
+
+    def f(name):
+        return x[:, _F[name]]
+
+    retire_w, dc_kb, l2_kb, l3_mb = cv[1], cv[4], cv[5], cv[6]
+    l3_lat, mem_lat = cv[8], cv[9]
+    half = torch.tensor(0.5, dtype=torch.float32, device=x.device)
+    ipc_core = torch.minimum(f("ilp"), retire_w)
+    l1d_mpki = f("l1d_mpki") * _pow(32.0 / dc_kb, f("l1d_alpha"))
+    l2_mpki = torch.minimum(l1d_mpki,
+                            f("l2_mpki") * _pow(512.0 / l2_kb, half))
+    l3_mpki = torch.minimum(l2_mpki, f("l3_mpki") * _pow(2.0 / l3_mb, half))
+    stall = (l3_mpki * mem_lat + (l2_mpki - l3_mpki) * l3_lat) / 1000.0 \
+        / torch.clamp_min(f("mlp") * 0.5, 1.0)
+    cpi = 1.0 / ipc_core + stall
+    return {"cpi": cpi, "l1d_mpki": l1d_mpki, "l2_mpki": l2_mpki,
+            "l3_mpki": l3_mpki, "ipc_core": ipc_core, "stall_mem": stall}

@@ -487,3 +487,146 @@ def test_fused_graph_recaptures_when_the_memo_grows(cuda):
     for k in ("mask", "cpi", "charges"):
         assert (tree_fused[k] == tree_staged[k]).all(), k
 
+
+
+# ------------------------------------------------- the flow's new shapes
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(120000, 15, 50),     # gcc sensitivity
+                                   (6861, 38, 500)])     # Fig 12/13 k=500
+def test_clustering_kernels_bitwise_at_figure_shapes(cuda, n, d, k):
+    """Both clustering kernels bitwise equal to their plain versions at the
+    figure path's new shapes: k = 50 over gcc's 120,000 projected BBVs,
+    and k = 500 (82 KB of centroids in shared memory) over the largest
+    phase-1 RFV sample; the update's [x, 1] sums by the labels it gives."""
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
+    from repro_torch.kernels.segment_stats.ref import segment_stats_ref
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    x = torch.randn((1, n, d), generator=gen, device=cuda)
+    c = x[:, torch.randperm(n, generator=gen, device=cuda)[:k]] \
+        + 0.01 * torch.randn((1, k, d), generator=gen, device=cuda)
+    lab, d2 = assign_ops.kmeans_assign(x, c)
+    want_lab, want_d2 = kmeans_assign_ref(x, c)
+    assert torch.equal(lab, want_lab) and torch.equal(d2, want_d2)
+    vals = torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+    got = segment_ops.segment_stats(vals, lab, k)
+    want = segment_stats_ref(vals, lab, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,k,weighted", [(1, 6861, 38, 500, False),
+                                              (3, 2000, 15, 20, True)])
+def test_kmeanspp_graph_replays_equal_cpu_seeding(cuda, b, n, d, k,
+                                                  weighted):
+    """k-means++ seeding on the card (one eager draw, then replays of its
+    CUDA graph) picks bitwise the seeds the CPU's eager draws pick, at the
+    Fig 12/13 shape and for a weighted stack of lanes."""
+    from repro_torch import prng
+    from repro_torch.core.clustering.kmeans import _kmeanspp_init
+    gen = torch.Generator().manual_seed(n + k)
+    x = torch.randn((b, n, d), generator=gen)
+    w = (torch.rand((b, n), generator=gen) > 0.3).float() \
+        if weighted else None
+    keys = torch.stack([prng.PRNGKey(s) for s in range(b)])
+    want = _kmeanspp_init(keys, x, k, w)
+    got = _kmeanspp_init(keys.to(cuda), x.to(cuda), k,
+                         None if w is None else w.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(900,), (4, 3000)])
+def test_stratum_tables_device_route_matches_host(cuda, shape):
+    """``stratum_tables``' segment_stats route on the card against its
+    float64 host route: counts exactly, moments and the eq. (3) / (6)
+    estimates to rtol 1e-5; the tables stay on the card."""
+    from repro_torch.core.sampling import tables
+    gen = torch.Generator(device=cuda).manual_seed(shape[-1])
+    y = 3.0 + torch.randn(shape, generator=gen, device=cuda,
+                          dtype=torch.float64)
+    labels = torch.randint(-1, 20, shape, generator=gen, device=cuda)
+    host = tables.stratum_tables(y, labels, num_strata=20)
+    before = segment_ops.launch_count()
+    dev = tables.stratum_tables(y, labels, num_strata=20, backend="auto")
+    assert segment_ops.launch_count() == before + 1
+    assert dev.counts.is_cuda and dev.sums.is_cuda and dev.shift.is_cuda
+    assert torch.equal(dev.counts.cpu().double(), host.counts)
+    for f in ("means", "variances"):
+        torch.testing.assert_close(getattr(dev, f).cpu().double(),
+                                   getattr(host, f), rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(
+        tables.two_phase_variance(dev, 900).cpu().double(),
+        tables.two_phase_variance(host, 900), rtol=1e-5, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_stratum_tables_auto_never_leaves_the_card(cuda, monkeypatch):
+    """A CUDA input under backend="auto": no copy to the host anywhere in
+    the construction."""
+    from repro_torch.core.sampling import tables
+    y = torch.rand(5000, device=cuda)
+    labels = torch.randint(0, 20, (5000,), device=cuda)
+    real_to, real_cpu = torch.Tensor.to, torch.Tensor.cpu
+
+    def to(self, *args, **kwargs):
+        dest = args[0] if args else kwargs.get("device")
+        if self.is_cuda and (dest == "cpu" or getattr(dest, "type", None)
+                             == "cpu"):
+            raise AssertionError("a CUDA tensor was moved to the CPU")
+        return real_to(self, *args, **kwargs)
+
+    def cpu(self, *args, **kwargs):
+        raise AssertionError("a CUDA tensor was moved to the CPU")
+
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    monkeypatch.setattr(torch.Tensor, "cpu", cpu)
+    t = tables.stratum_tables(y, labels, num_strata=20, backend="auto")
+    mean = tables.stratified_mean(t)
+    monkeypatch.undo()
+    assert t.counts.is_cuda and mean.is_cuda
+    assert int(t.counts.sum()) == 5000
+
+
+@pytest.mark.cuda
+def test_two_phase_flow_on_the_card_equals_cpu(cuda):
+    """``TwoPhaseFlow`` on the card (clustering kernels) against the same
+    flow on the CPU (plain versions) for one app: phase-1 indices and
+    picks equal, labels equal except at near-ties, estimates to
+    rtol 1e-5."""
+    import numpy as np
+    from repro_torch.core import sampling as S
+    from repro_torch.simcpu import CONFIGS, make_cached_simulator
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sim = make_cached_simulator("520.omnetpp_r", device=dev)
+        flow = S.TwoPhaseFlow(population_size=sim.pop.n_regions,
+                              rng=np.random.default_rng(11), device=dev)
+        before = assign_ops.launch_count()
+        idx1, y0, feats, _ = flow.characterize(
+            lambda i: sim.simulate_rfv(i, CONFIGS[0]), 900)
+        strat = flow.stratify(idx1, y0, feats,
+                              scheme=S.RFVClusters(num_strata=20))
+        launched = assign_ops.launch_count() - before
+        sel = flow.select(strat, policy=S.Centroid())
+        ests = [flow.point_estimate(strat, sel,
+                                    lambda i, c=c: sim.simulate_cpi(i, c))
+                for c in CONFIGS]
+        ci = flow.ci_check(strat, lambda i: sim.simulate_cpi(i, CONFIGS[6]),
+                           per_stratum_sizes=np.full(20, 8))
+        out[dev] = (idx1.cpu(), strat, [s.cpu() for s in sel], ests, ci,
+                    launched)
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert gpu[5] > 0 and cpu[5] == 0
+    assert torch.equal(cpu[0], gpu[0])
+    diff = (cpu[1].labels != gpu[1].labels.cpu()).nonzero().reshape(-1)
+    if diff.numel():
+        z = cpu[1].features.double()[diff]
+        d2 = ((z[:, None] - cpu[1].centroids.double()[None]) ** 2).sum(-1)
+        two = torch.sort(d2, dim=1).values[:, :2]
+        assert bool((two[:, 1] - two[:, 0] <= TIE_RTOL * two[:, 0]).all())
+    else:
+        assert [s.tolist() for s in cpu[2]] == [s.tolist() for s in gpu[2]]
+    np.testing.assert_allclose(gpu[3], cpu[3], rtol=1e-5)
+    np.testing.assert_allclose([gpu[4].mean, gpu[4].margin],
+                               [cpu[4].mean, cpu[4].margin], rtol=1e-5)

@@ -179,7 +179,8 @@ def test_sweep_spec_checks_the_trial_config():
 
 def test_known_schemes_match_reference():
     assert T.known_schemes() == R.known_schemes()
-    assert tplan.registered_policies() == ("centroid", "mean", "random")
+    assert tplan.registered_policies() == rplan.registered_policies() \
+        == ("centroid", "mean", "random", "ranked_set")
 
 
 def test_memo_version_moves_on_every_mutation(engines):

@@ -50,6 +50,24 @@ def test_batched_keys_match_per_key_draws():
 
 
 @pytest.mark.parametrize("seed", SEEDS)
+def test_split_chain_matches_successive_splits(seed):
+    """``split_chain`` (walked on the host) gives the subkeys of successive
+    ``key, sub = split(key)`` steps, as the reference's k-means++ takes
+    them, for a batch of keys."""
+    jkeys = jax.random.split(jax.random.PRNGKey(seed), 3)
+    want = []
+    for jk in jkeys:
+        subs = []
+        for _ in range(40):
+            jk, sub = jax.random.split(jk)
+            subs.append(np.asarray(sub).astype(np.int64))
+        want.append(subs)
+    got = prng.split_chain(prng.split(prng.PRNGKey(seed), 3), 40)
+    assert got.shape == (3, 40, 2)
+    assert (_np(got) == np.asarray(want)).all()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
 def test_uniform_bitwise(seed):
     ju = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), (2000,)))
     assert (_np(prng.uniform(prng.PRNGKey(seed), (2000,))) == ju).all()
