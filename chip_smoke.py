@@ -42,7 +42,14 @@ after:
   equal, and the kernels' numbers held against the reference's committed
   in ``paper_figs_reference.json``; both clustering kernels bitwise
   against their plain versions at the figures' new shapes (k = 50 over
-  gcc's 120,000 BBVs, k = 500 over a phase-1 sample);
+  gcc's 120,000 BBVs, k = 500 over a phase-1 sample); every figure fit
+  must give the reference's labels;
+* the fault-tolerant fleet drivers and the sweep service on all ten apps
+  and 7 configs (``phase_fleet_and_service``): supervised rfv and dg
+  sweeps and 10^5 supervised trials, each killed three times and every
+  attempt a fresh engine build, and ``SweepService`` over 64 requests
+  with a memo cap, each held bit for bit against the uninterrupted or
+  serial run and against the plain route;
 * the LM serving path at the full width of ``llama3.2-3b`` and 4 of its 28
   layers (bf16, random weights from a seeded generator): prefill of
   4 x 4096 tokens through the flash-attention kernel and through the
@@ -115,6 +122,16 @@ def time_ms(fn, *, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_ms_spread(fn, *, reps: int = 15, iters: int = 20
+                   ) -> tuple[float, float, float]:
+    """Median, least and most of ``reps`` readings of ``time_ms`` (each
+    the mean of ``iters`` calls): for the short kernels whose single
+    reading moves from run to run."""
+    t = sorted(time_ms(fn, warmup=3 if i == 0 else 1, iters=iters)
+               for i in range(reps))
+    return t[len(t) // 2], t[0], t[-1]
+
+
 def device_ms(fn, names, *, iters: int = 10) -> dict:
     """Device milliseconds per call of each kernel whose name holds one of
     ``names`` (``torch.profiler``), over ``iters`` warmed calls of
@@ -144,6 +161,32 @@ def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def assign_ms_in_order(x, c, chain: bool) -> tuple[float, float, float]:
+    """``kmeans_assign``'s milliseconds (``time_ms_spread``) at ``x (b, n,
+    d)``, ``c (b, k, d)`` with its dot product in the given order, one
+    chain or interleaved chains (the wrapper takes the reference's order
+    at the shape; this launches through its uncounted ``_launch``, for
+    the time of the other order). Not a launch of any path: the wrapper's
+    count is untouched."""
+    from repro_torch.kernels.kmeans_assign import ops
+    order = "chain" if chain else "four"
+    return time_ms_spread(lambda: ops._launch(x, c, order))
+
+
+def assign_device_ms(x, c, chain: bool) -> float:
+    """The kernel's own time on the card (``torch.profiler``) in the given
+    dot order, uncounted as ``assign_ms_in_order``: CUDA events around a
+    launch of a few tens of microseconds also read the host's share."""
+    from repro_torch.kernels.kmeans_assign import ops
+    order = "chain" if chain else "four"
+    return device_ms(lambda: ops._launch(x, c, order),
+                     ["assign_kernel"]).get("assign_kernel")
+
+
+def spread(t) -> str:
+    return f"{t[0]:.4f} ms (median; {t[1]:.4f}-{t[2]:.4f})"
 
 
 # ------------------------------------------------------------------ phase 1
@@ -398,7 +441,8 @@ def check_main_path_inputs(latency: dict) -> dict:
         if not (torch.equal(lab_k, lab_p) and torch.equal(d2_k, d2_p)):
             raise AssertionError(f"kmeans_assign {tag} main-path input: not "
                                  "bitwise equal to the plain version")
-        ms = time_ms(lambda: assign_ops.kmeans_assign(x, old))
+        ms_t = time_ms_spread(lambda: assign_ops.kmeans_assign(x, old))
+        ms = ms_t[0]
         on_card = device_ms(lambda: assign_ops.kmeans_assign(x, old),
                             ["assign_kernel"]).get("assign_kernel")
         plain_ms = time_ms(lambda: assign_ops.kmeans_assign(
@@ -406,16 +450,27 @@ def check_main_path_inputs(latency: dict) -> dict:
         bound_ms, bound_by = bound(4 * (b * n * d + b * k * d + 2 * b * n),
                                    2.0 * b * n * k * d + 2.0 * b * n * d)
         log(f"kmeans_assign {tag} main-path input (b={b}, n={n}, d={d}, "
-            f"k={k}): bitwise equal to plain; kernel {ms:.4f} ms (on the "
-            f"card {on_card:.4f} ms), plain "
+            f"k={k}): bitwise equal to plain; kernel {spread(ms_t)} (on "
+            f"the card {on_card:.4f} ms), plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), bound "
             f"share {bound_ms / ms:.3f}; grid "
             f"{assign_ops.last_dispatch()['grid']}")
         err = float((d2_k - d2_p).abs().max())
+        order = assign_ops.last_dispatch()["order"]
+        other_t = assign_ms_in_order(x, old, order == "four")
+        other_dev = assign_device_ms(x, old, order == "four")
+        log(f"  kmeans_assign {tag}: the reference's dot order here is "
+            f"{order}; in the other order {spread(other_t)} (on the card "
+            f"{other_dev:.4f} ms)")
         row["kmeans_assign"] = {"max_abs_err": err, "ms": ms,
+                                "ms_range": ms_t[1:],
                                 "device_ms": on_card,
                                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                "bound_by": bound_by, "library_ms": None}
+                                "bound_by": bound_by, "library_ms": None,
+                                "order": order,
+                                "other_order_ms": other_t[0],
+                                "other_order_range": other_t[1:],
+                                "other_order_device_ms": other_dev}
 
         # segment_stats of the last step's centroid update
         vals = torch.cat([x * w[..., None], w[..., None]], dim=-1)
@@ -912,16 +967,24 @@ def fused_vs_staged(engine, plan) -> dict:
     after_fused = memo_record(engine)
     charges = engine.memo.total_charges()
     n0 = segment_ops.launch_count()
-    warm_run = {}
-    by_name, warm_ms = device_kernels(
-        lambda: warm_run.update(table=run_sweep(engine, spec)))
+    for attempt in range(2):
+        # a warm replay charges nothing, so a second one (when the
+        # profiler returned no device event at all) changes no state
+        warm_run = {}
+        by_name, warm_ms = device_kernels(
+            lambda: warm_run.update(table=run_sweep(engine, spec)))
+        if by_name:
+            break
+        log(f"fused {tag}: the profiler returned no device event for the "
+            "warm replay; replaying once more")
     warm_table, warm = warm_run["table"], warm_ms / 1e3
     replayed = segment_launches_seen(by_name)
     if segment_ops.launch_count() != n0 or replayed != eager_launches \
             or replayed <= 0:
         raise AssertionError(
             f"fused {tag}: the replay made {replayed} segment_stats "
-            f"launches (profiler) and the wrapper counted "
+            f"launches (profiler, of {sum(n for n, _ in by_name.values())} "
+            f"device events) and the wrapper counted "
             f"{segment_ops.launch_count() - n0}; the eager run made "
             f"{eager_launches}")
     if fused.program_captures() != captures + 1 \
@@ -1229,19 +1292,29 @@ def check_new_shapes(engine, record: dict) -> dict:
             raise AssertionError(
                 f"kmeans_assign {tag}: {int((lab_k != lab_p).sum())} labels,"
                 f" {int((d2_k != d2_p).sum())} distances differ from plain")
-        ms = time_ms(lambda: assign_ops.kmeans_assign(x, c))
+        ms_t = time_ms_spread(lambda: assign_ops.kmeans_assign(x, c))
+        ms = ms_t[0]
         plain_ms = time_ms(lambda: assign_ops.kmeans_assign(
             x, c, backend="plain"), iters=3)
         bound_ms, bound_by = bound(4 * (b * n * d + b * k * d + 2 * b * n),
                                    2.0 * b * n * k * d + 2.0 * b * n * d)
+        order = assign_ops.last_dispatch()["order"]
+        other_t = assign_ms_in_order(x, c, order == "four")
+        dev = assign_device_ms(x, c, order == "chain")
+        other_dev = assign_device_ms(x, c, order == "four")
         out["kmeans_assign"][tag] = {
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": 0.0, "ms": ms, "ms_range": ms_t[1:],
+            "device_ms": dev, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": [b, n, k, d]}
+            "shape": [b, n, k, d], "order": order,
+            "other_order_ms": other_t[0], "other_order_range": other_t[1:],
+            "other_order_device_ms": other_dev}
         log(f"kmeans_assign {tag} (b={b}, n={n}, d={d}, k={k}): labels and "
-            f"distances bitwise equal to plain; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"bound share {bound_ms / ms:.3f}")
+            f"distances bitwise equal to plain; kernel {spread(ms_t)} in the "
+            f"reference's order here ({order}; {spread(other_t)} in the "
+            f"other; on the card {dev:.4f} and {other_dev:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), bound share {bound_ms / ms:.3f}")
         # the centroid update of that step: [x, 1] summed by label
         vals = torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
         lab = lab_k.int()
@@ -1408,13 +1481,11 @@ def hold_against_reference(got: dict, record: dict, selection: dict,
                            ref: dict) -> None:
     """The card's figure numbers against the reference's: integers
     exactly, floats as ``paper_figs.compare`` holds them. The engine's
-    picks must agree for every app. A figure fit of the card's own may
-    part from the reference's labels only at k >= 50, and then only
-    through the reference's dot order: refitted with it
-    (``paper_figs.refit_in_reference_order``) it must give the
-    reference's labels. Where the labels agree, picks may differ only at
-    near-ties. Every difference is printed with its app and both values,
-    and one that no such fit explains fails."""
+    picks must agree for every app, and every figure fit of the card's
+    own must give the reference's labels (the clustering kernels take the
+    reference's dot order at each fit's shape, ``core.ordered``). Picks
+    may differ only at near-ties. Every difference is printed with its
+    app and both values, and one that no near-tie explains fails."""
     from repro_torch.experiments import paper_figs as pf
 
     picks_agree = {app: selection.get(app) == want
@@ -1426,24 +1497,15 @@ def hold_against_reference(got: dict, record: dict, selection: dict,
     fits_k = pf.fit_summary(record)
     parted = sorted(k for k, w in ref["fits"].items()
                     if fits_k[k]["labels"] != w["labels"])
-    below = [k for k in parted if int(k.split("/")[-1]) < 50]
-    if below:
-        raise AssertionError(f"figure fits at k < 50 parted: {below}")
-    for key in parted:
-        t0 = time.perf_counter()
-        if pf.refit_in_reference_order(record[key]) != \
-                ref["fits"][key]["labels"]:
-            raise AssertionError(f"{key}: parts from the reference beyond "
-                                 "its dot order")
-        log(f"  {key}: refitted in the reference's dot order, the "
-            f"reference's labels ({time.perf_counter() - t0:.1f} s)")
+    if parted:
+        raise AssertionError(f"figure fits whose labels part from the "
+                             f"reference's: {parted}")
     fit_ties = {k: pf.pick_ties(record[k], w["picks"])
-                for k, w in ref["fits"].items() if k not in parted}
+                for k, w in ref["fits"].items()}
     log(f"against the reference: engine picks agree for all "
-        f"{len(picks_agree)} apps; figure fits whose labels parted (each "
-        f"only through the dot order): {parted}; picks at near-ties by "
-        "fit: " + ", ".join(f"{k} {n}" for k, (_, n) in fit_ties.items()
-                            if n))
+        f"{len(picks_agree)} apps; all {len(fit_ties)} figure fits give "
+        "the reference's labels; picks at near-ties by fit: "
+        + ", ".join(f"{k} {n}" for k, (_, n) in fit_ties.items() if n))
     for k, (differing, near) in fit_ties.items():
         if differing != near:
             raise AssertionError(f"{k}: labels agree with the reference "
@@ -1455,16 +1517,372 @@ def hold_against_reference(got: dict, record: dict, selection: dict,
         why = pf.explain(d, record, ref["fits"], ref["gcc_app"])
         log(f"  differs from the reference: {d['figure']} {d['path']} "
             f"(app {d['app']}): card {d['got']!r}, reference "
-            f"{d['want']!r}; {why or 'no fit of its own parted'}")
+            f"{d['want']!r}; {why or 'no near-tie pick explains it'}")
         if why is None:
             failed.append(d)
     if failed:
         raise AssertionError(f"{len(failed)} figure numbers differ from "
-                             "the reference with no fit to explain them")
+                             "the reference with no near-tie to explain "
+                             "them")
     log(f"figures against the reference: {len(diffs)} of "
         f"{len(list(pf._leaves(ref['figures'])))} numbers differ, each "
-        "where a fit of the figure's own parted through the dot order or "
-        "picked at near-ties")
+        "where a fit of the figure's own picked at near-ties")
+
+
+# ---------------------------------------------------------------- phase 3d
+# the fleet and service phase's blocking: 2 app blocks x 2 config blocks
+# (4 + 3 configs) a sweep, 4 segments x 2 schemes for the trials; every
+# checkpoint holds the (10, 7, 120000) memo mask and CPI, about 42 MB
+FLEET_APP_BLOCK, FLEET_CONFIG_BLOCK = 5, 4
+FLEET_SEED = 17
+FLEET_TRIALS, FLEET_SEGMENT = 100_000, 25_000
+SERVICE_REQUESTS, SERVICE_TICK, SERVICE_CAP = 64, 16, 4
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*")
+               if f.is_file())
+
+
+def memo_by_config(engine) -> dict:
+    """The engine's memo snapshot (``state()``, which restores spilled
+    columns first) with its config columns in ``engine.configs`` order,
+    ``version`` left out (restarts legally repeat table writes)."""
+    tree, meta = engine.memo.state()
+    order = [meta["configs"].index(repr(c)) for c in engine.configs]
+    out = {k: v for k, v in tree.items() if k != "version"}
+    out["mask"], out["cpi"] = tree["mask"][:, order], tree["cpi"][:, order]
+    out["charges"] = tree["charges"][:, order]
+    return out
+
+
+def same_memo(a: dict, b: dict, what: str, keys=None) -> None:
+    import numpy as np
+    for k in keys or a:
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{what}: memo {k} differs")
+
+
+def same_rows(got, want, what: str, fields=("estimate", "err_pct",
+                                             "n_units")) -> None:
+    import numpy as np
+    if len(got.rows) != len(want.rows):
+        raise AssertionError(f"{what}: {len(got.rows)} rows against "
+                             f"{len(want.rows)}")
+    for f in fields:
+        a = np.asarray(got.column(f), np.float64)
+        b = np.asarray(want.column(f), np.float64)
+        if a.tobytes() != b.tobytes():
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def same_trials(got, want, what: str, *, floats: bool) -> None:
+    """Every ``TrialStats`` leaf (the float moments only when ``floats``)
+    and every kept per-trial array, bit for bit."""
+    for s in want.spec.schemes:
+        for i, (a, b) in enumerate(zip(got.stats[s].leaves(),
+                                       want.stats[s].leaves())):
+            if (floats or not a.dtype.is_floating_point) \
+                    and not same_bits(a, b):
+                raise AssertionError(f"{what} {s}: TrialStats leaf {i}")
+        for field in ("estimates", "errors", "half_widths"):
+            if getattr(got, field)[s].tobytes() != \
+                    getattr(want, field)[s].tobytes():
+                raise AssertionError(f"{what} {s}: {field}")
+
+
+def covering_faults(seed: int, n_quanta: int):
+    """``FaultPlan.random(s, n_quanta, kills=3)`` for the first ``s >=
+    seed`` whose three events are one of each kind (a kill before the
+    checkpoint, a corrupt mid-write, a kill after it)."""
+    from repro_torch.runtime.faults import FAULT_KINDS, FaultPlan
+    for s in range(seed, seed + 1000):
+        plan = FaultPlan.random(s, n_quanta, kills=3)
+        if sorted(e.kind for e in plan.events) == sorted(FAULT_KINDS):
+            return plan
+    raise AssertionError(f"no seed in [{seed}, {seed + 1000}) draws all "
+                         f"three fault kinds over {n_quanta} quanta")
+
+
+def check_faults_fired(report, faults, what: str) -> None:
+    """Every planned fault fired, in order, each costing one restart."""
+    import re
+    fired = [re.match(r"injected (\w+) scheduled at quantum (\d+)",
+                      a.get("error", "")) for a in report.attempts[:-1]]
+    fired = [(m.group(1), int(m.group(2))) for m in fired if m]
+    planned = [(e.kind, e.quantum) for e in faults.events]
+    if report.restarts != len(planned) or fired != planned:
+        raise AssertionError(f"{what}: {report.restarts} restarts, faults "
+                             f"fired {fired}, planned {planned}")
+
+
+def phase_fleet_and_service(plain) -> dict:
+    """The fault-tolerant fleet drivers and the sweep service on all ten
+    apps at their real sizes and all 7 configs, through the kernels:
+
+    * ``supervise_sweep`` of rfv and dg with ``Centroid`` under
+      ``FaultPlan.random(seed, 4 quanta, kills=3)`` (``covering_faults``:
+      one fault of each kind; each must fire, costing one restart),
+      every attempt building a fresh engine, against the
+      uninterrupted ``run_sweep_resumable`` of the same blocking (rows,
+      memo tables, charges, counters, ledgers bitwise), plain
+      ``run_sweep`` (the same, the policies being deterministic) and the
+      uninterrupted run through the plain versions (on the plain-route
+      engine), bit for bit;
+    * ``supervise_trials`` of 10^5 trials of random and rfv in segments
+      of 25,000 with 3 faults (one of each kind, quanta counted by the
+      driver's own plan), against the uninterrupted resumable run (all
+      leaves and per-trial arrays bitwise) and ``run_trials`` (per-trial
+      arrays and integer leaves bitwise);
+    * ``SweepService`` on a fresh engine serving ``synthetic_stream(64)``
+      over the ten apps, 16 a tick, memo cap 4 with spill, against the
+      same requests run one by one through ``run_sweep`` and against the
+      same service through the plain versions: rows and tables bitwise.
+
+    The uninterrupted and serial runs share one engine (the first
+    supervised run's last) whose memo is put back to its post-build state
+    before each. Returns each path's kernel launches (the wrappers'
+    counts: eager launches, none inside graph replays): fault_tolerance
+    adds up the supervised runs' alone, each counted from 0 just before
+    it, and serving is the service's run on the kernel route; the
+    comparison runs count in neither."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core.sampling.plan import SamplingPlan
+    from repro_torch.experiments import (ExperimentEngine, SweepSpec,
+                                         TrialSpec, resumable, run_sweep,
+                                         run_sweep_resumable, run_trials,
+                                         run_trials_resumable,
+                                         supervise_sweep, supervise_trials)
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+    from repro_torch.serving import SweepService, batcher
+    from repro_torch.serving.cli import synthetic_stream
+    from repro_torch.simcpu import APP_NAMES, CONFIGS
+
+    phase_t0 = time.perf_counter()
+    root = ROOT / "build" / "fleet"
+    shutil.rmtree(root, ignore_errors=True)
+    writes = []
+
+    def timed_save(directory, step, tree, **kw):
+        t0 = time.perf_counter()
+        path = save_checkpoint(directory, step, tree, **kw)
+        writes.append((_dir_bytes(path), time.perf_counter() - t0))
+        return path
+
+    save_checkpoint = resumable.save_checkpoint
+    resumable.save_checkpoint = timed_save
+    builds = []
+
+    def fresh():
+        t0 = time.perf_counter()
+        eng = ExperimentEngine()
+        eng.memo.cols_for(eng.configs)     # config columns in one order
+        eng.build(APP_NAMES)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+        return eng
+
+    def counts():
+        return {"kmeans_assign": assign_ops.launch_count(),
+                "segment_stats": segment_ops.launch_count()}
+
+    def zero_counts():
+        for ops in (assign_ops, segment_ops):
+            ops.reset_launch_count()
+
+    fleet = {"kmeans_assign": 0, "segment_stats": 0}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        # the first attempt's memo just after its build is every run's
+        # start; the first supervised run's last engine then serves the
+        # uninterrupted and serial runs, its memo put back to that state
+        state0, base = [], None
+
+        def reset(eng):
+            eng.memo.load_state(*state0[0], universe=eng.configs)
+
+        blocks = {"app_block": FLEET_APP_BLOCK,
+                  "config_block": FLEET_CONFIG_BLOCK}
+        n_quanta = (-(-len(APP_NAMES) // FLEET_APP_BLOCK)
+                    * -(-len(CONFIGS) // FLEET_CONFIG_BLOCK))
+        for i, scheme in enumerate(("rfv", "dg")):
+            spec = SweepSpec(apps=APP_NAMES,
+                             plan=SamplingPlan.from_strings(scheme,
+                                                            "centroid"))
+            faults = covering_faults(FLEET_SEED + 10 * i, n_quanta)
+            last, starts, w0 = [], [], len(writes)
+
+            def make(mesh):
+                starts.append(time.perf_counter())
+                last[:] = [fresh()]
+                if not state0:
+                    state0.append(last[0].memo.state())
+                return last[0]
+
+            zero_counts()
+            got, report = supervise_sweep(make, spec, root / f"s_{scheme}",
+                                          faults=faults, **blocks)
+            starts.append(time.perf_counter())
+            n1 = counts()
+            for name in fleet:
+                fleet[name] += n1[name]
+            check_faults_fired(report, faults, f"supervised {scheme}")
+            final = memo_by_config(last[0])
+            if base is None:
+                base = last[0]
+            del last[:]
+            gc.collect()
+            reset(base)
+            want = run_sweep_resumable(base, spec, root / f"u_{scheme}",
+                                       **blocks)
+            same_rows(got, want, f"supervised {scheme} vs uninterrupted")
+            same_memo(final, memo_by_config(base),
+                      f"supervised {scheme} vs uninterrupted")
+            reset(base)
+            same_rows(got, run_sweep(base, spec),
+                      f"supervised {scheme} vs run_sweep")
+            same_memo(final, memo_by_config(base),
+                      f"supervised {scheme} vs run_sweep",
+                      keys=("mask", "charges", "ledger_regions",
+                            "ledger_instr"))
+            reset(plain)
+            want_p = run_sweep_resumable(plain, spec,
+                                         root / f"p_{scheme}", **blocks)
+            same_rows(got, want_p, f"supervised {scheme} vs plain route")
+            same_memo(final, memo_by_config(plain),
+                      f"supervised {scheme} vs plain route")
+            ws = writes[w0:]
+            log(f"supervised sweep {scheme}/centroid, {len(APP_NAMES)} apps "
+                f"x {len(CONFIGS)} configs in {n_quanta} quanta, "
+                f"faults {[(e.kind, e.quantum) for e in faults.events]}: "
+                f"{report.restarts} restarts, {len(report.quanta)} quanta "
+                f"run (s each: " + ", ".join(
+                    f"{q['seconds']:.3f}" for q in report.quanta)
+                + "); attempts (s, build included): " + ", ".join(
+                    f"{b - a:.2f}" for a, b in zip(starts, starts[1:]))
+                + f"; {len(ws)} checkpoints written here (and the "
+                f"uninterrupted runs'), {ws[0][0] / 1e6:.1f} MB each, "
+                f"write {np.mean([w[1] for w in ws]):.3f} s mean, "
+                f"{max(w[1] for w in ws):.3f} s max; launches in the "
+                f"supervised run: kmeans_assign {n1['kmeans_assign']}, "
+                f"segment_stats {n1['segment_stats']}; equal bit for "
+                "bit to the uninterrupted run (kernels and plain versions) "
+                "and to run_sweep")
+
+        spec = TrialSpec(trials=FLEET_TRIALS, schemes=("random", "rfv"),
+                         keep_trials=True)
+        n_quanta = len(resumable._trial_quanta(spec, FLEET_SEGMENT)[3])
+        faults = covering_faults(FLEET_SEED + 20, n_quanta)
+        last, w0 = [], len(writes)
+
+        def make_t(mesh):
+            last[:] = [fresh()]
+            return last[0]
+
+        zero_counts()
+        t0 = time.perf_counter()
+        got, report = supervise_trials(make_t, spec, root / "t",
+                                       apps=APP_NAMES, faults=faults,
+                                       segment_trials=FLEET_SEGMENT)
+        trial_s = time.perf_counter() - t0
+        n1 = counts()
+        for name in fleet:
+            fleet[name] += n1[name]
+        check_faults_fired(report, faults, "supervised trials")
+        del last[:]
+        gc.collect()
+        reset(base)
+        want = run_trials_resumable(base, spec, root / "tu", apps=APP_NAMES,
+                                    segment_trials=FLEET_SEGMENT)
+        same_trials(got, want, "supervised trials vs uninterrupted",
+                    floats=True)
+        reset(base)
+        same_trials(got, run_trials(base, spec, apps=APP_NAMES),
+                    "supervised trials vs run_trials", floats=False)
+        ws = writes[w0:]
+        log(f"supervised trials: {FLEET_TRIALS} x random, rfv x "
+            f"{len(APP_NAMES)} apps in {n_quanta} quanta, faults "
+            f"{[(e.kind, e.quantum) for e in faults.events]}: "
+            f"{report.restarts} restarts, {trial_s:.2f} s, "
+            f"{len(report.quanta)} quanta run; checkpoints "
+            f"{ws[0][0] / 1e6:.1f} MB, write "
+            f"{np.mean([w[1] for w in ws]):.3f} s mean; launches "
+            f"{n1}; every leaf and "
+            "per-trial array equal to the uninterrupted run, per-trial "
+            "arrays and integer leaves to run_trials")
+        log(f"fault-tolerance path: {len(builds)} engine builds "
+            f"({np.mean(builds):.2f} s mean), launches in the supervised "
+            f"runs {fleet}, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"{time.perf_counter() - phase_t0:.1f} s")
+
+        # the service on a fresh engine: the build runs in its first tick
+        zero_counts()
+        serve_t0 = time.perf_counter()
+        stream = synthetic_stream(SERVICE_REQUESTS, apps=APP_NAMES)
+        captures = batcher.program_captures()
+
+        def serve(engine):
+            svc = SweepService(engine, memo_cap=SERVICE_CAP, spill=True)
+            ticks = []
+            for start in range(0, len(stream), SERVICE_TICK):
+                for spec in stream[start:start + SERVICE_TICK]:
+                    svc.submit(spec)
+                t0 = time.perf_counter()
+                svc.tick()
+                ticks.append(time.perf_counter() - t0)
+            return svc, ticks
+
+        svc_engine = ExperimentEngine()
+        svc_engine.memo.cols_for(svc_engine.configs)
+        service, ticks = serve(svc_engine)
+        torch.cuda.synchronize()
+        served = counts()
+        serve_s = time.perf_counter() - serve_t0
+        st = service.stats()
+        served_memo = memo_by_config(svc_engine)
+        results = [service.result(i) for i in range(len(stream))]
+        reset(base)
+        for i, spec in enumerate(stream):
+            same_rows(results[i], run_sweep(base, spec),
+                      f"service request {i} vs run_sweep")
+        same_memo(served_memo, memo_by_config(base),
+                  "service vs serial run_sweep")
+        reset(plain)
+        service_p, _ = serve(plain)
+        for i in range(len(stream)):
+            same_rows(results[i], service_p.result(i),
+                      f"service request {i}, kernels vs plain route")
+        same_memo(served_memo, memo_by_config(plain),
+                  "service, kernels vs plain route")
+        if service_p.stats().dispatches != st.dispatches:
+            raise AssertionError("service dispatches differ by route")
+        del svc_engine, service, service_p
+        log(f"service: {st.completed} requests over {len(APP_NAMES)} apps "
+            f"in {st.ticks} ticks of {SERVICE_TICK} (s each, the first "
+            "with the engine build: " + ", ".join(f"{t:.2f}" for t in ticks)
+            + f"), {st.dispatches} dispatches, {st.coalesced_requests} "
+            f"coalesced requests, latency p50 {st.latency_p50_s * 1e3:.1f} "
+            f"ms p95 {st.latency_p95_s * 1e3:.1f} ms, "
+            f"{st.throughput_rps:.1f} requests/s, cache hit rate "
+            f"{st.cache_hit_rate:.4f}, peak resident columns "
+            f"{st.peak_resident_cols}, {st.evicted_cols} columns evicted "
+            f"(spilled), {batcher.program_captures() - captures} group "
+            f"graphs captured (both routes); launches {served}; rows and "
+            "tables equal bit for bit to the requests run one by one and "
+            f"to the plain route; {serve_s:.1f} s")
+    finally:
+        resumable.save_checkpoint = save_checkpoint
+        shutil.rmtree(root, ignore_errors=True)
+    for path, n in (("fault_tolerance", fleet), ("serving", served)):
+        for name in ("kmeans_assign", "segment_stats"):
+            if n[name] <= 0:
+                raise AssertionError(f"{path} never launched {name}")
+    log(f"fleet and service phase: {time.perf_counter() - phase_t0:.1f} s")
+    return {"fault_tolerance": fleet, "serving": served}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1714,7 +2132,10 @@ def main() -> int:
                        engine, main_tables)
     flow_path, new_shapes = timed("flow and figures",
                                   phase_flow_and_figures, engine, plain)
-    del engine, plain
+    del engine
+    gc.collect()
+    fleet_paths = timed("fleet and service", phase_fleet_and_service, plain)
+    del plain
     gc.collect()
     left = torch.cuda.memory_allocated() - before
     # torch keeps a cuBLAS workspace for every stream that ran a GEMM,
@@ -1726,7 +2147,7 @@ def main() -> int:
         f"{(torch.cuda.memory_allocated() - before) / 2**20:.1f} MiB "
         "once cuBLAS's workspaces are freed")
     by_path = {"simulation": simulation, "fused_and_trials": fused_path,
-               "flow_and_figures": flow_path,
+               "flow_and_figures": flow_path, **fleet_paths,
                "lm": timed("LM path", phase_lm)}
     log("seconds by phase: " + ", ".join(
         f"{name} {s:.1f}" for name, s in seconds.items())

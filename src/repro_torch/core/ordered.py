@@ -13,12 +13,21 @@ from cumulative sums, so one flipped bit can pick a different seed):
 * a cumulative sum is blocked by 16: in-order scans of 16-element
   blocks, plus the scan of the block totals, recursively
   (``blocked_cumsum``);
-* a matrix product keeps four interleaved multiply-add accumulators
-  (depth index mod 4), summed as (a0 + a1) + (a2 + a3); a tail of three
-  is added with plain products, and a depth below 4 is one multiply-add
-  chain (``dot_nt``). This is bitwise for depths that are 0 or 3 mod 4
-  and below 4; for depths 1 or 2 mod 4 the reference's tail order is
-  not reproduced and results differ in the last bits.
+* a matrix product keeps interleaved multiply-add accumulators
+  (``dot_nt``): at a depth that is 0 or 3 mod 4, four (depth index mod
+  4), summed as (a0 + a1) + (a2 + a3), a tail of three added as the sum
+  of its plain products; at a depth that is 1 or 2 mod 4, two (depth
+  index mod 2), summed as a0 + a1, an odd last term added as a plain
+  product; a depth below 4 is one multiply-add chain;
+* but the k-means distance einsum ``(B, n, d) x (B, k, d)`` does not
+  always take the interleaved order: at some shapes XLA emits it as ONE
+  multiply-add chain over d, in order (``dot_chain``), and which one it
+  takes moves with n, k and B, not by a threshold (k = 20 and 40 four chains, 25-32
+  neither, 49-64 one chain, 100 four, 128 one ...). ``DOT_ORDERS``
+  tabulates the order at every shape where a fit of the port runs,
+  derived from the reference's own einsum on the CPU
+  (``tests/test_torch_paper_figs.py`` holds each row);
+  ``reference_dot_order`` reads it, and ``dot_in_order`` computes either.
 
 numpy, which the reference's engine uses for its host statistics, sums
 over an axis that is not the innermost one slice by slice, in order
@@ -35,7 +44,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["fma32", "tree_sum", "sum_sq", "blocked_cumsum", "dot_nt",
-           "dot_chain", "seq_sum"]
+           "dot_chain", "dot_in_order", "reference_dot_order", "DOT_ORDERS",
+           "seq_sum"]
 
 _WINDOW = 32
 _SCAN_BLOCK = 16
@@ -117,8 +127,16 @@ def dot_nt(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         for j in range(k):
             acc = fma32(x[..., j], y[..., j], acc)
         return acc
-    main = k - k % 4
     acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    if k % 4 in (1, 2):
+        main = k - k % 2
+        for j in range(0, main, 2):
+            acc = fma32(x[..., j:j + 2], y[..., j:j + 2], acc)
+        out = acc[..., 0] + acc[..., 1]
+        if main == k:
+            return out
+        return out + (x[..., main] * y[..., main]).float()
+    main = k - k % 4
     for j in range(0, main, 4):
         acc = fma32(x[..., j:j + 4], y[..., j:j + 4], acc)
     out = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
@@ -132,15 +150,68 @@ def dot_nt(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def dot_chain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``dot_nt``'s product as ONE multiply-add chain over ``K``, in order:
-    the reference's float32 dot at the figures' k >= 50 (its order moves
-    with the shape; ``dot_nt`` keeps the one of the engine's k = 20 fits,
-    as both clustering kernels do)."""
+    the reference's float32 distance einsum at the shapes ``DOT_ORDERS``
+    marks ``"chain"`` (gcc's k = 50 fit, Fig 12/13's k = 500 fits)."""
     x = x.float().double()[..., :, None, :]
     y = y.float().double()[..., None, :, :]
     acc = torch.zeros((), dtype=torch.float32, device=x.device)
     for j in range(x.shape[-1]):
         acc = fma32(x[..., j], y[..., j], acc)
     return acc
+
+
+# (B, n, k, d) of a distance einsum (B lanes of n points against k
+# centroids of d features) -> the reference's accumulation order there.
+# Rows: the build's BBV and RFV fits (ten apps, and the tests' app pairs),
+# the figures' k = 20 / 50 / 500 fits over full populations and phase-1
+# samples (and their restarts), the flow's stratifier fits (3 restarts),
+# kmeans_multi_seed's and SampledEval's. Fits at d < 4 (the flow's and
+# the tests' small ones) have no row: there both orders are one chain.
+_CHAIN = (
+    (1, 964, 482, 38), (1, 967, 483, 38), (1, 1030, 500, 38),
+    (1, 1041, 500, 38), (1, 1062, 500, 38), (1, 1997, 500, 38),
+    (1, 3047, 500, 38), (1, 6195, 500, 38), (1, 6861, 500, 38),
+    (1, 40000, 50, 15), (1, 120000, 50, 15))
+_FOUR = (
+    (1, 915, 457, 38), (1, 964, 20, 38), (1, 40000, 20, 15),
+    (1, 120000, 20, 15), (2, 915, 20, 6), (2, 915, 20, 21), (2, 964, 20, 6),
+    (2, 964, 20, 21), (2, 964, 20, 38), (2, 967, 20, 6), (2, 967, 20, 21),
+    (2, 967, 20, 38), (2, 1030, 20, 6), (2, 1030, 20, 21), (2, 1041, 20, 6),
+    (2, 1041, 20, 21), (2, 1062, 20, 6), (2, 1062, 20, 21), (2, 1997, 20, 6),
+    (2, 1997, 20, 21), (2, 1997, 20, 38), (2, 3001, 20, 15),
+    (2, 3047, 20, 6), (2, 3047, 20, 21), (2, 6195, 20, 6), (2, 6195, 20, 21),
+    (2, 6195, 20, 38), (2, 6861, 20, 6), (2, 6861, 20, 21),
+    (2, 40000, 20, 15), (2, 60000, 20, 15), (2, 120000, 20, 15),
+    (3, 900, 20, 15), (3, 900, 20, 38), (3, 915, 20, 15), (3, 915, 20, 38),
+    (3, 964, 20, 15), (3, 964, 20, 38), (3, 967, 20, 15), (3, 967, 20, 38),
+    (3, 1030, 20, 15), (3, 1030, 20, 38), (3, 1041, 20, 15),
+    (3, 1041, 20, 38), (3, 1062, 20, 15), (3, 1062, 20, 38),
+    (3, 1201, 20, 38), (3, 1500, 12, 7), (3, 1997, 20, 15),
+    (3, 1997, 20, 38), (3, 3047, 20, 15), (3, 3047, 20, 38),
+    (3, 6195, 20, 15), (3, 6195, 20, 38), (3, 6861, 20, 15),
+    (3, 6861, 20, 38), (10, 6861, 20, 38), (10, 120000, 20, 15))
+DOT_ORDERS: dict[tuple[int, int, int, int], str] = {
+    **{s: "four" for s in _FOUR}, **{s: "chain" for s in _CHAIN}}
+
+
+def reference_dot_order(b: int, n: int, k: int, d: int) -> str:
+    """The reference's accumulation order for a distance einsum of
+    ``b`` lanes, ``n`` points, ``k`` centroids and ``d`` features:
+    ``"chain"`` (``dot_chain``) or ``"four"`` (``dot_nt``'s interleaved
+    chains: four, or two where d is 1 or 2 mod 4), from ``DOT_ORDERS``.
+    A shape outside the table takes ``"four"``, the order of the engine's
+    k = 20 fits (and, below d = 4, the one chain both orders are)."""
+    return DOT_ORDERS.get((int(b), int(n), int(k), int(d)), "four")
+
+
+def dot_in_order(x: torch.Tensor, y: torch.Tensor, order: str
+                 ) -> torch.Tensor:
+    """``dot_nt`` (``order="four"``) or ``dot_chain`` (``"chain"``)."""
+    if order == "chain":
+        return dot_chain(x, y)
+    if order == "four":
+        return dot_nt(x, y)
+    raise ValueError(f"unknown dot order {order!r}; 'four' or 'chain'")
 
 
 def seq_sum(v: torch.Tensor, dim: int) -> torch.Tensor:

@@ -35,10 +35,17 @@
 //     rewrite), accumulated in the plain version's order (the order the
 //     reference's compiled float32 programs use, see core/ordered.py):
 //     squared norms as one multiply-add chain up to 32 terms, else in
-//     windows of 32; dot products with four interleaved multiply-add
-//     accumulators, (a0 + a1) + (a2 + a3), plus a tail of plain products.
-//     The kernel therefore agrees with its plain version bitwise, and a
-//     fit on the card follows the same path as one on the CPU.
+//     windows of 32; dot products in the order the reference's distance
+//     einsum takes at the launch's shape (core.ordered.DOT_ORDERS, passed
+//     in as `chain`): interleaved multiply-add accumulators -- four,
+//     (a0 + a1) + (a2 + a3), plus a tail of plain products, or two where
+//     d is 1 or 2 mod 4, a0 + a1, plus an odd last product; or one
+//     multiply-add chain over d, in order. The kernel therefore agrees
+//     with its plain version bitwise, and a fit on the card follows the
+//     same path as one on the CPU. The one chain is d dependent FMAs a
+//     point-centroid pair, where four chains are about d / 4 deep; two
+//     points a thread and the two-centroid unroll keep four such chains
+//     in flight.
 // The TPU's 128-wide padding of d and k is gone: rows, centroids and
 // features are read at their real sizes, and no padded centroid exists
 // that could win.
@@ -82,13 +89,16 @@ __device__ float sum_sq_row(const float* v, int d) {
   return __fadd_rn(acc, part);
 }
 
-// the same on a point held in registers (compile-time indices only)
+// the same on a point held in registers (compile-time indices only); the
+// order follows d, not DMAX, since a one-chain instantiation serves every
+// d up to its DMAX
 template <int DMAX>
 __device__ float sum_sq_reg(const float (&v)[DMAX], int d) {
+  constexpr int kChain = DMAX < kWindow ? DMAX : kWindow;
   float acc = 0.f;
-  if (DMAX <= kWindow) {
+  if (DMAX <= kWindow || d <= kWindow) {
 #pragma unroll
-    for (int j = 0; j < DMAX; ++j) {
+    for (int j = 0; j < kChain; ++j) {
       if (j < d) acc = fmaf(v[j], v[j], acc);
     }
     return acc;
@@ -110,18 +120,80 @@ __device__ float sum_sq_reg(const float (&v)[DMAX], int d) {
   return __fadd_rn(acc, part);
 }
 
+// x . c and y . c where d is 1 or 2 mod 4 (d > 4), in the plain version's
+// order there (core.ordered.dot_nt): two interleaved multiply-add
+// accumulators (j mod 2), a0 + a1, and an odd last term's rounded product
+// added after. Below 64, DMAX is ceil4(d), so every group of 4 columns but
+// the last is whole; at 128 each column is guarded. Columns at or past d
+// are skipped.
+template <int DMAX>
+__device__ __forceinline__ float2 dot2_two(const float (&x)[DMAX],
+                                           const float (&y)[DMAX],
+                                           const float4* c, int d) {
+  const int main = d & ~1;
+  float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f, tx = 0.f, ty = 0.f;
+#pragma unroll
+  for (int q = 0; q < DMAX / 4; ++q) {
+    const bool whole = DMAX <= 64 ? q + 1 < DMAX / 4 : 4 * q + 4 <= main;
+    if (!whole && 4 * q >= d) continue;
+    const float4 v = c[q];
+    const float cv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = 4 * q + r;
+      if (whole || j < main) {
+        if (r & 1) {
+          a1 = fmaf(x[j], cv[r], a1);
+          b1 = fmaf(y[j], cv[r], b1);
+        } else {
+          a0 = fmaf(x[j], cv[r], a0);
+          b0 = fmaf(y[j], cv[r], b0);
+        }
+      } else if (j == main && main < d) {
+        tx = __fmul_rn(x[j], cv[r]);
+        ty = __fmul_rn(y[j], cv[r]);
+      }
+    }
+  }
+  float ox = __fadd_rn(a0, a1), oy = __fadd_rn(b0, b1);
+  if (main < d) ox = __fadd_rn(ox, tx), oy = __fadd_rn(oy, ty);
+  return make_float2(ox, oy);
+}
+
 // x . c and y . c over j < d in the plain version's order
-// (core.ordered.dot_nt): a multiply-add chain below 4 terms; else four
+// (core.ordered.dot_nt): a multiply-add chain below 4 terms; two
+// interleaved chains where d is 1 or 2 mod 4 (dot2_two); else four
 // interleaved multiply-add accumulators over the largest multiple of 4,
 // (a0 + a1) + (a2 + a3), plus the tail's rounded products added in
 // order. c is a centroid row padded to a multiple of 4 floats, read 4 at a
 // time and used for both points. DMAX is ceil4(d) for d up to 64, so the
 // tail (d % 4 terms) sits in the last 4 columns; 128 covers the rest, the
-// tail found at run time.
-template <int DMAX>
+// tail found at run time. With CHAIN, both dots are one multiply-add
+// chain over j < d, in order (core.ordered.dot_chain); padding columns are
+// skipped, not added as zeros, so a -0 sum stays -0 as the plain version
+// keeps it.
+template <int DMAX, bool CHAIN>
 __device__ __forceinline__ float2 dot2(const float (&x)[DMAX],
                                        const float (&y)[DMAX],
                                        const float4* c, int d) {
+  if (CHAIN) {
+    float ax = 0.f, ay = 0.f;
+#pragma unroll
+    for (int q = 0; q < DMAX / 4; ++q) {
+      if (4 * q < d) {
+        const float4 v = c[q];
+        const float cv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (4 * q + r < d) {
+            ax = fmaf(x[4 * q + r], cv[r], ax);
+            ay = fmaf(y[4 * q + r], cv[r], ay);
+          }
+        }
+      }
+    }
+    return make_float2(ax, ay);
+  }
   if (DMAX == 4 && d < 4) {
     const float4 v = c[0];
     float ax = fmaf(x[0], v.x, 0.f), ay = fmaf(y[0], v.x, 0.f);
@@ -129,6 +201,7 @@ __device__ __forceinline__ float2 dot2(const float (&x)[DMAX],
     if (d > 2) ax = fmaf(x[2], v.z, ax), ay = fmaf(y[2], v.z, ay);
     return make_float2(ax, ay);
   }
+  if ((d & 3) == 1 || (d & 3) == 2) return dot2_two<DMAX>(x, y, c, d);
   const int main = d & ~3;
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
   float b0 = 0.f, b1 = 0.f, b2 = 0.f, b3 = 0.f;
@@ -256,7 +329,8 @@ __device__ __forceinline__ Tile tile_of(int item, int tiles, int tile_rows,
 
 // Block g walks items [g * items / G, (g + 1) * items / G) of the list of
 // (lane, tile) items, lane-major; a tile is tile_rows points of one lane.
-template <int DMAX>
+// CHAIN picks the dot product's order (dot2).
+template <int DMAX, bool CHAIN>
 __global__ void __launch_bounds__(kThreads, 2)
     assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
                   int n, int k, int d, int tiles, int tile_rows, int items,
@@ -363,7 +437,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     };
 #pragma unroll 2
     for (int kk = lo; kk < hi; ++kk)
-      take(kk, dot2<DMAX>(xr[0], xr[1], cs4 + kk * (dp / 4), d), c2[kk]);
+      take(kk, dot2<DMAX, CHAIN>(xr[0], xr[1], cs4 + kk * (dp / 4), d),
+           c2[kk]);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       // the shares of one point are `split` neighbouring lanes; the
@@ -411,7 +486,7 @@ cudaError_t card_of(int* device_out, int* sms, int* max_smem) {
   return cudaSuccess;
 }
 
-template <int DMAX>
+template <int DMAX, bool CHAIN>
 cudaError_t launch(const float* x, const float* c, int b, int n, int k, int d,
                    int* labels, float* mind2, int* geometry,
                    cudaStream_t stream) {
@@ -443,14 +518,16 @@ cudaError_t launch(const float* x, const float* c, int b, int n, int k, int d,
   static int blocks_per_sm[kDevices];
   if (smem > set_smem[device]) {
     if (cudaError_t e = cudaFuncSetAttribute(
-            assign_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            assign_kernel<DMAX, CHAIN>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem))
       return e;
     set_smem[device] = smem;
   }
   if (smem != occupancy_smem[device]) {
     if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks_per_sm[device], assign_kernel<DMAX>, kThreads, smem))
+            &blocks_per_sm[device], assign_kernel<DMAX, CHAIN>, kThreads,
+            smem))
       return e;
     occupancy_smem[device] = smem;
   }
@@ -466,31 +543,33 @@ cudaError_t launch(const float* x, const float* c, int b, int n, int k, int d,
     geometry[1] = items;
     geometry[2] = split;
   }
-  assign_kernel<DMAX><<<grid, kThreads, smem, stream>>>(
+  assign_kernel<DMAX, CHAIN><<<grid, kThreads, smem, stream>>>(
       x, c, n, k, d, tiles, tile_rows, items, split, stage_floats(), labels,
       mind2);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// x (b, n, d), c (b, k, d) float32, contiguous, x 16-byte aligned; labels
-// (b, n) int32 and mind2 (b, n) float32 out; geometry (3 ints, out): the
-// persistent grid, the (lane, tile) items and the threads a point. Returns
-// the CUDA error of the launch (0 = ok).
-extern "C" int kmeans_assign_f32(const float* x, const float* c, int b, int n,
-                                 int k, int d, int* labels, float* mind2,
-                                 int* geometry, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || n <= 0) return 0;
-  if (k <= 0 || d <= 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaErrorInvalidValue;
+// The interleaved order (four chains, or two) takes the instantiation of
+// d's own ceil4 (its tail sits in the last 4 columns), or 128 above 64. The one-chain order reads
+// a point's d columns under run-time guards, so any DMAX >= d serves it:
+// it is built at 16 and 40 only (the table's one-chain rows have d = 2, 3,
+// 15 and 38), which keeps the build short; a one-chain launch with d > 40
+// is refused.
+cudaError_t dispatch(const float* x, const float* c, int b, int n, int k,
+                     int d, bool chain, int* labels, float* mind2,
+                     int* geometry, cudaStream_t s) {
+  if (chain) {
+    if (d <= 16)
+      return launch<16, true>(x, c, b, n, k, d, labels, mind2, geometry, s);
+    if (d <= 40)
+      return launch<40, true>(x, c, b, n, k, d, labels, mind2, geometry, s);
+    return cudaErrorInvalidValue;
+  }
   switch ((d + 3) / 4) {
 #define KMEANS_ASSIGN_CASE(q)                                            \
   case q:                                                                \
-    e = launch<4 * q>(x, c, b, n, k, d, labels, mind2, geometry, s);     \
-    break;
+    return launch<4 * q, false>(x, c, b, n, k, d, labels, mind2,         \
+                                geometry, s);
     KMEANS_ASSIGN_CASE(1) KMEANS_ASSIGN_CASE(2) KMEANS_ASSIGN_CASE(3)
     KMEANS_ASSIGN_CASE(4) KMEANS_ASSIGN_CASE(5) KMEANS_ASSIGN_CASE(6)
     KMEANS_ASSIGN_CASE(7) KMEANS_ASSIGN_CASE(8) KMEANS_ASSIGN_CASE(9)
@@ -500,7 +579,28 @@ extern "C" int kmeans_assign_f32(const float* x, const float* c, int b, int n,
 #undef KMEANS_ASSIGN_CASE
     default:
       if (d <= 128)
-        e = launch<128>(x, c, b, n, k, d, labels, mind2, geometry, s);
+        return launch<128, false>(x, c, b, n, k, d, labels, mind2, geometry,
+                                  s);
   }
-  return (int)e;
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// x (b, n, d), c (b, k, d) float32, contiguous, x 16-byte aligned; chain:
+// 1 for the one-chain dot order (d <= 40, else cudaErrorInvalidValue), 0
+// for the interleaved chains (d <= 128);
+// labels (b, n) int32
+// and mind2 (b, n) float32 out; geometry (3 ints, out): the persistent
+// grid, the (lane, tile) items and the threads a point. Returns the CUDA
+// error of the launch (0 = ok).
+extern "C" int kmeans_assign_f32(const float* x, const float* c, int b, int n,
+                                 int k, int d, int chain, int* labels,
+                                 float* mind2, int* geometry, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b <= 0 || n <= 0) return 0;
+  if (k <= 0 || d <= 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch(x, c, b, n, k, d, chain != 0, labels, mind2, geometry,
+                       s);
 }

@@ -6,7 +6,10 @@ stratifications) over one shared ``MemoBank``;
 ``run_sweep(engine, SweepSpec(...))`` runs apps x configs for one
 ``SamplingPlan`` (or the phase-1 SRS), fused into one program by default;
 ``run_trials(engine, TrialSpec(...))`` streams the Monte-Carlo selection
-trials of Fig 8; ``paper_figs`` reproduces every paper figure and table.
+trials of Fig 8; ``paper_figs`` reproduces every paper figure and table;
+``run_sweep_resumable`` / ``run_trials_resumable`` and their supervisors
+(``supervise_sweep`` / ``supervise_trials``) run them as checkpointed,
+fault-tolerant jobs.
 """
 
 from . import paper_figs
@@ -17,6 +20,9 @@ from .engine import (NUM_STRATA, PHASE1_SEED, AppExperiment,
 from .fused import fused_sweep_program, program_captures, run_fused_sweep
 from .montecarlo import (SRS_DRAWS, TRIAL_BLOCK, TRIAL_SCHEMES, TrialResult,
                          TrialSpec, run_trials, trial_uniforms)
+from .resumable import (FleetReport, run_sweep_resumable,
+                        run_trials_resumable, supervise_sweep,
+                        supervise_trials)
 from .sweep import (SRS_SCHEME, ResultsTable, SweepRow, SweepSpec,
                     assemble_rows, known_schemes, run_sweep)
 
@@ -29,5 +35,7 @@ __all__ = [
     "SRS_SCHEME", "known_schemes",
     "TrialSpec", "TrialResult", "run_trials", "trial_uniforms",
     "SRS_DRAWS", "TRIAL_SCHEMES", "TRIAL_BLOCK",
+    "FleetReport", "run_sweep_resumable", "run_trials_resumable",
+    "supervise_sweep", "supervise_trials",
     "NUM_STRATA", "PHASE1_SEED",
 ]

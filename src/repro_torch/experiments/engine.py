@@ -232,6 +232,9 @@ class ExperimentEngine:
         # their modules (experiments.fused, experiments.montecarlo); held
         # here so that they, their pools and buffers go with the engine
         self.graphs: dict[tuple, object] = {}
+        # the coalesced groups' stacked inputs and graphs, per group
+        # composition, bounded (serving.batcher)
+        self.groups: dict[tuple, object] = {}
         # the latest fused sweep's outputs (experiments.fused)
         self.fused_outputs: Optional[dict] = None
 

@@ -49,29 +49,35 @@ from .engine import _segment_sums_counts
 
 __all__ = ["fused_sweep_program", "run_fused_sweep", "program_captures"]
 
-_captures = 0
+# CUDA graphs captured in this process: the fused sweeps' and the
+# coalesced groups' (``repro_torch.serving.batcher``)
+_captures = {"fused": 0, "group": 0}
 
 
 def program_captures() -> int:
     """CUDA graphs captured by the fused sweep programs in this process."""
-    return _captures
+    return _captures["fused"]
 
 
 @functools.lru_cache(maxsize=None)
 def fused_sweep_program(plan: sampling_plan.SamplingPlan,
-                        precision: PrecisionPolicy, backend: str = "auto"):
+                        precision: PrecisionPolicy, backend: str = "auto",
+                        write: bool = True):
     """The selection -> fill -> estimate function of one plan, estimates
     in the policy's trace dtype, the stratum summary through ``backend``
-    (the engine's kernel route), kept per (plan, policy, route).
+    (the engine's kernel route), kept per (plan, policy, route, write).
 
     ``traced(memo, bank, feats_pop, cm, x)`` reads the plan's
     ``StratumBank``, the (A, N, F) population features, the (C, 14)
     config matrix, the memo's tables and the per-call inputs ``x``
     (``uniforms`` (A, L) or None, ``truth`` (A, C), memo ``rows`` (A,)
-    and ``cols`` (C,)); it updates the tables in place and returns a dict
-    of tensors: ``est``, ``err`` (A, C); ``valid``, ``picks`` (A, L);
-    ``n_miss`` (A, C); and the stratum summary it computed, ``sums`` and
-    ``counts`` (A, L), for checks of the kernel inside the program."""
+    and ``cols`` (C,)); with ``write`` it updates the tables in place
+    (without, it only reads them: a coalesced group's requests are
+    absorbed one by one afterwards). It returns a dict of tensors:
+    ``est``, ``err`` (A, C); ``valid``, ``picks`` (A, L); ``n_miss``
+    (A, C); ``cpi_sel`` (A, C, L), the CPI at the picks; and the stratum
+    summary it computed, ``sums`` and ``counts`` (A, L), for checks of
+    the kernel inside the program."""
     dt = precision.trace_dtype
 
     def traced(memo, bank, feats_pop, cm, x: dict) -> dict:
@@ -111,12 +117,13 @@ def fused_sweep_program(plan: sampling_plan.SamplingPlan,
         stored = memo.cpi[rows[:, None, None], cols[None, :, None], picks_b]
         miss_sel = torch.gather(miss, 2, picks_b)
         cpi_sel = torch.where(miss_sel, computed, stored)
-        memo.write_selected(rows, cols, picks, valid, miss_sel, cpi_sel)
+        if write:
+            memo.write_selected(rows, cols, picks, valid, miss_sel, cpi_sel)
 
         est, err = plan.estimator.estimate_stage(
             cpi_sel.to(dt), valid, bank.weights.to(dt), x["truth"].to(dt))
         return {"est": est, "err": err, "valid": valid, "picks": picks,
-                "n_miss": n_miss, "sums": summary["sums"],
+                "n_miss": n_miss, "cpi_sel": cpi_sel, "sums": summary["sums"],
                 "counts": summary["counts"]}
 
     return traced
@@ -124,17 +131,18 @@ def fused_sweep_program(plan: sampling_plan.SamplingPlan,
 
 class _Graph:
     """One captured sweep: the resident tensors it reads in place, static
-    buffers for the per-call inputs, and its outputs."""
+    buffers for the per-call inputs, and its outputs. ``kind`` names the
+    capture counter it adds to."""
 
-    def __init__(self, traced, memo, bank, feats_pop, cm, x: dict):
-        global _captures
+    def __init__(self, traced, memo, bank, feats_pop, cm, x: dict, *,
+                 kind: str = "fused"):
         self.resident = (bank, feats_pop, memo.mask, memo.cpi, cm)
         self.static = {k: None if v is None else v.clone()
                        for k, v in x.items()}
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.out = traced(memo, bank, feats_pop, cm, self.static)
-        _captures += 1
+        _captures[kind] += 1
 
     def reads(self, memo) -> bool:
         """Whether the memo's tables are still the ones captured (they

@@ -30,7 +30,6 @@ import hashlib
 import json
 import math
 import pathlib
-import sys
 import time
 from typing import Callable, Optional, Sequence
 
@@ -38,7 +37,6 @@ import numpy as np
 import torch
 
 from ..core.clustering import Standardizer, kmeans
-from ..core.ordered import dot_chain, sum_sq
 from ..core.sampling import (Estimate, SamplingPlan, StratumSummary,
                              collapsed_strata_estimate,
                              phase2_sizes_for_margin, select_centroid,
@@ -55,8 +53,7 @@ __all__ = ["FIGURES", "bench_cpi_distributions", "bench_config_sweep",
            "bench_gcc_cluster_sensitivity", "bench_approx_phase1",
            "bench_isa_features", "run_figure", "run_all",
            "selection_record", "fit_summary", "pick_ties", "fits_behind",
-           "explain", "refit_in_reference_order",
-           "FIT_TAGS", "to_jsonable", "compare",
+           "explain", "FIT_TAGS", "to_jsonable", "compare",
            "REFERENCE_JSON", "load_reference"]
 
 REFERENCE_JSON = pathlib.Path(__file__).with_name(
@@ -77,16 +74,14 @@ def _apps(apps: Optional[Sequence[str]]) -> list[str]:
     return list(apps or APP_NAMES)
 
 
-def _fit_record(record: Optional[dict], key: tuple, z, km, local,
-                restarts: int = 1) -> None:
-    """Keep a figure's k-means fit (points, labels, centroids, restarts;
-    seed 0) and its centroid picks (``local``: one index tensor per
+def _fit_record(record: Optional[dict], key: tuple, z, km, local) -> None:
+    """Keep a figure's k-means fit (points, labels, centroids; seed 0)
+    and its centroid picks (``local``: one index tensor per
     stratum) for holding one route's or package's fits against
     another's."""
     if record is not None:
         record["/".join(map(str, key))] = {
             "z": z, "labels": km.labels, "centroids": km.centroids,
-            "restarts": restarts,
             "picks": [int(lo[0]) if lo.numel() else -1 for lo in local]}
 
 
@@ -436,7 +431,7 @@ def _stratify_and_estimate(engine, exp, z, record, key) -> float:
     w = np.bincount(_np(km.labels), minlength=NUM_STRATA) \
         / exp.idx1.numel()
     local = select_centroid(km.labels, z, km.centroids)
-    _fit_record(record, key, z, km, local, restarts=2)
+    _fit_record(record, key, z, km, local)
     sel = [exp.idx1[s] for s in local]
     ests = _np(exp.weighted_cpi_all(sel, w))
     errs = 100 * np.abs(ests - _np(exp.truth)) / _np(exp.truth)
@@ -572,34 +567,6 @@ def pick_ties(entry: dict, want_picks: Sequence[int]) -> tuple[int, int]:
     return differing, ties
 
 
-def _assign_in_chain_order(x, c, backend="plain"):
-    """``kmeans_assign_ref`` with its dot product as one multiply-add
-    chain (``core.ordered.dot_chain``)."""
-    x, c = x.float(), c.float()
-    d2 = sum_sq(x)[..., :, None] - 2.0 * dot_chain(x, c) \
-        + sum_sq(c)[..., None, :]
-    mind2, labels = torch.min(d2, dim=-1)
-    return labels.to(torch.int32), torch.clamp_min(mind2, 0.0)
-
-
-def refit_in_reference_order(entry: dict) -> str:
-    """The label digest of one recorded figure fit refitted through the
-    plain versions (same points, k, seed and restarts) with its distances'
-    dot product in the reference's float32 order at k >= 50: one
-    multiply-add chain over d, where the clustering kernels keep four
-    (``ROADMAP.md`` C.2). A fit whose labels part from the reference's
-    only through that order gives the reference's digest here."""
-    fit_module = sys.modules[kmeans.__module__]
-    assign = fit_module.kmeans_assign
-    fit_module.kmeans_assign = _assign_in_chain_order
-    try:
-        km = kmeans(entry["z"], entry["centroids"].shape[0], seed=0,
-                    restarts=entry["restarts"], backend="plain")
-    finally:
-        fit_module.kmeans_assign = assign
-    return _digest(km.labels)
-
-
 def to_jsonable(x):
     """Figure dicts as JSON: tuples become lists, keys strings, numpy
     scalars Python numbers."""
@@ -658,14 +625,15 @@ def fits_behind(diff: dict, fits: dict, gcc_app: str = GCC) -> list[str]:
 def explain(diff: dict, record: dict, want_fits: dict,
             gcc_app: str = GCC) -> Optional[str]:
     """Why one difference may stand, or None: a fit of the figure's own
-    gave other labels than ``want_fits`` (``"labels"``), or the same
-    labels with other centroid picks at near-ties only (``"near-tie
-    picks"``). ``record`` is the ``record`` dict this side's figures
-    filled."""
+    gave the labels of ``want_fits`` but other centroid picks, at
+    near-ties only (``"near-tie picks"``). ``record`` is the ``record``
+    dict this side's figures filled. A fit whose labels part explains
+    nothing: the clustering kernels take the reference's dot order at
+    every fit shape (``core.ordered.DOT_ORDERS``)."""
     for key in fits_behind(diff, want_fits, gcc_app):
         want = want_fits[key]
         if _digest(record[key]["labels"]) != want["labels"]:
-            return "labels"
+            continue
         differing, near = pick_ties(record[key], want["picks"])
         if differing and differing == near:
             return "near-tie picks"

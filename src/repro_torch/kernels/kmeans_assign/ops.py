@@ -7,8 +7,11 @@ A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 ``csrc/kmeans_assign.cu`` or raises (``repro_torch.kernels.backend``).
 
 The kernel reads the points and centroids at their real widths: there is
-no padding, so no padded centroid can win and every valid row's result is
-what the plain version computes, up to float32 rounding of the sums.
+no padding, so no padded centroid can win. Both the kernel and the plain
+version take the dot product's order from the reference's order table at
+the launch's shape (``ref.dot_order``): interleaved chains or one chain,
+so they agree bitwise at every shape. The kernel's one-chain order is
+built for d <= 40 (``csrc/kmeans_assign.cu``), and refuses a wider launch.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Optional
 import torch
 
 from .. import backend as _backend
-from .ref import kmeans_assign_ref
+from .ref import dot_order, kmeans_assign_ref
 
 __all__ = ["kmeans_assign", "last_dispatch", "launch_count",
            "reset_launch_count"]
@@ -42,10 +45,11 @@ def reset_launch_count() -> None:
 
 def last_dispatch() -> Optional[dict]:
     """Shape record of the latest kernel launch (``None`` before any):
-    ``batch``, ``batch_shape``, ``n``, ``k``, ``d``, ``grid`` (the
-    persistent blocks), ``tiles`` (the (lane, point tile) items they walk)
-    and ``split`` (threads that share a point, each scanning a share of
-    the centroids). Plain calls leave it untouched."""
+    ``batch``, ``batch_shape``, ``n``, ``k``, ``d``, ``order`` (the dot
+    product's: ``"four"`` or ``"chain"``), ``grid`` (the persistent
+    blocks), ``tiles`` (the (lane, point tile) items they walk) and
+    ``split`` (threads that share a point, each scanning a share of the
+    centroids). Plain calls leave it untouched."""
     return None if _last_dispatch is None else dict(_last_dispatch)
 
 
@@ -59,7 +63,7 @@ def _lib():
     fn = lib.kmeans_assign_f32
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, i, i, i, i, vp, vp, vp, vp]
+        fn.argtypes = [vp, vp, i, i, i, i, i, vp, vp, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -93,20 +97,35 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, *,
     n, d = x.shape[-2:]
     k = centroids.shape[-2]
     b = math.prod(batch_shape)
-    xb = x.reshape(b, n, d).float().contiguous()
+    order = dot_order(x, centroids)
+    labels, mind2, geometry = _launch(x.reshape(b, n, d),
+                                      centroids.reshape(b, k, d), order)
+    global _launches, _last_dispatch
+    _launches += 1
+    _last_dispatch = {"batch": b, "batch_shape": batch_shape, "n": n,
+                      "k": k, "d": d, "order": order,
+                      "grid": (geometry[0],), "tiles": geometry[1],
+                      "split": geometry[2]}
+    return (labels.reshape(*batch_shape, n), mind2.reshape(*batch_shape, n))
+
+
+def _launch(x: torch.Tensor, c: torch.Tensor, order: str):
+    """One launch of the kernel on CUDA ``x (b, n, d)`` and ``c (b, k, d)``
+    with the dot product in ``order`` (``"four"`` or ``"chain"``):
+    ``(labels, mind2, geometry)``. Not counted: ``kmeans_assign`` counts
+    its own launches, and a caller timing the other order calls this."""
+    b, n, d = x.shape
+    k = c.shape[1]
+    xb = x.float().contiguous()
     if xb.data_ptr() % 16:
         xb = xb.clone()            # the tiles' bulk copies read 16-byte units
-    cb = centroids.reshape(b, k, d).float().contiguous()
+    cb = c.float().contiguous()
     labels = torch.empty((b, n), dtype=torch.int32, device=x.device)
     mind2 = torch.empty((b, n), dtype=torch.float32, device=x.device)
     geometry = (ctypes.c_int * 3)()
     code = _lib()(_backend.ptr(xb), _backend.ptr(cb), b, n, k, d,
-                  _backend.ptr(labels), _backend.ptr(mind2), geometry,
+                  int(order == "chain"), _backend.ptr(labels),
+                  _backend.ptr(mind2), geometry,
                   _backend.stream_handle(x.device))
     _backend.check_launch("kmeans_assign", code)
-    global _launches, _last_dispatch
-    _launches += 1
-    _last_dispatch = {"batch": b, "batch_shape": batch_shape, "n": n,
-                      "k": k, "d": d, "grid": (geometry[0],),
-                      "tiles": geometry[1], "split": geometry[2]}
-    return (labels.reshape(*batch_shape, n), mind2.reshape(*batch_shape, n))
+    return labels, mind2, geometry

@@ -16,6 +16,15 @@ cost accounting included, as numpy arrays and plain dicts: the same
 bank restored from a reference snapshot serves the same fills with no new
 charges.
 
+The serving layer's residency policy works on config columns:
+``evict`` / ``spill`` / ``evict_to_cap`` clear columns of the live tables
+IN PLACE (captured fused graphs read the tables where they are, so they
+are never reallocated for an eviction), a spilled column parks in host
+memory and ``cols_for`` restores it free on its next request, and
+``absorb_picks`` re-derives one coalesced request's misses against the
+tables as the earlier requests left them. Every table change bumps
+``version``.
+
 ``CachedSimulator`` is a one-row view of a bank with the base simulator's
 surface (``simulate``, ``simulate_cpi``, ``simulate_rfv`` and their
 batched forms). Full-metric requests (``simulate``, ``simulate_rfv``,
@@ -60,6 +69,15 @@ class MemoBank:
         self.charges = np.zeros((0, 0), np.int64)   # (A, C) miss counts
         # bumped on every table mutation (content or shape)
         self.version = 0
+        # column reuse bookkeeping of the serving path's eviction policy:
+        # last-use tick per column (LRU order) and the host spill store
+        self._col_tick: dict[int, int] = {}
+        self._lru_clock = 0
+        self._spill: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+
+    @property
+    def num_apps(self) -> int:
+        return len(self.names)
 
     def _grow(self, a: int, c: int, n: int) -> None:
         a0, c0, n0 = self.mask.shape
@@ -88,14 +106,92 @@ class MemoBank:
         return row
 
     def cols_for(self, cfgs: Sequence[UarchConfig]) -> np.ndarray:
-        """Column indices for configs, growing the config axis as needed."""
+        """Column indices for configs, growing the config axis as needed.
+
+        Every fill and dispatch resolves its columns here, so this is also
+        the eviction policy's touch point: each column's last-use tick
+        advances (LRU order), and a spilled column is restored from the
+        host spill store, free (its values were paid for)."""
         for cfg in cfgs:
             if cfg not in self._cfg_cols:
                 self._cfg_cols[cfg] = len(self.configs)
                 self.configs.append(cfg)
         a0, _, n0 = self.mask.shape
         self._grow(a0, len(self.configs), n0)
-        return np.asarray([self._cfg_cols[c] for c in cfgs], np.int64)
+        cols = [self._cfg_cols[c] for c in cfgs]
+        self._lru_clock += 1
+        for c in cols:
+            self._col_tick[c] = self._lru_clock
+            if c in self._spill:
+                self._unspill(c)
+        return np.asarray(cols, np.int64)
+
+    # -- eviction / host spill (the serving path's residency policy) --------
+    def _unspill(self, col: int) -> None:
+        """Restore one spilled column into the live tables (free)."""
+        mask_c, cpi_c = self._spill.pop(col)
+        a, n = mask_c.shape
+        self.mask[:a, col, :n] = torch.as_tensor(mask_c).to(self.device)
+        self.cpi[:a, col, :n] = torch.as_tensor(cpi_c).to(self.device)
+        self.version += 1
+
+    def resident_columns(self) -> list[int]:
+        """Config columns holding memo data in the live tables (spilled
+        or evicted columns are not resident until requested again)."""
+        held = self.mask.any(dim=2).any(dim=0).tolist()
+        return [c for c in range(len(self.configs))
+                if c not in self._spill and held[c]]
+
+    def evict(self, cols: Sequence[int], *, spill: bool = False) -> None:
+        """Clear the given config columns of the live tables, in place.
+
+        ``spill=False`` drops the data: a later request for the config
+        misses again and is charged again (once, like a first fill). With
+        ``spill=True`` the column's mask and values move to host memory
+        first, and ``cols_for`` restores them on the next request, free,
+        so ledger totals equal a never-evicted run's. Charges stay either
+        way (they are the cost history); ``version`` bumps.
+        """
+        cols = [int(c) for c in cols if int(c) not in self._spill]
+        for c in cols:
+            if spill:
+                self._spill[c] = (self.mask[:, c, :].cpu().numpy().copy(),
+                                  self.cpi[:, c, :].cpu().numpy().copy())
+            self._col_tick.pop(c, None)
+        if cols:
+            idx = torch.as_tensor(cols, device=self.device)
+            self.mask.index_fill_(1, idx, False)
+            self.cpi.index_fill_(1, idx, 0.0)
+            self.version += 1
+
+    def spill(self, cols: Sequence[int]) -> None:
+        """``evict`` with host spill (see ``evict``)."""
+        self.evict(cols, spill=True)
+
+    def evict_to_cap(self, cap: int, *, policy: str = "lru",
+                     spill: bool = False) -> list[int]:
+        """Evict (or spill) columns until at most ``cap`` stay resident.
+
+        ``policy="lru"`` drops the least recently used columns first;
+        ``policy="charge"`` the cheapest to recompute first (lowest
+        accumulated charge, LRU tie-break). Returns the evicted columns
+        (empty when already within the cap).
+        """
+        if policy not in ("lru", "charge"):
+            raise ValueError(f"unknown eviction policy {policy!r}; "
+                             "choose 'lru' or 'charge'")
+        resident = self.resident_columns()
+        if cap < 0 or len(resident) <= cap:
+            return []
+        if policy == "charge":
+            order = sorted(resident,
+                           key=lambda c: (int(self.charges[:, c].sum()),
+                                          self._col_tick.get(c, 0)))
+        else:
+            order = sorted(resident, key=lambda c: self._col_tick.get(c, 0))
+        victims = order[:len(resident) - cap]
+        self.evict(victims, spill=spill)
+        return victims
 
     # -- the one batched fill path ------------------------------------------
     def fill(self, rows, idx, valid, cfgs: Sequence[UarchConfig], *,
@@ -190,6 +286,12 @@ class MemoBank:
         picks times the configs (duplicates included). Charges, hit/miss
         counters and ledgers advance exactly as one equivalent ``fill``;
         ``version`` moves when a cell was written."""
+        if self._account(rows, cols, n_miss, requested):
+            self.version += 1
+
+    def _account(self, rows, cols, n_miss, requested) -> bool:
+        """Advance counters, charges and ledgers by one request's misses;
+        whether any cell missed."""
         rows = np.asarray(rows, np.int64)
         cols = np.asarray(cols, np.int64)
         n_miss = np.asarray(n_miss, np.int64)
@@ -199,13 +301,79 @@ class MemoBank:
             self.miss_count[row] += row_miss
             self.hit_count[row] += int(requested[i]) - row_miss
         if not n_miss.any():
-            return
+            return False
         self.charges[rows[:, None], cols[None, :]] += n_miss
-        self.version += 1
         for i, row in enumerate(rows.tolist()):
             ledger = self.ledgers[row]
             if ledger is not None:
                 ledger.charge(int(n_miss[i].sum()))
+        return True
+
+    def absorb_selected(self, rows, cols, picks, miss_sel, values, n_miss,
+                        requested) -> None:
+        """Write one request's newly computed selected cells and account
+        as ``fill`` would: ``picks (R, K)`` region indices, ``miss_sel
+        (R, C, K)`` True where the pick was newly computed, ``values
+        (R, C, K)`` the CPI at the picks (only missed cells are written),
+        ``n_miss (R, C)`` / ``requested (R,)`` as in ``charge_selected``.
+        """
+        dev = self.device
+        rows_t = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
+        cols_t = torch.as_tensor(np.asarray(cols, np.int64), device=dev)
+        picks = torch.as_tensor(picks).to(dev, torch.int64)
+        miss_sel = torch.as_tensor(miss_sel).to(dev, torch.bool)
+        values = torch.as_tensor(values).to(dev, torch.float32)
+        shape = miss_sel.shape
+        r3 = rows_t[:, None, None].expand(shape)[miss_sel]
+        c3 = cols_t[None, :, None].expand(shape)[miss_sel]
+        i3 = picks[:, None, :].expand(shape)[miss_sel]
+        if r3.numel():
+            self.cpi[r3, c3, i3] = values[miss_sel]
+            self.mask[r3, c3, i3] = True
+            self.version += 1
+        self._account(rows, cols, n_miss, requested)
+
+    def absorb_picks(self, rows, cols, picks, valid, values) -> np.ndarray:
+        """Absorb one request's selected-unit results, its miss flags
+        re-derived against the CURRENT tables.
+
+        The coalescing batcher (``repro_torch.serving``) runs many requests
+        in one program that reads the tables as they were before it, so
+        two requests touching the same cold cell would each count it a
+        miss. Called once per request in submission order, this recomputes
+        ``fill``'s dedup-exact request scatter against the tables as the
+        earlier requests left them, then writes and accounts through
+        ``absorb_selected``: charges, counters and ledgers land as a
+        serial run's. ``values (R, C, K)`` is the request's selected CPI
+        (bitwise equal whether computed or stored). Returns the (R, C)
+        miss counts.
+        """
+        dev = self.device
+        rows_t = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
+        cols_t = torch.as_tensor(np.asarray(cols, np.int64), device=dev)
+        picks = torch.as_tensor(picks).to(dev, torch.int64)
+        valid = torch.as_tensor(valid).to(dev, torch.bool)
+        r_n, k = picks.shape
+        c_n = cols_t.numel()
+        n = self.mask.shape[2]
+        requested = (valid.sum(dim=1) * c_n).cpu().numpy()
+        blk = self.mask[rows_t[:, None], cols_t[None, :]]        # (R, C, N)
+        picks_b = picks[:, None, :].expand(r_n, c_n, k)
+        hit_sel = torch.gather(blk, 2, picks_b)
+        if bool((hit_sel | ~valid[:, None, :]).all()):
+            # every valid pick is present: zero misses anywhere
+            n_miss = np.zeros((r_n, c_n), np.int64)
+            self._account(rows, cols, n_miss, requested)
+            return n_miss
+        safe = torch.where(valid, picks, torch.full_like(picks, n))
+        req = torch.zeros((r_n, n + 1), dtype=torch.bool, device=dev)
+        req.scatter_(1, safe, True)
+        miss = req[:, None, :n] & ~blk
+        n_miss = miss.sum(dim=2).cpu().numpy()
+        miss_sel = torch.gather(miss, 2, picks_b) & valid[:, None, :]
+        self.absorb_selected(rows, cols, picks, miss_sel, values, n_miss,
+                             requested)
+        return n_miss
 
     def touch(self) -> None:
         """Mark the tables changed by a direct write (bumps ``version``)."""
@@ -214,7 +382,11 @@ class MemoBank:
     # -- snapshot / restore ---------------------------------------------------
     def state(self) -> tuple[dict, dict]:
         """``(tree, meta)`` snapshot of the bank's full mutable state, as
-        numpy arrays (``tree``) and JSON-able identity (``meta``)."""
+        numpy arrays (``tree``) and JSON-able identity (``meta``). Spilled
+        columns are restored into the live tables first, so a snapshot
+        always carries the whole memo."""
+        for col in sorted(self._spill):
+            self._unspill(col)
         regions = [0 if lg is None else int(lg.regions_simulated)
                    for lg in self.ledgers]
         instr = [0 if lg is None else int(lg.instructions_simulated)
@@ -268,6 +440,9 @@ class MemoBank:
         snapshot's; ``version`` restores as saved unless this bank already
         moved past it, when it moves forward instead."""
         cols = self.prepare_restore(meta, universe=universe)
+        # the snapshot carries the whole live tables: no stale spill entry
+        # may restore over them later
+        self._spill.clear()
         cols_t = torch.as_tensor(cols, device=self.device)
         self.mask[:, cols_t, :] = torch.as_tensor(
             np.asarray(tree["mask"], bool)).to(self.device)
@@ -284,6 +459,56 @@ class MemoBank:
                 ledger.instructions_simulated = int(instr[i])
         saved = int(np.asarray(tree["version"]))
         self.version = saved if saved >= self.version else self.version + 1
+
+    # -- cross-bank merge -----------------------------------------------------
+    def merge(self, other: "MemoBank") -> None:
+        """Fold another bank into this one.
+
+        Apps and configs unknown here are added. Values both banks hold
+        agree by determinism; charges, counters and ledgers ADD (each bank
+        paid for its own misses). Apps the banks share must agree on their
+        region counts (else ``ValueError``, naming them).
+        """
+        mismatched = [
+            (name, self.n_regions[self.names.index(name)], int(n_reg))
+            for name, n_reg in zip(other.names, other.n_regions)
+            if name in self.names
+            and self.n_regions[self.names.index(name)] != int(n_reg)]
+        if mismatched:
+            detail = ", ".join(f"{name!r} ({mine} regions here, {theirs} "
+                               "in the other bank)"
+                               for name, mine, theirs in mismatched)
+            raise ValueError(
+                "cannot merge MemoBanks with mismatched app universes: "
+                + detail)
+        for col in sorted(other._spill):
+            other._unspill(col)
+        for col in sorted(self._spill):
+            self._unspill(col)
+        row_map = []
+        for name, n_reg in zip(other.names, other.n_regions):
+            if name in self.names:
+                row_map.append(self.names.index(name))
+            else:
+                row_map.append(self.add_app(name, n_reg, Ledger()))
+        cols = self.cols_for(other.configs)
+        cols_t = torch.as_tensor(cols, device=self.device)
+        n_other = other.mask.shape[2]
+        for i, row in enumerate(row_map):
+            om = other.mask[i].to(self.device)          # (C_other, N_other)
+            oc = other.cpi[i].to(self.device)
+            mine_m = self.mask[row, cols_t, :n_other]
+            mine_c = self.cpi[row, cols_t, :n_other]
+            new = om & ~mine_m
+            self.cpi[row, cols_t, :n_other] = torch.where(new, oc, mine_c)
+            self.mask[row, cols_t, :n_other] = mine_m | om
+            self.version += 1
+            self.charges[row, cols] += other.charges[i]
+            self.hit_count[row] += other.hit_count[i]
+            self.miss_count[row] += other.miss_count[i]
+            ledger = self.ledgers[row]
+            if ledger is not None:
+                ledger.charge(int(other.charges[i].sum()))
 
     def total_charges(self) -> int:
         return int(self.charges.sum())

@@ -630,3 +630,132 @@ def test_two_phase_flow_on_the_card_equals_cpu(cuda):
     np.testing.assert_allclose(gpu[3], cpu[3], rtol=1e-5)
     np.testing.assert_allclose([gpu[4].mean, gpu[4].margin],
                                [cpu[4].mean, cpu[4].margin], rtol=1e-5)
+
+
+# ------------------------------------- the reference's dot order, per shape
+def _dot_order_rows():
+    from repro_torch.core.ordered import DOT_ORDERS
+    # and the fit shapes below d = 4, which have no row (one chain)
+    return sorted(DOT_ORDERS) + [(1, 32, 4, 3), (1, 120, 16, 2),
+                                 (1, 200, 6, 2), (1, 250, 8, 2),
+                                 (3, 400, 5, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _dot_order_rows(),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_assign_kernel_bitwise_at_every_dot_order_row(cuda, shape):
+    """At every row of the dot-order table (B lanes, n points, k
+    centroids, d features) the kernel takes the row's order, as its plain
+    version does, and the two agree bit for bit."""
+    from repro_torch.core.ordered import reference_dot_order
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
+    b, n, k, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(b * 7 + n + k + d)
+    x = torch.randn((b, n, d), generator=gen, device=cuda)
+    c = torch.randn((b, k, d), generator=gen, device=cuda)
+    lab, d2 = assign_ops.kmeans_assign(x, c)
+    assert assign_ops.last_dispatch()["order"] == reference_dot_order(*shape)
+    want_lab, want_d2 = kmeans_assign_ref(x, c)
+    assert torch.equal(lab, want_lab) and _same_bits(d2, want_d2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [5, 6, 9, 10, 13, 21, 22, 37, 42, 61, 62,
+                               65, 66, 94, 125, 126])
+def test_assign_kernel_bitwise_in_two_chains(cuda, d):
+    """Where d is 1 or 2 mod 4 the interleaved order is two chains and an
+    odd last product: the kernel agrees with its plain version bit for
+    bit at every width it instantiates (ceil4(d) up to 64, then 128)."""
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn((2, 700, d), generator=gen, device=cuda)
+    c = torch.randn((2, 24, d), generator=gen, device=cuda)
+    lab, d2 = assign_ops.kmeans_assign(x, c)
+    assert assign_ops.last_dispatch()["order"] == "four"
+    want_lab, want_d2 = kmeans_assign_ref(x, c)
+    assert torch.equal(lab, want_lab) and _same_bits(d2, want_d2)
+
+
+# --------------------------------- resumed sweeps and coalesced requests
+def _fresh_engine(backend="auto"):
+    from repro_torch.experiments import ExperimentEngine
+    engine = ExperimentEngine(device="cuda", backend=backend)
+    engine.build(SWEEP_APPS)
+    engine.memo.cols_for(engine.configs)
+    return engine
+
+
+def _same_tables(a, b):
+    tree_a, meta_a = a.memo.state()
+    tree_b, meta_b = b.memo.state()
+    assert meta_a == meta_b
+    for k in ("mask", "cpi", "charges", "hit_count", "miss_count",
+              "ledger_regions", "ledger_instr"):
+        assert (tree_a[k] == tree_b[k]).all(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,policy", [("rfv", "centroid"),
+                                           ("dg", "centroid")])
+def test_resumed_sweep_equals_uninterrupted_on_the_card(cuda, tmp_path,
+                                                        scheme, policy):
+    """A supervised sweep killed three times (one fault of each kind,
+    each firing) through the kernels equals the uninterrupted run through
+    the kernels and the uninterrupted run through the plain versions, bit
+    for bit, in rows and memo tables."""
+    from repro_torch.core.sampling.plan import SamplingPlan
+    from repro_torch.experiments import (SweepSpec, run_sweep_resumable,
+                                         supervise_sweep)
+    from repro_torch.runtime.faults import FAULT_KINDS, FaultPlan
+    spec = SweepSpec(apps=SWEEP_APPS, config_indices=(0, 3, 6),
+                     plan=SamplingPlan.from_strings(scheme, policy))
+    plan = FaultPlan.random(2, len(SWEEP_APPS) * 3, kills=3)
+    assert sorted(e.kind for e in plan.events) == sorted(FAULT_KINDS)
+    engines = []
+
+    def make(mesh):
+        engines.append(_fresh_engine())
+        return engines[-1]
+
+    got, report = supervise_sweep(make, spec, tmp_path / "f", faults=plan,
+                                  app_block=1, config_block=1)
+    assert report.restarts == 3
+    assert [a["error"].split()[1] for a in report.attempts[:-1]] == \
+        [e.kind for e in plan.events]
+    for backend in ("auto", "plain"):
+        engine = _fresh_engine(backend)
+        want = run_sweep_resumable(engine, spec, tmp_path / backend,
+                                   app_block=1, config_block=1)
+        for r, w in zip(got.rows, want.rows):
+            assert (r.estimate, r.err_pct, r.n_units) == \
+                (w.estimate, w.err_pct, w.n_units)
+        _same_tables(engines[-1], engine)
+
+
+@pytest.mark.cuda
+def test_coalesced_equals_serial_on_the_card(cuda):
+    """Coalesced requests (captured group graphs, replayed on a second
+    batch) through the kernels equal the same requests run one by one
+    through the plain versions, bit for bit: rows, tables, charges,
+    counters and ledgers."""
+    from repro_torch.core.sampling.plan import (Centroid, DaleniusGurney,
+                                                RandomUnit, RFVClusters,
+                                                SamplingPlan)
+    from repro_torch.experiments import SweepSpec, run_sweep
+    from repro_torch.serving import batcher, run_coalesced_sweeps
+    specs = [SweepSpec(apps=SWEEP_APPS, config_indices=(0, 1, 2),
+                       plan=SamplingPlan(RFVClusters(), RandomUnit()),
+                       selection_seed=s) for s in (1, 2, 3)]
+    specs += [SweepSpec(apps=SWEEP_APPS, config_indices=(3, 4, 5, 6),
+                        plan=SamplingPlan(DaleniusGurney(), Centroid()))] * 2
+    kernel, plain = _fresh_engine(), _fresh_engine("plain")
+    captures = batcher.program_captures()
+    for rnd in range(2):
+        got = run_coalesced_sweeps(kernel, specs)
+        want = [run_sweep(plain, s) for s in specs]
+        for g, w in zip(got, want):
+            assert list(g.column("estimate")) == list(w.column("estimate"))
+            assert list(g.column("n_units")) == list(w.column("n_units"))
+        _same_tables(kernel, plain)
+    assert batcher.program_captures() == captures + 2

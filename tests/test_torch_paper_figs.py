@@ -23,11 +23,10 @@ ten-app run's). Held to: label digests and picks exactly; figure
 integers exactly; floats to rtol 1e-5, percent errors also within
 ``paper_figs.ERR_ATOL`` points (an estimate's rtol carried into a percent
 error); Fig 8's coverage within its near-tie trials. A figure number may
-differ only where that figure's own k-means fit differs from the
-reference's: the reference's float32 dot product accumulates in one
-fused multiply-add chain at k >= 50 (gcc k = 50, Fig 12/13 k = 500) and
-the clustering kernels in four interleaved chains, so those fits part
-ways (``PERF.md``); the test counts and prints every such difference.
+differ only where that figure's own k-means fit picked another unit at a
+near-tie; every fit gives the reference's labels, as the clustering
+kernels and their plain versions take the reference's float32 dot order
+at each fit's shape (``core.ordered.DOT_ORDERS``, held row by row here).
 
 ``reference_figures`` also writes ``paper_figs_reference.json`` (the
 reference's ten-app numbers that ``chip_smoke.py`` holds the card
@@ -53,6 +52,7 @@ for _p in (ROOT, ROOT / "src"):
     if str(_p) not in sys.path:
         sys.path.insert(0, str(_p))
 
+import repro_torch.core.ordered as ORDERED  # noqa: E402
 import repro_torch.experiments as T  # noqa: E402
 from repro_torch.experiments import paper_figs as TP  # noqa: E402
 
@@ -228,57 +228,97 @@ def test_figure_matches_reference(figures, figure):
     why = [TP.explain(d, got["record"], want["fits"], want["gcc_app"])
            for d in diffs]
     print(f"{figure}: {len(diffs)} differences, each where the figure's "
-          f"own fit parted from the reference's (labels) or picked at "
-          f"near-ties: {list(zip(why, diffs))}")
+          f"own fit picked at near-ties: {list(zip(why, diffs))}")
     apart = [d for d, w in zip(diffs, why) if w is not None]
     assert [d for d in diffs if d not in apart] == []
 
 
-def test_fits_part_only_where_the_dot_order_differs(figures):
-    """The figures' own fits give the reference's labels except at
-    k >= 50, where the reference's float32 dot is one multiply-add chain,
-    and a fit that parts gives the reference's labels once refitted with
-    that order; where the labels agree, the picks agree except at
-    near-ties."""
+def test_figure_fits_give_the_reference_labels(figures):
+    """The figures' own fits give the reference's labels at every k (the
+    dot order follows the reference's at each shape, so no fit parts);
+    the picks agree except at near-ties."""
     got, want = figures
     assert set(got["fits"]) == set(want["fits"])
-    apart, ties = [], {}
+    apart = sorted(key for key, w in want["fits"].items()
+                   if got["fits"][key]["labels"] != w["labels"])
+    ties = {}
     for key, w in want["fits"].items():
-        if got["fits"][key]["labels"] != w["labels"]:
-            apart.append(key)
-            continue
         differing, near = TP.pick_ties(got["record"][key], w["picks"])
         assert differing == near, (key, differing, near)
         ties[key] = near
-    print(f"fits that parted: {sorted(apart)}; near-tie picks: {ties}")
-    assert all(int(k.split("/")[-1]) >= 50 for k in apart)
-    for key in apart:
-        assert TP.refit_in_reference_order(got["record"][key]) == \
-            want["fits"][key]["labels"], key
+    print(f"fits that parted: {apart}; near-tie picks: {ties}")
+    assert apart == []
 
 
-@pytest.mark.parametrize("n,k,d,chain", [(40000, 20, 15, False),
-                                         (40000, 50, 15, True),
-                                         (1997, 500, 38, True)])
-def test_reference_dot_order_at_figure_shapes(n, k, d, chain):
-    """Why the figures' fits at k >= 50 part from the reference's: its
-    float32 dot (the distance einsum of its Lloyd steps) is one fused
-    multiply-add chain over d there, but at the engine's k = 20 it is
-    the four-chain order the clustering kernels and their plain versions
-    keep (``core.ordered.dot_nt``)."""
+def _dot_order_id(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+# fits at d < 4 (the flow's stratifier fits and the tests' small ones):
+# no row of the table, since both orders are one chain there
+FIT_SHAPES_BELOW_4 = ((1, 32, 4, 3), (1, 120, 16, 2), (1, 200, 6, 2),
+                      (1, 250, 8, 2), (3, 400, 5, 3))
+
+
+@pytest.mark.parametrize(
+    "shape", sorted(ORDERED.DOT_ORDERS) + list(FIT_SHAPES_BELOW_4),
+    ids=_dot_order_id)
+def test_reference_dot_order_at_figure_shapes(shape):
+    """One row of the port's dot-order table against the reference's own
+    distance einsum at that shape (B lanes, n points, k centroids, d
+    features): where the row says one chain, the reference's float32 dot
+    is one multiply-add chain over d, and elsewhere (d >= 4) it is not.
+    The port's dot in the row's order equals the einsum bitwise at every
+    row. The port's ``pairwise_d2`` then equals the reference's distances
+    bitwise wherever its squared norms (``sum_sq``) equal the reference's
+    too: at every row but d = 5 to 8 (``ROADMAP.md`` C.3: the reference
+    sums those norms in one order in its 8-row vector body and another in
+    the remainder rows), where they agree to a few ulp of the terms."""
     import jax
     import jax.numpy as jnp
-    from repro_torch.core.ordered import dot_chain, dot_nt
+    from repro_torch.core.ordered import dot_chain, dot_in_order, sum_sq
+    from repro_torch.kernels.kmeans_assign.ref import dot_order, pairwise_d2
 
-    rng = np.random.default_rng(n + k + d)
-    x = rng.standard_normal((n, d)).astype(np.float32)
-    c = rng.standard_normal((k, d)).astype(np.float32)
-    ref = np.asarray(jax.jit(lambda a, b: jnp.einsum("bnd,bkd->bnk", a, b))(
-        x[None], c[None]))[0]
-    four = dot_nt(torch.from_numpy(x), torch.from_numpy(c)).numpy()
-    one = dot_chain(torch.from_numpy(x), torch.from_numpy(c)).numpy()
-    assert np.array_equal(ref, one) == chain
-    assert np.array_equal(ref, four) == (not chain)
+    b, n, k, d = shape
+    order = ORDERED.reference_dot_order(*shape)
+    assert (shape in ORDERED.DOT_ORDERS) == (d >= 4)
+    rng = np.random.default_rng(b * 7 + n + k + d)
+    x = rng.standard_normal((b, n, d)).astype(np.float32)
+    c = rng.standard_normal((b, k, d)).astype(np.float32)
+    assert dot_order(torch.from_numpy(x), torch.from_numpy(c)) == order
+
+    @jax.jit
+    def reference(xa, ca):
+        xc = jnp.einsum("bnd,bkd->bnk", xa, ca)
+        x2 = jnp.sum(xa * xa, axis=2, keepdims=True)
+        c2 = jnp.sum(ca * ca, axis=2)[:, None, :]
+        return xc, x2, c2, x2 - 2.0 * xc + c2
+
+    ref_dot, ref_x2, ref_c2, ref_d2 = (np.asarray(a)
+                                       for a in reference(x, c))
+    ct = torch.from_numpy(c)
+    norms_exact = np.array_equal(sum_sq(ct).numpy(), ref_c2[:, 0])
+    eps8 = 8 * np.finfo(np.float32).eps
+    for s0 in range(0, n, 8192):
+        rows = slice(s0, s0 + 8192)
+        xt = torch.from_numpy(x[:, rows])
+        chain = dot_chain(xt, ct).numpy()
+        if order == "chain" or d < 4:
+            assert np.array_equal(chain, ref_dot[:, rows])
+        else:
+            assert not np.array_equal(chain, ref_dot[:, rows])
+        assert np.array_equal(dot_in_order(xt, ct, order).numpy(),
+                              ref_dot[:, rows])
+        norms_exact &= np.array_equal(sum_sq(xt).numpy(),
+                                      ref_x2[:, rows, 0])
+        got = pairwise_d2(xt, ct, order=order).numpy()
+        if norms_exact:
+            assert np.array_equal(got, ref_d2[:, rows])
+        else:
+            prods = np.abs(x[:, rows, None, :] * c[:, None, :, :]).sum(-1)
+            scale = 2 * prods + ref_x2[:, rows] + ref_c2
+            assert np.all(np.abs(got - ref_d2[:, rows]) <= eps8 * scale)
+    assert norms_exact or 5 <= d <= 8
 
 
 def test_reference_json_matches_what_chip_smoke_reads():
