@@ -46,10 +46,17 @@ after:
   must give the reference's labels;
 * the fault-tolerant fleet drivers and the sweep service on all ten apps
   and 7 configs (``phase_fleet_and_service``): supervised rfv and dg
-  sweeps and 10^5 supervised trials, each killed three times and every
-  attempt a fresh engine build, and ``SweepService`` over 64 requests
-  with a memo cap, each held bit for bit against the uninterrupted or
-  serial run and against the plain route;
+  sweeps and 10^5 supervised trials, each killed three times (every
+  attempt of the rfv sweep a fresh engine build), and ``SweepService``
+  over 64 requests with a memo cap, each held bit for bit against the
+  uninterrupted or serial run and against the plain route;
+* the multi-device app axis (``phase_mesh``) on a 4-shard mesh that
+  names the card four times: the ten-app build, the nine staged and
+  fused sweeps, 10^5 trials on a (2, 2) app-trial mesh, a supervised
+  sweep and supervised trials that lose a shard and re-mesh, the service
+  and ``distributed_kmeans`` over gcc's 120,000 BBVs, each against the
+  unsharded engine; both kernels at the new local shapes against their
+  plain versions;
 * the LM serving path at the full width of ``llama3.2-3b`` and 4 of its 28
   layers (bf16, random weights from a seeded generator): prefill of
   4 x 4096 tokens through the flash-attention kernel and through the
@@ -141,17 +148,21 @@ def device_ms(fn, names, *, iters: int = 10) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for name in names:
-                if f"::{name}" in e.name:
-                    out[name] = out.get(name, 0.0) + \
-                        e.time_range.elapsed_us() / 1e3 / iters
+    # a trace now and then holds no device event at all: trace again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for name in names:
+                    if f"::{name}" in e.name:
+                        out[name] = out.get(name, 0.0) + \
+                            e.time_range.elapsed_us() / 1e3 / iters
+        if out:
+            break
     return out
 
 
@@ -194,7 +205,21 @@ def phase_build(backend_mod) -> None:
     import torch
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
-    info = backend_mod.build_all()
+    t0 = []
+
+    def populations():
+        # the ten apps' populations and BBVs, numpy on the host, are the
+        # first build's longest step: made while nvcc runs
+        from repro_torch.simcpu import (APP_NAMES, get_bbvs,
+                                        get_population_bank)
+        start = time.perf_counter()
+        for pop in get_population_bank(APP_NAMES).pops:
+            get_bbvs(pop)
+        t0.append(time.perf_counter() - start)
+
+    info = backend_mod.build_all(while_building=populations)
+    log(f"populations and BBVs of the ten apps, made meanwhile on the "
+        f"host: {t0[0]:.2f} s")
     for name, rec in sorted(info.items()):
         log(f"build {name}: nvcc {rec['seconds']:.2f} s")
         for line in rec["log"].splitlines():
@@ -1622,8 +1647,12 @@ def phase_fleet_and_service(plain) -> dict:
 
     * ``supervise_sweep`` of rfv and dg with ``Centroid`` under
       ``FaultPlan.random(seed, 4 quanta, kills=3)`` (``covering_faults``:
-      one fault of each kind; each must fire, costing one restart),
-      every attempt building a fresh engine, against the
+      one fault of each kind; each must fire, costing one restart), every
+      attempt of the rfv sweep building a fresh engine (the dg sweep's
+      and the trials' earlier attempts restart on that run's last
+      engine, its memo put back to the post-build state, and their final
+      attempt builds a fresh one: the rebuilds are the smoke's longest
+      step), against the
       uninterrupted ``run_sweep_resumable`` of the same blocking (rows,
       memo tables, charges, counters, ledgers bitwise), plain
       ``run_sweep`` (the same, the policies being deterministic) and the
@@ -1717,9 +1746,16 @@ def phase_fleet_and_service(plain) -> dict:
 
             def make(mesh):
                 starts.append(time.perf_counter())
-                last[:] = [fresh()]
-                if not state0:
-                    state0.append(last[0].memo.state())
+                if base is None or len(starts) > len(faults.events):
+                    last[:] = [fresh()]
+                    if not state0:
+                        state0.append(last[0].memo.state())
+                else:
+                    # a later run's earlier attempts restart on the first
+                    # run's last engine, its memo put back to the
+                    # post-build state; its final attempt is built afresh
+                    reset(base)
+                    last[:] = [base]
                 return last[0]
 
             zero_counts()
@@ -1777,9 +1813,15 @@ def phase_fleet_and_service(plain) -> dict:
         n_quanta = len(resumable._trial_quanta(spec, FLEET_SEGMENT)[3])
         faults = covering_faults(FLEET_SEED + 20, n_quanta)
         last, w0 = [], len(writes)
+        tries = []
 
         def make_t(mesh):
-            last[:] = [fresh()]
+            tries.append(mesh)
+            if len(tries) > len(faults.events):     # the final attempt
+                last[:] = [fresh()]
+            else:
+                reset(base)
+                last[:] = [base]
             return last[0]
 
         zero_counts()
@@ -1883,6 +1925,397 @@ def phase_fleet_and_service(plain) -> dict:
                 raise AssertionError(f"{path} never launched {name}")
     log(f"fleet and service phase: {time.perf_counter() - phase_t0:.1f} s")
     return {"fault_tolerance": fleet, "serving": served}
+
+
+# ------------------------------------------------------------------ phase 3e
+MESH_SHARDS = 4
+MESH_TRIALS, MESH_SEGMENT = 100_000, 25_000
+MESH_SERVICE_REQUESTS = 16
+# twelve blocks a chunk: the (2, 2) mesh's two trial shards and the
+# re-meshed trials' four and three all divide it
+MESH_CHUNK_BLOCKS = 12
+DKM_APP, DKM_K, DKM_ITERS = "502.gcc_r", 20, 25
+# two whole distributed k-means runs, 4 shards against 1, part at points
+# near a boundary: at most this share of labels may differ (the CPU
+# tests' readings and planted fault: tests/test_torch_mesh.py)
+DKM_LABEL_SHARE = 0.01
+BUILD_FIELDS = ("truth", "census_mat", "bbv_labels", "bbv_weights",
+                "bbv_feats", "bbv_centroids", "idx1", "cpi0_1", "rfv_z",
+                "rfv_labels", "rfv_weights", "rfv_centroids", "dg_labels",
+                "dg_weights")
+
+
+def mesh_local_shapes(base, dkm: dict) -> dict:
+    """Both clustering kernels bitwise against their plain versions at the
+    mesh path's new local shapes, on the unsharded build's own inputs: one
+    shard's lanes (B = 3, 4, 5: 12 padded lanes over 4 shards, 12 over 3,
+    10 over the (2, 2) mesh's 2 app rows) of the ten-app stack's last BBV
+    and RFV Lloyd steps (the fits' final centroids) and their weighted
+    updates, and one distributed k-means shard (30,000 of gcc's BBVs).
+    Timed with CUDA events beside the bytes bound, the plain version and,
+    for segment_stats, ``index_add_``. These launches are not the path's:
+    the counts are put back."""
+    import torch
+    from repro_torch.distributed.appaxis import pad_app_axis
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+    from repro_torch.kernels.kmeans_assign.ref import dot_order
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+    from repro_torch.kernels.segment_stats.ref import segment_stats_ref
+    from repro_torch.simcpu import APP_NAMES
+
+    exps = base.build(APP_NAMES)
+    dev = base.device
+    n_max = max(e.bbv_feats.shape[0] for e in exps)
+    n1_max = max(e.rfv_z.shape[0] for e in exps)
+
+    def stack(field, rows):
+        out = torch.zeros((len(exps), rows, getattr(exps[0], field).shape[1]),
+                          device=dev)
+        for a, e in enumerate(exps):
+            v = getattr(e, field)
+            out[a, :v.shape[0]] = v.float()
+        return out
+
+    def mask(field, rows):
+        out = torch.zeros((len(exps), rows), device=dev)
+        for a, e in enumerate(exps):
+            out[a, :getattr(e, field).shape[0]] = 1.0
+        return out
+
+    fits = {"bbv": (stack("bbv_feats", n_max), mask("bbv_feats", n_max),
+                    torch.stack([e.bbv_centroids for e in exps]).float()),
+            "rfv": (stack("rfv_z", n1_max), mask("rfv_z", n1_max),
+                    torch.stack([e.rfv_centroids for e in exps]).float())}
+    cases = {}
+    for fit, (x, w, c) in fits.items():
+        for b in (3, 4, 5):
+            sl = slice(0, b)
+            cases[f"{fit}_b{b}"] = (pad_app_axis(x, 12)[sl].contiguous(),
+                                    pad_app_axis(w, 12)[sl],
+                                    pad_app_axis(c, 12)[sl].contiguous())
+    xs = dkm["x"][:dkm["x"].shape[0] // MESH_SHARDS][None].contiguous()
+    cases["distributed_shard"] = (xs, torch.ones(xs.shape[:2], device=dev),
+                                  dkm["centroids"][None].contiguous())
+    n_launch = (assign_ops._launches, segment_ops._launches)
+    out = {"kmeans_assign": {}, "segment_stats": {}}
+    for tag, (x, w, c) in cases.items():
+        b, n, d = x.shape
+        k = c.shape[1]
+        lab_k, d2_k = assign_ops.kmeans_assign(x, c)
+        lab_p, d2_p = assign_ops.kmeans_assign(x, c, backend="plain")
+        if not (torch.equal(lab_k, lab_p) and same_bits(d2_k, d2_p)):
+            raise AssertionError(f"kmeans_assign {tag}: differs from plain")
+        ms = time_ms(lambda: assign_ops.kmeans_assign(x, c))
+        plain_ms = time_ms(lambda: assign_ops.kmeans_assign(
+            x, c, backend="plain"), warmup=1, iters=2)
+        bound_ms, bound_by = bound(4 * (b * n * d + b * k * d + 2 * b * n),
+                                   2.0 * b * n * k * d + 2.0 * b * n * d)
+        out["kmeans_assign"][tag] = {
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": [b, n, k, d],
+            "order": dot_order(x, c)}
+        vals = torch.cat([x * w[..., None], w[..., None]], dim=-1)
+        lab = torch.where(w != 0, lab_k, -1).int()
+        got = segment_ops.segment_stats(vals, lab, k)
+        want = segment_stats_ref(vals, lab, k)
+        if not all(same_bits(g, v) for g, v in zip(got, want)):
+            raise AssertionError(f"segment_stats {tag}: differs from plain")
+        seg_ms = time_ms(lambda: segment_ops.segment_stats(vals, lab, k))
+        seg_plain = time_ms(lambda: segment_stats_ref(vals, lab, k),
+                            warmup=1, iters=2)
+        ok = lab.reshape(-1) >= 0
+        flat = (lab.long() + k * torch.arange(b, device=dev)[:, None]
+                ).reshape(-1)[ok]
+        rows = vals.reshape(b * n, d + 1)[ok]
+        acc = torch.zeros((b * k, d + 1), device=dev)
+        lib_ms = time_ms(lambda: acc.zero_().index_add_(0, flat, rows))
+        s_bound, s_by = bound(
+            4 * (b * n * (d + 1) + b * n + 2 * b * k * (d + 1) + b * k),
+            3.0 * b * n * (d + 1) + b * n)
+        out["segment_stats"][tag] = {
+            "max_abs_err": 0.0, "ms": seg_ms, "plain_ms": seg_plain,
+            "bound_ms": s_bound, "bound_by": s_by, "library_ms": lib_ms,
+            "shape": [b, n, k, d + 1]}
+        log(f"mesh local shape {tag} (b={b}, n={n}, d={d}, k={k}): both "
+            f"kernels bitwise equal to plain; kmeans_assign {ms:.4f} ms "
+            f"(plain {plain_ms:.4f}, bound {bound_ms:.4f} {bound_by}), "
+            f"segment_stats {seg_ms:.4f} ms (plain {seg_plain:.4f}, "
+            f"index_add_ {lib_ms:.4f}, bound {s_bound:.4f} {s_by})")
+    assign_ops._launches, segment_ops._launches = n_launch
+    return out
+
+
+def phase_mesh(card=None) -> tuple[dict, dict]:
+    """The multi-device app axis over a 4-shard ``("app",)`` mesh that
+    names the one card four times (the port's counterpart of the
+    reference's forced host devices; no run on several cards is made),
+    at full width: ten apps, 7 configs, N = 120,000. Against the
+    unsharded engine, bit for bit unless said:
+
+    * the build (every field of every app, and the memo);
+    * the nine staged and fused sweeps (bbv, rfv, dg x centroid, mean,
+      random; fused twice, the second replaying each shard's graph),
+      rows and memo tables; fused equal to staged;
+    * 10^5 trials of random and rfv on a (2, 2) ``("app", "trial")``
+      mesh, twelve blocks a chunk: every leaf (the float moments folded
+      in the unsharded block order) and per-trial array;
+    * a supervised rfv sweep and supervised trials over a pool of four
+      shards that loses one (an elastic re-mesh to three; the attempts
+      re-mesh the built engine instead of rebuilding it, the fleet phase
+      rebuilds for real), against the uninterrupted unsharded runs; the
+      trials run over four trial shards, then resume from the checkpoint
+      over three (twelve blocks a chunk divide by both);
+    * ``SweepService`` over ``synthetic_stream(16)`` under the mesh,
+      against the requests run one by one unsharded;
+    * ``distributed_kmeans`` over gcc's 120,000 BBVs (k = 20, 4 shards of
+      30,000, 25 Lloyd steps): one step from the same centroids equal to
+      the one-shard step (assignments bitwise, centroids within the
+      bound of two float32 summation orders); the whole run within 1e-3
+      of the one-shard run's inertia, at most ``DKM_LABEL_SHARE`` of its
+      labels apart;
+    * both kernels at the new local shapes against their plain versions.
+
+    Returns the path's launches (the runs above, each counted from 0 just
+    before it and added up; comparison runs left out) and, per kernel,
+    its launches by shard and its local-shape rows for the JSON line.
+    ``card``: the device the mesh names (default: the current card)."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core.clustering import distributed_kmeans
+    from repro_torch.core.clustering.distributed import (
+        make_distributed_assign, make_distributed_kmeans_step, shard_points)
+    from repro_torch.core.sampling.plan import SamplingPlan
+    from repro_torch.experiments import (TRIAL_BLOCK, ExperimentEngine,
+                                         SweepSpec, TrialSpec, resumable,
+                                         run_sweep, run_sweep_resumable,
+                                         run_trials, run_trials_resumable,
+                                         supervise_sweep, supervise_trials)
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+    from repro_torch.launch.mesh import (Mesh, make_app_mesh,
+                                         make_app_trial_mesh)
+    from repro_torch.runtime.faults import FaultEvent, FaultPlan
+    from repro_torch.serving import SweepService
+    from repro_torch.serving.cli import synthetic_stream
+    from repro_torch.simcpu import APP_NAMES
+
+    phase_t0 = time.perf_counter()
+    root = ROOT / "build" / "mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    if card is None:
+        card = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_app_mesh(devices=[card] * MESH_SHARDS)
+    trial_mesh = make_app_trial_mesh(2, devices=[card] * MESH_SHARDS)
+    kernels = {"kmeans_assign": assign_ops, "segment_stats": segment_ops}
+    path = {name: 0 for name in kernels}
+    by_shard = {name: {} for name in kernels}
+    steps = {}
+
+    def run(step, fn, *args, **kw):
+        """One run of the path, its launches counted from 0 and added."""
+        for ops in kernels.values():
+            ops.reset_launch_count()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        steps[step] = steps.get(step, 0.0) + time.perf_counter() - t0
+        for name, ops in kernels.items():
+            path[name] += ops.launch_count()
+            for s, n in ops.launch_counts_by_shard().items():
+                by_shard[name][s] = by_shard[name].get(s, 0) + n
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        base = ExperimentEngine()
+        base.memo.cols_for(base.configs)
+        base.build(APP_NAMES)
+        sharded = ExperimentEngine(mesh=mesh)
+        sharded.memo.cols_for(sharded.configs)
+        run("build", sharded.build, APP_NAMES)
+        for a, b in zip(base.build(APP_NAMES), sharded.build(APP_NAMES)):
+            for f in BUILD_FIELDS:
+                if not same_bits(getattr(a, f), getattr(b, f)):
+                    raise AssertionError(f"sharded build {a.name}: {f}")
+        same_memo(memo_by_config(sharded), memo_by_config(base),
+                  "sharded build")
+        state0 = (base.memo.state(), sharded.memo.state())
+
+        def reset():
+            for eng, st in zip((base, sharded), state0):
+                eng.memo.load_state(*st, universe=eng.configs)
+
+        for scheme in STRATIFIERS:
+            for policy in POLICIES:
+                plan = SamplingPlan.from_strings(scheme, policy)
+                spec = SweepSpec(apps=APP_NAMES, plan=plan)
+                staged = dataclasses.replace(spec, fused=False)
+                fused_rows = run("fused sweeps", run_sweep, sharded, spec)
+                same_rows(fused_rows, run_sweep(base, spec),
+                          f"sharded fused {scheme}/{policy}")
+                same_rows(run("fused sweeps", run_sweep, sharded, spec),
+                          fused_rows, f"sharded fused {scheme}/{policy}, "
+                          "graph replays")
+                run_sweep(base, spec)
+                staged_rows = run("staged sweeps", run_sweep, sharded,
+                                  staged)
+                same_rows(staged_rows, run_sweep(base, staged),
+                          f"sharded staged {scheme}/{policy}")
+                same_rows(fused_rows, staged_rows,
+                          f"sharded fused vs staged {scheme}/{policy}")
+        same_memo(memo_by_config(sharded), memo_by_config(base),
+                  "sharded sweeps")
+        log(f"mesh: build over {MESH_SHARDS} shards equal to the unsharded "
+            f"build; 9 fused (cold, then graph replays) and 9 staged "
+            "sweeps equal to the unsharded sweeps and to each other; "
+            f"{len([k for k in sharded.graphs if k[0] == 'fused_mesh'])} "
+            "sharded fused programs kept (one graph a shard)")
+
+        reset()
+        spec_t = TrialSpec(trials=MESH_TRIALS, schemes=("random", "rfv"),
+                           keep_trials=True,
+                           chunk_size=MESH_CHUNK_BLOCKS * TRIAL_BLOCK)
+        got = run("trials", run_trials, sharded, spec_t, apps=APP_NAMES,
+                  mesh=trial_mesh)
+        want = run_trials(base, spec_t, apps=APP_NAMES)
+        same_trials(got, want, "trials on the (2, 2) mesh", floats=True)
+        log(f"mesh: {MESH_TRIALS} trials x random, rfv on the (2, 2) "
+            "(app, trial) mesh: every leaf, the float moments included, "
+            "and every per-trial array equal to the unsharded run")
+
+        reset()
+        spec = SweepSpec(apps=APP_NAMES,
+                         plan=SamplingPlan.from_strings("rfv", "centroid"))
+        blocks = {"app_block": FLEET_APP_BLOCK,
+                  "config_block": FLEET_CONFIG_BLOCK}
+        meshes = []
+
+        def remesh(m):
+            meshes.append(m)
+            sharded.mesh = m
+            return sharded
+
+        lose = FaultPlan((FaultEvent("kill", 2, devices_lost=1),))
+        got, report = run("supervised sweep", supervise_sweep, remesh, spec,
+                          root / "s", faults=lose, devices=[card] * 4,
+                          **blocks)
+        want = run_sweep_resumable(base, spec, root / "u", **blocks)
+        same_rows(got, want, "re-meshed supervised sweep vs uninterrupted")
+        same_memo(memo_by_config(sharded), memo_by_config(base),
+                  "re-meshed supervised sweep vs uninterrupted")
+        shapes = [a["mesh_shape"] for a in report.attempts]
+        if shapes != [(4,), (3,)]:
+            raise AssertionError(f"supervised sweep meshes {shapes}")
+
+        reset()
+        lose = FaultPlan((FaultEvent("kill_dirty", 3, devices_lost=1),))
+        quanta, run_program = [], resumable._run_program
+
+        def traced_program(program, x, **kw):
+            quanta.append(program.n_trial)
+            return run_program(program, x, **kw)
+
+        resumable._run_program = traced_program
+        try:
+            got, report = run("supervised trials", supervise_trials, remesh,
+                              spec_t, root / "t", apps=APP_NAMES,
+                              faults=lose, segment_trials=MESH_SEGMENT,
+                              devices=[card] * 4)
+        finally:
+            resumable._run_program = run_program
+        want = run_trials_resumable(base, spec_t, root / "tu",
+                                    apps=APP_NAMES,
+                                    segment_trials=MESH_SEGMENT)
+        same_trials(got, want, "re-meshed supervised trials", floats=True)
+        t_shapes = [a["mesh_shape"] for a in report.attempts]
+        if t_shapes != [(1, 4), (1, 3)]:
+            raise AssertionError(f"supervised trials meshes {t_shapes}")
+        # a dirty kill at quantum 3: quanta 0-3 ran over four trial
+        # shards, then quantum 3 on from the checkpoint over three
+        n_q = len(resumable._trial_quanta(spec_t, MESH_SEGMENT)[3])
+        if quanta != [4] * 4 + [3] * (n_q - 3):
+            raise AssertionError(f"supervised trials' trial shards by "
+                                 f"quantum {quanta}")
+        sharded.mesh = mesh
+        log(f"mesh: supervised rfv sweep over meshes {shapes} and "
+            f"supervised trials over {t_shapes} (one shard lost each, "
+            "re-planned, resumed from the checkpoint; the trials' quanta "
+            f"over {quanta} trial shards) equal to the uninterrupted "
+            "unsharded runs, every leaf bit for bit")
+
+        reset()
+        stream = synthetic_stream(MESH_SERVICE_REQUESTS, apps=APP_NAMES)
+        service = SweepService(sharded, mesh=mesh)
+        for s in stream:
+            service.submit(s)
+        run("service", service.tick)
+        for i, s in enumerate(stream):
+            same_rows(service.result(i), run_sweep(base, s),
+                      f"mesh service request {i} vs run_sweep")
+        same_memo(memo_by_config(sharded), memo_by_config(base),
+                  "mesh service vs serial run_sweep")
+        st = service.stats()
+        log(f"mesh: service over {st.completed} requests in one tick, "
+            f"{st.dispatches} dispatches, {st.coalesced_requests} "
+            "coalesced; rows and tables equal to the requests run one by "
+            "one unsharded")
+
+        x = base.app(DKM_APP).bbv_feats.float().contiguous()
+        one = Mesh([card], ("data",))
+        four = Mesh([card] * MESH_SHARDS, ("data",))
+        c4, l4, i4 = run("distributed k-means", distributed_kmeans, x,
+                         DKM_K, four, iters=DKM_ITERS)
+        dkm_s = steps["distributed k-means"]
+        c1, l1, i1 = distributed_kmeans(x, DKM_K, one, iters=DKM_ITERS)
+        xs1, xs4 = shard_points(x, one, ("data",)), \
+            shard_points(x, four, ("data",))
+        lab1 = torch.cat(make_distributed_assign(one, ("data",))(xs1, c4))
+        lab4 = torch.cat(make_distributed_assign(four, ("data",))(xs4, c4))
+        if not torch.equal(lab1, lab4):
+            raise AssertionError("distributed assignment: 4 shards differ")
+        n1, _ = make_distributed_kmeans_step(one, ("data",), DKM_K)(xs1, c4)
+        n4, _ = make_distributed_kmeans_step(four, ("data",), DKM_K)(xs4, c4)
+        mag = torch.zeros((DKM_K, x.shape[1]), device=x.device).index_add_(
+            0, lab1.long(), x.abs())
+        if not ((n4 - n1).abs() <= 2 * 2.0 ** -24 * mag
+                + torch.finfo(torch.float32).eps * n1.abs()).all():
+            raise AssertionError("distributed step: centroids past the "
+                                 "summation-order bound")
+        differ = int((l4 != l1).sum())
+        if abs(i4 - i1) > 1e-3 * i1 or differ > DKM_LABEL_SHARE * len(l1):
+            raise AssertionError(f"distributed k-means whole run: inertia "
+                                 f"{i4} against {i1}, {differ} labels "
+                                 "differ")
+        log(f"mesh: distributed k-means over {DKM_APP}'s {x.shape[0]} BBVs "
+            f"(k = {DKM_K}, {MESH_SHARDS} shards, {DKM_ITERS} steps) "
+            f"{dkm_s:.2f} s, {dkm_s / (DKM_ITERS + 1) * 1e3:.1f} ms a step; "
+            "one step equal to the one-shard step (assignments bitwise, "
+            "centroids within the summation-order bound); whole runs: "
+            f"inertia {i4:.6f} against {i1:.6f} on one shard, "
+            f"{differ} of {len(l1)} labels differ (at most "
+            f"{DKM_LABEL_SHARE:.0%} allowed)")
+        local = mesh_local_shapes(base, {"x": x, "centroids": c4})
+        peak = torch.cuda.max_memory_allocated()
+        del base, sharded, service
+        gc.collect()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in kernels:
+        if path[name] <= 0 or set(by_shard[name]) != set(range(MESH_SHARDS)):
+            raise AssertionError(f"mesh path: {name} launches {path[name]}, "
+                                 f"by shard {by_shard[name]}")
+    log(f"mesh: launches {path}, by shard {by_shard}; seconds by step "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steps.items())
+        + f"; peak {peak / 2**30:.2f} GiB; mesh phase "
+        f"{time.perf_counter() - phase_t0:.1f} s")
+    detail = {name: {"launches": path[name],
+                     "launches_by_shard": {str(s): n for s, n in
+                                           sorted(by_shard[name].items())},
+                     "seconds_by_step": steps, "peak_gib": peak / 2**30,
+                     "local_shapes": local[name]} for name in kernels}
+    return path, detail
 
 
 # ------------------------------------------------------------------ phase 4
@@ -2137,6 +2570,7 @@ def main() -> int:
     fleet_paths = timed("fleet and service", phase_fleet_and_service, plain)
     del plain
     gc.collect()
+    mesh_path, mesh_detail = timed("mesh", phase_mesh)
     left = torch.cuda.memory_allocated() - before
     # torch keeps a cuBLAS workspace for every stream that ran a GEMM,
     # the graphs' capture stream among them; free them, to tell them
@@ -2148,7 +2582,7 @@ def main() -> int:
         "once cuBLAS's workspaces are freed")
     by_path = {"simulation": simulation, "fused_and_trials": fused_path,
                "flow_and_figures": flow_path, **fleet_paths,
-               "lm": timed("LM path", phase_lm)}
+               "mesh": mesh_path, "lm": timed("LM path", phase_lm)}
     log("seconds by phase: " + ", ".join(
         f"{name} {s:.1f}" for name, s in seconds.items())
         + f"; the whole script {time.perf_counter() - started:.1f}")
@@ -2164,13 +2598,17 @@ def main() -> int:
               for p, (n, ms) in traced_passes.items()}
     rows = [
         {"name": "kmeans_assign", "route": "cuda",
-         "source": "src/repro_torch/csrc/kmeans_assign.cu",
+         "source": "src/repro_torch/csrc/kmeans_assign.cuh",
+         "build_units": ["src/repro_torch/csrc/kmeans_assign.cu",
+                         "src/repro_torch/csrc/kmeans_assign_wide.cu",
+                         "src/repro_torch/csrc/kmeans_assign_128.cu"],
          "replaces": "src/repro/kernels/kmeans_assign/kmeans_assign.py:41",
          **launches("kmeans_assign"), **main_inputs["bbv"]["kmeans_assign"],
          "other_shapes": {"rfv": main_inputs["rfv"]["kmeans_assign"],
                           **new_shapes["kmeans_assign"],
                           "synthetic": assign},
-         "traced_build": traced["assign_kernel"]},
+         "traced_build": traced["assign_kernel"],
+         "mesh": mesh_detail["kmeans_assign"]},
         {"name": "segment_stats", "route": "cuda",
          "source": "src/repro_torch/csrc/segment_stats.cu",
          "replaces": "src/repro/kernels/segment_stats/segment_stats.py:28",
@@ -2187,7 +2625,8 @@ def main() -> int:
              **new_shapes["segment_stats"],
              "synthetic": segment},
          "traced_build": {p: traced[p] for p in CLUSTER_KERNELS
-                          if p != "assign_kernel"}},
+                          if p != "assign_kernel"},
+         "mesh": mesh_detail["segment_stats"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces":

@@ -135,6 +135,59 @@ def _kmeanspp_init(keys: torch.Tensor, x: torch.Tensor, k: int,
     return cents
 
 
+class _Lloyd:
+    """THE Lloyd loop over a ``(B, n, d)`` stack, one step at a time:
+    ``step`` launches a step for the lanes still moving and waits for
+    nothing; ``moving`` reads (waits for) whether any lane still moves;
+    ``result`` is the final assignment. An app-sharded fit
+    (``kmeans_bank(mesh=)``) runs one per shard in lockstep, launching
+    every shard's step before it reads any shard's flag."""
+
+    def __init__(self, keys: torch.Tensor, x: torch.Tensor, k: int,
+                 max_iters: int, tol: float,
+                 w: Optional[torch.Tensor] = None, backend: str = "auto"):
+        b = keys.shape[0]
+        if x.dim() == 2:
+            x = x.expand(b, *x.shape)
+        self.x = x.float().contiguous()
+        self.k, self.max_iters, self.tol = k, max_iters, tol
+        self.w, self.backend = w, backend
+        self.wu = torch.ones(self.x.shape[:2], dtype=torch.float32,
+                             device=self.x.device) if w is None else w
+        self.centroids = _kmeanspp_init(keys, self.x, k, w)
+        self.it = torch.zeros(b, dtype=torch.int64, device=self.x.device)
+        self.shift = torch.full((b,), float("inf"), dtype=torch.float32,
+                                device=self.x.device)
+        self._active = self._is_active()
+
+    def _is_active(self) -> torch.Tensor:
+        return (self.it < self.max_iters) & (self.shift > self.tol)
+
+    def moving(self) -> bool:
+        return bool(self._active.any())
+
+    def step(self) -> None:
+        active = self._active
+        labels, _ = kmeans_assign(self.x, self.centroids,
+                                  backend=self.backend)
+        new_c = _update_centroids(self.x, labels, self.k, self.centroids,
+                                  self.wu, self.backend)
+        new_shift = sum_sq(new_c - self.centroids).amax(dim=1)
+        self.centroids = torch.where(active[:, None, None], new_c,
+                                     self.centroids)
+        self.shift = torch.where(active, new_shift, self.shift)
+        self.it = self.it + active.long()
+        self._active = self._is_active()
+
+    def result(self):
+        """``(centroids (B, k, d), labels (B, n) int64, inertia (B,),
+        iterations (B,))``."""
+        labels, min_d2 = kmeans_assign(self.x, self.centroids,
+                                       backend=self.backend)
+        inertia = tree_sum(min_d2 if self.w is None else min_d2 * self.w)
+        return self.centroids, labels.long(), inertia, self.it
+
+
 def _kmeans_fit_stacked(keys: torch.Tensor, x: torch.Tensor, k: int,
                         max_iters: int, tol: float,
                         w: Optional[torch.Tensor] = None,
@@ -142,34 +195,43 @@ def _kmeans_fit_stacked(keys: torch.Tensor, x: torch.Tensor, k: int,
     """THE Lloyd loop over a ``(B, n, d)`` stack (``x`` may be ``(n, d)``,
     shared by every lane). Returns ``(centroids (B, k, d), labels (B, n)
     int64, inertia (B,), iterations (B,))``."""
-    b = keys.shape[0]
-    if x.dim() == 2:
-        x = x.expand(b, *x.shape)
-    x = x.float().contiguous()
-    init = _kmeanspp_init(keys, x, k, w)
-    wu = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device) \
-        if w is None else w
+    fit = _Lloyd(keys, x, k, max_iters, tol, w, backend)
+    while fit.moving():
+        fit.step()
+    return fit.result()
 
-    def assign(c):
-        return kmeans_assign(x, c, backend=backend)
 
-    centroids = init
-    it = torch.zeros(b, dtype=torch.int64, device=x.device)
-    shift = torch.full((b,), float("inf"), dtype=torch.float32,
-                       device=x.device)
-    while True:
-        active = (it < max_iters) & (shift > tol)
-        if not bool(active.any()):
-            break
-        new_labels, _ = assign(centroids)
-        new_c = _update_centroids(x, new_labels, k, centroids, wu, backend)
-        new_shift = sum_sq(new_c - centroids).amax(dim=1)
-        centroids = torch.where(active[:, None, None], new_c, centroids)
-        shift = torch.where(active, new_shift, shift)
-        it = it + active.long()
-    labels, min_d2 = assign(centroids)
-    inertia = tree_sum(min_d2 if w is None else min_d2 * w)
-    return centroids, labels.long(), inertia, it
+def _fit_sharded(key: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                 k: int, max_iters: int, tol: float, backend: str, mesh):
+    """``kmeans_bank``'s fit over an ``("app",)`` mesh: each shard's lanes
+    fit on its device at its local shape (``(B_local, n, k, d)``, whose
+    dot and norm orders the kernel and the plain version read, as the
+    reference's sharded program compiles them), all shards' Lloyd loops
+    in lockstep; results come home in shard order, padding trimmed."""
+    from ...distributed.appaxis import (gather, lane_shards, mesh_grid,
+                                        on_shard, pad_app_axis, to_device)
+    grid = mesh_grid(mesh)[:, :1]
+    a_n = x.shape[0]
+    xp, wp = pad_app_axis(x, len(grid)), pad_app_axis(w, len(grid))
+    fits = []
+    for shard in lane_shards(grid, a_n):
+        with on_shard(shard):
+            xs, ws = to_device((xp[shard.lanes], wp[shard.lanes]),
+                               shard.device)
+            fits.append((shard, _Lloyd(
+                key.to(shard.device).expand(xs.shape[0], 2), xs, k,
+                max_iters, tol, ws, backend)))
+    live = [f for f in fits if f[1].moving()]
+    while live:
+        for shard, fit in live:
+            with on_shard(shard):
+                fit.step()
+        live = [f for f in live if f[1].moving()]
+    outs = []
+    for shard, fit in fits:
+        with on_shard(shard):
+            outs.append(fit.result())
+    return gather(outs, x.device, a_n)
 
 
 def _as_keys(keys, seeds, device) -> torch.Tensor:
@@ -246,13 +308,17 @@ def best_of(results: list[KMeansResult]) -> KMeansResult:
 
 def kmeans_bank(features, k: int, *, weights=None, key=None, seed: int = 0,
                 max_iters: int = 100, backend: str = "auto",
-                tol: float = 1e-8, device=None) -> KMeansBank:
+                tol: float = 1e-8, device=None, mesh=None) -> KMeansBank:
     """One weighted fit per lane of an ``(A, n, d)`` stack.
 
     Every lane fits its own points with its own ``weights`` (0 = padded
     row: never seeds a centroid, never moves one), all from the same
     ``key``/``seed``, so lane ``a`` equals a single weighted fit with that
-    key. Each Lloyd step is one assignment launch for all lanes.
+    key. Each Lloyd step is one assignment launch for all lanes. With
+    ``mesh`` (an ``("app",)`` mesh) the lanes are split over its devices:
+    each shard's steps launch both kernels at its local shape, so a lane's
+    result is the unsharded one wherever the local shape's dot and norm
+    orders are the full shape's (``core.ordered.DOT_ORDERS``).
     """
     x = _as_points(features, device, 3)
     if k < 1 or k > x.shape[1]:
@@ -263,8 +329,12 @@ def kmeans_bank(features, k: int, *, weights=None, key=None, seed: int = 0,
     if key is None:
         key = prng.PRNGKey(seed, device=x.device)
     key = torch.as_tensor(key, dtype=torch.int64).to(x.device)
-    keys = key.expand(x.shape[0], 2)
-    cents, labels, inertia, iters = _kmeans_fit_stacked(
-        keys, x, k, max_iters, tol, w=w, backend=backend)
+    if mesh is None:
+        cents, labels, inertia, iters = _kmeans_fit_stacked(
+            key.expand(x.shape[0], 2), x, k, max_iters, tol, w=w,
+            backend=backend)
+    else:
+        cents, labels, inertia, iters = _fit_sharded(
+            key, x, w, k, max_iters, tol, backend, mesh)
     return KMeansBank(centroids=cents, labels=labels, inertia=inertia,
                       iterations=iters, backend=_backend.resolve_route(x, backend))

@@ -27,7 +27,13 @@ from cumulative sums, so one flipped bit can pick a different seed):
   tabulates the order at every shape where a fit of the port runs,
   derived from the reference's own einsum on the CPU
   (``tests/test_torch_paper_figs.py`` holds each row);
-  ``reference_dot_order`` reads it, and ``dot_in_order`` computes either.
+  ``reference_dot_order`` reads it, and ``dot_in_order`` computes either;
+* the distance's squared norms ``sum(x * x)`` over d = 5 to 8 are
+  vectorized over rows: the leading ``norm_vector_rows(m, d)`` rows of an
+  ``(..., m, d)`` stack add their rounded products in order, the rest are
+  one multiply-add chain as ``sum_sq`` computes them (``sum_sq_rows``).
+  The rule is the same for the points' and the centroids' norms, and
+  holds at every shape the port's tests check against the reference.
 
 numpy, which the reference's engine uses for its host statistics, sums
 over an axis that is not the innermost one slice by slice, in order
@@ -43,7 +49,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fma32", "tree_sum", "sum_sq", "blocked_cumsum", "dot_nt",
+__all__ = ["fma32", "tree_sum", "sum_sq", "sum_sq_rows", "norm_vector_rows",
+           "blocked_cumsum", "dot_nt",
            "dot_chain", "dot_in_order", "reference_dot_order", "DOT_ORDERS",
            "seq_sum"]
 
@@ -89,6 +96,42 @@ def sum_sq(t: torch.Tensor) -> torch.Tensor:
     for j in range(t.shape[-1]):
         acc = fma32(t[..., j], t[..., j], acc)
     return acc
+
+
+# from this many rows on, the reference's vector body over the rows of a
+# norm takes whole groups of 8 (below it, whole groups of 4), per d
+_NORM_GROUP8_FROM = {5: 32, 6: 32, 7: 88, 8: 80}
+
+
+def norm_vector_rows(m: int, d: int) -> int:
+    """How many leading rows of an ``(..., m, d)`` stack the reference's
+    float32 ``sum(x * x, -1)`` adds as rounded products in order (its
+    vector body); the rows after them are one multiply-add chain. Only
+    d = 5 to 8 is vectorized over rows; below 16 rows only m = 2, 4 and 8
+    are. Not modelled: two rows at d = 5, which the reference sums in a
+    third order (no fit of the port has that shape; 0 is returned)."""
+    m, d = int(m), int(d)
+    if d not in _NORM_GROUP8_FROM:
+        return 0
+    if m < 16:
+        if m == 2:
+            return 0 if d == 5 else 2
+        return m if m in (4, 8) else 0
+    return m - m % (8 if m >= _NORM_GROUP8_FROM[d] else 4)
+
+
+def sum_sq_rows(t: torch.Tensor) -> torch.Tensor:
+    """``sum(t * t)`` over the last axis of an ``(..., m, d)`` stack, each
+    row in the reference's order at its place (``norm_vector_rows``): the
+    squared norms of the k-means distance. ``sum_sq`` elsewhere (the
+    seeding's ``(x - c)^2`` is one chain at every row)."""
+    t = t.float()
+    out = sum_sq(t)
+    p = norm_vector_rows(t.shape[-2], t.shape[-1])
+    if p:
+        head = t[..., :p, :]
+        out[..., :p] = _in_order(head * head)
+    return out
 
 
 def blocked_cumsum(v: torch.Tensor) -> torch.Tensor:
@@ -162,10 +205,12 @@ def dot_chain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 # (B, n, k, d) of a distance einsum (B lanes of n points against k
 # centroids of d features) -> the reference's accumulation order there.
-# Rows: the build's BBV and RFV fits (ten apps, and the tests' app pairs),
+# Rows: the build's BBV and RFV fits (ten apps, and the tests' app pairs;
+# over an app mesh, one shard's lanes: B = 1 to 5),
 # the figures' k = 20 / 50 / 500 fits over full populations and phase-1
 # samples (and their restarts), the flow's stratifier fits (3 restarts),
-# kmeans_multi_seed's and SampledEval's. Fits at d < 4 (the flow's and
+# kmeans_multi_seed's and SampledEval's, and the distributed k-means'
+# shards of points and its seeding subsample. Fits at d < 4 (the flow's and
 # the tests' small ones) have no row: there both orders are one chain.
 _CHAIN = (
     (1, 964, 482, 38), (1, 967, 483, 38), (1, 1030, 500, 38),
@@ -173,23 +218,25 @@ _CHAIN = (
     (1, 3047, 500, 38), (1, 6195, 500, 38), (1, 6861, 500, 38),
     (1, 40000, 50, 15), (1, 120000, 50, 15))
 _FOUR = (
-    (1, 915, 457, 38), (1, 964, 20, 38), (1, 40000, 20, 15),
+    (1, 915, 457, 38), (1, 964, 20, 38), (1, 967, 20, 38), (1, 6861, 20, 38),
+    (1, 10000, 20, 15), (1, 30000, 20, 15), (1, 40000, 20, 15),
     (1, 120000, 20, 15), (2, 915, 20, 6), (2, 915, 20, 21), (2, 964, 20, 6),
     (2, 964, 20, 21), (2, 964, 20, 38), (2, 967, 20, 6), (2, 967, 20, 21),
     (2, 967, 20, 38), (2, 1030, 20, 6), (2, 1030, 20, 21), (2, 1041, 20, 6),
     (2, 1041, 20, 21), (2, 1062, 20, 6), (2, 1062, 20, 21), (2, 1997, 20, 6),
-    (2, 1997, 20, 21), (2, 1997, 20, 38), (2, 3001, 20, 15),
-    (2, 3047, 20, 6), (2, 3047, 20, 21), (2, 6195, 20, 6), (2, 6195, 20, 21),
-    (2, 6195, 20, 38), (2, 6861, 20, 6), (2, 6861, 20, 21),
+    (2, 1997, 20, 21), (2, 1997, 20, 38), (2, 3001, 20, 15), (2, 3047, 20, 6),
+    (2, 3047, 20, 21), (2, 6195, 20, 6), (2, 6195, 20, 21), (2, 6195, 20, 38),
+    (2, 6861, 20, 6), (2, 6861, 20, 21), (2, 6861, 20, 38), (2, 8192, 20, 15),
     (2, 40000, 20, 15), (2, 60000, 20, 15), (2, 120000, 20, 15),
     (3, 900, 20, 15), (3, 900, 20, 38), (3, 915, 20, 15), (3, 915, 20, 38),
     (3, 964, 20, 15), (3, 964, 20, 38), (3, 967, 20, 15), (3, 967, 20, 38),
-    (3, 1030, 20, 15), (3, 1030, 20, 38), (3, 1041, 20, 15),
-    (3, 1041, 20, 38), (3, 1062, 20, 15), (3, 1062, 20, 38),
-    (3, 1201, 20, 38), (3, 1500, 12, 7), (3, 1997, 20, 15),
-    (3, 1997, 20, 38), (3, 3047, 20, 15), (3, 3047, 20, 38),
-    (3, 6195, 20, 15), (3, 6195, 20, 38), (3, 6861, 20, 15),
-    (3, 6861, 20, 38), (10, 6861, 20, 38), (10, 120000, 20, 15))
+    (3, 1030, 20, 15), (3, 1030, 20, 38), (3, 1041, 20, 15), (3, 1041, 20, 38),
+    (3, 1062, 20, 15), (3, 1062, 20, 38), (3, 1201, 20, 38), (3, 1500, 12, 7),
+    (3, 1997, 20, 15), (3, 1997, 20, 38), (3, 3047, 20, 15), (3, 3047, 20, 38),
+    (3, 6195, 20, 15), (3, 6195, 20, 38), (3, 6861, 20, 15), (3, 6861, 20, 38),
+    (3, 120000, 20, 15), (4, 6861, 20, 38), (4, 120000, 20, 15),
+    (5, 6861, 20, 38), (5, 120000, 20, 15), (10, 6861, 20, 38),
+    (10, 120000, 20, 15))
 DOT_ORDERS: dict[tuple[int, int, int, int], str] = {
     **{s: "four" for s in _FOUR}, **{s: "chain" for s in _CHAIN}}
 

@@ -43,6 +43,7 @@ __all__ = ["StratumTables", "stratum_tables", "tables_from_summaries",
            "collapsed_pairs_variance", "fixed_sum", "TRIAL_HIST_BINS",
            "TRIAL_HIST_LO", "TRIAL_HIST_HI", "TrialStats",
            "trial_stats_init", "trial_stats_update", "trial_stats_merge",
+           "fold_block_moments", "TRIAL_MOMENTS",
            "log_hist_quantile"]
 
 
@@ -648,7 +649,7 @@ def _hist_add(hist: torch.Tensor, values: torch.Tensor,
 
 def trial_stats_update(stats: TrialStats, err: torch.Tensor,
                        half: torch.Tensor, covered: torch.Tensor, valid, *,
-                       block: int) -> TrialStats:
+                       block: int, with_moments: bool = False):
     """Fold one chunk of per-trial outcomes into the running statistics.
 
     ``err``/``half`` ``(..., Tc)`` per-trial percent errors and CI
@@ -657,7 +658,9 @@ def trial_stats_update(stats: TrialStats, err: torch.Tensor,
     the trial count up). Float moments are cast to the accumulator dtype,
     reduced over each ``block`` of trials by ``fixed_sum`` and added into
     the running sums one block at a time, in block order. Counters and
-    sketches are int32.
+    sketches are int32. ``with_moments`` also returns the block partial
+    sums that were added, ``(..., 4, Tc / block)`` in the order of
+    ``TRIAL_MOMENTS``, for ``fold_block_moments``.
     """
     v = torch.broadcast_to(torch.as_tensor(valid, device=err.device).bool(),
                            err.shape)
@@ -668,28 +671,44 @@ def trial_stats_update(stats: TrialStats, err: torch.Tensor,
     if t % block:
         raise ValueError(f"{t} trials do not split into blocks of {block}")
 
-    def moments(total, x, m, square: bool):
+    def parts(x, m, square: bool):
         xc = torch.where(m, x, torch.zeros_like(x)).to(acc)
         if square:
             xc = xc * xc
-        parts = fixed_sum(xc.reshape(*xc.shape[:-1], t // block, block))
-        for j in range(t // block):
-            total = total + parts[..., j]
-        return total
+        return fixed_sum(xc.reshape(*xc.shape[:-1], t // block, block))
 
     def count(total, m):
         return total + m.sum(dim=-1, dtype=torch.int32)
 
-    return TrialStats(
+    moments = torch.stack([parts(err, err_ok, False), parts(err, err_ok, True),
+                           parts(half, half_ok, False),
+                           parts(half, half_ok, True)], dim=-2)
+    new = fold_block_moments(TrialStats(
         count=count(stats.count, v),
         cover=count(stats.cover, v & covered),
-        err_sum=moments(stats.err_sum, err, err_ok, False),
-        err_sumsq=moments(stats.err_sumsq, err, err_ok, True),
+        err_sum=stats.err_sum, err_sumsq=stats.err_sumsq,
         half_n=count(stats.half_n, half_ok),
-        half_sum=moments(stats.half_sum, half, half_ok, False),
-        half_sumsq=moments(stats.half_sumsq, half, half_ok, True),
+        half_sum=stats.half_sum, half_sumsq=stats.half_sumsq,
         err_hist=_hist_add(stats.err_hist, err, err_ok),
-        half_hist=_hist_add(stats.half_hist, half, half_ok))
+        half_hist=_hist_add(stats.half_hist, half, half_ok)), moments)
+    return (new, moments) if with_moments else new
+
+
+# the float moments of a TrialStats, in the order of a block-moments axis
+TRIAL_MOMENTS = ("err_sum", "err_sumsq", "half_sum", "half_sumsq")
+
+
+def fold_block_moments(stats: TrialStats,
+                       moments: torch.Tensor) -> TrialStats:
+    """``stats`` with block partial sums ``(..., 4, nb)`` (see
+    ``trial_stats_update``) added into its float moments one block at a
+    time, in block order: the same elementwise adds, so the same bits, as
+    folding those blocks chunk by chunk."""
+    total = torch.stack([getattr(stats, f) for f in TRIAL_MOMENTS], dim=-1)
+    for j in range(moments.shape[-1]):
+        total = total + moments[..., j]
+    return dataclasses.replace(
+        stats, **{f: total[..., i] for i, f in enumerate(TRIAL_MOMENTS)})
 
 
 def trial_stats_merge(a: TrialStats, b: TrialStats) -> TrialStats:

@@ -21,10 +21,14 @@ default ``"jnp"`` backend, i.e. its TPU kernel never ran there; the port
 computes the same function through its kernel.
 
 ``device=None`` means the card (``"cuda"``) and raises when there is none;
-tests pass ``device="cpu"``. ``backend`` chooses the kernel route for the
-whole engine: ``"auto"`` (kernels on CUDA, plain versions on the CPU) or
-``"plain"`` (the plain versions on any device, for holding the kernels
-against them).
+tests pass ``device="cpu"``. ``mesh`` (``repro_torch.launch.mesh``) shards
+the app axis of the census, the BBV projection, both fits and the phase-1
+measurement over its devices, with the unsharded results
+(``repro_torch.distributed.appaxis``); ``ExperimentEngine.auto()`` makes
+an ``("app",)`` mesh over the visible cards when there is more than one.
+``backend`` chooses the kernel route for the whole engine: ``"auto"``
+(kernels on CUDA, plain versions on the CPU) or ``"plain"`` (the plain
+versions on any device, for holding the kernels against them).
 """
 
 from __future__ import annotations
@@ -211,13 +215,37 @@ def stratum_tables(labels: torch.Tensor, valid: torch.Tensor,
 
 
 class ExperimentEngine:
-    """Builds ``AppExperiment`` state batched over apps, on one device."""
+    """Builds ``AppExperiment`` state batched over apps; runs batched
+    sweeps.
+
+    ``mesh``: an ``("app",)`` mesh, over which every batched build and
+    sweep pass shards its app axis, or an ``("app", "trial")`` mesh, which
+    also splits Monte-Carlo trial chunks over its second axis (build and
+    sweeps use its app axis only). ``None`` (the default) runs the same
+    programs on the engine's device. The engine's state lives on
+    ``device`` whatever the mesh: shards' results come back there.
+    """
+
+    @classmethod
+    def auto(cls, **kwargs) -> "ExperimentEngine":
+        """An engine with an ``("app",)`` mesh over the visible cards when
+        there is more than one, else none. It shards over distinct cards
+        only: a mesh that repeats a device is asked for by name
+        (``make_app_mesh(devices=...)``)."""
+        if "mesh" not in kwargs:
+            mesh = None
+            if torch.cuda.is_available() and torch.cuda.device_count() > 1:
+                from ..launch.mesh import make_app_mesh
+                mesh = make_app_mesh()
+            kwargs["mesh"] = mesh
+        return cls(**kwargs)
 
     def __init__(self, *, configs: Sequence = CONFIGS,
                  num_strata: int = NUM_STRATA,
-                 phase1_seed: int = PHASE1_SEED, precision=None,
+                 phase1_seed: int = PHASE1_SEED, mesh=None, precision=None,
                  device=None, backend: str = "auto"):
         self.device = resolve_device(device, what="ExperimentEngine")
+        self.mesh = mesh
         self.configs = tuple(configs)
         self.num_strata = num_strata
         self.phase1_seed = phase1_seed
@@ -301,6 +329,7 @@ class ExperimentEngine:
         L = self.num_strata
         dev = self.device
         be = self.backend
+        mesh = self.mesh
         bank = get_population_bank(names)
         a_n = bank.num_apps
         ar = torch.arange(a_n, device=dev)
@@ -317,7 +346,8 @@ class ExperimentEngine:
             sims.append(CachedSimulator(base, bank=self.memo, row=row))
 
         # census ground truth for every config (analysis-only, free)
-        census = cpi_bank(feats, config_matrix(self.configs, device=dev))
+        census = cpi_bank(feats, config_matrix(self.configs, device=dev),
+                          mesh=mesh)
         truth = torch.where(mask[:, None, :], census,
                             torch.zeros((), device=dev)).double().sum(dim=2) \
             / n_regions[:, None]
@@ -328,10 +358,10 @@ class ExperimentEngine:
         for a, pop in enumerate(bank.pops):
             bbvs[a, :pop.n_regions] = torch.as_tensor(get_bbvs(pop),
                                                       device=dev)
-        z = random_project(bbvs, BBV_DIMS, key=prng.PRNGKey(0, device=dev))
+        z = _project_bank(bbvs, mesh=mesh)
         del bbvs
         bbv_fit = kmeans_bank(z, L, weights=mask.float(), seed=kmeans_seed,
-                              backend=be)
+                              backend=be, mesh=mesh)
         bbv_w = _offset_bincount(bbv_fit.labels, mask, L, backend=be) \
             / n_regions[:, None]
 
@@ -343,7 +373,8 @@ class ExperimentEngine:
         idx1_np, valid_np = stack_ragged(idx1_list)
         idx1 = torch.as_tensor(idx1_np, device=dev)
         idx1_valid = torch.as_tensor(valid_np, device=dev)
-        cpi0, rfv = rfv_bank(feats[ar[:, None], idx1], self.configs[0])
+        cpi0, rfv = rfv_bank(feats[ar[:, None], idx1], self.configs[0],
+                             mesh=mesh)
         rows = np.asarray([s.row for s in sims], np.int64)
         self.memo.fill(rows, idx1, idx1_valid, (self.configs[0],),
                        values=cpi0[:, None, :])
@@ -363,7 +394,7 @@ class ExperimentEngine:
         scale = torch.where(scale > 1e-12, scale, torch.ones_like(scale))
         zr = torch.where(v3, centered / scale[:, None, :], zero.double())
         rfv_fit = kmeans_bank(zr, L, weights=idx1_valid.float(),
-                              seed=kmeans_seed, backend=be)
+                              seed=kmeans_seed, backend=be, mesh=mesh)
         rfv_w = _offset_bincount(rfv_fit.labels, idx1_valid, L, backend=be) \
             / n1[:, None]
 
@@ -386,6 +417,21 @@ class ExperimentEngine:
                 rfv_labels=rfv_fit.labels[a, :m], rfv_weights=rfv_w[a],
                 rfv_centroids=rfv_fit.centroids[a],
                 dg_labels=dg[a, :m], dg_weights=dg_w[a], num_strata=L)
+
+
+def _project_bank_fn(bbvs: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    return random_project(bbvs, BBV_DIMS, key=key)
+
+
+def _project_bank(bbvs: torch.Tensor, *, mesh=None) -> torch.Tensor:
+    """(A, N, 256) BBVs -> (A, N, 15) projections: every app through the
+    same JL matrix (``PRNGKey(0)``), app-sharded over ``mesh`` when
+    given."""
+    key = prng.PRNGKey(0, device=bbvs.device)
+    if mesh is None:
+        return _project_bank_fn(bbvs, key)
+    from ..distributed.appaxis import app_sharded_cached
+    return app_sharded_cached(_project_bank_fn, mesh, (1,))(bbvs, key)
 
 
 # --------------------------------------------------------------- selection

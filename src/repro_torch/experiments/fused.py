@@ -33,6 +33,15 @@ the reference's recompile guard. On the CPU the same function runs
 eagerly every time. The fused and staged paths call the same torch
 functions in the same order, so their picks, estimates and memo tables
 are equal bit for bit.
+
+Over an ``("app",)`` mesh (``run_fused_sweep(..., mesh=)``) each shard
+runs the function on its block of the padded app axis, on its device,
+read-only: the memo cells of its rows and the sweep's configs are checked
+out into a block there (the reference's sharded checkout), and the picked
+cells are written into the memo after all shards have run. On the card
+each shard has its own graph, kept by the engine with its lanes' inputs.
+Each lane computes what it computes unsharded, so a sharded sweep equals
+the unsharded one, and the staged sharded one, bit for bit.
 """
 
 from __future__ import annotations
@@ -75,7 +84,8 @@ def fused_sweep_program(plan: sampling_plan.SamplingPlan,
     (without, it only reads them: a coalesced group's requests are
     absorbed one by one afterwards). It returns a dict of tensors:
     ``est``, ``err`` (A, C); ``valid``, ``picks`` (A, L); ``n_miss``
-    (A, C); ``cpi_sel`` (A, C, L), the CPI at the picks; and the stratum
+    (A, C); ``miss_sel`` and ``cpi_sel`` (A, C, L), which picks were
+    computed and the CPI at the picks; and the stratum
     summary it computed, ``sums`` and ``counts`` (A, L), for checks of
     the kernel inside the program."""
     dt = precision.trace_dtype
@@ -123,7 +133,8 @@ def fused_sweep_program(plan: sampling_plan.SamplingPlan,
         est, err = plan.estimator.estimate_stage(
             cpi_sel.to(dt), valid, bank.weights.to(dt), x["truth"].to(dt))
         return {"est": est, "err": err, "valid": valid, "picks": picks,
-                "n_miss": n_miss, "cpi_sel": cpi_sel, "sums": summary["sums"],
+                "n_miss": n_miss, "miss_sel": miss_sel, "cpi_sel": cpi_sel,
+                "sums": summary["sums"],
                 "counts": summary["counts"]}
 
     return traced
@@ -157,7 +168,85 @@ class _Graph:
         return self.out
 
 
-def run_fused_sweep(engine, spec, exps, stack, cfgs, truth):
+class _Block:
+    """A shard's checkout of the memo: the ``(A_s, C, N)`` mask and CPI
+    cells of its rows and the sweep's configs, read by the function as
+    the memo's tables (with rows and columns ``0..A_s`` and ``0..C``)."""
+
+    def __init__(self, mask: torch.Tensor, cpi: torch.Tensor):
+        self.mask, self.cpi = mask, cpi
+
+
+class _Shard:
+    """One shard of a sharded fused program: its lanes' bank and features
+    and the config matrix on its device and, on the card, its graph
+    (which reads them, and its block, in place)."""
+
+    def __init__(self, bank, feats, cm):
+        self.bank, self.feats, self.cm = bank, feats, cm
+        self.block: _Block | None = None
+        self.graph: _Graph | None = None
+
+    def run(self, traced, mask: torch.Tensor, cpi: torch.Tensor, x: dict,
+            kind: str) -> dict:
+        if self.graph is not None and self.block.mask.shape == mask.shape:
+            self.block.mask.copy_(mask)
+            self.block.cpi.copy_(cpi)
+            return self.graph.replay(x)
+        self.block = _Block(mask, cpi)
+        out = traced(self.block, self.bank, self.feats, self.cm, x)
+        if mask.is_cuda:
+            self.graph = _Graph(traced, self.block, self.bank, self.feats,
+                                self.cm, x, kind=kind)
+        return out
+
+
+def run_sharded(memo, traced, bank, feats, cfgs, x: dict, mesh, shards,
+                *, kind: str = "fused") -> tuple[dict, list]:
+    """The read-only ``traced`` over an ``("app",)`` mesh: the app axis of
+    ``bank``, ``feats`` and the per-call ``x`` padded to the mesh by edge
+    replication and cut into contiguous shards, each run on its device
+    against its checkout of the memo (``x["rows"]`` x ``x["cols"]``).
+    ``shards``: the ``_Shard`` list of an earlier call with the same
+    bank, features and configs (its graphs replay), or None. Returns the
+    outputs on the memo's device, in app order, padding dropped, and the
+    shard list to keep."""
+    from ..distributed.appaxis import (gather, lane_shards, mesh_grid,
+                                       on_shard, pad_app_axis, to_device,
+                                       tree_map)
+    grid = mesh_grid(mesh)[:, :1]
+    a_n = bank.weights.shape[0]
+    parts = lane_shards(grid, a_n)
+
+    def pad(t):
+        return pad_app_axis(t, len(grid))
+
+    if shards is None:
+        pbank, pfeats = tree_map(pad, bank), pad(feats)
+        shards = [_Shard(
+            to_device(tree_map(lambda t: t[p.lanes], pbank), p.device),
+            to_device(pfeats[p.lanes], p.device),
+            config_matrix(cfgs, device=p.device)) for p in parts]
+    rows = pad(x["rows"])
+    cols = x["cols"]
+    calls = {k: None if v is None else pad(v)
+             for k, v in x.items() if k not in ("rows", "cols")}
+    outs = []
+    for p, shard in zip(parts, shards):
+        dev = p.device
+        with on_shard(p):
+            sub = (rows[p.lanes][:, None], cols[None, :])
+            mask = to_device(memo.mask[sub], dev)
+            cpi = to_device(memo.cpi[sub], dev)
+            xs = {k: None if v is None else to_device(v[p.lanes], dev)
+                  for k, v in calls.items()}
+            xs["rows"] = torch.arange(mask.shape[0], device=dev)
+            xs["cols"] = torch.arange(mask.shape[1], device=dev)
+            outs.append(shard.run(traced, mask, cpi, xs, kind))
+    return gather(outs, memo.device, a_n), shards
+
+
+def run_fused_sweep(engine, spec, exps, stack, cfgs, truth, mesh=None):
     """One fused sweep: the plan's ``StratumBank``, the program's single
     dispatch, then the host accounting of its miss counts.
 
@@ -167,6 +256,9 @@ def run_fused_sweep(engine, spec, exps, stack, cfgs, truth):
     program's outputs in ``engine.fused_outputs`` (on the card, the
     graph's static outputs: valid until its next replay) and records the
     ``fused=True`` dispatch marker (``sampling_plan.last_sweep_dispatch``).
+    ``mesh`` (an ``("app",)`` mesh) runs the read-only program once per
+    shard (``run_sharded``; one graph a shard on the card, kept by the
+    engine) and then writes the picked cells into the memo.
     """
     del exps                      # the engine's cached bank is built on them
     plan = spec.plan
@@ -175,7 +267,7 @@ def run_fused_sweep(engine, spec, exps, stack, cfgs, truth):
     bank = engine.stratum_bank(plan.stratifier, spec.apps)
     a_n, n_strata = bank.weights.shape
     pp = resolve_precision(engine.precision, PrecisionPolicy.host_parity())
-    traced = fused_sweep_program(plan, pp, engine.backend)
+    traced = fused_sweep_program(plan, pp, engine.backend, mesh is None)
     uniforms = None
     if plan.policy.uses_uniforms:
         # the staged policy's float64 draws from the selection seed, so
@@ -188,6 +280,15 @@ def run_fused_sweep(engine, spec, exps, stack, cfgs, truth):
          "rows": torch.as_tensor(stack.rows, device=dev),
          "cols": torch.as_tensor(cols, device=dev)}
     captured = dev.type == "cuda"
+    if mesh is not None:
+        key = ("fused_mesh", traced, tuple(spec.apps), tuple(cfgs), mesh)
+        out, engine.graphs[key] = run_sharded(
+            memo, traced, bank, stack.feats, cfgs, x, mesh,
+            engine.graphs.get(key))
+        memo.write_selected(x["rows"], x["cols"], out["picks"],
+                            out["valid"], out["miss_sel"], out["cpi_sel"])
+        return _finish(engine, out, stack, cols, cfgs, pp, bank,
+                       captured=captured, in_place=False)
     key = ("fused", traced, tuple(spec.apps), tuple(cfgs))
     graph = engine.graphs.get(key) if captured else None
     if graph is not None and not graph.reads(memo):
@@ -207,12 +308,21 @@ def run_fused_sweep(engine, spec, exps, stack, cfgs, truth):
                                         x)
     else:
         out = graph.replay(x)
+    return _finish(engine, out, stack, cols, cfgs, pp, bank,
+                   captured=captured, in_place=True)
+
+
+def _finish(engine, out, stack, cols, cfgs, pp, bank, *, captured: bool,
+            in_place: bool):
+    """The host accounting of a fused sweep's outputs and its marker."""
+    memo = engine.memo
+    a_n, n_strata = bank.weights.shape
     engine.fused_outputs = out
     n_miss = out["n_miss"].cpu().numpy()
     requested = (out["valid"].sum(dim=1) * len(cfgs)).cpu().numpy()
     memo.charge_selected(stack.rows, cols, n_miss, requested)
     sampling_plan._record_sweep_dispatch(
         batch_shape=(a_n, len(cfgs)), num_strata=n_strata,
-        x64=pp.trace_dtype == torch.float64, backend=dev.type, fused=True,
-        in_place=True, captured=captured)
+        x64=pp.trace_dtype == torch.float64, backend=memo.device.type,
+        fused=True, in_place=in_place, captured=captured)
     return out["est"], out["err"], out["valid"], bank.weights

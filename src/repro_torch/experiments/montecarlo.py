@@ -19,6 +19,20 @@ strata too) and adds the blocks into the carry one at a time in block
 order, so any chunking gives the same bits in every leaf. The reference
 sums a chunk at once and is chunk-invariant only to rounding.
 
+Over a mesh (``run_trials(..., mesh=)``, default the engine's) the app
+axis is split as in the sweeps, and on an ``("app", "trial")`` mesh each
+chunk's ``kb`` blocks split evenly over the trial axis (``kb`` is rounded
+up to a multiple of its size): trial shard ``ti`` draws blocks
+``(chunk0 + c) * kb + ti * kb / n_trial`` onward, folds them into its own
+carry, and the shards' carries are merged in trial-index order
+(``tables.trial_stats_merge``, the reference's ``psum``): the integer
+leaves exactly, and the float moments from each shard's block partial
+sums, folded in the global block order as the unsharded run folds them
+(``tables.fold_block_moments``), so every leaf is the unsharded one bit
+for bit (the reference's ``psum`` of the float moments is equal only to
+rounding). Kept per-trial arrays are assembled along the trial axis in
+block order.
+
 On a CUDA device each chunk geometry — (chunk function, blocks per
 chunk, draws, accumulator dtype, kept or not, input shapes) — is
 captured once as a ``torch.cuda.CUDAGraph`` after one eager chunk and
@@ -257,19 +271,25 @@ class _ChunkGraph:
 class _StreamingProgram:
     """The chunk program of one geometry: ``run`` folds ``n_chunks``
     chunks of ``kb`` blocks, starting ``chunk0`` chunks into the global
-    block sequence, into a fresh carry. Inputs: ``key`` (2,), ``trials``
-    and ``b0`` (0-d int64), ``app_ids`` (A,), ``truth``/``crit`` (A,), and
-    the chunk function's tables as ``t0``, ``t1``..."""
+    block sequence, into a fresh carry; with ``n_trial`` trial shards, a
+    run takes trial shard ``trial``'s ``kb / n_trial`` blocks of each
+    chunk. Inputs: ``key`` (2,), ``trials`` and ``b0`` (0-d int64),
+    ``app_ids`` (A,), ``truth``/``crit`` (A,), and the chunk function's
+    tables as ``t0``, ``t1``..."""
 
     def __init__(self, chunk_fn, kb: int, draws: int,
-                 accum_dtype: torch.dtype, keep: bool):
+                 accum_dtype: torch.dtype, keep: bool, n_trial: int = 1):
+        if kb % n_trial:
+            raise ValueError(f"{kb} blocks a chunk do not split over "
+                             f"{n_trial} trial shards")
         self.chunk_fn, self.kb, self.draws = chunk_fn, kb, draws
         self.accum_dtype, self.keep = accum_dtype, keep
+        self.n_trial, self.kbd = n_trial, kb // n_trial
 
     def step(self, carry, x: dict):
         """One chunk: draws, per-trial outcomes, the carry update."""
         dev = x["key"].device
-        blocks = x["b0"] + torch.arange(self.kb, device=dev)
+        blocks = x["b0"] + torch.arange(self.kbd, device=dev)
         u = _block_uniforms(x["key"], blocks, x["app_ids"], self.draws)
         tables = []
         while f"t{len(tables)}" in x:
@@ -277,30 +297,34 @@ class _StreamingProgram:
         est, err, half, covered = self.chunk_fn(u, x["truth"], x["crit"],
                                                 *tables)
         trial = x["b0"] * TRIAL_BLOCK \
-            + torch.arange(self.kb * TRIAL_BLOCK, device=dev)
-        new = sampling_tables.trial_stats_update(
+            + torch.arange(self.kbd * TRIAL_BLOCK, device=dev)
+        new, moments = sampling_tables.trial_stats_update(
             carry, err, half, covered, (trial < x["trials"])[None, :],
-            block=TRIAL_BLOCK)
-        return new, ((est, err, half) if self.keep else None)
+            block=TRIAL_BLOCK, with_moments=True)
+        return new, ((est, err, half) if self.keep else None,
+                     moments if self.n_trial > 1 else None)
 
-    def run(self, x: dict, *, chunk0: int, n_chunks: int, graphs: dict):
+    def run(self, x: dict, *, chunk0: int, n_chunks: int, graphs: dict,
+            trial: int = 0):
         """(TrialStats on the device, per-chunk (est, err, half) when
-        kept). On the card the chunk's graph is kept in ``graphs`` (the
-        engine's) per input shapes."""
+        kept, per-chunk block moments ``(A, 4, kb / n_trial)`` of a trial
+        shard: empty on an unsplit trial axis). On the card the chunk's
+        graph is kept in ``graphs`` (the engine's) per device and input
+        shapes; trial shards on one device share it."""
         dev = x["key"].device
         carry = sampling_tables.trial_stats_init(
             x["app_ids"].shape, accum_dtype=self.accum_dtype, device=dev)
-        key = ("trials", self,
+        key = ("trials", self, str(dev),
                tuple((k, tuple(v.shape), v.dtype) for k, v in x.items()))
         loaded = False
-        chunks = []
+        chunks, moments = [], []
         for c in range(n_chunks):
-            b0 = (chunk0 + c) * self.kb
+            b0 = (chunk0 + c) * self.kb + trial * self.kbd
             graph = graphs.get(key) if dev.type == "cuda" else None
             if graph is None:
                 xc = {**x, "b0": torch.full((), b0, dtype=torch.int64,
                                             device=dev)}
-                carry, ys = self.step(carry, xc)
+                carry, (ys, mom) = self.step(carry, xc)
                 if dev.type == "cuda":
                     # the eager chunk warmed everything up; capture it
                     graphs[key] = _ChunkGraph(self.step, carry, xc)
@@ -308,28 +332,87 @@ class _StreamingProgram:
                 if not loaded:
                     graph.load(carry, x)
                     loaded = True
-                ys = graph.replay(b0)
+                ys, mom = graph.replay(b0)
                 carry = graph.carry
             if self.keep:
                 chunks.append(tuple(y.clone() for y in ys))
-        return carry.map(torch.clone), chunks
+            if mom is not None:
+                moments.append(mom.clone())
+        return carry.map(torch.clone), chunks, moments
 
 
 @functools.lru_cache(maxsize=None)
 def _streaming_program(chunk_fn, *, kb: int, draws: int, accum: str,
-                       keep: bool) -> _StreamingProgram:
+                       keep: bool, n_trial: int = 1) -> _StreamingProgram:
     """The chunk program of one geometry (its graphs are kept by the
     engine that runs it)."""
     return _StreamingProgram(chunk_fn, kb, draws,
-                             PrecisionPolicy(accum=accum).accum_dtype, keep)
+                             PrecisionPolicy(accum=accum).accum_dtype, keep,
+                             n_trial)
 
 
-def _chunk_blocks(spec: TrialSpec) -> tuple[int, int]:
-    """(kb, n_chunks): PRNG blocks per chunk and the number of chunks."""
+def _trial_axis_size(mesh) -> int:
+    """Devices along a mesh's trial axis (1 without one)."""
+    if mesh is None:
+        return 1
+    from ..distributed.appaxis import app_trial_axes
+    _, trial_axis = app_trial_axes(mesh)
+    return 1 if trial_axis is None else int(mesh.shape[trial_axis])
+
+
+def _chunk_blocks(spec: TrialSpec, ntd: int = 1) -> tuple[int, int]:
+    """(kb, n_chunks): PRNG blocks per chunk, a multiple of the trial
+    axis's ``ntd`` devices so each owns whole blocks, and the number of
+    chunks."""
     blocks_needed = -(-spec.trials // TRIAL_BLOCK)
     kb = -(-(spec.chunk_size or _DEFAULT_CHUNK) // TRIAL_BLOCK)
     kb = min(kb, blocks_needed)
+    kb = -(-kb // ntd) * ntd
     return kb, -(-blocks_needed // kb)
+
+
+def _merge_trial_shards(outs: list):
+    """One app row's trial-shard outputs, in trial-index order, as one:
+    the carries' counters and sketches summed in that order; the float
+    moments folded from zero over every shard's block partial sums in the
+    global block order (chunk by chunk, then trial shard by trial shard),
+    the adds of the unsharded run, so the same bits; each chunk's kept
+    arrays concatenated along the trial axis (block order)."""
+    stats = outs[0][0]
+    for st, _, _ in outs[1:]:
+        stats = sampling_tables.trial_stats_merge(stats, st)
+    moments = torch.cat([o[2][c] for c in range(len(outs[0][2]))
+                         for o in outs], dim=-1)
+    stats = sampling_tables.fold_block_moments(dataclasses.replace(
+        stats, **{f: torch.zeros_like(getattr(stats, f))
+                  for f in sampling_tables.TRIAL_MOMENTS}), moments)
+    chunks = [tuple(torch.cat([o[1][c][i] for o in outs], dim=1)
+                    for i in range(len(outs[0][1][c])))
+              for c in range(len(outs[0][1]))]
+    return stats, chunks, []
+
+
+def _run_program(program: _StreamingProgram, x: dict, *, chunk0: int,
+                 n_chunks: int, graphs: dict, mesh=None):
+    """``program.run`` over the whole app axis, or over ``mesh``: each
+    (app shard, trial shard) runs its lanes and blocks on its device
+    (``distributed.appaxis.make_app_trial_sharded``); the result is the
+    merged (TrialStats, kept chunks) on ``x``'s device."""
+    if mesh is None:
+        return program.run(x, chunk0=chunk0, n_chunks=n_chunks,
+                           graphs=graphs)[:2]
+    from ..distributed.appaxis import make_app_trial_sharded
+    names = list(x)
+    rep = tuple(i for i, k in enumerate(names) if k in ("key", "trials"))
+
+    def fn(*args, shard):
+        return program.run(dict(zip(names, args)), chunk0=chunk0,
+                           n_chunks=n_chunks, graphs=graphs,
+                           trial=shard.trial)
+
+    sharded = make_app_trial_sharded(fn, mesh, rep,
+                                     merge=_merge_trial_shards)
+    return sharded(*(x[k] for k in names))[:2]
 
 
 def _stratum_key_counts(baseline, labels, valid, num_strata: int, *,
@@ -350,25 +433,27 @@ def _stratifiers(spec: TrialSpec, stratifiers: Optional[dict]) -> dict:
 
 
 def charged_pool_fill(engine: ExperimentEngine, spec: TrialSpec, apps,
-                      stratifiers: Optional[dict] = None
+                      mesh=None, stratifiers: Optional[dict] = None
                       ) -> Optional[torch.Tensor]:
     """The trials' only charged memo interaction: schemes whose
     stratifier draws from the phase-1 sample (``pool_kind == "phase1"``)
     pull its CPI at the study config through the engine's ``MemoBank``
     (paid once, hits after). Returns the (A, n1_max) pool, or ``None``
-    when no scheme needs one."""
+    when no scheme needs one. ``mesh`` shards the fill's perf-model
+    pass."""
     if not any(s.pool_kind == "phase1"
                for s in _stratifiers(spec, stratifiers).values()):
         return None
     stack = engine.stack(tuple(apps))
     cfg = engine.configs[spec.config_index]
     cpi, _ = engine.memo.fill(stack.rows, stack.idx1, stack.idx1_valid,
-                              (cfg,), feats=stack.gather_feats(stack.idx1))
+                              (cfg,), feats=stack.gather_feats(stack.idx1),
+                              mesh=mesh)
     return cpi[:, 0, :]
 
 
 def _scheme_setup(engine: ExperimentEngine, spec: TrialSpec, apps,
-                  stratifiers: Optional[dict] = None):
+                  mesh=None, stratifiers: Optional[dict] = None):
     """``(truth, pp, setups)``: the (A,) census truth at the study
     config, the precision policy and, per scheme, ``(chunk_fn, draws,
     crit, tables)``; every table a device tensor. One ``segment_stats``
@@ -386,7 +471,7 @@ def _scheme_setup(engine: ExperimentEngine, spec: TrialSpec, apps,
     census, _ = sampling_plan.stack_ragged_tensors(
         [e.census(ci) for e in exps])
     census = census.to(tdt)
-    p1_pool = charged_pool_fill(engine, spec, apps, stratifiers)
+    p1_pool = charged_pool_fill(engine, spec, apps, mesh, stratifiers)
 
     def crit_of(dfs):
         return torch.as_tensor(critical_values(spec.confidence, dfs),
@@ -440,7 +525,7 @@ def _program_inputs(spec: TrialSpec, scheme: str, truth: torch.Tensor,
 
 
 def run_trials(engine: ExperimentEngine, spec: TrialSpec = TrialSpec(),
-               apps: Optional[Sequence[str]] = None,
+               apps: Optional[Sequence[str]] = None, mesh=None,
                stratifiers: Optional[dict] = None) -> TrialResult:
     """Monte-Carlo selection trials, one streaming program per scheme.
 
@@ -448,13 +533,17 @@ def run_trials(engine: ExperimentEngine, spec: TrialSpec = TrialSpec(),
     the engine's device; results are invariant to the chunking, bit for
     bit. ``stratifiers`` optionally maps scheme names to configured
     ``Stratifier`` instances (``run_sweep`` passes its plan's); other
-    schemes come from the registry with defaults.
+    schemes come from the registry with defaults. ``mesh`` (default: the
+    engine's) shards the apps and, on an ``("app", "trial")`` mesh, each
+    chunk's blocks.
     """
     apps = tuple(apps or APP_NAMES)
-    kb, n_chunks = _chunk_blocks(spec)
+    mesh = engine.mesh if mesh is None else mesh
+    ntd = _trial_axis_size(mesh)
+    kb, n_chunks = _chunk_blocks(spec, ntd)
     keep = (spec.keep_trials if spec.keep_trials is not None
             else spec.trials <= _KEEP_TRIALS_MAX)
-    truth, pp, setups = _scheme_setup(engine, spec, apps, stratifiers)
+    truth, pp, setups = _scheme_setup(engine, spec, apps, mesh, stratifiers)
     if pp.trace_dtype != torch.float32:
         raise ValueError("the trials draw float32 uniforms (as the "
                          "reference's float32 policy does); a float64 "
@@ -465,10 +554,11 @@ def run_trials(engine: ExperimentEngine, spec: TrialSpec = TrialSpec(),
     for scheme in spec.schemes:
         chunk_fn, draws, crit, tables = setups[scheme]
         program = _streaming_program(chunk_fn, kb=kb, draws=draws,
-                                     accum=pp.accum, keep=keep)
+                                     accum=pp.accum, keep=keep,
+                                     n_trial=ntd)
         x = _program_inputs(spec, scheme, truth.to(tdt), crit, tables)
-        st, chunks = program.run(x, chunk0=0, n_chunks=n_chunks,
-                                 graphs=engine.graphs)
+        st, chunks = _run_program(program, x, chunk0=0, n_chunks=n_chunks,
+                                  graphs=engine.graphs, mesh=mesh)
         stats[scheme] = st.map(lambda t: t.cpu())
         if keep:
             for out, ys in zip(dense, zip(*chunks)):

@@ -28,9 +28,11 @@ in the retry loop: catch ``HostLoss`` (real or injected through
 ``repro_torch.runtime.faults``), shrink the device pool, re-plan, rebuild
 the engine, restore the latest checkpoint and continue, with
 ``QuantumHealth`` recording per-quantum wall times for the
-``FleetReport``. The port runs on one device: ``devices=None`` is the
-engine's device, and a pool of more devices or a ``mesh=`` needs the
-multi-device app axis (``ROADMAP.md`` A.3) and raises.
+``FleetReport``. ``devices=None`` is a pool of the engine's one device;
+over a pool of more devices each attempt plans a mesh over the healthy
+pool (``runtime.elastic``; the pool may name one device more than once),
+builds it and resumes from the checkpoint, whose blocking does not depend
+on the mesh, so an elastic re-mesh resumes its own checkpoints.
 
 Selection policies that draw host randomness (``random``/``rankedset``)
 draw per app block, so their picks depend on the blocking; the paper's
@@ -56,18 +58,12 @@ from ..simcpu import APP_NAMES
 from .engine import ExperimentEngine
 from .montecarlo import (_KEEP_TRIALS_MAX, TRIAL_BLOCK, TrialResult,
                          TrialSpec, _chunk_blocks, _program_inputs,
-                         _scheme_setup, _streaming_program)
+                         _run_program, _scheme_setup, _streaming_program,
+                         _trial_axis_size)
 from .sweep import ResultsTable, SweepRow, SweepSpec, run_sweep
 
 __all__ = ["FleetReport", "run_sweep_resumable", "run_trials_resumable",
            "supervise_sweep", "supervise_trials"]
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= needs the multi-device app axis, which the port does "
-            "not have yet (ROADMAP.md A.3)")
 
 
 def _run_quanta(engine, directory, run_id, snapshot, restore, quanta,
@@ -125,14 +121,14 @@ def run_sweep_resumable(engine: ExperimentEngine, spec: SweepSpec,
 
     ``injector`` is a ``FaultInjector`` threaded through the quantum
     lifecycle; ``monitor(quantum, seconds)`` feeds the supervisor's
-    health trace. Returns the table an uninterrupted run of this blocking
-    gives.
+    health trace. ``mesh`` (default: the engine's) shards each quantum's
+    sweep. Returns the table an uninterrupted run of this blocking gives.
     """
     if spec.trials is not None:
         raise ValueError(
             "run_sweep_resumable checkpoints the sweep grid only; run the "
             "Monte-Carlo study through run_trials_resumable")
-    _no_mesh(mesh)
+    mesh = engine.mesh if mesh is None else mesh
     apps = tuple(spec.apps)
     cfg_is = (tuple(range(len(engine.configs)))
               if spec.config_indices is None
@@ -173,7 +169,7 @@ def run_sweep_resumable(engine: ExperimentEngine, spec: SweepSpec,
         a0, a1, c0, c1 = quantum
         sub = dataclasses.replace(spec, apps=apps[a0:a1],
                                   config_indices=cfg_is[c0:c1])
-        table = run_sweep(engine, sub)
+        table = run_sweep(engine, sub, mesh=mesh)
         for i in range(a1 - a0):
             for j in range(c1 - c0):
                 row = table.rows[i * (c1 - c0) + j]
@@ -236,14 +232,24 @@ def run_trials_resumable(engine: ExperimentEngine,
     into their trial range. Checkpoints carry the accumulators, the
     per-trial partials, the memo and the cursor; ``injector`` and
     ``monitor`` as in ``run_sweep_resumable``.
+
+    The blocking is part of the run's identity, so it does not depend on
+    the attempt's ``mesh`` (default: the engine's): an elastic re-mesh
+    would otherwise refuse its own checkpoints. The trial axis is sharded
+    only where it divides the blocks of a chunk; elsewhere the attempt
+    runs unsharded. Either way every leaf and dense array is the
+    unsharded run's, bit for bit.
     """
-    _no_mesh(mesh)
     apps = tuple(apps or APP_NAMES)
+    mesh = engine.mesh if mesh is None else mesh
     kb, n_chunks, seg_chunks, quanta = _trial_quanta(spec, segment_trials)
+    ntd = _trial_axis_size(mesh)
+    prog_mesh = mesh if kb % ntd == 0 else None
+    ntd = _trial_axis_size(prog_mesh)
     keep_dense = (spec.keep_trials if spec.keep_trials is not None
                   else spec.trials <= _KEEP_TRIALS_MAX)
 
-    truth, pp, setups = _scheme_setup(engine, spec, apps)
+    truth, pp, setups = _scheme_setup(engine, spec, apps, mesh)
     if pp.trace_dtype != torch.float32:
         raise ValueError("the trials draw float32 uniforms (as the "
                          "reference's float32 policy does); a float64 "
@@ -283,11 +289,12 @@ def run_trials_resumable(engine: ExperimentEngine,
         scheme, c0, nc = quantum
         chunk_fn, draws, crit, tables = setups[scheme]
         program = _streaming_program(chunk_fn, kb=kb, draws=draws,
-                                     accum=pp.accum, keep=keep_dense)
+                                     accum=pp.accum, keep=keep_dense,
+                                     n_trial=ntd)
         x = _program_inputs(spec, scheme, truth.to(pp.trace_dtype), crit,
                             tables)
-        st, chunks = program.run(x, chunk0=c0, n_chunks=nc,
-                                 graphs=engine.graphs)
+        st, chunks = _run_program(program, x, chunk0=c0, n_chunks=nc,
+                                  graphs=engine.graphs, mesh=prog_mesh)
         state["stats"][scheme] = sampling_tables.trial_stats_merge(
             state["stats"][scheme], st.map(lambda t: t.cpu()))
         if keep_dense:
@@ -334,14 +341,15 @@ class FleetReport:
 def _supervise(run_attempt, *, faults: Optional[FaultPlan],
                max_restarts: int, mesh_kind: str, app_devices: int = 1,
                devices: Optional[Sequence] = None):
-    """The retry loop shared by both supervisors.
+    """The elastic retry loop shared by both supervisors.
 
-    Each attempt plans over the current healthy pool and calls
-    ``run_attempt(mesh, injector, monitor)``. A ``HostLoss`` shrinks the
-    pool by ``devices_lost`` (never below 1) and retries; the driver's
-    checkpoint restore carries the run forward. One injector spans all
-    attempts, so each planned fault fires once. ``devices=None`` is a
-    pool of the engine's one device.
+    Each attempt plans a mesh over the current healthy pool, builds it on
+    those devices (``elastic.build_mesh``) and calls ``run_attempt(mesh,
+    injector, monitor)``. A ``HostLoss`` shrinks the pool by
+    ``devices_lost`` (never below 1) and retries; the driver's checkpoint
+    restore carries the run forward. One injector spans all attempts, so
+    each planned fault fires once. ``devices=None`` is a pool of the
+    engine's one device.
     """
     pool = [None] if devices is None else list(devices)
     injector = None if faults is None else faults.injector()

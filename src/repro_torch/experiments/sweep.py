@@ -222,11 +222,14 @@ def assemble_rows(spec: SweepSpec, cfg_is: Sequence[int], ests, errs,
     return ResultsTable(rows)
 
 
-def run_sweep(engine: ExperimentEngine, spec: SweepSpec) -> ResultsTable:
+def run_sweep(engine: ExperimentEngine, spec: SweepSpec,
+              mesh=None) -> ResultsTable:
     """Execute one sweep over all apps x requested configs (only those are
     simulated and ledger-charged): the fused program by default, the
     staged chain with ``fused=False``; then the attached trials, if
-    any."""
+    any. ``mesh`` (default: the engine's) shards the app axis of the
+    memo fills, the fused program and the trials."""
+    mesh = engine.mesh if mesh is None else mesh
     exps = engine.build(spec.apps)
     stack = engine.stack(spec.apps)
     cfg_is = (tuple(range(len(engine.configs)))
@@ -238,20 +241,21 @@ def run_sweep(engine: ExperimentEngine, spec: SweepSpec) -> ResultsTable:
 
     if spec.plan is None:                                    # phase-1 SRS
         cpi, _ = engine.memo.fill(stack.rows, stack.idx1, stack.idx1_valid,
-                                  cfgs, feats=stack.gather_feats(stack.idx1))
+                                  cfgs, feats=stack.gather_feats(stack.idx1),
+                                  mesh=mesh)
         ests, margins = _srs_stats(cpi, stack.idx1_valid)
         errs = 100.0 * np.abs(ests - truth_np) / truth_np
         n_units = stack.idx1_valid.sum(dim=1).cpu().numpy()
     elif spec.fused:                                 # one fused program
         from .fused import run_fused_sweep
         ests, errs, valid, weights = run_fused_sweep(
-            engine, spec, exps, stack, cfgs, truth)
+            engine, spec, exps, stack, cfgs, truth, mesh=mesh)
     else:                                          # staged reference chain
         picks, valid, weights = plan_selection_bank(
             exps, spec.plan, seed=spec.selection_seed,
             backend=engine.backend)
         cpi, _ = engine.memo.fill(stack.rows, picks, valid, cfgs,
-                                  feats=stack.gather_feats(picks))
+                                  feats=stack.gather_feats(picks), mesh=mesh)
         ests, errs = spec.plan.estimator.sweep_estimates(
             cpi, valid, weights, truth, precision=engine.precision)
     if spec.plan is not None:
@@ -269,7 +273,7 @@ def run_sweep(engine: ExperimentEngine, spec: SweepSpec) -> ResultsTable:
         mc = run_trials(engine,
                         dataclasses.replace(spec.trials,
                                             schemes=(mc_scheme,)),
-                        apps=spec.apps, stratifiers=strats)
+                        apps=spec.apps, mesh=mesh, stratifiers=strats)
         p95 = mc.p95(mc_scheme)
         mc_truth = stack.truth[:, spec.trials.config_index].cpu().numpy()
         ci_half = mc.half_width_pct(mc_scheme, mc_truth)

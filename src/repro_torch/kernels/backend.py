@@ -15,12 +15,15 @@ Kernels are CUDA C++ sources in ``src/repro_torch/csrc/``, compiled for
 ``sm_90a`` by ``nvcc`` into shared libraries with a plain C interface and
 loaded with ``ctypes``. They build at first use, into ``build/kernels/``
 at the root of the checkout (listed in ``.gitignore``), one library per
-source named by a hash of its text, so an edited source never loads a
-stale library. ``build_all`` starts one ``nvcc`` per source at once.
+``.cu`` source named by a hash of its text and of the ``.cuh`` headers
+(a kernel whose instantiations are many is one header and several
+``.cu`` units), so an edited source never loads a stale library.
+``build_all`` starts one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,12 +31,13 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 __all__ = ["ROUTES", "resolve_route", "library", "build_all", "build_info",
-           "check_launch", "ptr", "stream_handle", "BUILD_DIR", "CSRC_DIR"]
+           "check_launch", "ptr", "stream_handle", "shard_scope",
+           "current_shard", "BUILD_DIR", "CSRC_DIR"]
 
 ROUTES = ("auto", "plain")
 CSRC_DIR = pathlib.Path(__file__).resolve().parents[1] / "csrc"
@@ -44,6 +48,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # loaded libraries and their build records, by source name
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILD_INFO: dict[str, dict] = {}
+# the mesh shard (its index in the mesh, row-major) whose program is
+# launching kernels, set by repro_torch.distributed; None outside one
+_SHARD: Optional[int] = None
+
+
+@contextlib.contextmanager
+def shard_scope(index: Optional[int]):
+    """Mark the kernels launched inside as shard ``index``'s: the
+    wrappers count their launches by shard too."""
+    global _SHARD
+    prev, _SHARD = _SHARD, index
+    try:
+        yield
+    finally:
+        _SHARD = prev
+
+
+def current_shard() -> Optional[int]:
+    """The shard whose program is running (``shard_scope``), or None."""
+    return _SHARD
 
 
 def resolve_route(t: torch.Tensor, backend: str) -> str:
@@ -72,7 +96,10 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):   # shared by the units
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -103,11 +130,16 @@ def _finish(name: str, started) -> None:
     _BUILD_INFO[name] = {"seconds": seconds, "log": stdout + stderr}
 
 
-def build_all(names: Optional[list[str]] = None) -> dict[str, dict]:
+def build_all(names: Optional[list[str]] = None, *,
+              while_building: Optional[Callable[[], None]] = None
+              ) -> dict[str, dict]:
     """Build every kernel source at once (one nvcc each); returns the
-    build records (seconds, nvcc/ptxas output) by source name."""
+    build records (seconds, nvcc/ptxas output) by source name.
+    ``while_building`` is host work to run while the compilers do."""
     names = names or sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
     started = {n: _start(n) for n in names}
+    if while_building is not None:
+        while_building()
     for n in names:
         _finish(n, started[n])
     for n in names:

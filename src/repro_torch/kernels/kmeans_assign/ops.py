@@ -4,32 +4,42 @@ Counterpart of ``repro.kernels.kmeans_assign.ops``. Every input rank
 takes one path: the axes before the trailing ``(n, d)`` flatten into the
 kernel's lane axis, so a ``(B, n, d)`` stack of fits is one launch.
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-``csrc/kmeans_assign.cu`` or raises (``repro_torch.kernels.backend``).
+the kernel of ``csrc/kmeans_assign.cuh`` or raises
+(``repro_torch.kernels.backend``). The kernel is built as three units that
+nvcc builds at once: ``kmeans_assign.cu`` (the one-chain order, and the
+interleaved order at d <= 48), ``kmeans_assign_wide.cu`` (the interleaved
+order at 48 < d <= 64) and ``kmeans_assign_128.cu`` (above 64); a launch
+goes through the first unit whose library says it serves the launch's
+order and width (``kmeans_assign_serves``).
 
 The kernel reads the points and centroids at their real widths: there is
 no padding, so no padded centroid can win. Both the kernel and the plain
 version take the dot product's order from the reference's order table at
 the launch's shape (``ref.dot_order``): interleaved chains or one chain,
-so they agree bitwise at every shape. The kernel's one-chain order is
-built for d <= 40 (``csrc/kmeans_assign.cu``), and refuses a wider launch.
+and each squared norm's from its row's place (``core.ordered.
+norm_vector_rows``), so they agree bitwise at every shape. The kernel's
+one-chain order is built for d <= 40: no unit serves a wider launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
 import torch
 
 from .. import backend as _backend
+from ...core.ordered import norm_vector_rows
 from .ref import dot_order, kmeans_assign_ref
 
 __all__ = ["kmeans_assign", "last_dispatch", "launch_count",
-           "reset_launch_count"]
+           "reset_launch_count", "launch_counts_by_shard"]
 
 # launches of the CUDA kernel in this process, and the latest one's shape
 _launches = 0
+_by_shard: dict[int, int] = {}
 _last_dispatch: Optional[dict] = None
 
 
@@ -41,6 +51,21 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+    _by_shard.clear()
+
+
+def launch_counts_by_shard() -> dict[int, int]:
+    """The launches counted since the last reset that a mesh shard's
+    program made, by shard index (``backend.shard_scope``)."""
+    return dict(_by_shard)
+
+
+def _count_launch() -> None:
+    global _launches
+    _launches += 1
+    shard = _backend.current_shard()
+    if shard is not None:
+        _by_shard[shard] = _by_shard.get(shard, 0) + 1
 
 
 def last_dispatch() -> Optional[dict]:
@@ -58,14 +83,26 @@ def _reset_dispatch_record() -> None:
     _last_dispatch = None
 
 
-def _lib():
-    lib = _backend.library("kmeans_assign")
-    fn = lib.kmeans_assign_f32
-    if fn.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, i, i, i, i, i, vp, vp, vp, vp]
-        fn.restype = ctypes.c_int
-    return fn
+# the build units, asked in this order which serves a launch (a unit is
+# built the first time it is asked)
+_UNITS = ("kmeans_assign", "kmeans_assign_wide", "kmeans_assign_128")
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(order: str, d: int):
+    """The C entry of the first build unit that serves this order and
+    width (each library reports it: ``kmeans_assign_serves``)."""
+    for unit in _UNITS:
+        lib = _backend.library(unit)
+        if lib.kmeans_assign_serves(ctypes.c_int(d),
+                                    ctypes.c_int(order == "chain")):
+            fn = lib.kmeans_assign_f32
+            vp, i = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp]
+            fn.restype = ctypes.c_int
+            return fn
+    raise ValueError(f"no kmeans_assign build unit serves d = {d} in the "
+                     f"{order!r} dot order")
 
 
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, *,
@@ -100,8 +137,8 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, *,
     order = dot_order(x, centroids)
     labels, mind2, geometry = _launch(x.reshape(b, n, d),
                                       centroids.reshape(b, k, d), order)
-    global _launches, _last_dispatch
-    _launches += 1
+    global _last_dispatch
+    _count_launch()
     _last_dispatch = {"batch": b, "batch_shape": batch_shape, "n": n,
                       "k": k, "d": d, "order": order,
                       "grid": (geometry[0],), "tiles": geometry[1],
@@ -123,9 +160,11 @@ def _launch(x: torch.Tensor, c: torch.Tensor, order: str):
     labels = torch.empty((b, n), dtype=torch.int32, device=x.device)
     mind2 = torch.empty((b, n), dtype=torch.float32, device=x.device)
     geometry = (ctypes.c_int * 3)()
-    code = _lib()(_backend.ptr(xb), _backend.ptr(cb), b, n, k, d,
-                  int(order == "chain"), _backend.ptr(labels),
-                  _backend.ptr(mind2), geometry,
-                  _backend.stream_handle(x.device))
+    fn = _entry(order, d)
+    code = fn(_backend.ptr(xb), _backend.ptr(cb), b, n, k, d,
+              int(order == "chain"), norm_vector_rows(n, d),
+              norm_vector_rows(k, d), _backend.ptr(labels),
+              _backend.ptr(mind2), geometry,
+              _backend.stream_handle(x.device))
     _backend.check_launch("kmeans_assign", code)
     return labels, mind2, geometry

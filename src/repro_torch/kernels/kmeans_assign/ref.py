@@ -7,7 +7,7 @@ from typing import Optional
 
 import torch
 
-from ...core.ordered import dot_in_order, reference_dot_order, sum_sq
+from ...core.ordered import dot_in_order, reference_dot_order, sum_sq_rows
 
 
 def dot_order(x: torch.Tensor, centroids: torch.Tensor) -> str:
@@ -21,13 +21,14 @@ def dot_order(x: torch.Tensor, centroids: torch.Tensor) -> str:
 def pairwise_d2(x: torch.Tensor, centroids: torch.Tensor, *,
                 order: Optional[str] = None) -> torch.Tensor:
     """``(..., n, k)`` float32 squared distances |x|^2 - 2 x.c^T + |c|^2,
-    summed in the reference's order (``core.ordered``): squared norms as
-    ``sum_sq``, the dot in ``order`` (default: the reference's at this
-    shape, ``dot_order``)."""
+    summed in the reference's order (``core.ordered``): squared norms by
+    their rows' places (``sum_sq_rows``), the dot in ``order`` (default:
+    the reference's at this shape, ``dot_order``)."""
     x = x.float()
     c = centroids.float()
     dot = dot_in_order(x, c, order or dot_order(x, c))
-    return sum_sq(x)[..., :, None] - 2.0 * dot + sum_sq(c)[..., None, :]
+    return sum_sq_rows(x)[..., :, None] - 2.0 * dot \
+        + sum_sq_rows(c)[..., None, :]
 
 
 def kmeans_assign_ref(x: torch.Tensor, centroids: torch.Tensor

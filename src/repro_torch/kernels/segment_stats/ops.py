@@ -22,9 +22,11 @@ from .. import backend as _backend
 from .ref import segment_stats_ref
 
 __all__ = ["segment_stats", "stratum_moments", "last_dispatch",
-           "launch_count", "reset_launch_count"]
+           "launch_count", "reset_launch_count",
+           "launch_counts_by_shard"]
 
 _launches = 0
+_by_shard: dict[int, int] = {}
 _last_dispatch: Optional[dict] = None
 
 
@@ -38,6 +40,21 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+    _by_shard.clear()
+
+
+def launch_counts_by_shard() -> dict[int, int]:
+    """The launches counted since the last reset that a mesh shard's
+    program made, by shard index (``backend.shard_scope``)."""
+    return dict(_by_shard)
+
+
+def _count_launch() -> None:
+    global _launches
+    _launches += 1
+    shard = _backend.current_shard()
+    if shard is not None:
+        _by_shard[shard] = _by_shard.get(shard, 0) + 1
 
 
 def last_dispatch() -> Optional[dict]:
@@ -145,9 +162,9 @@ def segment_stats(x: torch.Tensor, labels: torch.Tensor, num_segments: int,
     xb = x.reshape(b, n, d).float().contiguous()
     lb = labels.reshape(b, n).to(torch.int32).contiguous()
     sums, sumsq, counts, _, (tiles, blocks, ordered) = _launch(xb, lb, k)
-    global _launches, _last_dispatch
+    global _last_dispatch
     if not torch.cuda.is_current_stream_capturing():
-        _launches += 1
+        _count_launch()
     _last_dispatch = {"batch": b, "batch_shape": batch_shape, "n": n,
                       "k": k, "d": d, "tiles": tiles, "grid": (blocks,),
                       "ordered": bool(ordered)}

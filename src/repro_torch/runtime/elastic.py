@@ -10,12 +10,11 @@ healthy pool and repaired nodes rejoin; the protocol is:
 3. the caller continues from the in-memory state, or restores the latest
    checkpoint if the failure lost device memory.
 
-The port runs on one device: a one-device plan needs no mesh, so
-``build_mesh`` returns None (the unsharded dispatch every engine path
-takes) and ``reshard`` moves the state to that device. A plan over more
-devices needs the multi-device app axis, which is not ported yet
-(``ROADMAP.md`` A.3): both raise ``NotImplementedError`` then, never a
-quiet single-device run.
+``build_mesh`` places a plan on the pool as a ``repro_torch.launch.mesh
+.Mesh`` (the pool may name one device more than once: a mesh of shards
+on one card); a one-device plan needs no mesh and gives None, the
+unsharded dispatch every engine path takes. ``reshard`` moves each leaf
+of the live state to its new device.
 """
 
 from __future__ import annotations
@@ -27,15 +26,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..launch.mesh import Mesh, as_device
 
 PyTree = Any
 
 __all__ = ["MeshPlan", "plan_mesh", "plan_app_mesh", "plan_app_trial_mesh",
            "build_mesh", "reshard", "ElasticRunner"]
-
-_NOT_PORTED = ("a mesh over more than one device needs the multi-device "
-               "app axis, which the port does not have yet (ROADMAP.md A.3)")
-
 
 @dataclasses.dataclass(frozen=True)
 class MeshPlan:
@@ -82,40 +78,60 @@ def plan_app_trial_mesh(n_devices: int, *, app_devices: int = 1) -> MeshPlan:
     return MeshPlan(shape=(app, trial), axes=("app", "trial"))
 
 
-def build_mesh(plan: MeshPlan, devices: Optional[Sequence] = None) -> None:
-    """The mesh of ``plan`` on ``devices`` (default: the card): None for a
-    one-device plan, the unsharded case every engine path takes. Raises
-    ``ValueError`` when the pool is too small and ``NotImplementedError``
-    for a plan over more than one device."""
+def build_mesh(plan: MeshPlan,
+               devices: Optional[Sequence] = None) -> Optional[Mesh]:
+    """The mesh of ``plan`` on the first ``plan.n_devices`` of ``devices``
+    (default: the card), in row-major order; None for a one-device plan,
+    the unsharded case every engine path takes. Raises ``ValueError``
+    when the pool is too small."""
     devs = list(devices) if devices is not None else [resolve_device(None)]
     need = plan.n_devices
     if len(devs) < need:
         raise ValueError(f"plan needs {need} devices, have {len(devs)}")
-    if need > 1:
-        raise NotImplementedError(_NOT_PORTED)
-    return None
+    if need == 1:
+        return None
+    grid = np.empty(need, dtype=object)
+    grid[:] = [as_device(d) for d in devs[:need]]
+    return Mesh(grid.reshape(plan.shape), plan.axes)
+
+
+def _is_device(x) -> bool:
+    return isinstance(x, (str, torch.device))
 
 
 def reshard(tree: PyTree, new_shardings) -> PyTree:
     """Move live state onto its new placement: ``new_shardings`` is one
-    device (or a one-device sequence), and every array or tensor leaf of
-    the nested dict / list ``tree`` becomes a tensor there. More than one
-    device raises ``NotImplementedError``."""
-    if isinstance(new_shardings, (list, tuple)):
-        if len(new_shardings) != 1:
-            raise NotImplementedError(_NOT_PORTED)
-        new_shardings = new_shardings[0]
-    dev = resolve_device(new_shardings, what="reshard")
-
-    def move(x):
+    device, where every array or tensor leaf of the nested dict / list
+    ``tree`` goes, or a tree of the same structure whose leaves are each
+    leaf's device (a one-device sequence stands for that device)."""
+    def move(x, dev):
         if isinstance(x, dict):
-            return {k: move(v) for k, v in x.items()}
+            if _is_device(dev):
+                return {k: move(v, dev) for k, v in x.items()}
+            if not isinstance(dev, dict):
+                raise ValueError(f"a dict placed on {dev!r}: one device "
+                                 "or a dict of placements expected")
+            return {k: move(v, dev[k]) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
-            return type(x)(move(v) for v in x)
+            if _is_device(dev):
+                return type(x)(move(v, dev) for v in x)
+            if len(dev) != len(x):
+                raise ValueError(f"{len(x)} leaves placed on "
+                                 f"{len(dev)} devices")
+            return type(x)(move(v, d) for v, d in zip(x, dev))
         if isinstance(x, (np.ndarray, torch.Tensor)):
-            return torch.as_tensor(x).to(dev)
+            if not _is_device(dev):
+                raise ValueError(f"a leaf placed on {dev!r}: one device "
+                                 "expected")
+            return torch.as_tensor(x).to(as_device(
+                resolve_device(dev, what="reshard")))
         return x
-    return move(tree)
+
+    if isinstance(new_shardings, (list, tuple)) \
+            and len(new_shardings) == 1 \
+            and not isinstance(tree, (list, tuple)):
+        new_shardings = new_shardings[0]
+    return move(tree, new_shardings)
 
 
 @dataclasses.dataclass

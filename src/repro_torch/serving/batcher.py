@@ -35,6 +35,13 @@ Each group's stacked inputs, and on the card its captured CUDA graph
 kept per group composition in ``engine.groups``, at most
 ``GROUP_CACHE_CAP`` of them, so they are freed with the engine;
 ``program_captures()`` counts the captures.
+
+Under an ``("app",)`` mesh (``mesh=``, default the engine's) a group's
+stacked lanes are cut into the mesh's shards as a fused sweep's are
+(``fused.run_sharded``: each shard reads its checkout of the memo, one
+graph a shard on the card); only without a mesh does the group's graph
+read the memo's tables in place, the reference's rule. The members are
+absorbed in submission order either way.
 """
 
 from __future__ import annotations
@@ -79,6 +86,7 @@ class _Group:
             pool=cat("pool"))
         self.feats = torch.cat([p.stack.feats for p in preps])
         self.graph = None
+        self.shards = None           # fused._Shard list under a mesh
 
     def holds(self, preps) -> bool:
         return len(preps) == len(self.members) and all(
@@ -101,10 +109,10 @@ def _group(engine, traced, preps) -> _Group:
     return group
 
 
-def _dispatch_group(engine, members) -> list:
-    """ONE stacked fused dispatch for a same-key group, then each
-    member's absorb in submission order; returns ``(request_index,
-    ResultsTable)`` pairs in member order."""
+def _dispatch_group(engine, members, mesh=None) -> list:
+    """ONE stacked fused dispatch for a same-key group (one per shard of
+    ``mesh``), then each member's absorb in submission order; returns
+    ``(request_index, ResultsTable)`` pairs in member order."""
     preps = [p for _, p in members]
     plan, cfgs = preps[0].spec.plan, preps[0].cfgs
     memo = engine.memo
@@ -123,16 +131,21 @@ def _dispatch_group(engine, members) -> list:
          "rows": torch.as_tensor(rows_cat, device=dev),
          "cols": torch.as_tensor(cols, device=dev)}
     captured = dev.type == "cuda"
-    if group.graph is not None and not group.graph.reads(memo):
-        group.graph = None              # the memo grew: the tables moved
-    if group.graph is None:
-        cm = config_matrix(cfgs, device=dev)
-        out = traced(memo, group.bank, group.feats, cm, x)
-        if captured:
-            group.graph = fused._Graph(traced, memo, group.bank,
-                                       group.feats, cm, x, kind="group")
+    if mesh is not None:
+        out, group.shards = fused.run_sharded(
+            memo, traced, group.bank, group.feats, cfgs, x, mesh,
+            group.shards, kind="group")
     else:
-        out = group.graph.replay(x)
+        if group.graph is not None and not group.graph.reads(memo):
+            group.graph = None          # the memo grew: the tables moved
+        if group.graph is None:
+            cm = config_matrix(cfgs, device=dev)
+            out = traced(memo, group.bank, group.feats, cm, x)
+            if captured:
+                group.graph = fused._Graph(traced, memo, group.bank,
+                                           group.feats, cm, x, kind="group")
+        else:
+            out = group.graph.replay(x)
     est, err = out["est"].cpu().numpy(), out["err"].cpu().numpy()
     picks, valid = out["picks"].clone(), out["valid"].clone()
     cpi_sel = out["cpi_sel"].clone()
@@ -153,7 +166,8 @@ def _dispatch_group(engine, members) -> list:
         batch_shape=(int(sum(a_sizes)), len(cfgs)),
         num_strata=int(preps[0].bank.weights.shape[1]),
         x64=pp.trace_dtype == torch.float64, backend=dev.type, fused=True,
-        in_place=False, captured=captured, coalesced=len(members))
+        in_place=False, captured=captured, coalesced=len(members),
+        sharded=mesh is not None)
     return results
 
 
@@ -166,26 +180,23 @@ def run_coalesced_sweeps(engine, specs: Sequence, mesh=None
     and non-coalescible requests run through ``run_sweep``. Results AND
     cost accounting equal the same requests run serially in submission
     order; the dispatch marker (``sampling_plan.last_sweep_dispatch``)
-    records ``coalesced=K`` for a stacked dispatch. ``mesh`` needs the
-    multi-device app axis (``ROADMAP.md`` A.3) and raises.
+    records ``coalesced=K`` for a stacked dispatch. ``mesh`` (default: the
+    engine's) shards every dispatch's app axis.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= needs the multi-device app axis, which the port does "
-            "not have yet (ROADMAP.md A.3)")
+    mesh = engine.mesh if mesh is None else mesh
     results: list = [None] * len(specs)
     groups: dict = {}
     for i, spec in enumerate(specs):
         if not coalescible(spec):
-            results[i] = run_sweep(engine, spec)
+            results[i] = run_sweep(engine, spec, mesh=mesh)
             continue
         prep = prepare_sweep(engine, spec)
         groups.setdefault(coalesce_key(prep), []).append((i, prep))
     for members in groups.values():
         if len(members) == 1:
             i, prep = members[0]
-            results[i] = run_sweep(engine, prep.spec)
+            results[i] = run_sweep(engine, prep.spec, mesh=mesh)
         else:
-            for i, table in _dispatch_group(engine, members):
+            for i, table in _dispatch_group(engine, members, mesh):
                 results[i] = table
     return results

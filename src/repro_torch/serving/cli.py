@@ -3,14 +3,15 @@
 Counterpart of ``repro.serving.cli``. Feeds the service a deterministic
 synthetic request stream (a mix of stratified plans, selection seeds and
 config subsets over a few apps), serves it in ``--batch``-sized ticks on
-the card and prints the latency, throughput, coalescing and cache
+the card (``ExperimentEngine.auto()``: an app mesh over the cards when
+there are several) and prints the latency, throughput, coalescing and cache
 statistics:
 
     PYTHONPATH=src python -m repro_torch.serving.cli --requests 64 \\
         --batch 16 --memo-cap 4 --evict-policy lru --spill
 
 ``--quick`` shrinks the stream for smoke runs; ``--device cpu`` runs it
-on the CPU.
+on the CPU, unsharded.
 """
 
 from __future__ import annotations
@@ -67,7 +68,8 @@ def main(argv: Sequence[str] | None = None) -> None:
                     help="host-spill evicted columns instead of dropping")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the card)")
+                    help="torch device, unsharded (default: "
+                    "ExperimentEngine.auto(), the cards)")
     ap.add_argument("--quick", action="store_true",
                     help="small stream for smoke runs")
     args = ap.parse_args(argv)
@@ -76,7 +78,9 @@ def main(argv: Sequence[str] | None = None) -> None:
         args.requests = min(args.requests, 12)
         args.batch = min(args.batch, 6)
 
-    service = SweepService(ExperimentEngine(device=args.device),
+    engine = ExperimentEngine.auto() if args.device is None \
+        else ExperimentEngine(device=args.device)
+    service = SweepService(engine,
                            memo_cap=args.memo_cap,
                            evict_policy=args.evict_policy,
                            spill=args.spill)

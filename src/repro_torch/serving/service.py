@@ -78,22 +78,21 @@ class ServiceStats:
 class SweepService:
     """Request-coalescing sweep/trial service over one shared engine.
 
-    ``engine=None`` builds an ``ExperimentEngine`` on the card.
+    ``engine=None`` builds ``ExperimentEngine.auto()`` (an ``("app",)``
+    mesh over the cards when there is more than one).
     ``memo_cap`` bounds the resident memo columns (``None``: unbounded);
     ``evict_policy`` is ``"lru"`` or ``"charge"``; ``spill=True`` parks
     evicted columns in host memory (free restore) instead of dropping
-    them (charged again on re-request). ``mesh`` needs the multi-device
-    app axis (``ROADMAP.md`` A.3) and raises.
+    them (charged again on re-request). ``mesh`` (default: the engine's)
+    shards every dispatch's app axis.
     """
 
     def __init__(self, engine: Optional[ExperimentEngine] = None, *,
                  mesh=None, memo_cap: Optional[int] = None,
                  evict_policy: str = "lru", spill: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= needs the multi-device app axis, which the port "
-                "does not have yet (ROADMAP.md A.3)")
-        self.engine = engine if engine is not None else ExperimentEngine()
+        self.engine = engine if engine is not None \
+            else ExperimentEngine.auto()
+        self.mesh = self.engine.mesh if mesh is None else mesh
         self.memo_cap = memo_cap
         self.evict_policy = evict_policy
         self.spill = spill
@@ -147,8 +146,8 @@ class SweepService:
         trials = [r for r in batch if not isinstance(r.spec, SweepSpec)]
 
         if sweeps:
-            tables = run_coalesced_sweeps(self.engine,
-                                          [r.spec for r in sweeps])
+            tables = run_coalesced_sweeps(
+                self.engine, [r.spec for r in sweeps], mesh=self.mesh)
             for req, table in zip(sweeps, tables):
                 req.result = table
             self._count_sweep_dispatches(sweeps)
@@ -159,10 +158,11 @@ class SweepService:
         for req in trials:
             by_study.setdefault((req.spec, req.apps), []).append(req)
         for (spec, apps), reqs in by_study.items():
-            result = run_trials(self.engine, spec, apps=apps)
+            result = run_trials(self.engine, spec, apps=apps,
+                                mesh=self.mesh)
             self._dispatches += len(spec.schemes)
             for _ in reqs[1:]:
-                charged_pool_fill(self.engine, spec, apps)
+                charged_pool_fill(self.engine, spec, apps, mesh=self.mesh)
             for req in reqs:
                 req.result = result
 

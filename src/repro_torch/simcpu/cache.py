@@ -195,13 +195,15 @@ class MemoBank:
 
     # -- the one batched fill path ------------------------------------------
     def fill(self, rows, idx, valid, cfgs: Sequence[UarchConfig], *,
-             feats=None, values=None) -> tuple[torch.Tensor, np.ndarray]:
+             feats=None, values=None, mesh=None
+             ) -> tuple[torch.Tensor, np.ndarray]:
         """Serve ``(R, C, K)`` CPI through the memo; charge misses only.
 
         ``rows``: (R,) app rows; ``idx``: (R, K) region indices (padding
         allowed, flagged False in ``valid``; ``None`` = all valid);
         ``feats``: (R, K, F) gathered features, evaluated in one batched
-        pass for the misses — or ``values``: (R, C, K) precomputed CPI.
+        pass for the misses (app-sharded over ``mesh`` when given) — or
+        ``values``: (R, C, K) precomputed CPI.
         Returns the CPI tensor and the (R, C) newly-charged counts.
         """
         dev = self.device
@@ -232,7 +234,8 @@ class MemoBank:
             return torch.gather(self.cpi[sub], 2, gather), n_miss
 
         if values is None:
-            values = cpi_bank(torch.as_tensor(feats).to(dev), cfgs)
+            values = cpi_bank(torch.as_tensor(feats).to(dev), cfgs,
+                              mesh=mesh)
         values = torch.as_tensor(values).to(dev, torch.float32)
 
         dense = torch.zeros((r_n, c_n, n), dtype=torch.float32, device=dev)

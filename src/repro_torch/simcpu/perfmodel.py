@@ -212,20 +212,41 @@ def _as_config_matrix(cfgs, device) -> torch.Tensor:
     return config_matrix(cfgs, device=device)
 
 
-def cpi_bank(features: torch.Tensor, cfgs) -> torch.Tensor:
-    """(A, C, N) CPI for stacked ``(A, N, F)`` app features; ``cfgs`` is a
-    config sequence or a prebuilt (C, 14) matrix."""
-    return _evaluate(features, _as_config_matrix(cfgs, features.device),
-                     counters=False)["cpi"]
+def _cpi_bank_fn(x: torch.Tensor, cm: torch.Tensor) -> torch.Tensor:
+    """(A, N, F) features x (C, 14) configs -> (A, C, N) CPI."""
+    return _evaluate(x, cm, counters=False)["cpi"]
 
 
-def rfv_bank(features: torch.Tensor, cfg: UarchConfig
-             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stacked phase-1 measurement: (A, N) CPI and (A, N, 38) RFVs."""
-    stats = _evaluate(features, config_matrix((cfg,), device=features.device),
-                      counters=True)
+def _rfv_bank_fn(x: torch.Tensor, cm: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(A, N, F) features x one config row -> ((A, N) CPI, (A, N, 38))."""
+    stats = _evaluate(x, cm, counters=True)
     rfv = torch.stack([stats[m][..., 0, :] for m in RFV_METRICS], dim=-1)
     return stats["cpi"][..., 0, :], rfv
+
+
+def _sharded(fn, mesh):
+    from ..distributed.appaxis import app_sharded_cached
+    return app_sharded_cached(fn, mesh, (1,))
+
+
+def cpi_bank(features: torch.Tensor, cfgs, *, mesh=None) -> torch.Tensor:
+    """(A, C, N) CPI for stacked ``(A, N, F)`` app features; ``cfgs`` is a
+    config sequence or a prebuilt (C, 14) matrix. With ``mesh`` (an
+    ``("app",)`` mesh) the app axis runs over its devices, the config
+    matrix given whole to each, with the unsharded results."""
+    cm = _as_config_matrix(cfgs, features.device)
+    fn = _cpi_bank_fn if mesh is None else _sharded(_cpi_bank_fn, mesh)
+    return fn(features, cm)
+
+
+def rfv_bank(features: torch.Tensor, cfg: UarchConfig, *, mesh=None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stacked phase-1 measurement: (A, N) CPI and (A, N, 38) RFVs
+    (``mesh`` as in ``cpi_bank``)."""
+    cm = config_matrix((cfg,), device=features.device)
+    fn = _rfv_bank_fn if mesh is None else _sharded(_rfv_bank_fn, mesh)
+    return fn(features, cm)
 
 
 def stats_matrix(stats) -> torch.Tensor:

@@ -419,13 +419,13 @@ def test_trial_chunk_graph_equals_eager_chunks(cuda, sweep_engine, scheme):
     carry = trial_stats_init((len(SWEEP_APPS),), device=cuda)
     eager = []
     for c in range(3):
-        carry, ys = prog.step(carry, {**x, "b0": torch.full(
+        carry, (ys, _) = prog.step(carry, {**x, "b0": torch.full(
             (), 2 * c, dtype=torch.int64, device=cuda)})
         eager.append(ys)
     captures = mc.program_captures()
     for run in range(2):
-        stats, chunks = prog.run(x, chunk0=0, n_chunks=3,
-                                 graphs=engine.graphs)
+        stats, chunks, _ = prog.run(x, chunk0=0, n_chunks=3,
+                                    graphs=engine.graphs)
         assert mc.program_captures() == captures + 1
         for a, b in zip(stats.leaves(), carry.leaves()):
             assert _same_bits(a, b)
@@ -759,3 +759,111 @@ def test_coalesced_equals_serial_on_the_card(cuda):
             assert list(g.column("n_units")) == list(w.column("n_units"))
         _same_tables(kernel, plain)
     assert batcher.program_captures() == captures + 2
+
+
+# ------------------------------------------------------------ the app mesh
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [5, 6, 7, 8])
+@pytest.mark.parametrize("n,k", [(17, 12), (20, 17), (36, 20), (84, 36),
+                                 (100, 88), (915, 20)])
+def test_assign_kernel_bitwise_in_the_norms_row_order(cuda, d, n, k):
+    """At d = 5 to 8 a squared norm's order depends on its row's place
+    (``core.ordered.norm_vector_rows``): the kernel's point and centroid
+    norms follow it, bit for bit with the plain version, on rows chosen so
+    that the two orders differ."""
+    from repro_torch.core.ordered import sum_sq
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
+    gen = torch.Generator(device=cuda).manual_seed(n * d + k)
+    pool = torch.randn((40 * (n + k), d), generator=gen, device=cuda) \
+        * 10.0 ** (2 * torch.rand((40 * (n + k), d), generator=gen,
+                                  device=cuda) - 1)
+    in_order = torch.zeros(pool.shape[0], device=cuda)
+    for j in range(d):
+        in_order = in_order + pool[:, j] * pool[:, j]
+    pool = pool[sum_sq(pool) != in_order]
+    x = pool[:2 * n].reshape(2, n, d)
+    c = pool[2 * n:2 * n + 2 * k].reshape(2, k, d)
+    lab, d2 = assign_ops.kmeans_assign(x, c)
+    want_lab, want_d2 = kmeans_assign_ref(x, c)
+    assert torch.equal(lab, want_lab)
+    assert _same_bits(d2, want_d2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("n,d", [(120000, 16), (6861, 39), (30000, 15)])
+def test_segment_kernel_bitwise_at_the_mesh_local_shapes(cuda, b, n, d):
+    """``segment_stats`` at one shard's lanes of the sharded build's BBV
+    and RFV updates (the weights riding as the last column, weight-0 rows
+    labelled -1) and at a distributed k-means shard: bit for bit with the
+    plain version."""
+    from repro_torch.kernels.segment_stats.ref import segment_stats_ref
+    gen = torch.Generator(device=cuda).manual_seed(b * n + d)
+    x = torch.randn((b, n, d), generator=gen, device=cuda)
+    labels = torch.randint(0, 20, (b, n), generator=gen, device=cuda,
+                           dtype=torch.int32)
+    labels[:, n - n // 7:] = -1
+    got = segment_ops.segment_stats(x, labels, 20)
+    want = segment_stats_ref(x, labels, 20)
+    for g, w in zip(got, want):
+        assert _same_bits(g, w)
+
+
+def _mesh_engine(mesh):
+    from repro_torch.experiments import ExperimentEngine
+    engine = ExperimentEngine(device="cuda", mesh=mesh)
+    engine.build(SWEEP_APPS)
+    engine.memo.cols_for(engine.configs)
+    return engine
+
+
+@pytest.mark.cuda
+def test_sharded_build_and_sweeps_equal_unsharded_on_the_card(cuda):
+    """A build over a 3-shard mesh of the card, and its staged and fused
+    sweeps (each shard's graph replayed on a second sweep), equal the
+    unsharded engine's bit for bit; each shard launches both kernels."""
+    import dataclasses
+    from repro_torch.core.sampling.plan import SamplingPlan
+    from repro_torch.experiments import SweepSpec, run_sweep
+    from repro_torch.launch.mesh import make_app_mesh
+    mesh = make_app_mesh(devices=["cuda"] * 3)
+    base = _fresh_engine()
+    for ops in (assign_ops, segment_ops):
+        ops.reset_launch_count()
+    sharded = _mesh_engine(mesh)
+    for ops in (assign_ops, segment_ops):
+        assert set(ops.launch_counts_by_shard()) == {0, 1, 2}
+    for a, b in zip(base.build(SWEEP_APPS), sharded.build(SWEEP_APPS)):
+        for f in ("bbv_labels", "bbv_centroids", "bbv_feats", "rfv_labels",
+                  "rfv_centroids", "dg_labels", "census_mat"):
+            assert _same_bits(getattr(a, f), getattr(b, f)), f
+    for rnd in range(2):
+        for scheme, policy in (("rfv", "centroid"), ("bbv", "random")):
+            spec = SweepSpec(apps=SWEEP_APPS, selection_seed=rnd,
+                             plan=SamplingPlan.from_strings(scheme, policy))
+            for s in (spec, dataclasses.replace(spec, fused=False)):
+                g, w = run_sweep(sharded, s), run_sweep(base, s)
+                assert list(g.column("estimate")) == \
+                    list(w.column("estimate"))
+            _same_tables(sharded, base)
+
+
+@pytest.mark.cuda
+def test_sharded_trials_equal_unsharded_on_the_card(cuda):
+    """Trials over a (2, 2) ``("app", "trial")`` mesh of the card: every
+    leaf (the float moments folded in the unsharded block order) and every
+    per-trial array bit for bit."""
+    from repro_torch.experiments import TrialSpec, run_trials
+    from repro_torch.launch.mesh import make_app_trial_mesh
+    base = _fresh_engine()
+    spec = TrialSpec(trials=4096, chunk_size=1024, keep_trials=True,
+                     schemes=("random", "rfv"))
+    want = run_trials(base, spec, apps=SWEEP_APPS)
+    got = run_trials(base, spec, apps=SWEEP_APPS,
+                     mesh=make_app_trial_mesh(2, devices=["cuda"] * 4))
+    for s in spec.schemes:
+        for g, w in zip(got.stats[s].leaves(), want.stats[s].leaves()):
+            assert _same_bits(g, w)
+        for f in ("estimates", "errors", "half_widths"):
+            assert getattr(got, f)[s].tobytes() == \
+                getattr(want, f)[s].tobytes()

@@ -1,9 +1,9 @@
 """The port's checkpointed fleet drivers: resumed == uninterrupted, bitwise.
 
 Counterpart of ``tests/test_fault_tolerance.py``, case by case, on the
-CPU over ``("505.mcf_r", "520.omnetpp_r")`` and configs 0 and 6; the
-sharded and device-drop cases wait for the multi-device app axis
-(``ROADMAP.md`` A.3), and a pool of more than one device must raise.
+CPU over ``("505.mcf_r", "520.omnetpp_r")`` and configs 0 and 6; a pool
+of more than one device runs over its mesh (the elastic re-mesh after a
+lost device is held in ``tests/test_torch_mesh.py``).
 
 * **Port against itself, bitwise**: a sweep (srs, rfv fused, rfv staged,
   dg centroid) or Monte-Carlo study killed at randomized quanta, in all
@@ -348,13 +348,31 @@ def test_supervisor_rebuilds_engines_for_real(built, tmp_path):
 
 
 def test_more_than_one_device_needs_the_app_axis(built, tmp_path):
+    """A pool of two devices (the CPU named twice): each attempt's engine
+    gets the pool's 2-shard app mesh, and the supervised run equals the
+    unsharded uninterrupted one bit for bit; so does the resumable driver
+    given the mesh directly."""
+    from repro_torch.launch.mesh import make_app_mesh
     template, _, _ = built
     spec = _port_spec("rfv", "centroid", True)
-    _, make = _capture_engines(template)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        T.supervise_sweep(make, spec, tmp_path, devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="A.3"):
-        T.run_sweep_resumable(_fresh(template), spec, tmp_path, mesh=object())
+    mesh = make_app_mesh(devices=["cpu", "cpu"])
+    meshes = []
+
+    def make(m):
+        meshes.append(m)
+        eng = _fresh(template)
+        eng.mesh = m
+        return eng
+
+    want = _quiet(T.run_sweep_resumable, _fresh(template), spec,
+                  tmp_path / "u", app_block=1, config_block=1)
+    got, rep = _quiet(T.supervise_sweep, make, spec, tmp_path / "f",
+                      app_block=1, config_block=1, devices=["cpu", "cpu"])
+    assert meshes == [mesh] and rep.attempts[0]["mesh_shape"] == (2,)
+    _assert_rows_bitwise(got, want)
+    direct = _quiet(T.run_sweep_resumable, _fresh(template), spec,
+                    tmp_path / "d", app_block=1, config_block=1, mesh=mesh)
+    _assert_rows_bitwise(direct, want)
 
 
 # ------------------------------------------------- trials: resume == run

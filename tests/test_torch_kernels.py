@@ -218,10 +218,12 @@ def test_unknown_backend_raises(name):
                                   2, backend=name)
 
 
-# each CUDA source and the TPU kernel it replaces
+# each CUDA source (or build unit) and the TPU kernel it replaces
 KERNEL_SOURCES = {"flash_attention": "flash_attention",
                   "flash_attention_sm90": "flash_attention",
                   "kmeans_assign": "kmeans_assign",
+                  "kmeans_assign_wide": "kmeans_assign",
+                  "kmeans_assign_128": "kmeans_assign",
                   "segment_stats": "segment_stats"}
 
 
@@ -232,3 +234,5 @@ def test_kernel_sources_present():
         text = (backend.CSRC_DIR / f"{name}.cu").read_text()
         assert f"src/repro/kernels/{tpu}/{tpu}.py" in text
         assert "atomicAdd(" not in text
+    for header in backend.CSRC_DIR.glob("*.cuh"):
+        assert "atomicAdd(" not in header.read_text()

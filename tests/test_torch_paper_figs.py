@@ -268,15 +268,14 @@ def test_reference_dot_order_at_figure_shapes(shape):
     distance einsum at that shape (B lanes, n points, k centroids, d
     features): where the row says one chain, the reference's float32 dot
     is one multiply-add chain over d, and elsewhere (d >= 4) it is not.
-    The port's dot in the row's order equals the einsum bitwise at every
-    row. The port's ``pairwise_d2`` then equals the reference's distances
-    bitwise wherever its squared norms (``sum_sq``) equal the reference's
-    too: at every row but d = 5 to 8 (``ROADMAP.md`` C.3: the reference
-    sums those norms in one order in its 8-row vector body and another in
-    the remainder rows), where they agree to a few ulp of the terms."""
+    The port's dot in the row's order, its squared norms in their rows'
+    order (``sum_sq_rows``: at d = 5 to 8 the reference adds a norm in
+    one order in its vector body over the rows and in another after it)
+    and so its ``pairwise_d2`` equal the reference's bitwise at every
+    row."""
     import jax
     import jax.numpy as jnp
-    from repro_torch.core.ordered import dot_chain, dot_in_order, sum_sq
+    from repro_torch.core.ordered import dot_chain, dot_in_order, sum_sq_rows
     from repro_torch.kernels.kmeans_assign.ref import dot_order, pairwise_d2
 
     b, n, k, d = shape
@@ -297,8 +296,13 @@ def test_reference_dot_order_at_figure_shapes(shape):
     ref_dot, ref_x2, ref_c2, ref_d2 = (np.asarray(a)
                                        for a in reference(x, c))
     ct = torch.from_numpy(c)
-    norms_exact = np.array_equal(sum_sq(ct).numpy(), ref_c2[:, 0])
-    eps8 = 8 * np.finfo(np.float32).eps
+    x2 = sum_sq_rows(torch.from_numpy(x))
+    c2 = sum_sq_rows(ct)
+    assert np.array_equal(x2.numpy(), ref_x2[..., 0])
+    assert np.array_equal(c2.numpy(), ref_c2[:, 0])
+    if n <= 8192:
+        got = pairwise_d2(torch.from_numpy(x), ct, order=order).numpy()
+        assert np.array_equal(got, ref_d2)
     for s0 in range(0, n, 8192):
         rows = slice(s0, s0 + 8192)
         xt = torch.from_numpy(x[:, rows])
@@ -307,18 +311,59 @@ def test_reference_dot_order_at_figure_shapes(shape):
             assert np.array_equal(chain, ref_dot[:, rows])
         else:
             assert not np.array_equal(chain, ref_dot[:, rows])
-        assert np.array_equal(dot_in_order(xt, ct, order).numpy(),
-                              ref_dot[:, rows])
-        norms_exact &= np.array_equal(sum_sq(xt).numpy(),
-                                      ref_x2[:, rows, 0])
-        got = pairwise_d2(xt, ct, order=order).numpy()
-        if norms_exact:
-            assert np.array_equal(got, ref_d2[:, rows])
-        else:
-            prods = np.abs(x[:, rows, None, :] * c[:, None, :, :]).sum(-1)
-            scale = 2 * prods + ref_x2[:, rows] + ref_c2
-            assert np.all(np.abs(got - ref_d2[:, rows]) <= eps8 * scale)
-    assert norms_exact or 5 <= d <= 8
+        dot = dot_in_order(xt, ct, order)
+        assert np.array_equal(dot.numpy(), ref_dot[:, rows])
+        # pairwise_d2's own sum, from the lane's whole norms
+        got = x2[:, rows, None] - 2.0 * dot + c2[:, None, :]
+        assert np.array_equal(got.numpy(), ref_d2[:, rows])
+
+
+# rows of a norm around every switch of its order (norm_vector_rows)
+NORM_ROWS = (1, 2, 3, 4, 5, 7, 8, 9, 12, 15, 16, 17, 19, 20, 23, 24, 28,
+             31, 32, 33, 36, 39, 40, 44, 76, 79, 80, 84, 87, 88, 92, 100,
+             915)
+
+
+@pytest.mark.parametrize("d", (4, 5, 6, 7, 8, 9))
+def test_reference_norm_order_by_row_place(d):
+    """``sum_sq_rows`` against the reference's ``sum(x * x, -1)`` in its
+    distance program, for the points' norms (n rows) and the centroids'
+    (k rows), at every row count in ``NORM_ROWS``: rows chosen so that the
+    two orders differ at every row, so each row's order is checked."""
+    import jax
+    import jax.numpy as jnp
+    from repro_torch.core.ordered import (norm_vector_rows, sum_sq,
+                                          sum_sq_rows)
+
+    @jax.jit
+    def reference(xa, ca):
+        x2 = jnp.sum(xa * xa, axis=2, keepdims=True)
+        c2 = jnp.sum(ca * ca, axis=2)[:, None, :]
+        return x2, c2, x2 - 2.0 * jnp.einsum("bnd,bkd->bnk", xa, ca) + c2
+
+    rng = np.random.default_rng(d)
+    pool = (rng.standard_normal((20000, d))
+            * 10.0 ** rng.uniform(-1, 1, (20000, d))).astype(np.float32)
+    pt = torch.from_numpy(pool)
+    one_chain = sum_sq(pt)
+    in_order = torch.zeros(len(pool))
+    for j in range(d):
+        in_order = in_order + pt[:, j] * pt[:, j]
+    pool = pool[(one_chain != in_order).numpy()]
+    for m in NORM_ROWS:
+        if (m, d) == (2, 5):
+            continue        # a third order there (norm_vector_rows)
+        other = 3 if m != 3 else 5
+        x = pool[:m][None]
+        c = pool[m:m + other][None]
+        ref_x2, ref_c2, _ = (np.asarray(a) for a in reference(x, c))
+        assert np.array_equal(sum_sq_rows(torch.from_numpy(x)).numpy(),
+                              ref_x2[..., 0]), (m, d)
+        xs, cs = reference(c, x)[:2]
+        assert np.array_equal(sum_sq_rows(torch.from_numpy(x)).numpy(),
+                              np.asarray(cs)[:, 0]), (m, d)
+        if not 5 <= d <= 8:
+            assert norm_vector_rows(m, d) == 0
 
 
 def test_reference_json_matches_what_chip_smoke_reads():

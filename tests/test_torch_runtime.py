@@ -2,10 +2,10 @@
 
 Counterpart of ``tests/test_runtime.py``, case by case, on the CPU: the
 same checkpoints, memo snapshots, mesh plans, health traces and step-time
-estimators, through ``repro_torch.runtime``. The sharding-aware restore
-and resharding over a mesh wait for the multi-device app axis
-(``ROADMAP.md`` A.3): here they are the one-device cases (``device=`` /
-a device), and a plan over more devices must raise. On top of that:
+estimators, through ``repro_torch.runtime``. Restores take a device
+(``device=``); a plan over several devices builds a mesh (the pool may
+name one device more than once) and ``reshard`` places each leaf on its
+device. On top of that:
 
 * checkpoints cross both ways: a reference checkpoint (``TrialStats``
   included) restores in the port leaf for leaf, and a port checkpoint
@@ -215,7 +215,8 @@ def test_quantum_health_trace():
 
 def test_elastic_reshard_on_host():
     """One device: no mesh, and ``reshard`` moves the state there. A plan
-    or placement over more devices raises (``ROADMAP.md`` A.3)."""
+    over more devices builds their mesh; a placement that does not match
+    the state's structure raises."""
     plan = elastic.plan_mesh(1, model_parallel=1)
     assert elastic.build_mesh(plan, ["cpu"]) is None
     tree = _tree()
@@ -223,9 +224,10 @@ def test_elastic_reshard_on_host():
                           "cpu")
     assert torch.equal(out["a"], tree["a"])
     assert torch.equal(out["nested"]["b"], tree["nested"]["b"])
-    with pytest.raises(NotImplementedError, match="A.3"):
-        elastic.build_mesh(elastic.plan_app_mesh(2), ["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="A.3"):
+    from repro_torch.launch.mesh import make_app_mesh
+    assert elastic.build_mesh(elastic.plan_app_mesh(2), ["cpu", "cpu"]) \
+        == make_app_mesh(devices=["cpu", "cpu"])
+    with pytest.raises(ValueError):
         elastic.reshard(tree, ["cpu", "cpu"])
     with pytest.raises(ValueError):
         elastic.build_mesh(elastic.plan_app_mesh(2), ["cpu"])

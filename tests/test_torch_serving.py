@@ -495,9 +495,23 @@ def test_cli_quick_runs_on_the_cpu(capsys):
     assert "evicted" in out
 
 
-def test_service_mesh_needs_the_app_axis(engines):
-    port, _ = engines
-    with pytest.raises(NotImplementedError, match="A.3"):
-        SweepService(port, mesh=object())
-    with pytest.raises(NotImplementedError, match="A.3"):
-        run_coalesced_sweeps(port, [], mesh=object())
+def test_service_mesh_needs_the_app_axis(engine):
+    """The service over a 2-shard app mesh (the CPU named twice) serves
+    the same tables and memo as without one, bit for bit."""
+    from repro_torch.launch.mesh import make_app_mesh
+    mesh = make_app_mesh(devices=["cpu", "cpu"])
+    before = _memo_state(engine.memo)
+    plain = SweepService(engine)
+    ids = [plain.submit(s) for s in _mixed_specs()]
+    _quiet(plain.drain)
+    state_plain = _tables(engine.memo)
+    _memo_reset(engine.memo, before)
+    sharded = SweepService(engine, mesh=mesh)
+    assert sharded.mesh == mesh
+    ids_m = [sharded.submit(s) for s in _mixed_specs()]
+    _quiet(sharded.drain)
+    for a, b in zip(ids, ids_m):
+        assert plain.result(a).column("estimate").tobytes() == \
+            sharded.result(b).column("estimate").tobytes()
+    _assert_same_tables(state_plain, _tables(engine.memo))
+    assert run_coalesced_sweeps(engine, [], mesh=mesh) == []
