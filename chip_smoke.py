@@ -38,7 +38,8 @@ after:
 * on the same engine, the paper's two-phase flow (``TwoPhaseFlow``) on
   every app at Table II's phase-1 size, then every paper figure and
   table (``repro_torch.experiments.paper_figs``) through the kernels and,
-  on the plain-route engine, through the plain versions: the two held
+  on the plain-route engine, through the plain versions (all but Fig
+  12/13, ``PLAIN_SKIPS``): the two held
   equal, and the kernels' numbers held against the reference's committed
   in ``paper_figs_reference.json``; both clustering kernels bitwise
   against their plain versions at the figures' new shapes (k = 50 over
@@ -46,8 +47,9 @@ after:
   must give the reference's labels;
 * the fault-tolerant fleet drivers and the sweep service on all ten apps
   and 7 configs (``phase_fleet_and_service``): supervised rfv and dg
-  sweeps and 10^5 supervised trials, each killed three times (every
-  attempt of the rfv sweep a fresh engine build), and ``SweepService``
+  sweeps and 10^5 supervised trials, each killed three times (the rfv
+  sweep's first attempt and every run's last a fresh engine build), and
+  ``SweepService``
   over 64 requests with a memo cap, each held bit for bit against the
   uninterrupted or serial run and against the plain route;
 * the multi-device app axis (``phase_mesh``) on a 4-shard mesh that
@@ -61,8 +63,17 @@ after:
   layers (bf16, random weights from a seeded generator): prefill of
   4 x 4096 tokens through the flash-attention kernel and through the
   plain attention route, prefill of 1 x 32768 tokens, the serve loop of
-  ``repro_torch.launch.serve``, and ``SampledEval`` over 64 eval batches,
-  whose k-means runs the two clustering kernels.
+  ``repro_torch.launch.serve``, and ``SampledEval`` over 32 eval batches,
+  whose k-means runs the two clustering kernels;
+* the trainer (``repro_torch.launch.train``) at the full size of
+  ``llama3.2-3b`` (all 28 layers, bf16 weights, float32 moments): 3 AdamW
+  steps of 8 x 1024 tokens in 2 microbatches, with step seconds,
+  tokens/s, the model-FLOPs share and peak memory, and one more step
+  under the profiler; at smoke size, the CLI's loop (8 steps that must
+  descend, a resume from step 4 held to the uninterrupted run) and one
+  step on the card against the same step on the CPU. No kernel runs
+  there: training takes the reference's attention, and the phase fails
+  if ``flash_attention`` launched.
 
 Any failure raises and exits non-zero.
 
@@ -747,15 +758,18 @@ def drive_main_path(backend: str):
     return engine, tables, secs
 
 
-def device_kernels(fn) -> tuple[dict, float]:
+def device_kernels(fn, *, cpu: bool = True) -> tuple[dict, float]:
     """Run ``fn`` once under ``torch.profiler``; returns the card's
     ``{kernel name: [launches, ms]}`` and the wall milliseconds of the
-    call (profiler on)."""
+    call (profiler on). ``cpu=False`` records the card's activity alone,
+    which a trace of many thousand launches needs to stay short."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -776,12 +790,12 @@ def segment_launches_seen(by_name: dict) -> int:
                if "::sum_kernel" in name)
 
 
-def traced(label: str, fn, top: int = 10) -> dict:
+def traced(label: str, fn, top: int = 10, *, cpu: bool = True) -> dict:
     """Run ``fn`` once under ``torch.profiler``: the card's busy time
     against the wall time, and the kernels that fill it. Returns
     ``{kernel name: [launches, ms]}`` (empty if the profiler saw no
     device activity)."""
-    by_name, wall_ms = device_kernels(fn)
+    by_name, wall_ms = device_kernels(fn, cpu=cpu)
     busy_ms = sum(ms for _, ms in by_name.values())
     if not by_name:
         log(f"traced {label}: {wall_ms:.1f} ms wall; the profiler saw no "
@@ -1410,6 +1424,14 @@ def fig12_breakdown(engine, app: str = "523.xalancbmk_r") -> dict:
     return secs
 
 
+# figures the plain-route twin leaves out, to keep the smoke in its time
+# budget: Fig 12/13 (bench_distribution_approx) is the slowest, host-bound
+# (memo reads, per-stratum loops), and its k = 500 fits are held bitwise
+# kernel against plain by check_new_shapes; its kernel-route numbers are
+# still held against the reference's
+PLAIN_SKIPS = ("bench_distribution_approx",)
+
+
 def phase_flow_and_figures(engine, plain) -> tuple[dict, dict]:
     """The paper's two-phase flow on every app, then every paper figure
     and table on the card: through the kernels (on the main path's
@@ -1436,9 +1458,9 @@ def phase_flow_and_figures(engine, plain) -> tuple[dict, dict]:
 
     figure_s = {}
 
-    def figures(eng, record: dict, route: str) -> dict:
+    def figures(eng, record: dict, route: str, names=pf.FIGURES) -> dict:
         out = {}
-        for name in pf.FIGURES:
+        for name in names:
             t0 = time.perf_counter()
             out[name] = pf.run_figure(eng, name, record=record)
             _sync(eng)
@@ -1461,20 +1483,23 @@ def phase_flow_and_figures(engine, plain) -> tuple[dict, dict]:
             raise AssertionError(f"flow and figures never launched {name}")
     sel_k = pf.selection_record(engine)
 
-    # the same figures through the plain versions, on the plain engine
+    # the same figures through the plain versions, on the plain engine,
+    # but for PLAIN_SKIPS (see there)
     record_p = {}
     t0 = time.perf_counter()
-    got_p = figures(plain, record_p, "plain")
+    got_p = figures(plain, record_p, "plain",
+                    [n for n in pf.FIGURES if n not in PLAIN_SKIPS])
     log(f"figures through the plain versions: "
         f"{time.perf_counter() - t0:.1f} s")
     for name, secs in figure_s.items():
         log(f"  {name}: kernels {secs['kernels']:.3f} s, plain "
-            f"{secs['plain']:.3f} s")
+            + (f"{secs['plain']:.3f} s" if "plain" in secs else
+               "not run (PLAIN_SKIPS)"))
     if pf.selection_record(plain) != sel_k:
         raise AssertionError("kernel and plain engines pick differently")
     ties = 0
-    for key, fit in record_k.items():
-        other = record_p[key]
+    for key, other in record_p.items():
+        fit = record_k[key]
         if not torch.equal(fit["labels"], other["labels"]):
             raise AssertionError(f"{key}: kernel and plain fit labels "
                                  "differ")
@@ -1647,12 +1672,11 @@ def phase_fleet_and_service(plain) -> dict:
 
     * ``supervise_sweep`` of rfv and dg with ``Centroid`` under
       ``FaultPlan.random(seed, 4 quanta, kills=3)`` (``covering_faults``:
-      one fault of each kind; each must fire, costing one restart), every
-      attempt of the rfv sweep building a fresh engine (the dg sweep's
-      and the trials' earlier attempts restart on that run's last
-      engine, its memo put back to the post-build state, and their final
-      attempt builds a fresh one: the rebuilds are the smoke's longest
-      step), against the
+      one fault of each kind; each must fire, costing one restart), the
+      first attempt of the rfv sweep building a fresh engine and every
+      run's final attempt another (the other attempts restart on the
+      first engine, its memo put back to the post-build state: the
+      rebuilds are the phase's longest step), against the
       uninterrupted ``run_sweep_resumable`` of the same blocking (rows,
       memo tables, charges, counters, ledgers bitwise), plain
       ``run_sweep`` (the same, the policies being deterministic) and the
@@ -1669,8 +1693,8 @@ def phase_fleet_and_service(plain) -> dict:
       same service through the plain versions: rows and tables bitwise.
 
     The uninterrupted and serial runs share one engine (the first
-    supervised run's last) whose memo is put back to its post-build state
-    before each. Returns each path's kernel launches (the wrappers'
+    supervised run's first) whose memo is put back to its post-build
+    state before each. Returns each path's kernel launches (the wrappers'
     counts: eager launches, none inside graph replays): fault_tolerance
     adds up the supervised runs' alone, each counted from 0 just before
     it, and serving is the service's run on the kernel route; the
@@ -1745,15 +1769,17 @@ def phase_fleet_and_service(plain) -> dict:
             last, starts, w0 = [], [], len(writes)
 
             def make(mesh):
+                nonlocal base
                 starts.append(time.perf_counter())
                 if base is None or len(starts) > len(faults.events):
                     last[:] = [fresh()]
-                    if not state0:
-                        state0.append(last[0].memo.state())
+                    if base is None:
+                        base = last[0]
+                        state0.append(base.memo.state())
                 else:
-                    # a later run's earlier attempts restart on the first
-                    # run's last engine, its memo put back to the
-                    # post-build state; its final attempt is built afresh
+                    # the other attempts restart on the first engine, its
+                    # memo put back to the post-build state; each run's
+                    # final attempt is built afresh
                     reset(base)
                     last[:] = [base]
                 return last[0]
@@ -1767,8 +1793,6 @@ def phase_fleet_and_service(plain) -> dict:
                 fleet[name] += n1[name]
             check_faults_fired(report, faults, f"supervised {scheme}")
             final = memo_by_config(last[0])
-            if base is None:
-                base = last[0]
             del last[:]
             gc.collect()
             reset(base)
@@ -2323,7 +2347,8 @@ LM_ARCH = "llama3.2-3b"
 # the LM path runs at full width but 4 of the model's 28 layers, so that
 # the whole script stays near its time budget beside the figure path
 LM_LAYERS = 4
-EVAL_BATCHES, EVAL_SEQ, EVAL_BATCH = 64, 2048, 4
+# 32 eval batches: the smoke's 180 s budget leaves room for no more
+EVAL_BATCHES, EVAL_SEQ, EVAL_BATCH = 32, 2048, 4
 
 
 _LM_PEAKS: list[float] = []
@@ -2462,6 +2487,7 @@ def phase_lm() -> dict:
     loss_of = loss_fn(cfg)
     memo, calls = {}, {"n": 0}
 
+    @torch.no_grad()
     def eval_batch(i: int):
         calls["n"] += 1
         if i not in memo:
@@ -2482,7 +2508,7 @@ def phase_lm() -> dict:
                      num_strata=4, device="cuda")
     t0 = time.perf_counter()
     c0 = calls["n"]
-    est1 = se.characterize(n_phase1=32)
+    est1 = se.characterize(n_phase1=16)
     n1, c0 = calls["n"] - c0, calls["n"]
     quick = se.quick_estimate()
     nq, c0 = calls["n"] - c0, calls["n"]
@@ -2516,6 +2542,227 @@ def phase_lm() -> dict:
         raise AssertionError("peak memory at or above 80 GB")
     del params
     torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------------ phase 5
+# the trainer at llama3.2-3b's full size: all 28 layers, bf16 weights,
+# float32 moments; global batch 8 x 1024 in the reference's default
+# microbatches (2 at 3.6 B parameters)
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 8, 3, 3e-3
+# the smoke-size runs on the card: the CLI's loop (batch 4, seq 64, lr
+# 5e-3, 8 steps, a checkpoint at step 4) and one step against the CPU's
+SMOKE_TRAIN = dict(steps=8, batch=4, seq=64, lr=5e-3, ckpt_every=5)
+TRAIN_RTOL = 1e-4             # the reference's bound for a resumed run
+STEP_LR = 1e-3                # lr of the card-vs-CPU step
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 per parameter and token, plus
+    attention's products, 12 x layers x heads x head width x seq per
+    token (the full s x s square, which the plain route computes);
+    recomputation is not counted."""
+    return (6 * cfg.param_count() * tokens
+            + 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq * tokens)
+
+
+def parted_after_step(got, want, grads, lr: float, what: str) -> int:
+    """Hold two models after one Adam step from the same weights: every
+    element within TRAIN_RTOL (and lr x 1e-3), except where the reference
+    gradient lies within 1e-4 of its leaf's max |g| of zero, where the
+    first update (about +-lr) may take either sign; those are counted and
+    bounded at 0.1 % of a leaf. Returns their number."""
+    import torch
+    parted = 0
+    for (name, a), b in zip(got.named_parameters(), want.parameters()):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        far = (a - b).abs() > TRAIN_RTOL * b.abs() + lr * 1e-3
+        if bool(far.any()):
+            g = grads[name].float().cpu().abs()
+            near_zero = g <= 1e-4 * g.max()
+            if not bool(near_zero[far].all()) or \
+                    int(far.sum()) > 1e-3 * far.numel():
+                raise AssertionError(f"{what}: {name} parts at "
+                                     f"{int(far.sum())} elements")
+            parted += int(far.sum())
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: {name} not finite")
+    return parted
+
+
+def phase_train(card: str) -> dict:
+    """The trainer (``repro_torch.launch.train``) at full size and at
+    smoke size; returns the three kernels' launches on the path (none:
+    training takes the reference's attention, as the reference does)."""
+    import copy
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+    from repro_torch.launch.train import train
+    from repro_torch.models.registry import init_params
+    from repro_torch.optim import AdamW, cosine_with_warmup
+    from repro_torch.optim.adamw import GradTransform
+    from repro_torch.train.step import default_microbatches, make_train_fn
+
+    phase_t0 = time.perf_counter()
+    for ops in (flash_ops, assign_ops, segment_ops):
+        ops.reset_launch_count()
+
+    def echo(line: str) -> None:
+        log(f"  train: {line}")
+
+    # torch.utils.checkpoint imports torch._dynamo at its first call, once
+    # a process: timed apart from the first step
+    t0 = time.perf_counter()
+    import torch._dynamo  # noqa: F401
+    dynamo_s = time.perf_counter() - t0
+
+    # 1. full size: 28 layers, bf16, float32 moments, 3 steps
+    cfg = get_config(LM_ARCH)
+    cell = ShapeCell("train_8x1024", "train", TRAIN_SEQ, TRAIN_BATCH)
+    mb = default_microbatches(cfg, cell)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    probe = {n: p.detach()[..., :256].clone()
+             for n, p in params.named_parameters()}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    run = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                lr=TRAIN_LR, microbatches=mb, device="cuda", params=params,
+                log=echo)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [run.losses[s] for s in range(TRAIN_STEPS)]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"full-size train: losses {losses}")
+    moved = sum(not torch.equal(p.detach()[..., :256], probe[n])
+                for n, p in params.named_parameters())
+    if moved != len(probe):
+        raise AssertionError(f"full-size train: {len(probe) - moved} of "
+                             f"{len(probe)} parameters did not move")
+    if peak >= 80e9:
+        raise AssertionError(f"full-size train: peak {peak / 1e9:.2f} GB")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    warm_s = float(np.mean(run.times[1:]))
+    flops = train_flops(cfg, tokens, TRAIN_SEQ)
+    full = {"layers": cfg.n_layers, "params": cfg.param_count(),
+            "microbatches": mb, "dynamo_import_s": dynamo_s,
+            "init_s": init_s, "losses": losses,
+            "step_s": [float(t) for t in run.times],
+            "first_step_s": float(run.times[0]), "warm_step_s": warm_s,
+            "tokens_per_s": tokens / warm_s, "model_flops": flops,
+            "mfu": flops / (warm_s * PEAK_BF16_FLOPS),
+            "peak_gb": peak / 1e9}
+    log(f"train full size ({cfg.n_layers} layers, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters, bf16, float32 "
+        f"moments, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {mb} "
+        f"microbatches; {card}): torch._dynamo import (checkpoint's "
+        f"first call) {dynamo_s:.3f} s; init {init_s:.3f} s; steps "
+        f"{', '.join(f'{t:.3f}' for t in run.times)} s (first "
+        f"{full['first_step_s']:.3f}, warm mean {warm_s:.3f}); "
+        f"{full['tokens_per_s']:.1f} tokens/s; model-FLOPs share "
+        f"{full['mfu']:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16; "
+        f"losses {', '.join(f'{v:.4f}' for v in losses)}; peak memory "
+        f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB)")
+
+    # one more step of the same run under the profiler: where it goes
+    step_fn = make_train_fn(cfg, AdamW(lr=cosine_with_warmup(
+        TRAIN_LR, 10, TRAIN_STEPS)), microbatches=mb)
+    batch = make_pipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0,
+                          device="cuda").batch(TRAIN_STEPS)
+    t0 = time.perf_counter()
+    traced("full-size train step", lambda: step_fn(
+        run.params, run.opt_state, batch), top=12, cpu=False)
+    traced_s = time.perf_counter() - t0
+    del run, params, probe, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    full_s = time.perf_counter() - phase_t0
+
+    # 2. smoke size: the CLI's loop descends, a resumed run follows it
+    small = get_config(LM_ARCH, smoke=True)
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    full_run = train(small, device="cuda", ckpt_dir=root / "a", log=echo,
+                     **SMOKE_TRAIN)
+    steps = SMOKE_TRAIN["steps"]
+    smoke_losses = [full_run.losses[s] for s in range(steps)]
+    if not smoke_losses[-1] < smoke_losses[0]:
+        raise AssertionError(f"smoke train: no descent {smoke_losses}")
+    train(small, device="cuda", ckpt_dir=root / "b", log=lambda s: None,
+          **SMOKE_TRAIN)
+    shutil.rmtree(root / "b" / f"step_{steps - 1}")   # killed after step 4
+    resumed = train(small, device="cuda", ckpt_dir=root / "b", log=echo,
+                    **SMOKE_TRAIN)
+    shutil.rmtree(root, ignore_errors=True)
+    pairs = [(resumed.losses[s], full_run.losses[s])
+             for s in range(resumed.start, steps)]
+    np.testing.assert_allclose([a for a, _ in pairs], [b for _, b in pairs],
+                               rtol=TRAIN_RTOL)
+    bitwise = all(a == b for a, b in pairs)
+    log(f"train smoke size (CLI loop, {small.n_layers} layers, float32): "
+        f"losses {', '.join(f'{v:.6f}' for v in smoke_losses)}; resumed "
+        f"from step {resumed.start - 1}: "
+        f"{'bitwise equal' if bitwise else 'NOT bitwise'} to the "
+        "uninterrupted run (max rel "
+        f"{max(abs(a - b) / abs(b) for a, b in pairs):.3g})")
+
+    smoke_s = time.perf_counter() - phase_t0 - full_s
+
+    # 3. one smoke-size step on the card against the same step on the CPU
+    class Stash(GradTransform):
+        def apply(self, grads, ef):
+            return grads, grads
+
+    cpu_model = init_params(small, generator=torch.Generator().manual_seed(1),
+                            device="cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    opt = AdamW(lr=STEP_LR, compress=Stash())
+    out = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
+        batch = make_pipeline(small, 64, 4, seed=3, device=dev).batch(0)
+        _, state, loss = make_train_fn(small, opt)(model, opt.init(model),
+                                                   batch)
+        out[dev] = (float(loss), state.ef)
+    loss_delta = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    if loss_delta > TRAIN_RTOL:
+        raise AssertionError(f"card vs CPU step: loss {out['cuda'][0]} vs "
+                             f"{out['cpu'][0]}")
+    worst = 0.0
+    for name, g in out["cpu"][1].items():
+        err = float((out["cuda"][1][name].cpu() - g).abs().max())
+        worst = max(worst, err / max(float(g.abs().max()), 1e-30))
+    if worst > TRAIN_RTOL:
+        raise AssertionError(f"card vs CPU step: gradients differ by "
+                             f"{worst:.3g} of a leaf's max")
+    parted = parted_after_step(card_model, cpu_model, out["cpu"][1], STEP_LR,
+                               "card vs CPU step")
+    log(f"train card vs CPU step (smoke, float32): loss rel {loss_delta:.3g}"
+        f", gradients within {worst:.3g} of each leaf's max, {parted} "
+        "parameter elements parted at near-zero gradients")
+
+    launches = {"flash_attention": flash_ops.launch_count(),
+                "kmeans_assign": assign_ops.launch_count(),
+                "segment_stats": segment_ops.launch_count()}
+    if launches["flash_attention"] != 0:
+        raise AssertionError(f"the train path launched flash_attention "
+                             f"{launches['flash_attention']} times")
+    log(f"train path launches {launches}; seconds: full size {full_s:.1f} "
+        f"(the traced step {traced_s:.1f}), smoke-size loop and resume "
+        f"{smoke_s:.1f}, card vs CPU step "
+        f"{time.perf_counter() - phase_t0 - full_s - smoke_s:.1f}")
+    log("train record " + json.dumps({
+        "full_size": full, "smoke_losses": smoke_losses,
+        "resume_bitwise": bitwise, "card_vs_cpu": {
+            "loss_rel": loss_delta, "grad_rel": worst, "parted": parted}}))
     return launches
 
 
@@ -2583,6 +2830,7 @@ def main() -> int:
     by_path = {"simulation": simulation, "fused_and_trials": fused_path,
                "flow_and_figures": flow_path, **fleet_paths,
                "mesh": mesh_path, "lm": timed("LM path", phase_lm)}
+    by_path["train"] = timed("train path", phase_train, card)
     log("seconds by phase: " + ", ".join(
         f"{name} {s:.1f}" for name, s in seconds.items())
         + f"; the whole script {time.perf_counter() - started:.1f}")

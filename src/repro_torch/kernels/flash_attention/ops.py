@@ -26,6 +26,12 @@ ragged edge themselves, so nothing is padded and the reference's
 reference's wrapper, this one refuses sq > skv: those rows would see no
 column (the reference's oracle gives NaN there, its Pallas kernel a
 masked average), and no caller of the model makes them.
+
+There is no backward, on either route (the reference's kernel has none;
+its model trains through ``attention_ref``): with grad mode on and q, k
+or v requiring a gradient the wrapper raises ``RuntimeError``, so a
+gradient is never dropped unseen. Training takes the model's
+``backend="plain"`` route.
 """
 
 from __future__ import annotations
@@ -192,7 +198,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Causal attention; ``scale`` defaults to 1/sqrt(d). Returns the
-    ``(b, hq, sq, d)`` view of a ``(b, sq, hq, d)`` tensor."""
+    ``(b, hq, sq, d)`` view of a ``(b, sq, hq, d)`` tensor. Raises
+    ``RuntimeError`` under grad mode when an input requires a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: call it under "
+            "torch.no_grad(), or train through the model's "
+            "backend='plain' attention route")
     _check(q, k, v, causal)
     b, hq, sq, d = q.shape
     if scale is None:

@@ -11,7 +11,9 @@ CPU path: kv heads repeated, then ``attention_ref``, or the streaming
 softmax of ``_attend_chunked`` once the keys pass
 ``CHUNKED_KV_THRESHOLD``. Decode is a single-query attention against the
 cache in plain products with the grouped layout, so the cache is never
-repeated per query head.
+repeated per query head. Training asks for ``backend="plain"``: the
+kernel has no backward, and its wrapper raises on inputs that require a
+gradient.
 """
 
 from __future__ import annotations

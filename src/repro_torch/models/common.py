@@ -6,8 +6,9 @@ Counterpart of ``repro.models.common``. Parameters are ``nn.Module``s
 does. Weights are drawn with the reference's distributions from a
 ``torch.Generator``: ``normal x 0.02`` in the model's dtype, norm gains
 ``normal x 1.0`` in float32. Activations and weights are bf16 for full
-configs and float32 for smoke ones. Nothing here has a backward: the
-parameters do not require gradients.
+configs and float32 for smoke ones. Parameters are made not requiring
+gradients; the train step (``train.step``) turns that on for its own
+duration.
 """
 
 from __future__ import annotations
@@ -74,7 +75,8 @@ class ModelConfig:
 
 
 def new_param(shape, dtype: torch.dtype, device) -> torch.nn.Parameter:
-    """An uninitialised parameter that takes no gradient."""
+    """An uninitialised parameter that takes no gradient until the train
+    step asks for one."""
     return torch.nn.Parameter(torch.empty(tuple(shape), dtype=dtype,
                                           device=device),
                               requires_grad=False)

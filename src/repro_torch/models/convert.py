@@ -1,17 +1,23 @@
-"""Carry the reference's parameters into the port's modules.
+"""Carry parameters between the reference's tree and the port's modules.
 
 ``params_from_numpy(cfg, tree)`` takes the reference's parameter tree
 (``repro.models.registry.init_params``) as nested dicts of numpy arrays
 and returns the port's ``LM`` with the same values, so that both packages
-compute with the same weights. The layouts agree: the port keeps the
-reference's ``(in, out)`` weights (a layer computes ``x @ w``), so no
-leaf is transposed; the only change is that the reference's ``layers``
-leaves, stacked along a leading ``(n_layers,)`` axis, are unstacked into
-``layers[i]``. bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
-``torch.from_numpy`` refuses; their bits are carried over as int16.
+compute with the same weights; ``params_to_numpy(model)`` is its inverse.
+The layouts agree: the port keeps the reference's ``(in, out)`` weights
+(a layer computes ``x @ w``), so no leaf is transposed; the only change
+is that the reference's ``layers`` leaves, stacked along a leading
+``(n_layers,)`` axis, are the port's ``layers[i]`` (``reference_tree``,
+``port_leaf``). bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays,
+which ``torch.from_numpy`` refuses; their bits are carried over as int16,
+and where ``ml_dtypes`` is missing ``params_to_numpy`` gives those int16
+bits.
 """
 
 from __future__ import annotations
+
+import importlib.util
+from typing import Callable
 
 import numpy as np
 import torch
@@ -20,7 +26,8 @@ from ..device import resolve_device
 from .common import ModelConfig
 from .transformer import LM
 
-__all__ = ["params_from_numpy", "tensor_from_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "tensor_from_numpy",
+           "reference_tree", "port_leaf"]
 
 
 def tensor_from_numpy(a) -> torch.Tensor:
@@ -31,14 +38,36 @@ def tensor_from_numpy(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _leaf(tree: dict, name: str):
+def port_leaf(tree: dict, name: str):
+    """The port's parameter ``name`` read from a tree in the reference's
+    layout (``layers.<i>.…`` is row ``i`` of the stacked leaf)."""
     parts = name.split(".")
     if parts[0] != "layers":
         return tree[name]
     node = tree["layers"]
     for key in parts[2:]:
         node = node[key]
-    return np.asarray(node)[int(parts[1])]
+    return node[int(parts[1])]
+
+
+def reference_tree(named: dict, stack: Callable = np.stack) -> dict:
+    """Leaves keyed by the port's parameter names, as the reference's
+    nested tree: ``layers.<i>.…`` leaves stacked along a leading axis by
+    ``stack`` (``np.stack`` or ``torch.stack``)."""
+    tree: dict = {}
+    layers: dict[tuple, dict[int, object]] = {}
+    for name, leaf in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            layers.setdefault(tuple(parts[2:]), {})[int(parts[1])] = leaf
+        else:
+            tree[name] = leaf
+    for path, rows in layers.items():
+        node = tree.setdefault("layers", {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = stack([rows[i] for i in range(len(rows))])
+    return tree
 
 
 def _paths(tree, prefix: str = "") -> set[str]:
@@ -62,10 +91,32 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, *, device=None) -> LM:
         raise ValueError(f"tree leaves do not match the {cfg.name} "
                          f"parameters: {sorted(want ^ have)}")
     for name, p in model.named_parameters():
-        src = tensor_from_numpy(_leaf(tree, name))
+        src = tensor_from_numpy(port_leaf(tree, name))
+        if src.dtype == torch.int16 and p.dtype == torch.bfloat16:
+            src = src.view(torch.bfloat16)      # bits from params_to_numpy
         if tuple(src.shape) != tuple(p.shape) or src.dtype != p.dtype:
             raise ValueError(f"{name}: tree has {tuple(src.shape)} "
                              f"{src.dtype}, the port expects "
                              f"{tuple(p.shape)} {p.dtype}")
         p.copy_(src)
     return model
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    bits = t.view(torch.int16).numpy()
+    if importlib.util.find_spec("ml_dtypes") is None:
+        return bits
+    import ml_dtypes
+    return bits.view(ml_dtypes.bfloat16)
+
+
+def params_to_numpy(model: LM) -> dict:
+    """The reference's parameter tree of ``model``'s values, on the host:
+    nested dicts of numpy arrays with the ``layers`` leaves stacked; bf16
+    leaves as ``ml_dtypes.bfloat16`` (their int16 bits without
+    ``ml_dtypes``)."""
+    return reference_tree({name: _numpy(p)
+                           for name, p in model.named_parameters()})

@@ -24,10 +24,13 @@ def init_params(cfg: ModelConfig, *,
     return transformer.init_lm(cfg, generator=generator, device=device)
 
 
-def loss_fn(cfg: ModelConfig):
-    """(params, batch) -> scalar loss."""
+def loss_fn(cfg: ModelConfig, *, backend: str = "auto"):
+    """(params, batch) -> scalar loss, differentiable under grad mode.
+    Inference callers run it under ``torch.no_grad()`` with the default
+    route (flash on the card); the train step asks for
+    ``backend="plain"``."""
     transformer.check_family(cfg)
-    return lambda p, b: transformer.lm_loss(p, b, cfg)
+    return lambda p, b: transformer.lm_loss(p, b, cfg, backend=backend)
 
 
 def forward_fn(cfg: ModelConfig, *, backend: str = "auto"):

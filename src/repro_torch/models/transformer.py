@@ -2,10 +2,14 @@
 
 Counterpart of ``repro.models.transformer`` for ``family="dense"``
 (``llama3.2-3b``): the layers run as a Python loop over an
-``nn.ModuleList`` where the reference scans stacked parameters, and
-there is no rematerialisation (nothing here has a backward). The MoE,
-hybrid, SSM and enc-dec families raise ``NotImplementedError``; they wait
-for later slices (ROADMAP.md). Decode threads an explicit KV cache that
+``nn.ModuleList`` where the reference scans stacked parameters. Under
+grad mode each layer is rematerialised in the backward
+(``torch.utils.checkpoint``, as the reference wraps its layer in
+``jax.checkpoint``), so only the layers' inputs are kept. ``forward`` is
+the inference entry (no graph; on the card prefill attention takes the
+flash kernel), ``lm_loss`` the training one. The MoE, hybrid, SSM and
+enc-dec families raise ``NotImplementedError``; they wait for later
+slices (ROADMAP.md). Decode threads an explicit KV cache that
 ``decode_step`` updates in place.
 """
 
@@ -15,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import Attention, attention, make_kv_cache
@@ -94,23 +99,39 @@ def _block_fwd(cfg: ModelConfig, layer: Block, x: torch.Tensor,
     return x + mlp(layer.ffn, h2)
 
 
-@torch.no_grad()
-def forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
-            backend: str = "auto") -> torch.Tensor:
-    """Full-sequence forward: tokens ``(b, s)`` -> logits ``(b, s, vocab)``.
-    ``backend`` picks the prefill attention route (``"auto"``: the kernel
-    on CUDA, the reference's CPU path elsewhere; ``"plain"``: the
-    reference's CPU path on any device)."""
-    x = params.embed[tokens]
+def _logits(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
+            backend: str, remat: bool) -> torch.Tensor:
+    x = torch.nn.functional.embedding(tokens, params.embed)
     positions = torch.arange(x.shape[1], device=x.device)
     for layer in params.layers:
-        x = _block_fwd(cfg, layer, x, positions, backend)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_block_fwd, cfg, layer, x, positions, backend,
+                           use_reentrant=False)
+        else:
+            x = _block_fwd(cfg, layer, x, positions, backend)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x @ params.head()
 
 
-def lm_loss(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    logits = forward(params, batch["tokens"], cfg)
+@torch.no_grad()
+def forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
+            backend: str = "auto") -> torch.Tensor:
+    """Full-sequence forward: tokens ``(b, s)`` -> logits ``(b, s, vocab)``,
+    with no autograd graph. ``backend`` picks the prefill attention route
+    (``"auto"``: the kernel on CUDA, the reference's CPU path elsewhere;
+    ``"plain"``: the reference's CPU path on any device)."""
+    return _logits(params, tokens, cfg, backend=backend, remat=False)
+
+
+def lm_loss(params: LM, batch: dict, cfg: ModelConfig, *,
+            remat: bool = True, backend: str = "auto") -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``).
+    Under grad mode it builds the graph (layers rematerialised with
+    ``remat``); training asks for ``backend="plain"``, the reference's
+    differentiable attention, since the flash kernel has no backward
+    (its wrapper raises rather than drop the gradient)."""
+    logits = _logits(params, batch["tokens"], cfg, backend=backend,
+                     remat=remat)
     return cross_entropy_loss(logits, batch["labels"])
 
 

@@ -14,7 +14,11 @@ a checkpoint written by either package is read by the other:
   ``ManifestMismatch``;
 * **leaf keys** are the reference's ``jax.tree_util.keystr`` strings
   (``['memo']['mask']``, dict keys in sorted order, ``TrialStats`` leaves
-  as ``[<flat index i>]``; ``/`` stored as ``::``);
+  as ``[<flat index i>]``, a ``NamedTuple``'s fields as ``.step``,
+  ``.m``, …; ``/`` stored as ``::``);
+* **bf16 leaves** are stored as the reference stores them (``np.savez``
+  keeps their two-byte bits, ``|V2``; the manifest says ``bfloat16``) and
+  come back as bf16 tensors, or as the template's ``ml_dtypes`` array;
 * **placement**: ``restore_checkpoint(..., device=)`` puts the leaves on
   that device (the counterpart of the reference's ``shardings=``); without
   it they come back as the template's kind (tensors on the template
@@ -25,8 +29,9 @@ a checkpoint written by either package is read by the other:
   ``version``), so a resumed sweep's cost accounting is bitwise an
   uninterrupted run's.
 
-A tree is nested dicts (lists, tuples) of numpy arrays, tensors and
-``TrialStats``; tensors are saved from the host.
+A tree is nested dicts (lists, tuples, ``NamedTuple``s such as
+``optim.AdamWState``) of numpy arrays, tensors and ``TrialStats``;
+tensors are saved from the host.
 """
 
 from __future__ import annotations
@@ -66,6 +71,9 @@ def _leaves(tree: PyTree, key: str = "") -> Iterator[tuple[str, Any]]:
     elif isinstance(tree, TrialStats):
         for i, leaf in enumerate(tree.leaves()):
             yield f"{key}[<flat index {i}>]", leaf
+    elif _is_namedtuple(tree):
+        for field in tree._fields:
+            yield from _leaves(getattr(tree, field), f"{key}.{field}")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _leaves(v, f"{key}[{i}]")
@@ -82,22 +90,48 @@ def _rebuild(tree: PyTree, fn: Callable, key: str = "") -> PyTree:
     if isinstance(tree, TrialStats):
         return TrialStats(*(fn(f"{key}[<flat index {i}>]", leaf)
                             for i, leaf in enumerate(tree.leaves())))
+    if _is_namedtuple(tree):
+        return type(tree)(**{f: _rebuild(getattr(tree, f), fn, f"{key}.{f}")
+                             for f in tree._fields})
     if isinstance(tree, (list, tuple)):
         return type(tree)(_rebuild(v, fn, f"{key}[{i}]")
                           for i, v in enumerate(tree))
     return fn(key, tree)
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(type(tree), "_fields")
+
+
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:        # numpy has no bfloat16
+            return leaf.view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(leaf) -> str:
+    if isinstance(leaf, torch.Tensor):
+        return str(leaf.dtype).split(".")[-1]
+    return str(np.asarray(leaf).dtype)
 
 
 def _np_dtype(leaf) -> np.dtype:
     if isinstance(leaf, torch.Tensor):
         return torch.empty((), dtype=leaf.dtype).numpy().dtype
     return np.asarray(leaf).dtype
+
+
+def _bf16_bits(arr: np.ndarray, tmpl, device):
+    """A stored bf16 leaf (``|V2`` bits) as ``tmpl``'s kind: a bf16
+    tensor, or the template's numpy bfloat16 array without ``device``."""
+    bits = arr.view(np.int16)
+    if device is None and not isinstance(tmpl, torch.Tensor):
+        return bits.view(np.asarray(tmpl).dtype)
+    t = torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return t.to(device if device is not None else tmpl.device)
 
 
 def save_checkpoint(directory: str | Path, step: int, tree: PyTree,
@@ -120,14 +154,16 @@ def save_checkpoint(directory: str | Path, step: int, tree: PyTree,
         shutil.rmtree(tmp)
     tmp.mkdir()
 
-    flat = {k: _host(v) for k, v in _leaves(tree)}
+    leaves = dict(_leaves(tree))
+    flat = {k: _host(v) for k, v in leaves.items()}
     np.savez(tmp / "arrays.npz", **{k.replace("/", _SEP): v
                                     for k, v in flat.items()})
     if fault_hook is not None:
         fault_hook("arrays", tmp)
     manifest = {
         "step": step,
-        "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+        "leaves": {k: {"shape": list(v.shape),
+                       "dtype": _dtype_name(leaves[k])}
                    for k, v in flat.items()},
         "extra": extra or {},
     }
@@ -223,7 +259,10 @@ def restore_checkpoint(directory: str | Path, template: PyTree,
     data = np.load(path / "arrays.npz")
 
     def load(key, tmpl):
-        arr = data[key.replace("/", _SEP)].astype(_np_dtype(tmpl))
+        arr = data[key.replace("/", _SEP)]
+        if arr.dtype.kind == "V":
+            return _bf16_bits(arr, tmpl, device)
+        arr = arr.astype(_np_dtype(tmpl))
         if device is not None:
             return torch.as_tensor(arr).to(device)
         if isinstance(tmpl, torch.Tensor):

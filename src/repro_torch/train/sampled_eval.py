@@ -15,7 +15,8 @@ application's regions.
 The sampling draws are the reference's numpy draws and the k-means seeds
 its threefry draws, so with the same ``eval_batch`` both packages pick
 the same batches. ``device`` is where the features are clustered (the
-card when None).
+card when None). ``eval_batch`` runs under ``torch.no_grad()``: an eval
+forward builds no autograd graph, and takes the flash route on the card.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ class SampledEval:
     _weights: Optional[np.ndarray] = None
     _selected: Optional[list] = None
 
+    @torch.no_grad()
     def characterize(self, n_phase1: int) -> Estimate:
         rng = np.random.default_rng(self.seed)
         self._idx1 = rng.choice(self.n_batches,
@@ -79,6 +81,7 @@ class SampledEval:
                           select_centroid(km.labels, z, km.centroids)]
         return srs_estimate(self._losses1)
 
+    @torch.no_grad()
     def quick_estimate(self) -> float:
         """Day-to-day eval: one forward per stratum (centroid batches)."""
         if self._selected is None:
@@ -90,6 +93,7 @@ class SampledEval:
                            if s.size]]
         return weighted_point_estimate(sel, y, w / w.sum())
 
+    @torch.no_grad()
     def ci_check(self, per_stratum: int = 4,
                  confidence: float = 0.95) -> Estimate:
         """Periodic multi-batch-per-stratum CI (paper step 4b)."""

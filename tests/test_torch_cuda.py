@@ -867,3 +867,93 @@ def test_sharded_trials_equal_unsharded_on_the_card(cuda):
         for f in ("estimates", "errors", "half_widths"):
             assert getattr(got, f)[s].tobytes() == \
                 getattr(want, f)[s].tobytes()
+
+
+# --------------------------------------------------------------- the trainer
+def _smoke_lm(seed=1):
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import init_params
+    cfg = get_config("llama3.2-3b", smoke=True)
+    return cfg, init_params(cfg, generator=torch.Generator().manual_seed(seed),
+                            device="cpu")
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_equals_the_cpus(cuda):
+    """One float32 smoke-size train step from the same weights and batch:
+    loss rtol 1e-4, every gradient within 1e-4 of its leaf's max |g|, the
+    new parameters to rtol 1e-4 (plus lr x 1e-3) except elements whose
+    gradient lies within 1e-4 of the leaf's max of zero, where Adam's
+    first update (about +-lr) may take either sign: at most 0.1 % of a
+    leaf."""
+    import copy
+    from repro_torch.data import make_pipeline
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import GradTransform
+    from repro_torch.train.step import make_train_fn
+
+    class Stash(GradTransform):
+        def apply(self, grads, ef):
+            return grads, grads
+
+    lr = 1e-3
+    cfg, cpu_model = _smoke_lm()
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    opt = AdamW(lr=lr, compress=Stash())
+    out = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
+        batch = make_pipeline(cfg, 64, 4, seed=3, device=dev).batch(0)
+        _, state, loss = make_train_fn(cfg, opt)(model, opt.init(model),
+                                                 batch)
+        out[dev] = (float(loss), state.ef)
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for (name, a), b in zip(card_model.named_parameters(),
+                            cpu_model.parameters()):
+        g_cpu, g_card = out["cpu"][1][name], out["cuda"][1][name].cpu()
+        assert float((g_card - g_cpu).abs().max()) <= \
+            1e-4 * float(g_cpu.abs().max()), name
+        a, b = a.detach().cpu(), b.detach()
+        far = (a - b).abs() > 1e-4 * b.abs() + lr * 1e-3
+        near_zero = g_cpu.abs() <= 1e-4 * g_cpu.abs().max()
+        assert bool(near_zero[far].all()), name
+        assert int(far.sum()) <= 1e-3 * far.numel(), name
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_inputs_that_require_grad_on_the_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((1, 4, 256, 128), generator=gen, device=cuda,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    k = torch.randn((1, 2, 256, 128), generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    before = flash_ops.launch_count()
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_ops.flash_attention(q, k, k)
+    assert flash_ops.launch_count() == before
+    with torch.no_grad():
+        flash_ops.flash_attention(q, k, k)
+    assert flash_ops.launch_count() == before + 1
+
+
+@pytest.mark.cuda
+def test_launch_train_loop_runs_on_the_card(cuda, tmp_path):
+    """The CLI's loop on the card: the loss descends over 8 steps, a run
+    resumed from step 4's checkpoint follows the uninterrupted one to rtol
+    1e-4 (the reference's bound), and no flash kernel is launched."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    cfg = get_config("llama3.2-3b", smoke=True)
+    kw = dict(steps=8, batch=4, seq=64, lr=5e-3, ckpt_every=5, device=cuda,
+              log=lambda s: None)
+    before = flash_ops.launch_count()
+    full = train(cfg, ckpt_dir=tmp_path / "a", **kw)
+    assert full.losses[7] < full.losses[0]
+    train(cfg, ckpt_dir=tmp_path / "b", **kw)
+    shutil.rmtree(tmp_path / "b" / "step_7")
+    again = train(cfg, ckpt_dir=tmp_path / "b", **kw)
+    assert again.start == 5
+    for step in range(5, 8):
+        assert abs(again.losses[step] - full.losses[step]) <= \
+            1e-4 * abs(full.losses[step])
+    assert flash_ops.launch_count() == before

@@ -29,6 +29,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import smoke_variant
 from repro_torch.data import make_pipeline
 from repro_torch.launch.serve import generate, make_prompts
+from repro_torch.launch.train import train
 from repro_torch.models import registry as TR
 from repro_torch.models.attention import Attention, make_kv_cache
 from repro_torch.models.convert import params_from_numpy
@@ -276,6 +277,8 @@ _NO_DEVICE_ENTRIES = {
     "make_kv_cache": lambda cfg, **kw: make_kv_cache(cfg, 2, 8, 1, **kw)[0],
     "make_pipeline": lambda cfg, **kw: make_pipeline(
         cfg, 8, 2, **kw).batch(0)["tokens"],
+    "train": lambda cfg, **kw: train(cfg, steps=1, batch=2, seq=8,
+                                     log=lambda s: None, **kw).params.embed,
 }
 
 
