@@ -59,14 +59,22 @@ after:
   and ``distributed_kmeans`` over gcc's 120,000 BBVs, each against the
   unsharded engine; both kernels at the new local shapes against their
   plain versions;
-* the LM serving path at the full width of ``llama3.2-3b`` and 4 of its 28
+* the LM serving path at the full width of ``llama3.2-3b`` and 2 of its 28
   layers (bf16, random weights from a seeded generator): prefill of
   4 x 4096 tokens through the flash-attention kernel and through the
   plain attention route, prefill of 1 x 32768 tokens, the serve loop of
-  ``repro_torch.launch.serve``, and ``SampledEval`` over 32 eval batches,
-  whose k-means runs the two clustering kernels;
+  ``repro_torch.launch.serve`` (each step a replay of one captured decode
+  graph), and ``SampledEval`` over 16 eval batches, whose k-means runs
+  the two clustering kernels;
+* the MoE, hybrid and SSM families (``phase_families``) at full width:
+  ``olmoe-1b-7b``, ``recurrentgemma-2b`` and ``rwkv6-7b`` whole,
+  ``qwen3-moe-235b-a22b`` on 2 of its 94 layers: prefill through the
+  kernel route and the plain route, logits compared (flash launches on
+  each MoE prefill, never on the hybrid's windowed attention or the
+  SSM), the serve loop, the tokens dropped for capacity, and
+  ``SampledEval`` over 16 batches of the MoE model;
 * the trainer (``repro_torch.launch.train``) at the full size of
-  ``llama3.2-3b`` (all 28 layers, bf16 weights, float32 moments): 3 AdamW
+  ``llama3.2-3b`` (all 28 layers, bf16 weights, float32 moments): 2 AdamW
   steps of 8 x 1024 tokens in 2 microbatches, with step seconds,
   tokens/s, the model-FLOPs share and peak memory, and one more step
   under the profiler; at smoke size, the CLI's loop (8 steps that must
@@ -75,7 +83,8 @@ after:
   there: training takes the reference's attention, and the phase fails
   if ``flash_attention`` launched.
 
-Any failure raises and exits non-zero.
+The trainer runs first, while ``nvcc`` builds the kernels: it launches
+none of them. Any failure raises and exits non-zero.
 
 Output: progress lines, then the card's name and power limit (as
 ``nvidia-smi`` reports them), one JSON line with each kernel's numbers and,
@@ -212,7 +221,10 @@ def spread(t) -> str:
 
 
 # ------------------------------------------------------------------ phase 1
-def phase_build(backend_mod) -> None:
+def phase_build(backend_mod, also=None) -> None:
+    """Build every kernel (one nvcc a source, started together); the
+    host meanwhile makes the ten apps' populations and BBVs, then runs
+    ``also`` (work that launches no kernel of the port)."""
     import torch
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
@@ -227,6 +239,8 @@ def phase_build(backend_mod) -> None:
         for pop in get_population_bank(APP_NAMES).pops:
             get_bbvs(pop)
         t0.append(time.perf_counter() - start)
+        if also is not None:
+            also()
 
     info = backend_mod.build_all(while_building=populations)
     log(f"populations and BBVs of the ten apps, made meanwhile on the "
@@ -625,14 +639,27 @@ def flash_case(gen, shape, dtype, *, layout: str = "bhsd"):
                  for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
 
 
+# the other architectures' prefill attention at 4096 tokens (b, hq, hkv,
+# sq, skv, d): the MoE prefills of phase_families and the four other dense
+# configs (chameleon-34b and command-r-35b share 64/8)
+FAMILY_FLASH = {
+    "olmoe-1b-7b": (4, 16, 16, 4096, 4096, 128),
+    "qwen3-moe-235b-a22b": (1, 64, 4, 4096, 4096, 128),
+    "chameleon-34b, command-r-35b": (1, 64, 8, 4096, 4096, 128),
+    "granite-8b": (1, 32, 8, 4096, 4096, 128),
+    "internlm2-20b": (1, 48, 8, 4096, 4096, 128),
+}
+
+
 def check_flash(gen) -> dict:
     """The kernels against their plain version (``flash_attention_ref``)
     at the cases of ``tests/test_kernels.py``, at ragged lengths, appends,
     GQA groups and head widths, and at the LM's shapes (prefill, eval
     forward, the longest sequence the plain version fits), each in float32
-    and bf16; strided (projection-layout) inputs against contiguous ones,
-    bitwise; bf16 timings at the three LM shapes beside their bounds and
-    ``scaled_dot_product_attention``."""
+    and bf16; at the other architectures' prefill shapes
+    (``FAMILY_FLASH``) in bf16; strided (projection-layout) inputs against
+    contiguous ones, bitwise; bf16 timings at the LM and family shapes
+    beside their bounds and ``scaled_dot_product_attention``."""
     import torch
     from repro_torch.kernels import backend
     from repro_torch.kernels.flash_attention import ops
@@ -652,11 +679,12 @@ def check_flash(gen) -> dict:
              (2, 6, 2, 333, 333, 40), (1, 4, 1, 257, 385, 64)]  # ragged
     main_shape = (4, 24, 8, 4096, 4096, 128)
     timed = {"main": main_shape, "eval": (4, 24, 8, 2048, 2048, 128),
-             "long": (1, 1, 1, 32768, 32768, 128)}
+             "long": (1, 1, 1, 32768, 32768, 128), **FAMILY_FLASH}
     cases = [(s, dt, "bhsd") for s in small
              for dt in (torch.float32, torch.bfloat16)]
-    cases += [(s, dt, "bshd") for s in timed.values()
-              for dt in (torch.bfloat16, torch.float32)]
+    cases += [(s, dt, "bshd") for tag, s in timed.items()
+              for dt in ((torch.bfloat16,) if tag in FAMILY_FLASH
+                         else (torch.bfloat16, torch.float32))]
     out = {}
     for shape, dtype, layout in cases:
         q, k, v = flash_case(gen, shape, dtype, layout=layout)
@@ -2344,33 +2372,36 @@ def phase_mesh(card=None) -> tuple[dict, dict]:
 
 # ------------------------------------------------------------------ phase 4
 LM_ARCH = "llama3.2-3b"
-# the LM path runs at full width but 4 of the model's 28 layers, so that
-# the whole script stays near its time budget beside the figure path
-LM_LAYERS = 4
-# 32 eval batches: the smoke's 180 s budget leaves room for no more
-EVAL_BATCHES, EVAL_SEQ, EVAL_BATCH = 32, 2048, 4
+# the LM path runs at full width but 2 of the model's 28 layers (4 until
+# the other families joined the smoke), so that the whole script stays
+# near its time budget beside the figure and family paths
+LM_LAYERS = 2
+# 16 eval batches (64 until PR 19, 32 until PR 20): the smoke's 180 s
+# budget leaves room for no more
+EVAL_BATCHES, EVAL_SEQ, EVAL_BATCH = 16, 2048, 4
 
 
 _LM_PEAKS: list[float] = []
 
 
-def _step(name: str, t0: float) -> float:
-    """Print a step's seconds and its own peak memory, then start the
-    next step's peak afresh."""
+def _step(name: str, t0: float, *, prefix: str = "LM",
+          peaks: list = _LM_PEAKS) -> float:
+    """Print a step's seconds and its own peak memory (kept in
+    ``peaks``), then start the next step's peak afresh."""
     import torch
     torch.cuda.synchronize()
     s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    _LM_PEAKS.append(peak)
-    log(f"LM {name}: {s:.3f} s, peak memory {peak / 2**30:.2f} GiB")
+    peaks.append(peak)
+    log(f"{prefix} {name}: {s:.3f} s, peak memory {peak / 2**30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats()
     return s
 
 
-def compare_logits(tag: str, got, want) -> dict:
+def compare_logits(tag: str, got, want, *, strict: bool = True) -> dict:
     """Report max |got - want| over want's std and the argmax agreement;
-    a differing argmax must sit where want's top two logits lie closer
-    than max |got - want| (a near-tie)."""
+    with ``strict`` a differing argmax must sit where want's top two
+    logits lie closer than max |got - want| (a near-tie)."""
     import torch
     got, want = got.float(), want.float()
     delta = float((got - want).abs().max())
@@ -2378,7 +2409,7 @@ def compare_logits(tag: str, got, want) -> dict:
     top2 = torch.topk(want, 2, dim=-1).values
     agree = got.argmax(-1) == want.argmax(-1)
     tie = (top2[:, 0] - top2[:, 1]) < delta
-    if bool((~agree & ~tie).any()):
+    if strict and bool((~agree & ~tie).any()):
         raise AssertionError(f"{tag}: argmax differs away from near-ties")
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{tag}: non-finite logits")
@@ -2508,7 +2539,7 @@ def phase_lm() -> dict:
                      num_strata=4, device="cuda")
     t0 = time.perf_counter()
     c0 = calls["n"]
-    est1 = se.characterize(n_phase1=16)
+    est1 = se.characterize(n_phase1=EVAL_BATCHES // 2)
     n1, c0 = calls["n"] - c0, calls["n"]
     quick = se.quick_estimate()
     nq, c0 = calls["n"] - c0, calls["n"]
@@ -2545,11 +2576,231 @@ def phase_lm() -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 4b
+# the MoE, hybrid and SSM families at full width, one after another:
+# (arch, layers on the card (None: all), prefill (batch, seq), serve loop
+# (batch, prompt, generated), SampledEval over the MoE model)
+FAMILY_RUNS = (
+    ("olmoe-1b-7b", None, (4, 4096), (4, 128, 32), True),
+    ("qwen3-moe-235b-a22b", 2, (1, 4096), (4, 32, 8), False),
+    ("recurrentgemma-2b", None, (4, 4096), (4, 128, 32), False),
+    ("rwkv6-7b", None, (4, 4096), (4, 128, 32), False),
+)
+FAMILY_EVAL_BATCHES, FAMILY_EVAL_PHASE1 = 16, 8
+FAMILY_CACHE = 256
+ROUTING_TIE = 1e-5       # a token's k-th router score leads by less: a tie
+
+
+def routing_record(routes) -> dict:
+    """Pairs routed, pairs dropped for capacity, tokens that lost at least
+    one pair, and near-tie tokens (``ROUTING_TIE``), over a list of
+    ``Routing``s (one host sync)."""
+    import torch
+    if not routes:
+        return {}
+    counts = torch.stack([torch.stack([
+        (~r.keep).sum(), (~r.keep).any(-1).sum(),
+        (r.margin <= ROUTING_TIE).sum()]) for r in routes]).sum(0).tolist()
+    return {"layers_routed": len(routes),
+            "pairs": sum(r.keep.numel() for r in routes),
+            "dropped_pairs": counts[0], "tokens_losing_a_pair": counts[1],
+            "near_tie_tokens": counts[2]}
+
+
+def trace_record(by_name: dict) -> dict:
+    """Device events and busy milliseconds of a ``traced`` run."""
+    return {"device_events": sum(n for n, _ in by_name.values()),
+            "busy_ms": sum(ms for _, ms in by_name.values())}
+
+
+def phase_families(card: str) -> dict:
+    """The MoE, hybrid and SSM serving paths at full width
+    (``FAMILY_RUNS``): prefill through the kernel route and the plain
+    route, logits compared; the serve loop; ``SampledEval`` over the MoE
+    model. Flash must launch on each MoE prefill and never on the hybrid
+    (windowed attention) or SSM (no attention) paths. Returns the three
+    kernels' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+    from repro_torch.launch.serve import generate, make_prompts
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.registry import init_params, loss_fn
+    from repro_torch.train.sampled_eval import SampledEval
+    from repro_torch.train.step import make_prefill_fn
+
+    for ops in (flash_ops, assign_ops, segment_ops):
+        ops.reset_launch_count()
+    records = {}
+    for arch, layers, (pb, ps), (sb, sp, sg), with_eval in FAMILY_RUNS:
+        full = get_config(arch)
+        cfg = full if layers is None else \
+            dataclasses.replace(full, n_layers=layers)
+        peaks: list = []
+
+        def step(name, t0, _peaks=peaks, _arch=arch):
+            return _step(name, t0, prefix=_arch, peaks=_peaks)
+
+        flash0 = flash_ops.launch_count()
+        kernel_forwards = 0
+        rec = {"layers": cfg.n_layers, "of_layers": full.n_layers}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        rec["parameters"] = sum(p.numel() for p in params.parameters())
+        rec["init_s"] = step(f"init {rec['parameters'] / 1e9:.3f} B "
+                             f"parameters, {cfg.n_layers} of "
+                             f"{full.n_layers} layers (config counts "
+                             f"{cfg.param_count() / 1e9:.3f} B)", t0)
+
+        # 1. prefill: the kernel route, then the plain route
+        batch = make_pipeline(cfg, ps, pb, seed=0, device="cuda").batch(0)
+        with moe_mod.record_routing() as routes:
+            t0 = time.perf_counter()
+            kern = make_prefill_fn(cfg)(params, batch)
+            rec["prefill_s"] = step(f"prefill {pb} x {ps} (kernel route)",
+                                    t0)
+        kernel_forwards += 1
+        rec["prefill_tokens_per_s"] = pb * ps / rec["prefill_s"]
+        rec["prefill_routing"] = routing_record(routes)
+        del routes
+        t0 = time.perf_counter()
+        plain = make_prefill_fn(cfg, backend="plain")(params, batch)
+        rec["plain_prefill_s"] = step(f"prefill {pb} x {ps} (plain route)",
+                                      t0)
+        rec["kernel_vs_plain"] = compare_logits(
+            f"{arch} prefill {pb} x {ps} kernel vs plain", kern, plain)
+        if cfg.family == "moe":
+            log(f"{arch} prefill routing: {rec['prefill_routing']}")
+            # the first prefill warms the new GEMM shapes up: time the
+            # kernel route again, warm, as the plain route ran
+            t0 = time.perf_counter()
+            make_prefill_fn(cfg)(params, batch)
+            rec["warm_prefill_s"] = step(
+                f"prefill {pb} x {ps} (kernel route, warm)", t0)
+            kernel_forwards += 1
+            rec["prefill_tokens_per_s"] = pb * ps / rec["warm_prefill_s"]
+            # where the flash route's prefill goes (the card's activity)
+            t0 = time.perf_counter()
+            rec["prefill_trace"] = trace_record(traced(
+                f"{arch} prefill {pb} x {ps} (kernel route)",
+                lambda: make_prefill_fn(cfg)(params, batch), top=6,
+                cpu=False))
+            kernel_forwards += 1
+            step("traced prefill", t0)
+        del kern, plain, batch
+        torch.cuda.empty_cache()
+
+        # 2. the serve loop: teacher-forced prefill through decode, greedy
+        prompts = make_prompts(cfg, sb, sp, seed=0, device="cuda")
+        t0 = time.perf_counter()
+        out = generate(params, cfg, prompts, gen=sg, cache_len=FAMILY_CACHE)
+        rec["serve_s"] = step(
+            f"serve loop (batch {sb}, prompt {sp}, gen {sg}, cache "
+            f"{FAMILY_CACHE}): teacher-forced prefill {out.prefill_s:.3f} s,"
+            f" generation {out.decode_s:.3f} s = {out.tokens_per_s:.1f} "
+            "tokens/s", t0)
+        rec.update(serve_prefill_s=out.prefill_s, decode_s=out.decode_s,
+                   tokens_per_s=out.tokens_per_s)
+        if out.tokens.shape != (sb, sg) or not bool(
+                ((out.tokens >= 0) & (out.tokens < cfg.vocab)).all()):
+            raise AssertionError(f"{arch} serve loop: bad tokens")
+        # the first generated step against a prefill of the prompt: equal
+        # but for rounding, except where the MoE's prefill, routing sb x sp
+        # tokens in one group, drops pairs that one-token steps keep
+        ref = make_prefill_fn(cfg)(params, {"tokens": prompts})
+        kernel_forwards += 1
+        rec["decode_vs_prefill"] = compare_logits(
+            f"{arch} serve first step (decode) vs prefill", out.first_logits,
+            ref, strict=cfg.family != "moe")
+        del out, ref
+
+        # 3. SampledEval: a census of the corpus, then the estimates,
+        # each batch forwarded once (memoised); features: the loss, the
+        # share of pairs dropped for capacity (router load), the tokens'
+        # spread
+        if with_eval:
+            pipe = make_pipeline(cfg, EVAL_SEQ, EVAL_BATCH, seed=999,
+                                 device="cuda")
+            loss_of = loss_fn(cfg)
+            memo = {}
+
+            @torch.no_grad()
+            def eval_batch(i: int):
+                if i not in memo:
+                    b = pipe.batch(i)
+                    with moe_mod.record_routing() as rl:
+                        loss = float(loss_of(params, b))
+                    r = routing_record(rl)
+                    memo[i] = (loss, np.array([
+                        loss, r["dropped_pairs"] / r["pairs"],
+                        float(b["tokens"].float().std(unbiased=False))]))
+                return memo[i]
+
+            t0 = time.perf_counter()
+            census = float(np.mean([eval_batch(i)[0]
+                                    for i in range(FAMILY_EVAL_BATCHES)]))
+            kernel_forwards += len(memo)
+            rec["eval_census_s"] = step(
+                f"eval census: {len(memo)} forwards of {EVAL_BATCH} x "
+                f"{EVAL_SEQ} tokens, mean loss {census:.6f}", t0)
+            se = SampledEval(n_batches=FAMILY_EVAL_BATCHES,
+                             eval_batch=eval_batch, num_strata=2,
+                             device="cuda")
+            t0 = time.perf_counter()
+            est1 = se.characterize(n_phase1=FAMILY_EVAL_PHASE1)
+            quick = se.quick_estimate()
+            ci = se.ci_check(per_stratum=2)
+            rec["sampled_eval_s"] = step(
+                "SampledEval characterize / quick_estimate / ci_check", t0)
+            for name, val in (("phase-1", est1.mean), ("quick", quick),
+                              ("ci", ci.mean)):
+                if not np.isfinite(val):
+                    raise AssertionError(f"{arch} SampledEval {name} "
+                                         f"estimate {val}")
+            rec["sampled_eval"] = {"census": census, "phase1": est1.mean,
+                                   "quick": quick, "ci": ci.mean,
+                                   "ci_margin_pct": ci.margin_pct}
+            log(f"{arch} SampledEval (random weights): census {census:.6f}; "
+                f"phase-1 {est1.mean:.6f}; quick {quick:.6f}; ci "
+                f"{ci.mean:.6f} +- {ci.margin_pct:.3f}%; drop shares "
+                f"{sorted(round(float(f[1]), 4) for _, f in memo.values())}")
+
+        flash = flash_ops.launch_count() - flash0
+        want = cfg.n_layers * kernel_forwards if cfg.family == "moe" else 0
+        if flash != want:
+            raise AssertionError(f"{arch}: flash_attention launched {flash}"
+                                 f" times, expected {want}")
+        rec["flash_launches"] = flash
+        rec["peak_gib"] = max(peaks) / 2**30
+        if max(peaks) >= 80e9:
+            raise AssertionError(f"{arch}: peak memory at or above 80 GB")
+        records[arch] = rec
+        del params
+        torch.cuda.empty_cache()
+
+    launches = {"flash_attention": flash_ops.launch_count(),
+                "kmeans_assign": assign_ops.launch_count(),
+                "segment_stats": segment_ops.launch_count()}
+    for name in ("kmeans_assign", "segment_stats"):
+        if launches[name] <= 0:
+            raise AssertionError(f"families SampledEval never launched "
+                                 f"{name}")
+    log(f"families path launches {launches} ({card})")
+    log("families record " + json.dumps(records))
+    return launches
+
+
 # ------------------------------------------------------------------ phase 5
 # the trainer at llama3.2-3b's full size: all 28 layers, bf16 weights,
 # float32 moments; global batch 8 x 1024 in the reference's default
 # microbatches (2 at 3.6 B parameters)
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 8, 3, 3e-3
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 8, 2, 3e-3
 # the smoke-size runs on the card: the CLI's loop (batch 4, seq 64, lr
 # 5e-3, 8 steps, a checkpoint at step 4) and one step against the CPU's
 SMOKE_TRAIN = dict(steps=8, batch=4, seq=64, lr=5e-3, ckpt_every=5)
@@ -2606,7 +2857,7 @@ def phase_train(card: str) -> dict:
     from repro_torch.kernels.segment_stats import ops as segment_ops
     from repro_torch.launch.train import train
     from repro_torch.models.registry import init_params
-    from repro_torch.optim import AdamW, cosine_with_warmup
+    from repro_torch.optim import AdamW
     from repro_torch.optim.adamw import GradTransform
     from repro_torch.train.step import default_microbatches, make_train_fn
 
@@ -2623,7 +2874,7 @@ def phase_train(card: str) -> dict:
     import torch._dynamo  # noqa: F401
     dynamo_s = time.perf_counter() - t0
 
-    # 1. full size: 28 layers, bf16, float32 moments, 3 steps
+    # 1. full size: 28 layers, bf16, float32 moments, 2 steps
     cfg = get_config(LM_ARCH)
     cell = ShapeCell("train_8x1024", "train", TRAIN_SEQ, TRAIN_BATCH)
     mb = default_microbatches(cfg, cell)
@@ -2673,16 +2924,7 @@ def phase_train(card: str) -> dict:
         f"losses {', '.join(f'{v:.4f}' for v in losses)}; peak memory "
         f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB)")
 
-    # one more step of the same run under the profiler: where it goes
-    step_fn = make_train_fn(cfg, AdamW(lr=cosine_with_warmup(
-        TRAIN_LR, 10, TRAIN_STEPS)), microbatches=mb)
-    batch = make_pipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0,
-                          device="cuda").batch(TRAIN_STEPS)
-    t0 = time.perf_counter()
-    traced("full-size train step", lambda: step_fn(
-        run.params, run.opt_state, batch), top=12, cpu=False)
-    traced_s = time.perf_counter() - t0
-    del run, params, probe, step_fn, batch
+    del run, params, probe
     gc.collect()
     torch.cuda.empty_cache()
     full_s = time.perf_counter() - phase_t0
@@ -2755,8 +2997,8 @@ def phase_train(card: str) -> dict:
     if launches["flash_attention"] != 0:
         raise AssertionError(f"the train path launched flash_attention "
                              f"{launches['flash_attention']} times")
-    log(f"train path launches {launches}; seconds: full size {full_s:.1f} "
-        f"(the traced step {traced_s:.1f}), smoke-size loop and resume "
+    log(f"train path launches {launches}; seconds: full size {full_s:.1f}, "
+        f"smoke-size loop and resume "
         f"{smoke_s:.1f}, card vs CPU step "
         f"{time.perf_counter() - phase_t0 - full_s - smoke_s:.1f}")
     log("train record " + json.dumps({
@@ -2797,7 +3039,14 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t0
         return out
 
-    timed("build", phase_build, backend_mod)
+    # the trainer launches no kernel of the port: it runs while nvcc builds
+    train_path = {}
+
+    def train_while_building():
+        train_path["launches"] = timed("train path (inside the build)",
+                                       phase_train, card)
+
+    timed("build", phase_build, backend_mod, train_while_building)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     assign = timed("kmeans_assign checks", check_kmeans_assign, gen)
@@ -2830,7 +3079,8 @@ def main() -> int:
     by_path = {"simulation": simulation, "fused_and_trials": fused_path,
                "flow_and_figures": flow_path, **fleet_paths,
                "mesh": mesh_path, "lm": timed("LM path", phase_lm)}
-    by_path["train"] = timed("train path", phase_train, card)
+    by_path["families"] = timed("families path", phase_families, card)
+    by_path["train"] = train_path["launches"]
     log("seconds by phase: " + ", ".join(
         f"{name} {s:.1f}" for name, s in seconds.items())
         + f"; the whole script {time.perf_counter() - started:.1f}")
@@ -2880,7 +3130,8 @@ def main() -> int:
          "replaces":
              "src/repro/kernels/flash_attention/flash_attention.py:32",
          **launches("flash_attention"), **flash["main"],
-         "other_shapes": {"eval": flash["eval"], "long": flash["long"]},
+         "other_shapes": {"eval": flash["eval"], "long": flash["long"],
+                          **{tag: flash[tag] for tag in FAMILY_FLASH}},
          "sass": flash["sass"]},
     ]
     print(card, flush=True)

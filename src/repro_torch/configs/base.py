@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.configs.base``: one ``full()`` (the published
 widths, bf16) and one ``smoke()`` (reduced, f32, CPU-runnable) config per
-architecture. The port registers only the dense ``llama3.2-3b`` so far;
-the other families of the reference wait for later slices (ROADMAP.md),
-and ``get_config`` names that when asked for one of them.
+architecture. The port registers every decoder-only architecture of the
+reference (dense, MoE, hybrid, SSM); the enc-dec
+``seamless-m4t-large-v2`` waits for a later slice (ROADMAP.md), and
+``get_config`` names that when asked for it.
 
     train_4k     seq 4096  global_batch 256   (train_step)
     prefill_32k  seq 32768 global_batch 32    (prefill forward)
@@ -22,7 +23,7 @@ import torch
 from ..models.common import ModelConfig
 
 __all__ = ["ShapeCell", "SHAPES", "SHAPE_BY_NAME", "register", "get_config",
-           "list_archs", "smoke_variant"]
+           "list_archs", "cells_for", "smoke_variant", "UNPORTED_ARCHS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +44,8 @@ SHAPES: tuple[ShapeCell, ...] = (
 SHAPE_BY_NAME = {s.name: s for s in SHAPES}
 
 _REGISTRY: dict[str, dict[str, Callable[[], ModelConfig]]] = {}
+# the reference's architectures whose model the port has not yet
+UNPORTED_ARCHS = ("seamless-m4t-large-v2",)
 
 
 def register(arch_id: str, full: Callable[[], ModelConfig],
@@ -51,12 +54,13 @@ def register(arch_id: str, full: Callable[[], ModelConfig],
 
 
 def get_config(arch_id: str, *, smoke: bool = False) -> ModelConfig:
-    from . import llama3_2_3b  # noqa: F401 — registers on first use
+    from . import ALL_ARCHS  # noqa: F401 — registers on first use
     entry = _REGISTRY.get(arch_id)
     if entry is None:
-        raise KeyError(f"unknown arch {arch_id!r} for the port; it has "
-                       f"{sorted(_REGISTRY)} (the reference's other "
-                       "architectures wait for later slices: ROADMAP.md)")
+        if arch_id in UNPORTED_ARCHS:
+            raise KeyError(f"{arch_id!r}: the port has no enc-dec model "
+                           "yet; it waits for a later slice (ROADMAP.md)")
+        raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
     return entry["smoke" if smoke else "full"]()
 
 
@@ -64,12 +68,17 @@ def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
+def cells_for(cfg: ModelConfig) -> list[ShapeCell]:
+    """Applicable shape cells (long_500k only for sub-quadratic archs)."""
+    return [s for s in SHAPES
+            if s.name != "long_500k" or cfg.sub_quadratic]
+
+
 def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """Shrink a full config to a CPU-runnable smoke config, exactly as the
-    reference shrinks a dense one (its branches for the other families
-    come with them)."""
+    """Shrink a full config to a CPU-runnable smoke config of the same
+    family, exactly as the reference shrinks it."""
     base = dict(
-        n_layers=min(cfg.n_layers, 4),
+        n_layers=min(cfg.n_layers, 4) if cfg.family != "hybrid" else 6,
         d_model=256,
         n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads
@@ -79,5 +88,19 @@ def smoke_variant(cfg: ModelConfig, **overrides) -> ModelConfig:
         head_dim=64,
         dtype=torch.float32,
     )
+    if cfg.moe_experts:
+        base["moe_experts"] = 8
+        base["moe_topk"] = min(cfg.moe_topk, 2)
+    if cfg.window:
+        base["window"] = 64
+    if cfg.rnn_width:
+        base["rnn_width"] = 256
+    if cfg.encoder_layers:
+        base["encoder_layers"] = 2
+        base["n_layers"] = 2
+    if cfg.family == "ssm":
+        base["rwkv_head_dim"] = 32
+        base["n_heads"] = 8
+        base["n_kv_heads"] = 8
     base.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **base)

@@ -1,0 +1,21 @@
+"""internlm2-20b — dense GQA [arXiv:2403.17297].
+
+48L d_model=6144 48H (GQA kv=8) d_ff=16384 vocab=92544.
+"""
+
+from ..models.common import ModelConfig
+from .base import register, smoke_variant
+
+
+def full() -> ModelConfig:
+    return ModelConfig(
+        name="internlm2-20b", family="dense",
+        n_layers=48, d_model=6144, n_heads=48, n_kv_heads=8,
+        d_ff=16384, vocab=92544)
+
+
+def smoke() -> ModelConfig:
+    return smoke_variant(full())
+
+
+register("internlm2-20b", full, smoke)

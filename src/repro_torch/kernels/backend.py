@@ -138,10 +138,12 @@ def build_all(names: Optional[list[str]] = None, *,
     ``while_building`` is host work to run while the compilers do."""
     names = names or sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
     started = {n: _start(n) for n in names}
-    if while_building is not None:
-        while_building()
-    for n in names:
-        _finish(n, started[n])
+    try:
+        if while_building is not None:
+            while_building()
+    finally:        # the compilers are waited for even if that work fails
+        for n in names:
+            _finish(n, started[n])
     for n in names:
         library(n)
     return build_info()

@@ -8,6 +8,13 @@ default). It keeps the reference's loop: the prompt is fed one token at a
 time through the decode path (teacher-forced prefill, which exercises the
 cache), then ``--gen`` tokens are generated greedily; it prints the
 generation rate in tokens/s. Weights are random, drawn from ``--seed``.
+Every decoder-only ``--arch`` serves (dense, MoE, hybrid, SSM).
+
+On the card the decode step is captured once as a CUDA graph and
+replayed at every position (the reference compiles it once with
+``jax.jit``): eager, a step of several thousand small operations is
+bound by the host's dispatch, not by the card. On the CPU it runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -54,18 +61,64 @@ def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
     return torch.as_tensor(prompts, dtype=torch.int32, device=device)
 
 
+def _cache_tensors(caches) -> list[torch.Tensor]:
+    return [t for field in caches if field is not None
+            for t in (field if isinstance(field, tuple) else (field,))]
+
+
+def _graphed_decode(params, cfg: ModelConfig, caches, batch: int,
+                    device: torch.device):
+    """``step(tokens, pos) -> logits``: one decode step captured as a
+    CUDA graph on static token and position buffers, replayed per call
+    (the logits are the graph's own buffer, rewritten by the next call).
+    The warm-up step that capture needs writes into the caches; their
+    values are put back after it."""
+    dfn = decode_fn(cfg)
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
+    pos = torch.zeros((), dtype=torch.int64, device=device)
+    cache_list = _cache_tensors(caches)
+    saved = [t.clone() for t in cache_list]
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        dfn(params, tok, caches, pos)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, _ = dfn(params, tok, caches, pos)
+    for t, s in zip(cache_list, saved):
+        t.copy_(s)
+    del saved
+
+    def step(tokens: torch.Tensor, p: int) -> torch.Tensor:
+        tok.copy_(tokens)
+        pos.fill_(p)
+        graph.replay()
+        return logits
+
+    return step
+
+
 @torch.no_grad()
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *, gen: int,
              cache_len: int) -> Generation:
-    """The reference's serve loop on ``prompts`` ``(b, prompt_len)``."""
+    """The reference's serve loop on ``prompts`` ``(b, prompt_len)``; on
+    a CUDA device each step replays one captured decode graph (the
+    capture is timed with the prefill)."""
     batch, prompt_len = prompts.shape
     if prompt_len + gen - 1 > cache_len:
         raise ValueError(f"cache of {cache_len} cannot hold {prompt_len} "
                          f"prompt and {gen} generated tokens")
     device = prompts.device
-    dfn = decode_fn(cfg)
     caches = make_decode_state(cfg, batch, cache_len, device=device)
     t0 = time.perf_counter()
+    if device.type == "cuda":
+        graphed = _graphed_decode(params, cfg, caches, batch, device)
+
+        def dfn(p, tokens, c, pos):
+            return graphed(tokens, pos), c
+    else:
+        dfn = decode_fn(cfg)
     for t in range(prompt_len - 1):
         _, caches = dfn(params, prompts[:, t:t + 1], caches, t)
     _sync(device)
@@ -77,8 +130,8 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *, gen: int,
     t0 = time.perf_counter()
     for i in range(gen):
         logits, caches = dfn(params, tok, caches, start_pos + i)
-        if first is None:
-            first = logits[:, -1, :].float()
+        if first is None:       # a copy: a graph rewrites its logits
+            first = logits[:, -1, :].to(torch.float32, copy=True)
         tok = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
         out_tokens.append(tok[:, 0])
     _sync(device)

@@ -10,7 +10,8 @@ deterministic data from (seed, step), the cosine schedule with a 10-step
 warmup, atomic checkpoints every ``--ckpt-every`` steps and at the end,
 automatic resume from the latest one, straggler flagging. Weights are
 random, drawn from ``--seed`` (the port's generator, so not the
-reference's values). Only the host mesh of one device runs
+reference's values). Only the dense family trains (``make_train_fn``
+refuses the others: ROADMAP.md). Only the host mesh of one device runs
 (``--mesh host --model-parallel 1``); the production meshes wait for the
 port of ``distributed/{ctx,sharding}`` (ROADMAP.md, A.5).
 

@@ -10,10 +10,10 @@ Everywhere else, and for ``backend="plain"``, it takes the reference's
 CPU path: kv heads repeated, then ``attention_ref``, or the streaming
 softmax of ``_attend_chunked`` once the keys pass
 ``CHUNKED_KV_THRESHOLD``. Decode is a single-query attention against the
-cache in plain products with the grouped layout, so the cache is never
-repeated per query head. Training asks for ``backend="plain"``: the
-kernel has no backward, and its wrapper raises on inputs that require a
-gradient.
+whole cache, masked by position, in plain products with the grouped
+layout, so the cache is never repeated per query head. Training asks
+for ``backend="plain"``: the kernel has no backward, and its wrapper
+raises on inputs that require a gradient.
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_ref
 from .common import ModelConfig, new_param, rope
 
-__all__ = ["Attention", "attention", "make_kv_cache", "CHUNKED_KV_THRESHOLD",
-           "KV_CHUNK"]
+__all__ = ["Attention", "attention", "make_kv_cache", "repeat_kv",
+           "CHUNKED_KV_THRESHOLD", "KV_CHUNK"]
 
 CHUNKED_KV_THRESHOLD = 2048
 KV_CHUNK = 1024
@@ -52,6 +52,17 @@ class Attention(nn.Module):
         self.wo = new_param((hq * dh, d), cfg.dtype, device)
 
 
+def repeat_kv(t: torch.Tensor, group: int) -> torch.Tensor:
+    """Each kv head of ``(b, hkv, s, dh)`` repeated ``group`` times in
+    place, ``(b, hkv group, s, dh)`` (``repeat_interleave`` on axis 1,
+    without its host sync for the output size)."""
+    if group == 1:
+        return t
+    b, h, s, dh = t.shape
+    return t[:, :, None].expand(b, h, group, s, dh).reshape(b, h * group,
+                                                             s, dh)
+
+
 def _attend(q, k, v, *, window: Optional[int], backend: str = "auto"
             ) -> torch.Tensor:
     """q: ``(b, hq, sq, dh)``; k, v: ``(b, hkv, skv, dh)``."""
@@ -59,9 +70,7 @@ def _attend(q, k, v, *, window: Optional[int], backend: str = "auto"
             and _backend.resolve_route(q, backend) == "kernel":
         return flash_attention(q, k, v, causal=True)
     group = q.shape[1] // k.shape[1]
-    if group > 1:
-        k = k.repeat_interleave(group, dim=1)
-        v = v.repeat_interleave(group, dim=1)
+    k, v = repeat_kv(k, group), repeat_kv(v, group)
     if k.shape[2] > CHUNKED_KV_THRESHOLD:
         return _attend_chunked(q, k, v, window=window)
     return attention_ref(q, k, v, causal=True, window=window)
@@ -106,12 +115,14 @@ def _attend_chunked(q, k, v, *, window: Optional[int]) -> torch.Tensor:
 def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor,
               cache: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
-              cache_index: Optional[int] = None,
               window: Optional[int] = None, backend: str = "auto"):
-    """x: ``(b, s, d)``. With ``cache`` (k, v) of shape
-    ``(b, hkv, s_max, dh)`` and ``cache_index`` (insert position), writes
-    this step's k and v into the cache IN PLACE at ``cache_index`` and
-    returns ``(out, cache)``; otherwise self-attention over x only."""
+    """x: ``(b, s, d)``; positions: ``(s,)`` global positions on x's
+    device. With ``cache`` (k, v) of shape ``(b, hkv, s_max, dh)``, writes
+    this step's k and v into the cache IN PLACE at ``positions`` and
+    returns ``(out, cache)``; otherwise self-attention over x only.
+    Decode reads the positions from the device only, so a decode step
+    can be captured once in a CUDA graph and replayed at every
+    position."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = rope((x @ params.wq).reshape(b, s, hq, dh), positions,
@@ -123,10 +134,9 @@ def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
 
     if cache is not None:
         ck, cv = cache
-        ci = int(cache_index)
-        ck[:, :, ci:ci + s] = k.to(ck.dtype)
-        cv[:, :, ci:ci + s] = v.to(cv.dtype)
-        out = _decode_attend(q, ck, cv, kv_len=ci + s, window=window)
+        ck.index_copy_(2, positions, k.to(ck.dtype))
+        cv.index_copy_(2, positions, v.to(cv.dtype))
+        out = _decode_attend(q, ck, cv, positions, window=window)
         out = out.transpose(1, 2).reshape(b, s, hq * dh)
         return out @ params.wo, (ck, cv)
 
@@ -136,31 +146,31 @@ def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     return out @ params.wo
 
 
-def _decode_attend(q, k, v, *, kv_len: int, window: Optional[int]
+def _decode_attend(q, k, v, positions, *, window: Optional[int]
                    ) -> torch.Tensor:
-    """Decode attention against the valid cache prefix.
+    """Decode attention against the whole cache, masked to the slots at
+    or before each query's position (and inside ``window``), as the
+    reference masks it.
 
-    q: ``(b, hq, s, dh)``; k, v: ``(b, hkv, s_max, dh)``; ``kv_len`` valid
-    slots. The query heads are grouped ``(b, hkv, group, s, dh)`` against
-    the cache ``(b, hkv, 1, kv_len, dh)``, so the cache is never repeated
-    per query head. Products are float32 (the reference accumulates in
-    float32 from the cache's type); only the valid prefix is upcast, and
-    slots past ``kv_len`` — masked in the reference — are not read.
+    q: ``(b, hq, s, dh)``; k, v: ``(b, hkv, s_max, dh)``; positions:
+    ``(s,)``. The query heads are grouped ``(b, hkv, group, s, dh)``
+    against the cache ``(b, hkv, 1, s_max, dh)``, so the cache is never
+    repeated per query head. Products are float32 (the reference
+    accumulates in float32 from the cache's type).
     """
     b, hq, s, dh = q.shape
-    hkv = k.shape[1]
+    hkv, s_max = k.shape[1], k.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, s, dh).float()
-    kv = k[:, :, None, :kv_len].float()
-    vv = v[:, :, None, :kv_len].float()
-    logits = torch.matmul(qg, kv.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
-    ki = torch.arange(kv_len, device=q.device)[None, :]
-    qi = torch.arange(s, device=q.device)[:, None] + (kv_len - s)
+    logits = torch.matmul(qg, k[:, :, None].float().transpose(-1, -2)) \
+        * (1.0 / math.sqrt(dh))
+    ki = torch.arange(s_max, device=q.device)[None, :]
+    qi = positions[:, None]
     mask = ki <= qi
     if window is not None:
         mask &= ki > qi - window
     logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
-    out = torch.matmul(probs.to(v.dtype).float(), vv)
+    out = torch.matmul(probs.to(v.dtype).float(), v[:, :, None].float())
     return out.reshape(b, hq, s, dh).to(q.dtype)
 
 

@@ -4,8 +4,10 @@ Counterpart of ``repro.models.common``. Parameters are ``nn.Module``s
 (see ``transformer.LM``) whose weights keep the reference's
 ``(in, out)`` layout, so a layer computes ``x @ w`` as the reference
 does. Weights are drawn with the reference's distributions from a
-``torch.Generator``: ``normal x 0.02`` in the model's dtype, norm gains
-``normal x 1.0`` in float32. Activations and weights are bf16 for full
+``torch.Generator`` (``transformer.init_scale``): ``normal x 0.02`` in
+the model's dtype, norm gains and the RG-LRU's ``lam`` ``normal x 1.0``
+in float32, the RG-LRU's conv taps ``x 0.2``, RWKV's token-shift mixes,
+decay bias and bonus ``x 0.5``. Activations and weights are bf16 for full
 configs and float32 for smoke ones. Parameters are made not requiring
 gradients; the train step (``train.step``) turns that on for its own
 duration.
@@ -53,6 +55,15 @@ class ModelConfig:
     embed_frontend: bool = False
 
     @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the long_500k shape (bounded attention state)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def q_per_kv(self) -> int:
         return self.n_heads // max(self.n_kv_heads, 1)
 
@@ -72,6 +83,15 @@ class ModelConfig:
         if self.encoder_layers:
             total += self.encoder_layers * per_layer
         return int(total)
+
+    def active_param_count(self) -> int:
+        """Per-token active params (MoE: top-k experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense_ffn = self.moe_topk * 3 * d * f
+        moe_ffn = self.moe_experts * 3 * d * f
+        return int(self.param_count() - self.n_layers * (moe_ffn - dense_ffn))
 
 
 def new_param(shape, dtype: torch.dtype, device) -> torch.nn.Parameter:

@@ -5,13 +5,16 @@
 and returns the port's ``LM`` with the same values, so that both packages
 compute with the same weights; ``params_to_numpy(model)`` is its inverse.
 The layouts agree: the port keeps the reference's ``(in, out)`` weights
-(a layer computes ``x @ w``), so no leaf is transposed; the only change
-is that the reference's ``layers`` leaves, stacked along a leading
-``(n_layers,)`` axis, are the port's ``layers[i]`` (``reference_tree``,
-``port_leaf``). bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays,
-which ``torch.from_numpy`` refuses; their bits are carried over as int16,
-and where ``ml_dtypes`` is missing ``params_to_numpy`` gives those int16
-bits.
+(a layer computes ``x @ w``; the MoE experts' ``(e, in, out)``), so no
+leaf is transposed; the only change is that the reference's stacked
+groups — ``layers``, and the hybrid's ``supers`` and ``tail`` — whose
+leaves carry a leading axis over the group's members, are the port's
+``layers[i]``, ``supers[i]`` and ``tail[j]`` (``reference_tree``,
+``port_leaf``). A hybrid whose layer count is a multiple of 3 has an
+empty ``tail``, ``{}`` in the reference's tree. bf16 leaves arrive as
+``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses; their
+bits are carried over as int16, and where ``ml_dtypes`` is missing
+``params_to_numpy`` gives those int16 bits.
 """
 
 from __future__ import annotations
@@ -27,7 +30,10 @@ from .common import ModelConfig
 from .transformer import LM
 
 __all__ = ["params_from_numpy", "params_to_numpy", "tensor_from_numpy",
-           "reference_tree", "port_leaf"]
+           "reference_tree", "port_leaf", "STACKED"]
+
+# the reference's groups whose leaves are stacked over their members
+STACKED = ("layers", "supers", "tail")
 
 
 def tensor_from_numpy(a) -> torch.Tensor:
@@ -38,32 +44,40 @@ def tensor_from_numpy(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _tree_path(name: str) -> tuple[tuple, int | None]:
+    """The reference's key path of the port's parameter ``name`` and the
+    row of the stacked leaf it is (None outside a stacked group)."""
+    parts = name.split(".")
+    if parts[0] in STACKED:
+        return (parts[0], *parts[2:]), int(parts[1])
+    return (name,), None
+
+
 def port_leaf(tree: dict, name: str):
     """The port's parameter ``name`` read from a tree in the reference's
-    layout (``layers.<i>.…`` is row ``i`` of the stacked leaf)."""
-    parts = name.split(".")
-    if parts[0] != "layers":
-        return tree[name]
-    node = tree["layers"]
-    for key in parts[2:]:
+    layout (``layers.<i>.…`` is row ``i`` of the stacked leaf, likewise
+    ``supers.<i>.…`` and ``tail.<j>.…``)."""
+    path, row = _tree_path(name)
+    node = tree
+    for key in path:
         node = node[key]
-    return node[int(parts[1])]
+    return node if row is None else node[row]
 
 
 def reference_tree(named: dict, stack: Callable = np.stack) -> dict:
     """Leaves keyed by the port's parameter names, as the reference's
-    nested tree: ``layers.<i>.…`` leaves stacked along a leading axis by
-    ``stack`` (``np.stack`` or ``torch.stack``)."""
+    nested tree: the stacked groups' leaves stacked along a leading axis
+    by ``stack`` (``np.stack`` or ``torch.stack``)."""
     tree: dict = {}
-    layers: dict[tuple, dict[int, object]] = {}
+    stacked: dict[tuple, dict[int, object]] = {}
     for name, leaf in named.items():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            layers.setdefault(tuple(parts[2:]), {})[int(parts[1])] = leaf
-        else:
+        path, row = _tree_path(name)
+        if row is None:
             tree[name] = leaf
-    for path, rows in layers.items():
-        node = tree.setdefault("layers", {})
+        else:
+            stacked.setdefault(path, {})[row] = leaf
+    for path, rows in stacked.items():
+        node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = stack([rows[i] for i in range(len(rows))])
@@ -84,9 +98,7 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, *, device=None) -> LM:
     model = LM(cfg, device=resolve_device(device,
                                           what="params_from_numpy"))
     want = {n.rstrip(".") for n in _paths(tree)}
-    have = {".".join(n.split(".")[:1] + n.split(".")[2:])
-            if n.startswith("layers.") else n
-            for n, _ in model.named_parameters()}
+    have = {".".join(_tree_path(n)[0]) for n, _ in model.named_parameters()}
     if want != have:
         raise ValueError(f"tree leaves do not match the {cfg.name} "
                          f"parameters: {sorted(want ^ have)}")
@@ -118,5 +130,8 @@ def params_to_numpy(model: LM) -> dict:
     nested dicts of numpy arrays with the ``layers`` leaves stacked; bf16
     leaves as ``ml_dtypes.bfloat16`` (their int16 bits without
     ``ml_dtypes``)."""
-    return reference_tree({name: _numpy(p)
+    tree = reference_tree({name: _numpy(p)
                            for name, p in model.named_parameters()})
+    if model.cfg.family == "hybrid":
+        tree.setdefault("tail", {})
+    return tree

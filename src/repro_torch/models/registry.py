@@ -1,7 +1,8 @@
-"""Model registry: build/apply functions (dense subset).
+"""Model registry: build/apply functions of the decoder-only families.
 
 Counterpart of ``repro.models.registry``. ``params`` is the ``LM``
-module; the other families raise ``NotImplementedError`` (ROADMAP.md).
+module (dense, MoE, hybrid or SSM); the enc-dec family raises
+``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ def forward_fn(cfg: ModelConfig, *, backend: str = "auto"):
 
 def make_decode_state(cfg: ModelConfig, batch: int, s_max: int, *,
                       device=None) -> transformer.DecodeCaches:
+    """The family's decode caches (``transformer.DecodeCaches``)."""
     return transformer.make_decode_caches(cfg, batch, s_max, device=device)
 
 

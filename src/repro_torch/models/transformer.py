@@ -1,16 +1,25 @@
-"""Decoder-only LM assembly, dense family.
+"""Decoder-only LM assembly: dense, MoE, SSM (RWKV-6) and hybrid (Griffin).
 
-Counterpart of ``repro.models.transformer`` for ``family="dense"``
-(``llama3.2-3b``): the layers run as a Python loop over an
-``nn.ModuleList`` where the reference scans stacked parameters. Under
-grad mode each layer is rematerialised in the backward
-(``torch.utils.checkpoint``, as the reference wraps its layer in
-``jax.checkpoint``), so only the layers' inputs are kept. ``forward`` is
-the inference entry (no graph; on the card prefill attention takes the
-flash kernel), ``lm_loss`` the training one. The MoE, hybrid, SSM and
-enc-dec families raise ``NotImplementedError``; they wait for later
-slices (ROADMAP.md). Decode threads an explicit KV cache that
-``decode_step`` updates in place.
+Counterpart of ``repro.models.transformer``. The layers run as a Python
+loop over ``nn.ModuleList``s where the reference scans stacked
+parameters: ``layers`` for the dense, MoE and SSM families; for the
+hybrid, ``supers`` of (R, R, A) — two RG-LRU blocks and one local
+(windowed) attention block — and a ``tail`` of the remaining
+``n_layers mod 3`` RG-LRU blocks. Under grad mode each layer (each super
+of the hybrid) is rematerialised in the backward
+(``torch.utils.checkpoint``, as the reference wraps it in
+``jax.checkpoint``). ``forward`` is the inference entry (no graph; on
+the card, non-windowed prefill attention takes the flash kernel; the
+hybrid's windowed attention takes the reference's plain path, as the
+reference routes it), ``lm_loss`` the training one. The enc-dec family
+raises ``NotImplementedError``; it waits for a later slice (ROADMAP.md).
+
+Decode threads explicit caches that ``decode_step`` updates in place: a
+KV cache for the dense and MoE families, RWKV states and the channel
+mix's last token for the SSM, and for the hybrid the RG-LRU states and
+a ring buffer of ``min(window, s_max)`` KV slots with the global
+position each slot holds (``ring_pos``, -1 while empty). The SSM and
+hybrid decode take one token a step.
 """
 
 from __future__ import annotations
@@ -22,41 +31,108 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from .attention import Attention, attention, make_kv_cache
+from .attention import Attention, attention, make_kv_cache, repeat_kv
 from .common import (ModelConfig, cross_entropy_loss, new_param, normal_,
-                     rms_norm)
+                     rms_norm, rope)
 from .mlp import MLP, mlp
+from .moe import MoE, moe
+from .rglru import RGLRU, RglruState, make_rglru_state, rglru_block, \
+    rglru_step
+from .rwkv6 import (RwkvChannelMix, RwkvState, RwkvTimeMix, make_rwkv_state,
+                    rwkv_channel_mix, rwkv_time_mix_chunked,
+                    rwkv_time_mix_step)
 
-__all__ = ["Block", "LM", "init_lm", "forward", "lm_loss", "DecodeCaches",
+__all__ = ["Block", "Recurrent", "LocalAttention", "Super", "LM", "init_lm",
+           "init_scale", "forward", "lm_loss", "DecodeCaches",
            "make_decode_caches", "decode_step", "check_family"]
 
-# parameters drawn as normal x 1.0 in float32 (the norm gains)
-_GAINS = ("ln1", "ln2", "final_norm")
+# parameters drawn as normal x 1.0 in float32 (norm gains, the RG-LRU's lam)
+_UNIT = ("ln1", "ln2", "ln", "ln_ffn", "final_norm", "lam")
+
+
+def init_scale(name: str) -> float:
+    """The reference's ``leaf`` scale of the parameter ``name``."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in _UNIT:
+        return 1.0
+    if leaf == "conv_k":
+        return 0.2
+    if leaf.startswith("mix_") or leaf in ("w_bias", "u_bonus"):
+        return 0.5
+    return 0.02
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.embed_frontend:
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm") \
+            or cfg.embed_frontend:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense token-input family only; "
-            f"family {cfg.family!r} waits for a later slice (ROADMAP.md)")
+            f"{cfg.name}: the port runs the decoder-only token-input "
+            f"families; family {cfg.family!r} waits for a later slice "
+            "(ROADMAP.md)")
+
+
+def _norm(d: int, device) -> nn.Parameter:
+    return new_param((d,), torch.float32, device)
 
 
 class Block(nn.Module):
-    """One pre-norm layer: ``ln1``, ``attn``, ``ln2``, ``ffn``."""
+    """One pre-norm layer: ``ln1``, ``attn`` and ``ffn`` (an ``MLP``, or
+    a ``MoE``), ``ln2``; for the SSM ``tm`` (time mix) and ``cm``
+    (channel mix) in place of attention and ffn."""
 
     def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
-        self.ln1 = new_param((cfg.d_model,), torch.float32, device)
-        self.ln2 = new_param((cfg.d_model,), torch.float32, device)
-        self.attn = Attention(cfg, device=device)
+        self.ln1 = _norm(cfg.d_model, device)
+        self.ln2 = _norm(cfg.d_model, device)
+        if cfg.family == "ssm":
+            self.tm = RwkvTimeMix(cfg, device=device)
+            self.cm = RwkvChannelMix(cfg, device=device)
+        else:
+            self.attn = Attention(cfg, device=device)
+            self.ffn = (MoE if cfg.family == "moe" else MLP)(cfg,
+                                                             device=device)
+
+
+class Recurrent(nn.Module):
+    """The hybrid's recurrent layer: ``ln``, ``rglru``, ``ln_ffn``,
+    ``ffn``."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        self.ln = _norm(cfg.d_model, device)
+        self.rglru = RGLRU(cfg, device=device)
+        self.ln_ffn = _norm(cfg.d_model, device)
         self.ffn = MLP(cfg, device=device)
 
 
+class LocalAttention(nn.Module):
+    """The hybrid's attention layer: ``ln``, ``attn`` (windowed),
+    ``ln_ffn``, ``ffn``."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        self.ln = _norm(cfg.d_model, device)
+        self.attn = Attention(cfg, device=device)
+        self.ln_ffn = _norm(cfg.d_model, device)
+        self.ffn = MLP(cfg, device=device)
+
+
+class Super(nn.Module):
+    """The hybrid's (R, R, A) super-block: ``r0``, ``r1``, ``attn``."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        self.r0 = Recurrent(cfg, device=device)
+        self.r1 = Recurrent(cfg, device=device)
+        self.attn = LocalAttention(cfg, device=device)
+
+
 class LM(nn.Module):
-    """Parameters of the dense LM, named as the reference's tree:
+    """Parameters of a decoder-only LM, named as the reference's tree:
     ``embed`` ``(v, d)``, ``final_norm``, ``lm_head`` ``(d, v)`` (untied
-    configs) and ``layers[i]`` — the reference's ``layers`` leaves
-    unstacked along their leading ``(n_layers,)`` axis."""
+    configs), and ``layers[i]`` — or, for the hybrid, ``supers[i]`` and
+    ``tail[j]`` — the reference's stacked leaves unstacked along their
+    leading axis."""
 
     def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
@@ -64,11 +140,18 @@ class LM(nn.Module):
         self.cfg = cfg
         d, v = cfg.d_model, cfg.vocab
         self.embed = new_param((v, d), cfg.dtype, device)
-        self.final_norm = new_param((d,), torch.float32, device)
+        self.final_norm = _norm(d, device)
         if not cfg.tie_embeddings:
             self.lm_head = new_param((d, v), cfg.dtype, device)
-        self.layers = nn.ModuleList(Block(cfg, device=device)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            n_super, rem = divmod(cfg.n_layers, 3)
+            self.supers = nn.ModuleList(Super(cfg, device=device)
+                                        for _ in range(n_super))
+            self.tail = nn.ModuleList(Recurrent(cfg, device=device)
+                                      for _ in range(rem))
+        else:
+            self.layers = nn.ModuleList(Block(cfg, device=device)
+                                        for _ in range(cfg.n_layers))
 
     def head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -78,37 +161,80 @@ class LM(nn.Module):
 def init_lm(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
             device=None) -> LM:
     """Random weights drawn on ``device`` (the card when None) from
-    ``generator`` (seed 0 when None): ``normal x 0.02`` in ``cfg.dtype``,
-    norm gains ``normal x 1.0`` in float32, as the reference draws them
-    (the values differ: the generators differ)."""
+    ``generator`` (seed 0 when None), with the reference's scales and
+    dtypes (``init_scale``; the values differ: the generators differ)."""
     dev = resolve_device(device, what="init_lm")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     model = LM(cfg, device=dev)
     for name, p in model.named_parameters():
-        gain = name.rsplit(".", 1)[-1] in _GAINS
-        normal_(p, generator, 1.0 if gain else 0.02)
+        normal_(p, generator, init_scale(name))
     return model
 
 
+# ------------------------------------------------------------------ forward
 def _block_fwd(cfg: ModelConfig, layer: Block, x: torch.Tensor,
                positions: torch.Tensor, backend: str) -> torch.Tensor:
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
+    if cfg.family == "ssm":
+        b, _, d = x.shape
+        dh = cfg.rwkv_head_dim
+        st = RwkvState(
+            s=torch.zeros((b, d // dh, dh, dh), dtype=torch.float32,
+                          device=x.device),
+            x_prev=x.new_zeros((b, d)))
+        out, _ = rwkv_time_mix_chunked(layer.tm, h, cfg, st)
+        x = x + out
+        out2, _ = rwkv_channel_mix(layer.cm, rms_norm(x, layer.ln2,
+                                                      cfg.norm_eps),
+                                   x.new_zeros((b, d)))
+        return x + out2
     x = x + attention(layer.attn, h, cfg, positions, backend=backend)
     h2 = rms_norm(x, layer.ln2, cfg.norm_eps)
+    if cfg.family == "moe":
+        return x + moe(layer.ffn, h2, cfg)
     return x + mlp(layer.ffn, h2)
+
+
+def _rec_fwd(cfg: ModelConfig, p: Recurrent, x: torch.Tensor
+             ) -> torch.Tensor:
+    w = cfg.rnn_width or cfg.d_model
+    b = x.shape[0]
+    st = RglruState(h=torch.zeros((b, w), dtype=torch.float32,
+                                  device=x.device),
+                    conv=x.new_zeros((b, 3, w)))
+    out, _ = rglru_block(p.rglru, rms_norm(x, p.ln, cfg.norm_eps), cfg, st)
+    x = x + out
+    return x + mlp(p.ffn, rms_norm(x, p.ln_ffn, cfg.norm_eps))
+
+
+def _super_fwd(cfg: ModelConfig, p: Super, x: torch.Tensor,
+               positions: torch.Tensor, backend: str) -> torch.Tensor:
+    x = _rec_fwd(cfg, p.r0, x)
+    x = _rec_fwd(cfg, p.r1, x)
+    pa = p.attn
+    x = x + attention(pa.attn, rms_norm(x, pa.ln, cfg.norm_eps), cfg,
+                      positions, window=cfg.window, backend=backend)
+    return x + mlp(pa.ffn, rms_norm(x, pa.ln_ffn, cfg.norm_eps))
 
 
 def _logits(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
             backend: str, remat: bool) -> torch.Tensor:
     x = torch.nn.functional.embedding(tokens, params.embed)
     positions = torch.arange(x.shape[1], device=x.device)
-    for layer in params.layers:
+    if cfg.family == "hybrid":
+        steps = [(_super_fwd, p) for p in params.supers]
+    else:
+        steps = [(_block_fwd, layer) for layer in params.layers]
+    for fn, p in steps:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_block_fwd, cfg, layer, x, positions, backend,
+            x = checkpoint(fn, cfg, p, x, positions, backend,
                            use_reentrant=False)
         else:
-            x = _block_fwd(cfg, layer, x, positions, backend)
+            x = fn(cfg, p, x, positions, backend)
+    if cfg.family == "hybrid":
+        for p in params.tail:
+            x = _rec_fwd(cfg, p, x)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x @ params.head()
 
@@ -119,7 +245,9 @@ def forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
     """Full-sequence forward: tokens ``(b, s)`` -> logits ``(b, s, vocab)``,
     with no autograd graph. ``backend`` picks the prefill attention route
     (``"auto"``: the kernel on CUDA, the reference's CPU path elsewhere;
-    ``"plain"``: the reference's CPU path on any device)."""
+    ``"plain"``: the reference's CPU path on any device); windowed
+    attention always takes the reference's path. The SSM's sequence must
+    be a multiple of its 64-token chunk."""
     return _logits(params, tokens, cfg, backend=backend, remat=False)
 
 
@@ -135,37 +263,145 @@ def lm_loss(params: LM, batch: dict, cfg: ModelConfig, *,
     return cross_entropy_loss(logits, batch["labels"])
 
 
+# ------------------------------------------------------------------- decode
 class DecodeCaches(NamedTuple):
-    """Decode state; the dense family keeps only the stacked KV cache
-    ``(k, v)``, each ``(n_layers, b, hkv, s_max, dh)``."""
+    """Decode state, by family: ``kv`` ``(k, v)`` stacked
+    ``(n, b, hkv, slots, dh)`` (dense and MoE: n = n_layers, slots =
+    s_max; hybrid: n = supers, slots = the ring's); ``rwkv`` and
+    ``cm_prev`` ``(n_layers, b, d)`` (SSM); ``rglru`` stacked over the
+    recurrent layers in the reference's order (each super's r0, r1, then
+    the tail) and ``ring_pos`` ``(supers, slots)`` int32 (hybrid)."""
 
     kv: Optional[tuple] = None
+    rwkv: Optional[RwkvState] = None
+    cm_prev: Optional[torch.Tensor] = None
+    rglru: Optional[RglruState] = None
+    ring_pos: Optional[torch.Tensor] = None
 
 
 def make_decode_caches(cfg: ModelConfig, batch: int, s_max: int, *,
                        device=None) -> DecodeCaches:
     check_family(cfg)
-    return DecodeCaches(kv=make_kv_cache(
-        cfg, batch, s_max, cfg.n_layers,
-        device=resolve_device(device, what="make_decode_caches")))
+    dev = resolve_device(device, what="make_decode_caches")
+    if cfg.family == "ssm":
+        return DecodeCaches(
+            rwkv=make_rwkv_state(cfg, batch, cfg.n_layers, device=dev),
+            cm_prev=torch.zeros((cfg.n_layers, batch, cfg.d_model),
+                                dtype=cfg.dtype, device=dev))
+    if cfg.family == "hybrid":
+        n_super, rem = divmod(cfg.n_layers, 3)
+        win = min(cfg.window or s_max, s_max)
+        return DecodeCaches(
+            kv=make_kv_cache(cfg, batch, win, n_super, device=dev),
+            rglru=make_rglru_state(cfg, batch, 2 * n_super + rem,
+                                   device=dev),
+            ring_pos=torch.full((n_super, win), -1, dtype=torch.int32,
+                                device=dev))
+    return DecodeCaches(kv=make_kv_cache(cfg, batch, s_max, cfg.n_layers,
+                                         device=dev))
+
+
+def _one_token(cfg: ModelConfig, x: torch.Tensor) -> None:
+    if x.shape[1] != 1:
+        raise ValueError(f"{cfg.name}: the {cfg.family} decode takes one "
+                         f"token a step, got {x.shape[1]}")
+
+
+def _decode_ssm(params: LM, x, caches: DecodeCaches, cfg: ModelConfig):
+    _one_token(cfg, x)
+    st = caches.rwkv
+    for i, layer in enumerate(params.layers):
+        h = rms_norm(x, layer.ln1, cfg.norm_eps)
+        out, new = rwkv_time_mix_step(layer.tm, h, cfg,
+                                      RwkvState(st.s[i], st.x_prev[i]))
+        x = x + out
+        out2, cm_new = rwkv_channel_mix(
+            layer.cm, rms_norm(x, layer.ln2, cfg.norm_eps),
+            caches.cm_prev[i])
+        x = x + out2
+        st.s[i].copy_(new.s)
+        st.x_prev[i].copy_(new.x_prev)
+        caches.cm_prev[i].copy_(cm_new)
+    return x
+
+
+def _decode_hybrid(params: LM, x, caches: DecodeCaches,
+                   positions: torch.Tensor, cfg: ModelConfig):
+    """The reference's hybrid decode: the RG-LRU steps, and local
+    attention over the ring buffer written as the reference writes it
+    (the q.k product in the model's dtype, then float32). positions:
+    ``(1,)``, the token's global position."""
+    _one_token(cfg, x)
+    ck, cv = caches.kv
+    rg, rp = caches.rglru, caches.ring_pos
+    win = ck.shape[3]
+    slot = positions % win
+    window = cfg.window or win
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def rec_step(x, p: Recurrent, li: int):
+        out, st = rglru_step(p.rglru, rms_norm(x, p.ln, cfg.norm_eps), cfg,
+                             RglruState(rg.h[li], rg.conv[li]))
+        rg.h[li].copy_(st.h)
+        rg.conv[li].copy_(st.conv)
+        x = x + out
+        return x + mlp(p.ffn, rms_norm(x, p.ln_ffn, cfg.norm_eps))
+
+    for i, sp in enumerate(params.supers):
+        x = rec_step(x, sp.r0, 2 * i)
+        x = rec_step(x, sp.r1, 2 * i + 1)
+        pa = sp.attn
+        h = rms_norm(x, pa.ln, cfg.norm_eps)
+        b, s, _ = h.shape
+        q = rope((h @ pa.attn.wq).reshape(b, s, hq, dh), positions,
+                 cfg.rope_theta).transpose(1, 2)
+        k = rope((h @ pa.attn.wk).reshape(b, s, hkv, dh), positions,
+                 cfg.rope_theta).transpose(1, 2)
+        v = (h @ pa.attn.wv).reshape(b, s, hkv, dh).transpose(1, 2)
+        ck[i].index_copy_(2, slot, k.to(ck.dtype))
+        cv[i].index_copy_(2, slot, v.to(cv.dtype))
+        rp[i].index_copy_(0, slot, positions.to(rp.dtype))
+        kk, vv = repeat_kv(ck[i], hq // hkv), repeat_kv(cv[i], hq // hkv)
+        logits = torch.matmul(q, kk.transpose(-1, -2)).float() / (dh ** 0.5)
+        valid = (rp[i] >= 0) & (rp[i] <= positions) \
+            & (rp[i] > positions - window)
+        logits = logits.masked_fill(~valid, float("-inf"))
+        probs = torch.softmax(logits, dim=-1)
+        att = torch.matmul(probs, vv.float())
+        att = att.to(x.dtype).transpose(1, 2).reshape(b, s, hq * dh)
+        x = x + att @ pa.attn.wo
+        x = x + mlp(pa.ffn, rms_norm(x, pa.ln_ffn, cfg.norm_eps))
+    for j, p in enumerate(params.tail):
+        x = rec_step(x, p, 2 * len(params.supers) + j)
+    return x
 
 
 @torch.no_grad()
 def decode_step(params: LM, tokens: torch.Tensor, caches: DecodeCaches,
                 pos, cfg: ModelConfig
                 ) -> tuple[torch.Tensor, DecodeCaches]:
-    """One decode step. tokens: ``(b, s)`` int (s = 1 for a step); pos:
-    the global position of the first token (the cache insert index).
-    Returns logits ``(b, s, vocab)`` and the caches, updated in place."""
-    pos = int(pos)
+    """One decode step. tokens: ``(b, s)`` int (s = 1 for a step, and
+    always for the SSM and hybrid); pos: the global position of the
+    first token (the cache insert index), an int or a 0-d integer tensor
+    on the tokens' device — with a tensor the step reads its position on
+    the device alone, so it can be captured in a CUDA graph and replayed
+    at every position. Returns logits ``(b, s, vocab)`` and the caches,
+    updated in place."""
     x = params.embed[tokens]
-    positions = torch.arange(pos, pos + x.shape[1], device=x.device)
-    ck, cv = caches.kv
-    for i, layer in enumerate(params.layers):
-        h = rms_norm(x, layer.ln1, cfg.norm_eps)
-        out, _ = attention(layer.attn, h, cfg, positions,
-                           cache=(ck[i], cv[i]), cache_index=pos)
-        x = x + out
-        x = x + mlp(layer.ffn, rms_norm(x, layer.ln2, cfg.norm_eps))
+    positions = pos + torch.arange(x.shape[1], device=x.device)
+    if cfg.family == "ssm":
+        x = _decode_ssm(params, x, caches, cfg)
+    elif cfg.family == "hybrid":
+        x = _decode_hybrid(params, x, caches, positions, cfg)
+    else:
+        ck, cv = caches.kv
+        for i, layer in enumerate(params.layers):
+            h = rms_norm(x, layer.ln1, cfg.norm_eps)
+            out, _ = attention(layer.attn, h, cfg, positions,
+                               cache=(ck[i], cv[i]))
+            x = x + out
+            h2 = rms_norm(x, layer.ln2, cfg.norm_eps)
+            x = x + (moe(layer.ffn, h2, cfg) if cfg.family == "moe"
+                     else mlp(layer.ffn, h2))
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x @ params.head(), caches

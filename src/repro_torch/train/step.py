@@ -65,7 +65,14 @@ def make_train_fn(cfg: ModelConfig, opt: AdamW, *, microbatches: int = 1):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     loss)``: one optimizer step on ``batch`` (``tokens``, ``labels``).
     ``params`` (the ``LM``) and the state's moments are updated in place;
-    the loss is a float32 0-d tensor on the parameters' device."""
+    the loss is a float32 0-d tensor on the parameters' device. Only the
+    dense family trains: the others serve, and their training waits for
+    a later slice (ROADMAP.md), so it raises ``NotImplementedError``
+    rather than train a path no test holds."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the port trains the dense family only; training "
+            f"the {cfg.family} family waits for a later slice (ROADMAP.md)")
     lfn = loss_fn(cfg, backend="plain")
 
     def loss_and_grads(params, batch):

@@ -20,12 +20,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ALL_ARCHS as jax_all_archs
 from repro.configs import get_config as jax_get_config
 from repro.configs.base import smoke_variant as jax_smoke_variant
 from repro.data.synthetic import make_pipeline as jax_make_pipeline
 from repro.models import registry as JR
 from repro.train.step import make_prefill_fn as jax_make_prefill_fn
-from repro_torch.configs import get_config
+from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.configs.base import smoke_variant
 from repro_torch.data import make_pipeline
 from repro_torch.launch.serve import generate, make_prompts
@@ -34,7 +35,11 @@ from repro_torch.models import registry as TR
 from repro_torch.models.attention import Attention, make_kv_cache
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.mlp import MLP
-from repro_torch.models.transformer import LM, Block
+from repro_torch.models.moe import MoE
+from repro_torch.models.rglru import RGLRU
+from repro_torch.models.rwkv6 import RwkvChannelMix, RwkvTimeMix
+from repro_torch.models.transformer import (LM, Block, LocalAttention,
+                                            Recurrent, Super)
 from repro_torch.train.step import make_prefill_fn, make_serve_fn
 
 ARCH = "llama3.2-3b"
@@ -83,12 +88,48 @@ def test_config_matches_reference(smoke_size):
 
 
 def test_other_archs_and_families_raise():
+    """Only the enc-dec family still raises: its architecture is not
+    registered and its family has no model; every decoder-only
+    architecture of the reference is registered and builds."""
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("olmoe-1b-7b")
-    moe = dataclasses.replace(get_config(ARCH, smoke=True), family="moe",
-                              moe_experts=8, moe_topk=2)
+        get_config("seamless-m4t-large-v2")
+    encdec = dataclasses.replace(get_config(ARCH, smoke=True),
+                                 family="encdec", encoder_layers=2)
+    for build in (lambda c: TR.init_params(c, device="cpu"),
+                  lambda c: TR.make_decode_state(c, 1, 8, device="cpu"),
+                  TR.forward_fn, TR.loss_fn, TR.decode_fn):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            build(encdec)
+    assert sorted(ALL_ARCHS) == sorted(
+        a for a in jax_all_archs if a != "seamless-m4t-large-v2")
+    for arch in ALL_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        assert TR.init_params(cfg, device="cpu").cfg == cfg
+
+
+@pytest.mark.parametrize("arch", ["chameleon-34b", "command-r-35b",
+                                  "granite-8b", "internlm2-20b"])
+@pytest.mark.parametrize("smoke_size", [True, False])
+def test_dense_configs_match_reference(arch, smoke_size):
+    """The four other dense architectures: every field, the parameter
+    counts and the shape cells equal the reference's."""
+    from lm_family_checks import check_config
+    check_config(arch, smoke_size)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-2b",
+                                  "rwkv6-7b"])
+def test_training_refuses_the_serving_only_families(arch):
+    """``make_train_fn`` and ``launch.train`` raise for the MoE, hybrid
+    and SSM families (their training waits: ROADMAP.md)."""
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import make_train_fn
+    cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TR.init_params(moe, device="cpu")
+        make_train_fn(cfg, AdamW(lr=1e-3))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train(cfg, steps=1, batch=2, seq=64, device="cpu",
+              log=lambda s: None)
 
 
 def test_forward_and_loss_match_reference(smoke):
@@ -294,9 +335,15 @@ def test_lm_entry_points_default_to_the_card(entry, monkeypatch):
     assert build(cfg, device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("module", [LM, Block, Attention, MLP])
+@pytest.mark.parametrize("module", [LM, Block, Attention, MLP, MoE, RGLRU,
+                                    RwkvTimeMix, RwkvChannelMix, Recurrent,
+                                    LocalAttention, Super])
 def test_modules_take_an_explicit_device(module):
-    cfg = get_config(ARCH, smoke=True)
+    arch = {MoE: "olmoe-1b-7b", RwkvTimeMix: "rwkv6-7b",
+            RwkvChannelMix: "rwkv6-7b"}.get(module, ARCH)
+    if module in (RGLRU, Recurrent, LocalAttention, Super):
+        arch = "recurrentgemma-2b"
+    cfg = get_config(arch, smoke=True)
     with pytest.raises(TypeError):
         module(cfg)
     params = list(module(cfg, device="cpu").parameters())
