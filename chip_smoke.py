@@ -38,8 +38,8 @@ after:
 * on the same engine, the paper's two-phase flow (``TwoPhaseFlow``) on
   every app at Table II's phase-1 size, then every paper figure and
   table (``repro_torch.experiments.paper_figs``) through the kernels and,
-  on the plain-route engine, through the plain versions (all but Fig
-  12/13, ``PLAIN_SKIPS``): the two held
+  on the plain-route engine, through the plain versions (all but the
+  three of ``PLAIN_SKIPS``): the two held
   equal, and the kernels' numbers held against the reference's committed
   in ``paper_figs_reference.json``; both clustering kernels bitwise
   against their plain versions at the figures' new shapes (k = 50 over
@@ -194,24 +194,27 @@ def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def assign_ms_in_order(x, c, chain: bool) -> tuple[float, float, float]:
+def other_order(order: str) -> str:
+    """The order a shape's timing is compared with: one chain against
+    either interleave, the interleaved chains against one chain."""
+    return "four" if order == "chain" else "chain"
+
+
+def assign_ms_in_order(x, c, order: str) -> tuple[float, float, float]:
     """``kmeans_assign``'s milliseconds (``time_ms_spread``) at ``x (b, n,
-    d)``, ``c (b, k, d)`` with its dot product in the given order, one
-    chain or interleaved chains (the wrapper takes the reference's order
-    at the shape; this launches through its uncounted ``_launch``, for
-    the time of the other order). Not a launch of any path: the wrapper's
-    count is untouched."""
+    d)``, ``c (b, k, d)`` with its dot product in ``order`` (the wrapper
+    takes the reference's order at the shape; this launches through its
+    uncounted ``_launch``, for the time of another order). Not a launch
+    of any path: the wrapper's count is untouched."""
     from repro_torch.kernels.kmeans_assign import ops
-    order = "chain" if chain else "four"
     return time_ms_spread(lambda: ops._launch(x, c, order))
 
 
-def assign_device_ms(x, c, chain: bool) -> float:
-    """The kernel's own time on the card (``torch.profiler``) in the given
-    dot order, uncounted as ``assign_ms_in_order``: CUDA events around a
-    launch of a few tens of microseconds also read the host's share."""
+def assign_device_ms(x, c, order: str) -> float:
+    """The kernel's own time on the card (``torch.profiler``) in ``order``,
+    uncounted as ``assign_ms_in_order``: CUDA events around a launch of a
+    few tens of microseconds also read the host's share."""
     from repro_torch.kernels.kmeans_assign import ops
-    order = "chain" if chain else "four"
     return device_ms(lambda: ops._launch(x, c, order),
                      ["assign_kernel"]).get("assign_kernel")
 
@@ -507,8 +510,8 @@ def check_main_path_inputs(latency: dict) -> dict:
             f"{assign_ops.last_dispatch()['grid']}")
         err = float((d2_k - d2_p).abs().max())
         order = assign_ops.last_dispatch()["order"]
-        other_t = assign_ms_in_order(x, old, order == "four")
-        other_dev = assign_device_ms(x, old, order == "four")
+        other_t = assign_ms_in_order(x, old, other_order(order))
+        other_dev = assign_device_ms(x, old, other_order(order))
         log(f"  kmeans_assign {tag}: the reference's dot order here is "
             f"{order}; in the other order {spread(other_t)} (on the card "
             f"{other_dev:.4f} ms)")
@@ -597,14 +600,16 @@ def check_main_path_inputs(latency: dict) -> dict:
     return out
 
 
-def flash_bound(b, hq, hkv, sq, skv, d, dtype) -> tuple[float, str, float]:
-    """Least time (ms) of one causal attention and what sets it, plus its
-    FLOP: 4 d FLOP per visible (row, column) pair (q.k and p.v), the
-    pairs of end-aligned causal rows; each of q, k, v read once and o
-    written once. bf16 counts at the tensor-core rate, float32 at the
-    float32 FMA rate."""
+def flash_bound(b, hq, hkv, sq, skv, d, dtype, causal: bool = True
+                ) -> tuple[float, str, float]:
+    """Least time (ms) of one attention and what sets it, plus its FLOP:
+    4 d FLOP per visible (row, column) pair (q.k and p.v), the pairs of
+    end-aligned causal rows, or every pair without ``causal``; each of q,
+    k, v read once and o written once. bf16 counts at the tensor-core
+    rate, float32 at the float32 FMA rate."""
     import torch
-    pairs = sq * (skv - sq + 1) + sq * (sq - 1) // 2
+    pairs = sq * (skv - sq + 1) + sq * (sq - 1) // 2 if causal \
+        else sq * skv
     flops = 4.0 * b * hq * d * pairs
     size = torch.finfo(dtype).bits // 8
     nbytes = size * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
@@ -651,15 +656,31 @@ FAMILY_FLASH = {
 }
 
 
+# seamless-m4t-large-v2's attention (16 heads of 64, MHA) over 4 x 4096
+# tokens: the encoder's and the cross-attention's bidirectional branch
+# (source and target 4096, and 1000 target rows against 4096 source frames
+# and the other way round), and the decoder's causal self-attention, as
+# (shape, causal)
+ENCDEC_FLASH = {
+    "seamless encoder": ((4, 16, 16, 4096, 4096, 64), False),
+    "seamless cross 1000/4096": ((4, 16, 16, 1000, 4096, 64), False),
+    "seamless cross 4096/1000": ((4, 16, 16, 4096, 1000, 64), False),
+    "seamless decoder self": ((4, 16, 16, 4096, 4096, 64), True),
+}
+
+
 def check_flash(gen) -> dict:
     """The kernels against their plain version (``flash_attention_ref``)
     at the cases of ``tests/test_kernels.py``, at ragged lengths, appends,
     GQA groups and head widths, and at the LM's shapes (prefill, eval
     forward, the longest sequence the plain version fits), each in float32
-    and bf16; at the other architectures' prefill shapes
-    (``FAMILY_FLASH``) in bf16; strided (projection-layout) inputs against
-    contiguous ones, bitwise; bf16 timings at the LM and family shapes
-    beside their bounds and ``scaled_dot_product_attention``."""
+    and bf16; the bidirectional branch at ragged shapes with sq below and
+    above skv in both types; at the other architectures' prefill shapes
+    (``FAMILY_FLASH``) and the enc-dec model's (``ENCDEC_FLASH``, the
+    encoder's in float32 too) in bf16; strided (projection-layout) inputs
+    against contiguous ones, bitwise; bf16 timings at the LM, family and
+    enc-dec shapes beside their bounds and
+    ``scaled_dot_product_attention``."""
     import torch
     from repro_torch.kernels import backend
     from repro_torch.kernels.flash_attention import ops
@@ -677,47 +698,66 @@ def check_flash(gen) -> dict:
              (1, 3, 1, 7, 1000, 128), (2, 4, 1, 7, 129, 32),  # 7-row appends
              (1, 4, 4, 1, 300, 40),                  # 1-row append, d 40
              (2, 6, 2, 333, 333, 40), (1, 4, 1, 257, 385, 64)]  # ragged
+    bidirectional = [(1, 4, 2, 256, 512, 64), (1, 4, 4, 512, 256, 64),
+                     (2, 6, 2, 333, 100, 40), (1, 2, 2, 1, 700, 128),
+                     (2, 3, 3, 130, 7, 128)]
     main_shape = (4, 24, 8, 4096, 4096, 128)
-    timed = {"main": main_shape, "eval": (4, 24, 8, 2048, 2048, 128),
-             "long": (1, 1, 1, 32768, 32768, 128), **FAMILY_FLASH}
-    cases = [(s, dt, "bhsd") for s in small
+    timed = {"main": (main_shape, True),
+             "eval": ((4, 24, 8, 2048, 2048, 128), True),
+             "long": ((1, 1, 1, 32768, 32768, 128), True),
+             **{tag: (s, True) for tag, s in FAMILY_FLASH.items()},
+             **ENCDEC_FLASH}
+    cases = [(s, dt, "bhsd", True) for s in small
              for dt in (torch.float32, torch.bfloat16)]
-    cases += [(s, dt, "bshd") for tag, s in timed.items()
-              for dt in ((torch.bfloat16,) if tag in FAMILY_FLASH
-                         else (torch.bfloat16, torch.float32))]
+    cases += [(s, dt, "bhsd", False) for s in bidirectional
+              for dt in (torch.float32, torch.bfloat16)]
+    cases += [(s, dt, "bshd", causal) for tag, (s, causal) in timed.items()
+              for dt in ((torch.bfloat16, torch.float32)
+                         if tag in ("main", "eval", "long",
+                                    "seamless encoder")
+                         else (torch.bfloat16,))]
     out = {}
-    for shape, dtype, layout in cases:
+    for shape, dtype, layout, causal in cases:
         q, k, v = flash_case(gen, shape, dtype, layout=layout)
-        got = ops.flash_attention(q, k, v)
+        got = ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         if got.shape != q.shape or not got.transpose(1, 2).is_contiguous():
             raise AssertionError(f"flash_attention {shape}: output is not "
                                  "the (b, hq, sq, d) view of a (b, sq, hq, "
                                  "d) tensor")
-        want = flash_attention_ref(q, k, v)
+        if ops.last_dispatch()["causal"] != causal:
+            raise AssertionError(f"flash_attention {shape}: launched the "
+                                 "other branch")
+        want = flash_attention_ref(q, k, v, causal=causal)
         rtol, atol = FLASH_TOL[str(dtype).split(".")[-1]]
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
         # the largest error as a share of what the tolerance allows there
         share = float((diff / (atol + rtol * want.float().abs())).max())
         if not bool(torch.isfinite(got).all()) or share > 1.0:
-            raise AssertionError(f"flash_attention {shape} {dtype}: max "
-                                 f"error {err:.3g}, {share:.3g} of the "
-                                 f"tolerance (rtol {rtol}, atol {atol})")
-        line = (f"flash_attention {shape} {str(dtype)[6:]} {layout}: max "
-                f"|err| {err:.3g}, {share:.3g} of the tolerance (rtol "
-                f"{rtol}, atol {atol})")
-        tag = next((t for t, s in timed.items() if s == shape), None)
+            raise AssertionError(f"flash_attention {shape} {dtype} "
+                                 f"causal={causal}: max error {err:.3g}, "
+                                 f"{share:.3g} of the tolerance (rtol "
+                                 f"{rtol}, atol {atol})")
+        line = (f"flash_attention {shape} {str(dtype)[6:]} {layout} "
+                f"{'causal' if causal else 'bidirectional'}: max |err| "
+                f"{err:.3g}, {share:.3g} of the tolerance (rtol {rtol}, atol "
+                f"{atol})")
+        tag = next((t for t, (s, c) in timed.items()
+                    if s == shape and c == causal), None)
         if tag is not None and dtype == torch.bfloat16:
-            ms = time_ms(lambda: ops.flash_attention(q, k, v))
-            plain_ms = time_ms(lambda: flash_attention_ref(q, k, v),
+            ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
+            plain_ms = time_ms(lambda: flash_attention_ref(q, k, v,
+                                                           causal=causal),
                                warmup=1, iters=3)
-            bound_ms, bound_by, flops = flash_bound(*shape, dtype)
-            # the yardstick: one PyTorch call for the same function (sq ==
-            # skv, so its top-left causal mask is end-aligned)
+            bound_ms, bound_by, flops = flash_bound(*shape, dtype,
+                                                    causal=causal)
+            # the yardstick: one PyTorch call for the same function (a
+            # causal case has sq == skv, so its top-left causal mask is
+            # end-aligned)
             sdpa = torch.nn.functional.scaled_dot_product_attention
             qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-            lib_ms = time_ms(lambda: sdpa(qc, kc, vc, is_causal=True,
+            lib_ms = time_ms(lambda: sdpa(qc, kc, vc, is_causal=causal,
                                           enable_gqa=True))
             line += (f"; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
                      f"TFLOP/s), plain {plain_ms:.4f} ms, bound "
@@ -726,7 +766,8 @@ def check_flash(gen) -> dict:
                      f"{lib_ms:.4f} ms")
             out[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": lib_ms}
+                        "library_ms": lib_ms, "shape": list(shape),
+                        "causal": causal}
             del qc, kc, vc
         log(line)
         del q, k, v, got, want, diff
@@ -734,13 +775,15 @@ def check_flash(gen) -> dict:
 
     # the projections' layout read in place gives the bits of contiguous
     # copies, through both entries
-    for shape in (main_shape, (2, 6, 2, 300, 300, 128), (1, 4, 1, 7, 260, 64),
-                  (3, 3, 3, 64, 200, 32)):
+    for shape, causal in ((main_shape, True), ((2, 6, 2, 300, 300, 128), True),
+                          ((1, 4, 1, 7, 260, 64), True),
+                          ((3, 3, 3, 64, 200, 32), True),
+                          ((2, 6, 2, 300, 100, 64), False)):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = flash_case(gen, shape, dtype, layout="bshd")
-            got = ops.flash_attention(q, k, v)
+            got = ops.flash_attention(q, k, v, causal=causal)
             flat = ops.flash_attention(q.contiguous(), k.contiguous(),
-                                       v.contiguous())
+                                       v.contiguous(), causal=causal)
             torch.cuda.synchronize()
             if not torch.equal(got, flat):
                 raise AssertionError(f"flash_attention {shape} {dtype}: "
@@ -748,7 +791,7 @@ def check_flash(gen) -> dict:
                                      "inputs")
             del q, k, v, got, flat
     log("flash_attention: (b, s, h, d)-layout views equal contiguous inputs "
-        "bitwise for both entries at 4 shapes")
+        "bitwise for both entries at 5 shapes (one bidirectional)")
     torch.cuda.empty_cache()
     out["sass"] = counts
     return out
@@ -1331,12 +1374,21 @@ def run_flows(engine, apps=None) -> dict:
     return {"steps": steps, "apps": out}
 
 
+# (b, n, k, d) of one shape in each of the reference's three dot orders,
+# keyed "<order>_<width>_k<k>" (core.ordered.reference_dot_order)
+ORDER_SHAPES = {"four_rfv_k20": (1, 6861, 20, 38),
+                "chain_rfv_k50": (1, 6861, 50, 38),
+                "swapped_rfv_k40": (1, 6861, 40, 38),
+                "swapped_bbv_k28": (1, 120000, 28, 15)}
+
+
 def check_new_shapes(engine, record: dict) -> dict:
     """Both clustering kernels bitwise against their plain versions at the
     figure path's new shapes, on its own inputs: gcc's 120,000 projected
     BBVs against the k = 50 fit's centroids, and the largest phase-1 RFV
     sample (523.xalancbmk_r, n1 = 6861, d = 38) against the Fig 12/13
-    k = 500 fit's; the update's weighted sums for the labels that gives.
+    k = 500 fit's; the update's weighted sums for the labels that gives;
+    ``kmeans_assign`` at one shape of each dot order (``ORDER_SHAPES``).
     Each timed with CUDA events beside its bytes bound (and index_add_
     for segment_stats)."""
     import torch
@@ -1366,9 +1418,9 @@ def check_new_shapes(engine, record: dict) -> dict:
         bound_ms, bound_by = bound(4 * (b * n * d + b * k * d + 2 * b * n),
                                    2.0 * b * n * k * d + 2.0 * b * n * d)
         order = assign_ops.last_dispatch()["order"]
-        other_t = assign_ms_in_order(x, c, order == "four")
-        dev = assign_device_ms(x, c, order == "chain")
-        other_dev = assign_device_ms(x, c, order == "four")
+        other_t = assign_ms_in_order(x, c, other_order(order))
+        dev = assign_device_ms(x, c, order)
+        other_dev = assign_device_ms(x, c, other_order(order))
         out["kmeans_assign"][tag] = {
             "max_abs_err": 0.0, "ms": ms, "ms_range": ms_t[1:],
             "device_ms": dev, "plain_ms": plain_ms,
@@ -1407,6 +1459,40 @@ def check_new_shapes(engine, record: dict) -> dict:
             f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"index_add_ {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}), bound share {bound_ms / ms:.3f}")
+    # one shape of each dot order on random points: the RFV width at the
+    # engine's k = 20 (four chains, which are two at d = 38), k = 50 (one
+    # chain) and k = 40 (the swapped order: four chains at d = 38), and
+    # the BBV width at k = 28 (swapped: two chains at d = 15)
+    for tag, (b, n, k, d) in ORDER_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(n + k + d)
+        x = torch.randn((b, n, d), generator=gen, device="cuda")
+        c = torch.randn((b, k, d), generator=gen, device="cuda")
+        lab_k, d2_k = assign_ops.kmeans_assign(x, c)
+        order = assign_ops.last_dispatch()["order"]
+        lab_p, d2_p = assign_ops.kmeans_assign(x, c, backend="plain")
+        if order != tag.split("_")[0] or not (
+                torch.equal(lab_k, lab_p) and same_bits(d2_k, d2_p)):
+            raise AssertionError(
+                f"kmeans_assign {tag} ({order}): {int((lab_k != lab_p).sum())}"
+                f" labels, {int((d2_k != d2_p).sum())} distances differ from "
+                "plain")
+        ms_t = time_ms_spread(lambda: assign_ops.kmeans_assign(x, c))
+        plain_ms = time_ms(lambda: assign_ops.kmeans_assign(
+            x, c, backend="plain"), iters=3)
+        dev = assign_device_ms(x, c, order)
+        bound_ms, bound_by = bound(4 * (b * n * d + b * k * d + 2 * b * n),
+                                   2.0 * b * n * k * d + 2.0 * b * n * d)
+        out["kmeans_assign"][tag] = {
+            "max_abs_err": 0.0, "ms": ms_t[0], "ms_range": ms_t[1:],
+            "device_ms": dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "shape": [b, n, k, d], "order": order}
+        log(f"kmeans_assign {tag} (b={b}, n={n}, d={d}, k={k}): the "
+            f"reference's order here is {order}; bitwise equal to plain; "
+            f"kernel {spread(ms_t)} (on the card {dev:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), bound "
+            f"share {bound_ms / ms_t[0]:.3f}")
+        del x, c, lab_k, d2_k, lab_p, d2_p
     # these launches hold the kernels against plain: they are not the path's
     assign_ops._launches, segment_ops._launches = n_launch
     return out
@@ -1455,9 +1541,13 @@ def fig12_breakdown(engine, app: str = "523.xalancbmk_r") -> dict:
 # figures the plain-route twin leaves out, to keep the smoke in its time
 # budget: Fig 12/13 (bench_distribution_approx) is the slowest, host-bound
 # (memo reads, per-stratum loops), and its k = 500 fits are held bitwise
-# kernel against plain by check_new_shapes; its kernel-route numbers are
-# still held against the reference's
-PLAIN_SKIPS = ("bench_distribution_approx",)
+# kernel against plain by check_new_shapes; the ISA-feature and
+# approximate-phase-1 benches (out since the enc-dec phase joined) are the
+# next two, k = 20 fits over phase-1 samples. Their kernel-route numbers,
+# and every one of their fits' labels, are still held against the
+# reference's
+PLAIN_SKIPS = ("bench_distribution_approx", "bench_isa_features",
+               "bench_approx_phase1")
 
 
 def phase_flow_and_figures(engine, plain) -> tuple[dict, dict]:
@@ -2796,6 +2886,192 @@ def phase_families(card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 4c
+# the enc-dec family at seamless-m4t-large-v2's full size (24 + 24 layers,
+# d_model 1024, 16 heads of 64, vocabulary 256,206; bf16): prefill over 4 x
+# 4096 source frames and target tokens, the serve loop (batch 4, 4096
+# frames, 32 tokens), SampledEval over 16 batches of 4 x 2048 tokens (the
+# reference's pipeline gives them 256 frames)
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_PREFILL = (4, 4096)
+ENCDEC_SERVE = (4, 4096, 32)
+ENCDEC_CACHE = 64
+
+
+def phase_encdec(card: str) -> dict:
+    """The enc-dec serving path at full size: prefill through the kernel
+    route and the plain route, logits compared; the serve loop (encode,
+    cross K/V, one captured decode graph a step), its first step held
+    against a forward of that one token; ``SampledEval`` over the model.
+    Each kernel-route forward must launch flash 24 times causal (the
+    decoder's self-attention) and 48 times bidirectional (the encoder and
+    the cross-attention), the serve loop's encode 24 bidirectional.
+    Returns the launches of the kernels, flash split by branch."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticEncDec, make_pipeline
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+    from repro_torch.launch.serve import generate, make_source
+    from repro_torch.models.registry import forward_fn, init_params, loss_fn
+    from repro_torch.train.sampled_eval import SampledEval
+    from repro_torch.train.step import make_prefill_fn
+
+    for ops in (flash_ops, assign_ops, segment_ops):
+        ops.reset_launch_count()
+    cfg = get_config(ENCDEC_ARCH)
+    peaks: list = []
+    want = {"causal": 0, "non_causal": 0}
+
+    def step(name, t0):
+        return _step(name, t0, prefix=ENCDEC_ARCH, peaks=peaks)
+
+    def forwards(n: int, *, encoder_only: bool = False) -> None:
+        want["non_causal"] += n * cfg.encoder_layers
+        if not encoder_only:
+            want["causal"] += n * cfg.n_layers
+            want["non_causal"] += n * cfg.n_layers
+
+    rec = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    rec["parameters"] = sum(p.numel() for p in params.parameters())
+    rec["init_s"] = step(f"init {rec['parameters'] / 1e9:.4f} B parameters "
+                         f"({cfg.encoder_layers} + {cfg.n_layers} layers; "
+                         f"the config counts {cfg.param_count() / 1e9:.4f} "
+                         "B)", t0)
+
+    # 1. prefill: the kernel route (cold, then warm), then the plain route
+    pb, ps = ENCDEC_PREFILL
+    batch = SyntheticEncDec(vocab=cfg.vocab, seq_len=ps, global_batch=pb,
+                            seed=0, device="cuda", d_model=cfg.d_model,
+                            src_len=ps).batch(0)
+    t0 = time.perf_counter()
+    kern = make_prefill_fn(cfg)(params, batch)
+    rec["cold_prefill_s"] = step(f"prefill {pb} x {ps} frames and tokens "
+                                 "(kernel route, cold)", t0)
+    t0 = time.perf_counter()
+    kern = make_prefill_fn(cfg)(params, batch)
+    rec["prefill_s"] = step(f"prefill {pb} x {ps} (kernel route, warm)", t0)
+    forwards(2)
+    rec["prefill_tokens_per_s"] = pb * ps / rec["prefill_s"]
+    by_branch = {b: flash_ops.launch_count(b) for b in want}
+    if by_branch != want:
+        raise AssertionError(f"{ENCDEC_ARCH} prefill: flash launched "
+                             f"{by_branch}, expected {want}")
+    t0 = time.perf_counter()
+    plain = make_prefill_fn(cfg, backend="plain")(params, batch)
+    rec["plain_prefill_s"] = step(f"prefill {pb} x {ps} (plain route)", t0)
+    rec["kernel_vs_plain"] = compare_logits(
+        f"{ENCDEC_ARCH} prefill {pb} x {ps} kernel vs plain", kern, plain)
+    t0 = time.perf_counter()
+    rec["prefill_trace"] = trace_record(traced(
+        f"{ENCDEC_ARCH} prefill {pb} x {ps} (kernel route)",
+        lambda: make_prefill_fn(cfg)(params, batch), top=6, cpu=False))
+    forwards(1)
+    step("traced prefill", t0)
+    del kern, plain, batch
+    torch.cuda.empty_cache()
+
+    # 2. the serve loop: encode the frames, the cross K/V, greedy decoding
+    # from token 0 at position 0
+    sb, sp, sg = ENCDEC_SERVE
+    prompts, src = make_source(cfg, sb, sp, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompts, gen=sg, cache_len=ENCDEC_CACHE,
+                   src=src)
+    forwards(1, encoder_only=True)
+    rec["serve_s"] = step(
+        f"serve loop (batch {sb}, {sp} frames, gen {sg}, cache "
+        f"{ENCDEC_CACHE}): encode, cross K/V and capture {out.prefill_s:.3f}"
+        f" s, generation {out.decode_s:.3f} s = {out.tokens_per_s:.1f} "
+        "tokens/s", t0)
+    rec.update(serve_prefill_s=out.prefill_s, decode_s=out.decode_s,
+               tokens_per_s=out.tokens_per_s)
+    if out.tokens.shape != (sb, sg) or not bool(
+            ((out.tokens >= 0) & (out.tokens < cfg.vocab)).all()):
+        raise AssertionError(f"{ENCDEC_ARCH} serve loop: bad tokens")
+    # the first step (decode of token 0 at position 0 against the cross
+    # K/V) against the full forward of that one token
+    first = forward_fn(cfg)(params, {
+        "src_embeds": src, "tokens": torch.zeros_like(prompts[:, :1])})
+    forwards(1)
+    rec["decode_vs_forward"] = compare_logits(
+        f"{ENCDEC_ARCH} serve first step (decode) vs forward",
+        out.first_logits, first[:, -1])
+    del out, first, src, prompts
+    torch.cuda.empty_cache()
+
+    # 3. SampledEval: a census of the corpus, then the estimates, each
+    # batch forwarded once (memoised); features: the loss, the tokens' and
+    # the frames' spread
+    pipe = make_pipeline(cfg, EVAL_SEQ, EVAL_BATCH, seed=999, device="cuda")
+    loss_of = loss_fn(cfg)
+    memo = {}
+
+    @torch.no_grad()
+    def eval_batch(i: int):
+        if i not in memo:
+            b = pipe.batch(i)
+            loss = float(loss_of(params, b))
+            memo[i] = (loss, np.array([
+                loss, float(b["tokens"].float().std(unbiased=False)),
+                float(b["src_embeds"].std(unbiased=False))]))
+        return memo[i]
+
+    t0 = time.perf_counter()
+    census = float(np.mean([eval_batch(i)[0]
+                            for i in range(FAMILY_EVAL_BATCHES)]))
+    forwards(len(memo))
+    rec["eval_census_s"] = step(
+        f"eval census: {len(memo)} forwards of {EVAL_BATCH} x {EVAL_SEQ} "
+        f"tokens and {pipe.src_len} frames, mean loss {census:.6f}", t0)
+    se = SampledEval(n_batches=FAMILY_EVAL_BATCHES, eval_batch=eval_batch,
+                     num_strata=2, device="cuda")
+    t0 = time.perf_counter()
+    est1 = se.characterize(n_phase1=FAMILY_EVAL_PHASE1)
+    quick = se.quick_estimate()
+    ci = se.ci_check(per_stratum=2)
+    rec["sampled_eval_s"] = step(
+        "SampledEval characterize / quick_estimate / ci_check", t0)
+    for name, val in (("phase-1", est1.mean), ("quick", quick),
+                      ("ci", ci.mean)):
+        if not np.isfinite(val):
+            raise AssertionError(f"{ENCDEC_ARCH} SampledEval {name} "
+                                 f"estimate {val}")
+    rec["sampled_eval"] = {"census": census, "phase1": est1.mean,
+                           "quick": quick, "ci": ci.mean,
+                           "ci_margin_pct": ci.margin_pct}
+    log(f"{ENCDEC_ARCH} SampledEval (random weights): census "
+        f"{census:.6f}; phase-1 {est1.mean:.6f}; quick {quick:.6f}; ci "
+        f"{ci.mean:.6f} +- {ci.margin_pct:.3f}%")
+
+    by_branch = {b: flash_ops.launch_count(b) for b in want}
+    if by_branch != want:
+        raise AssertionError(f"{ENCDEC_ARCH}: flash launched {by_branch}, "
+                             f"expected {want}")
+    rec["flash_launches"] = by_branch
+    rec["peak_gib"] = max(peaks) / 2**30
+    if max(peaks) >= 80e9:
+        raise AssertionError(f"{ENCDEC_ARCH}: peak memory at or above 80 GB")
+    del params
+    torch.cuda.empty_cache()
+    launches = {"flash_attention": by_branch["causal"],
+                "flash_attention_noncausal": by_branch["non_causal"],
+                "kmeans_assign": assign_ops.launch_count(),
+                "segment_stats": segment_ops.launch_count()}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the enc-dec path never launched {name}")
+    log(f"encdec path launches {launches} ({card})")
+    log("encdec record " + json.dumps(rec))
+    return launches
+
+
 # ------------------------------------------------------------------ phase 5
 # the trainer at llama3.2-3b's full size: all 28 layers, bf16 weights,
 # float32 moments; global batch 8 x 1024 in the reference's default
@@ -3080,6 +3356,7 @@ def main() -> int:
                "flow_and_figures": flow_path, **fleet_paths,
                "mesh": mesh_path, "lm": timed("LM path", phase_lm)}
     by_path["families"] = timed("families path", phase_families, card)
+    by_path["encdec"] = timed("enc-dec path", phase_encdec, card)
     by_path["train"] = train_path["launches"]
     log("seconds by phase: " + ", ".join(
         f"{name} {s:.1f}" for name, s in seconds.items())
@@ -3125,14 +3402,28 @@ def main() -> int:
          "traced_build": {p: traced[p] for p in CLUSTER_KERNELS
                           if p != "assign_kernel"},
          "mesh": mesh_detail["segment_stats"]},
-        {"name": "flash_attention", "route": "cuda",
+        {"name": "flash_attention", "route": "cuda", "branch": "causal",
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+         "float32_source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces":
              "src/repro/kernels/flash_attention/flash_attention.py:32",
          **launches("flash_attention"), **flash["main"],
          "other_shapes": {"eval": flash["eval"], "long": flash["long"],
-                          **{tag: flash[tag] for tag in FAMILY_FLASH}},
+                          **{tag: flash[tag] for tag in FAMILY_FLASH},
+                          "seamless decoder self":
+                              flash["seamless decoder self"]},
          "sass": flash["sass"]},
+        {"name": "flash_attention_noncausal", "route": "cuda",
+         "branch": "bidirectional",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+         "float32_source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces":
+             "src/repro/kernels/flash_attention/flash_attention.py:32",
+         **launches("flash_attention_noncausal"),
+         **flash["seamless encoder"],
+         "other_shapes": {tag: flash[tag] for tag in
+                          ("seamless cross 1000/4096",
+                           "seamless cross 4096/1000")}},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

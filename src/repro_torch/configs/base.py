@@ -2,10 +2,8 @@
 
 Counterpart of ``repro.configs.base``: one ``full()`` (the published
 widths, bf16) and one ``smoke()`` (reduced, f32, CPU-runnable) config per
-architecture. The port registers every decoder-only architecture of the
-reference (dense, MoE, hybrid, SSM); the enc-dec
-``seamless-m4t-large-v2`` waits for a later slice (ROADMAP.md), and
-``get_config`` names that when asked for it.
+architecture. The port registers every architecture of the reference
+(dense, MoE, hybrid, SSM and the enc-dec ``seamless-m4t-large-v2``).
 
     train_4k     seq 4096  global_batch 256   (train_step)
     prefill_32k  seq 32768 global_batch 32    (prefill forward)
@@ -23,7 +21,7 @@ import torch
 from ..models.common import ModelConfig
 
 __all__ = ["ShapeCell", "SHAPES", "SHAPE_BY_NAME", "register", "get_config",
-           "list_archs", "cells_for", "smoke_variant", "UNPORTED_ARCHS"]
+           "list_archs", "cells_for", "smoke_variant"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +42,6 @@ SHAPES: tuple[ShapeCell, ...] = (
 SHAPE_BY_NAME = {s.name: s for s in SHAPES}
 
 _REGISTRY: dict[str, dict[str, Callable[[], ModelConfig]]] = {}
-# the reference's architectures whose model the port has not yet
-UNPORTED_ARCHS = ("seamless-m4t-large-v2",)
 
 
 def register(arch_id: str, full: Callable[[], ModelConfig],
@@ -57,9 +53,6 @@ def get_config(arch_id: str, *, smoke: bool = False) -> ModelConfig:
     from . import ALL_ARCHS  # noqa: F401 — registers on first use
     entry = _REGISTRY.get(arch_id)
     if entry is None:
-        if arch_id in UNPORTED_ARCHS:
-            raise KeyError(f"{arch_id!r}: the port has no enc-dec model "
-                           "yet; it waits for a later slice (ROADMAP.md)")
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
     return entry["smoke" if smoke else "full"]()
 

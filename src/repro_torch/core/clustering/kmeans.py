@@ -318,7 +318,8 @@ def kmeans_bank(features, k: int, *, weights=None, key=None, seed: int = 0,
     ``mesh`` (an ``("app",)`` mesh) the lanes are split over its devices:
     each shard's steps launch both kernels at its local shape, so a lane's
     result is the unsharded one wherever the local shape's dot and norm
-    orders are the full shape's (``core.ordered.DOT_ORDERS``).
+    orders are the full shape's (``core.ordered.reference_dot_order``: the
+    dot's depends on k and d alone, so only the norms' can part).
     """
     x = _as_points(features, device, 3)
     if k < 1 or k > x.shape[1]:

@@ -19,15 +19,17 @@ from cumulative sums, so one flipped bit can pick a different seed):
   of its plain products; at a depth that is 1 or 2 mod 4, two (depth
   index mod 2), summed as a0 + a1, an odd last term added as a plain
   product; a depth below 4 is one multiply-add chain;
-* but the k-means distance einsum ``(B, n, d) x (B, k, d)`` does not
-  always take the interleaved order: at some shapes XLA emits it as ONE
-  multiply-add chain over d, in order (``dot_chain``), and which one it
-  takes moves with n, k and B, not by a threshold (k = 20 and 40 four chains, 25-32
-  neither, 49-64 one chain, 100 four, 128 one ...). ``DOT_ORDERS``
-  tabulates the order at every shape where a fit of the port runs,
-  derived from the reference's own einsum on the CPU
-  (``tests/test_torch_paper_figs.py`` holds each row);
-  ``reference_dot_order`` reads it, and ``dot_in_order`` computes either;
+* but the k-means distance einsum ``(B, n, d) x (B, k, d)`` takes one of
+  three orders, by k and d alone (``reference_dot_order``, the rule
+  below): ``dot_nt``'s interleaved chains (``"four"``), ONE multiply-add
+  chain over d in order (``dot_chain``, ``"chain"``), or the other
+  interleave (``dot_swapped``, ``"swapped"``: four chains where d is 1 or
+  2 mod 4, two where it is 0 or 3 mod 4). ``DOT_ORDERS`` is the
+  regression set the rule must reproduce: the order at every shape where
+  a fit of the port ran when the orders were first tabulated
+  (``tests/test_torch_paper_figs.py`` holds each row against the
+  reference's einsum, ``tests/test_torch_dot_order.py`` the rule at
+  shapes off the table); ``dot_in_order`` computes any of the three;
 * the distance's squared norms ``sum(x * x)`` over d = 5 to 8 are
   vectorized over rows: the leading ``norm_vector_rows(m, d)`` rows of an
   ``(..., m, d)`` stack add their rounded products in order, the rest are
@@ -50,9 +52,9 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["fma32", "tree_sum", "sum_sq", "sum_sq_rows", "norm_vector_rows",
-           "blocked_cumsum", "dot_nt",
-           "dot_chain", "dot_in_order", "reference_dot_order", "DOT_ORDERS",
-           "seq_sum"]
+           "blocked_cumsum", "dot_nt", "dot_chain", "dot_swapped",
+           "dot_in_order", "reference_dot_order", "DOT_ORDERS",
+           "DOT_ORDER_NAMES", "seq_sum"]
 
 _WINDOW = 32
 _SCAN_BLOCK = 16
@@ -158,37 +160,49 @@ def _scan_in_order(v: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
-def dot_nt(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``x (..., n, K) . y (..., m, K)`` over ``K`` -> ``(..., n, m)`` in
-    float32, in the reference's accumulation order (see above)."""
+def _interleaved(x: torch.Tensor, y: torch.Tensor, lanes: int
+                 ) -> torch.Tensor:
+    """``x (..., n, K) . y (..., m, K)`` over ``K`` in float32 with
+    ``lanes`` interleaved multiply-add accumulators (depth index mod
+    ``lanes``, 2 or 4) over the largest multiple of ``lanes``, summed as
+    a0 + a1 or (a0 + a1) + (a2 + a3), plus the tail's plain products
+    summed in order; below 4 terms, one multiply-add chain."""
     # float64 copies: each product of two float32 values is exact there
     x = x.float().double()[..., :, None, :]
     y = y.float().double()[..., None, :, :]
     k = x.shape[-1]
+    acc = torch.zeros((), dtype=torch.float32, device=x.device)
     if k < 4:
-        acc = torch.zeros((), dtype=torch.float32, device=x.device)
         for j in range(k):
             acc = fma32(x[..., j], y[..., j], acc)
         return acc
-    acc = torch.zeros((), dtype=torch.float32, device=x.device)
-    if k % 4 in (1, 2):
-        main = k - k % 2
-        for j in range(0, main, 2):
-            acc = fma32(x[..., j:j + 2], y[..., j:j + 2], acc)
-        out = acc[..., 0] + acc[..., 1]
-        if main == k:
-            return out
-        return out + (x[..., main] * y[..., main]).float()
-    main = k - k % 4
-    for j in range(0, main, 4):
-        acc = fma32(x[..., j:j + 4], y[..., j:j + 4], acc)
-    out = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+    main = k - k % lanes
+    for j in range(0, main, lanes):
+        acc = fma32(x[..., j:j + lanes], y[..., j:j + lanes], acc)
+    out = acc[..., 0] + acc[..., 1]
+    if lanes == 4:
+        out = out + (acc[..., 2] + acc[..., 3])
     if main == k:
         return out
     tail = (x[..., main] * y[..., main]).float()
     for j in range(main + 1, k):
         tail = tail + (x[..., j] * y[..., j]).float()
     return out + tail
+
+
+def dot_nt(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x (..., n, K) . y (..., m, K)`` over ``K`` -> ``(..., n, m)`` in
+    float32, in the reference's accumulation order (see above): four
+    interleaved chains, or two where K is 1 or 2 mod 4."""
+    return _interleaved(x, y, 2 if x.shape[-1] % 4 in (1, 2) else 4)
+
+
+def dot_swapped(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``dot_nt``'s product with the other interleave: four chains where K
+    is 1 or 2 mod 4, two where it is 0 or 3 mod 4 (one chain below 4
+    terms, as ``dot_nt``). The reference's distance einsum takes it where
+    ``reference_dot_order`` says ``"swapped"``."""
+    return _interleaved(x, y, 4 if x.shape[-1] % 4 in (1, 2) else 2)
 
 
 def dot_chain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -204,14 +218,15 @@ def dot_chain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 # (B, n, k, d) of a distance einsum (B lanes of n points against k
-# centroids of d features) -> the reference's accumulation order there.
-# Rows: the build's BBV and RFV fits (ten apps, and the tests' app pairs;
-# over an app mesh, one shard's lanes: B = 1 to 5),
+# centroids of d features) -> the reference's accumulation order there:
+# the regression set of ``reference_dot_order``, each row held against the
+# reference's einsum. Rows: the build's BBV and RFV fits (ten apps, and the
+# tests' app pairs; over an app mesh, one shard's lanes: B = 1 to 5),
 # the figures' k = 20 / 50 / 500 fits over full populations and phase-1
 # samples (and their restarts), the flow's stratifier fits (3 restarts),
 # kmeans_multi_seed's and SampledEval's, and the distributed k-means'
 # shards of points and its seeding subsample. Fits at d < 4 (the flow's and
-# the tests' small ones) have no row: there both orders are one chain.
+# the tests' small ones) have no row: there every order is one chain.
 _CHAIN = (
     (1, 964, 482, 38), (1, 967, 483, 38), (1, 1030, 500, 38),
     (1, 1041, 500, 38), (1, 1062, 500, 38), (1, 1997, 500, 38),
@@ -241,24 +256,86 @@ DOT_ORDERS: dict[tuple[int, int, int, int], str] = {
     **{s: "four" for s in _FOUR}, **{s: "chain" for s in _CHAIN}}
 
 
+DOT_ORDER_NAMES = ("four", "chain", "swapped")
+
+
+def _interleave(k: int, d: int) -> int:
+    """Accumulators (4, 2 or 1 for one chain) of the reference's distance
+    einsum with k centroids of d >= 4 features; see
+    ``reference_dot_order``."""
+    if k == 1:
+        return 1
+    p, q = divmod(k - 1, 64)
+    q //= 16
+    t = d % 4
+    if q == 3:
+        return 1
+    if q == 2:
+        return 4 if (4 - t) % 4 * (4 * p + 3) < d else 1
+    if q == 1:
+        if k <= 24 and (t in (0, 3) or d > 90):
+            return 4
+        return 2 if d % 2 * (4 * p + 2) < 2 * d else 1
+    if t == 0:
+        return 4
+    if t == 3:
+        return 4 if 4 * p + 1 < 3 * d else 1
+    if p < (d // 4 + 1) // 2:
+        return 4
+    return 2 if t == 2 or 2 * p + 1 < d else 1
+
+
 def reference_dot_order(b: int, n: int, k: int, d: int) -> str:
-    """The reference's accumulation order for a distance einsum of
-    ``b`` lanes, ``n`` points, ``k`` centroids and ``d`` features:
-    ``"chain"`` (``dot_chain``) or ``"four"`` (``dot_nt``'s interleaved
-    chains: four, or two where d is 1 or 2 mod 4), from ``DOT_ORDERS``.
-    A shape outside the table takes ``"four"``, the order of the engine's
-    k = 20 fits (and, below d = 4, the one chain both orders are)."""
-    return DOT_ORDERS.get((int(b), int(n), int(k), int(d)), "four")
+    """The reference's accumulation order for a distance einsum of ``b``
+    lanes, ``n`` points, ``k`` centroids and ``d`` features: ``"four"``
+    (``dot_nt``), ``"chain"`` (``dot_chain``) or ``"swapped"``
+    (``dot_swapped``).
+
+    The rule, found by holding the three orders against XLA:CPU's float32
+    einsum at jax 0.9.0 on every k from 1 to 1024 at each d from 4 to 40,
+    every k from 2 to 200 at each d from 41 to 128, and 2,000 random shapes
+    up to B = 10, k = 4,100 and d = 128 (``tests/test_torch_dot_order.py``'s
+    ``survey``: 0 misses): B and n play no part; the
+    accumulators are 4, 2 or 1 by k's 64-column period p = (k - 1) // 64
+    and its 16-column quarter q = (k - 1) % 64 // 16 there, with t = d
+    mod 4 and w = (4 - t) mod 4 (the depth's missing lanes to a multiple
+    of 4):
+
+    * q = 3: one chain;
+    * q = 2: four while w (4 p + 3) < d, then one chain;
+    * q = 1: four at k <= 24 where t is 0 or 3 or d > 90; else two
+      while (d mod 2)(4 p + 2) < 2 d, then one chain;
+    * q = 0: t = 0, four; t = 3, four while 4 p + 1 < 3 d, then one
+      chain; t = 1 or 2, four while p < (d // 4 + 1) // 2, then two (t =
+      2, or while 2 p + 1 < d), then one chain;
+    * k = 1: one chain (from d = 60 over one lane, and from d = 8 over two,
+      the reference takes yet another order there, not modelled: one
+      centroid gives every point label 0).
+
+    ``dot_nt`` is four accumulators where t is 0 or 3 and two where it is
+    1 or 2, ``dot_swapped`` the other way round. Below d = 4 every order is
+    one chain, and ``"four"`` is returned."""
+    k, d = int(k), int(d)
+    if d < 4:
+        return "four"
+    lanes = _interleave(k, d)
+    if lanes == 1:
+        return "chain"
+    return "four" if (lanes == 2) == (d % 4 in (1, 2)) else "swapped"
 
 
 def dot_in_order(x: torch.Tensor, y: torch.Tensor, order: str
                  ) -> torch.Tensor:
-    """``dot_nt`` (``order="four"``) or ``dot_chain`` (``"chain"``)."""
+    """``dot_nt`` (``order="four"``), ``dot_chain`` (``"chain"``) or
+    ``dot_swapped`` (``"swapped"``)."""
     if order == "chain":
         return dot_chain(x, y)
     if order == "four":
         return dot_nt(x, y)
-    raise ValueError(f"unknown dot order {order!r}; 'four' or 'chain'")
+    if order == "swapped":
+        return dot_swapped(x, y)
+    raise ValueError(f"unknown dot order {order!r}; one of "
+                     f"{DOT_ORDER_NAMES}")
 
 
 def seq_sum(v: torch.Tensor, dim: int) -> torch.Tensor:

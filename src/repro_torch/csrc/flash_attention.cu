@@ -1,4 +1,5 @@
-// Causal flash attention (online softmax) in float32, forward only.
+// Flash attention (online softmax) in float32, forward only, causal or
+// bidirectional.
 //
 // Replaces the TPU kernel `_flash_kernel` / `flash_attention_padded` in
 // src/repro/kernels/flash_attention/flash_attention.py (wrapper ops.py) for
@@ -6,8 +7,9 @@
 // flash_attention_sm90.cu. For
 // every (batch, query head) and query row i it writes
 //   o[i] = sum_j softmax_j(q_i . k_j * scale) v_j
-// over the visible key columns j <= i + skv - sq (causal, end-aligned, so the
-// same kernel serves sq == skv prefill and short appends to a cache). GQA:
+// over the visible key columns: j <= i + skv - sq with `causal` (end-aligned,
+// so the same kernel serves sq == skv prefill and short appends to a cache),
+// every column j < skv without it (the reference's causal=False branch). GQA:
 // query head h reads kv head h / (hq / hkv); K and V are never repeated.
 // Every product, sum, max and exp is float32. q, k, v and o are read and
 // written through their batch, head and row strides (d contiguous).
@@ -30,9 +32,10 @@
 //   * a thread's columns are the float4 chunks t, t + 4, t + 8, ... of a row,
 //     so the four threads of a row read 64 contiguous bytes of shared memory
 //     at a time (no bank conflicts) while the row groups of a warp broadcast;
-//   * key tiles wholly above the causal diagonal are never loaded or
-//     computed (half the work at sq == skv); the ragged edge of the last
-//     tile reads zeros and is masked, so nothing is padded in memory;
+//   * causal: key tiles wholly above the diagonal are never loaded or
+//     computed (half the work at sq == skv); not causal: every tile is, and
+//     sq > skv is allowed. The ragged edge of the last tile reads zeros and
+//     is masked, so nothing is padded in memory;
 //   * masked scores are the finite -1e30 of the reference, never -inf, so
 //     the running max never computes -inf - (-inf).
 // d is padded (in registers and shared memory only) to 32, 64 or 128, a
@@ -88,7 +91,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, Strides qs,
           Strides ks, Strides vs, Strides os, int hq, int hkv, int sq,
-          int skv, int d, float scale) {
+          int skv, int d, int causal, float scale) {
   constexpr int kChunks = DP / 16;  // float4 chunks of a row per thread
   extern __shared__ float4 smem[];
   float* sk = reinterpret_cast<float*>(smem);
@@ -124,7 +127,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 
   // key columns any valid row of this tile can see
   const int last_row = min(q0 + kRows, sq) - 1;
-  const int kv_end = min(skv, last_row + offset + 1);
+  const int kv_end = causal ? min(skv, last_row + offset + 1) : skv;
   const int n_tiles = (kv_end + kKeys - 1) / kKeys;
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -153,7 +156,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       dot += __shfl_xor_sync(kFull, dot, 1);
       dot += __shfl_xor_sync(kFull, dot, 2);
       const int col = kv0 + j;
-      const bool visible = col < skv && col <= qrow + offset;
+      const bool visible = col < skv && (!causal || col <= qrow + offset);
       if ((j % kPerRow) == part) s[j / kPerRow] = visible ? dot * scale
                                                           : kNegInf;
     }
@@ -217,7 +220,7 @@ template <int DP>
 int launch_dp(const float* q, const float* k, const float* v, float* o,
               const Strides& qs, const Strides& ks, const Strides& vs,
               const Strides& os, int b, int hq, int hkv, int sq, int skv,
-              int d, float scale, cudaStream_t stream) {
+              int d, int causal, float scale, cudaStream_t stream) {
   const size_t smem = 2u * kKeys * DP * sizeof(float);
   static bool attribute_set = false;
   if (!attribute_set) {
@@ -229,7 +232,8 @@ int launch_dp(const float* q, const float* k, const float* v, float* o,
   }
   const dim3 grid(b * hq, (sq + kRows - 1) / kRows);
   flash_fwd<DP><<<grid, kThreads, smem, stream>>>(q, k, v, o, qs, ks, vs, os,
-                                                  hq, hkv, sq, skv, d, scale);
+                                                  hq, hkv, sq, skv, d, causal,
+                                                  scale);
   return (int)cudaGetLastError();
 }
 
@@ -240,16 +244,19 @@ Strides strides(const long long* s) { return Strides{s[0], s[1], s[2]}; }
 // q: (b, hq, sq, d); k, v: (b, hkv, skv, d); o: (b, hq, sq, d); float32,
 // d contiguous, each read and written through its batch, head and row
 // strides in elements (qs, ks, vs, os: three each, multiples of 4 so that
-// rows stay 16-byte aligned), bases 16-byte aligned. Returns a cudaError_t
-// as int.
+// rows stay 16-byte aligned), bases 16-byte aligned; causal: 1 for the
+// end-aligned causal mask (sq <= skv), 0 for none. Returns a cudaError_t as
+// int.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o,
                                    const long long* qs, const long long* ks,
                                    const long long* vs, const long long* os,
                                    int b, int hq, int hkv, int sq, int skv,
-                                   int d, float scale, void* stream) {
+                                   int d, int causal, float scale,
+                                   void* stream) {
   if (b < 0 || hq < 1 || hkv < 1 || hq % hkv || d < 8 || d > 128 || d % 8 ||
-      sq < 1 || sq > skv || (sq + kRows - 1) / kRows > 65535) {
+      sq < 1 || skv < 1 || (causal && sq > skv) ||
+      (sq + kRows - 1) / kRows > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   for (const void* p : {q, k, v, static_cast<const void*>(o)}) {
@@ -270,10 +277,11 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides a = strides(qs), bk = strides(ks), c = strides(vs),
                 e = strides(os);
+  const int cz = causal != 0;
   if (d <= 32) return launch_dp<32>(qt, kt, vt, ot, a, bk, c, e, b, hq, hkv,
-                                    sq, skv, d, scale, s);
+                                    sq, skv, d, cz, scale, s);
   if (d <= 64) return launch_dp<64>(qt, kt, vt, ot, a, bk, c, e, b, hq, hkv,
-                                    sq, skv, d, scale, s);
+                                    sq, skv, d, cz, scale, s);
   return launch_dp<128>(qt, kt, vt, ot, a, bk, c, e, b, hq, hkv, sq, skv, d,
-                        scale, s);
+                        cz, scale, s);
 }

@@ -1,13 +1,16 @@
-// Causal flash attention in bf16 for Hopper (sm_90a): TMA + wgmma.
+// Flash attention in bf16 for Hopper (sm_90a): TMA + wgmma, causal or
+// bidirectional.
 //
 // Replaces the TPU kernel `_flash_kernel` / `flash_attention_padded` in
 // src/repro/kernels/flash_attention/flash_attention.py (wrapper ops.py) for
 // bf16 inputs; float32 inputs take the SIMT kernel of flash_attention.cu.
 // For every (batch, query head) and query row i it writes
 //   o[i] = sum_j softmax_j(q_i . k_j * scale) v_j
-// over the visible key columns j <= i + skv - sq (causal, end-aligned).
-// GQA: query head h reads kv head h / (hq / hkv). Softmax statistics and
-// the accumulator are float32; the output is bf16.
+// over the visible key columns: j <= i + skv - sq with `causal` (end
+// aligned), every column j < skv without it (the reference's causal=False
+// branch: the enc-dec model's encoder and cross-attention). GQA: query
+// head h reads kv head h / (hq / hkv). Softmax statistics and the
+// accumulator are float32; the output is bf16.
 //
 // What bounds it on an H100: operations. At the LM's prefill shape
 // (b = 4, hq = 24, hkv = 8, sq = skv = 4096, d = 128) the visible pairs need
@@ -39,8 +42,10 @@
 //     the MMA work of a single-rounded P, which FA2/3 and SDPA use and which
 //     would need a looser tolerance (-DFLASH_SINGLE_P builds that variant
 //     for kernels/flash_attention/variants.py only);
-//   * key tiles wholly above the diagonal are never loaded; the diagonal and
-//     ragged tiles are masked at the finite -1e30;
+//   * causal: key tiles wholly above the diagonal are never loaded; the
+//     diagonal and ragged tiles are masked at the finite -1e30. Not causal:
+//     every tile is loaded, only the ragged edge col >= skv is masked (so
+//     sq > skv is allowed);
 //   * the epilogue divides by max(l, 1e-30), rounds to bf16, stages the tile
 //     in the consumer's own part of the Q buffer and writes 16-byte chunks.
 // d is padded (in shared memory only, by TMA's zero fill) to 32, 64 or 128,
@@ -272,7 +277,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tv,
                __nv_bfloat16* __restrict__ o, long long o_sb, long long o_sh,
                long long o_ss, int batches, int hq, int hkv, int sq, int skv,
-               int d, float scale_log2) {
+               int d, int causal, float scale_log2) {
   using T = Tile<DP>;
   extern __shared__ uint8_t smem_raw[];
   // 1024-byte alignment for the swizzle atoms
@@ -304,7 +309,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
   const int q0 = q_tile * kRows;
   const int offset = skv - sq;  // end alignment
   const int last_row = min(q0 + kRows, sq) - 1;
-  const int kv_end = min(skv, last_row + offset + 1);
+  const int kv_end = causal ? min(skv, last_row + offset + 1) : skv;
   const int n_tiles = (kv_end + kKeys - 1) / kKeys;
 
   if (threadIdx.x == 0) {
@@ -389,14 +394,15 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
       // scale to the log2 domain; mask the diagonal and ragged tiles
       const int kv0 = t * kKeys;
       const bool masked =
-          kv0 + kKeys - 1 > first_row + offset || kv0 + kKeys > skv;
+          (causal && kv0 + kKeys - 1 > first_row + offset) ||
+          kv0 + kKeys > skv;
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
         float x = sc[i] * scale_log2;
         if (masked) {
           const int col = kv0 + 8 * (i / 4) + 2 * quad + (i % 2);
           const int row = row_a + 8 * ((i % 4) / 2);
-          if (col > row + offset || col >= skv) x = kNegInf;
+          if ((causal && col > row + offset) || col >= skv) x = kNegInf;
         }
         sc[i] = x;
       }
@@ -578,7 +584,7 @@ template <int DP>
 int launch_dp(const void* q, const void* k, const void* v, void* o,
               const long long* qm, const long long* km, const long long* vm,
               const long long* os, int b, int hq, int hkv, int sq, int skv,
-              int d, float scale, cudaStream_t stream) {
+              int d, int causal, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map<DP>(&tq, q, qm, d, hq, sq, b) ||
       !make_map<DP>(&tk, k, km, d, hkv, skv, b) ||
@@ -597,7 +603,7 @@ int launch_dp(const void* q, const void* k, const void* v, void* o,
   flash_fwd_sm90<DP><<<(unsigned)blocks, kThreads, Tile<DP>::kSmem,
                        stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), os[0], os[1], os[2], b, hq,
-      hkv, sq, skv, d, scale * kLog2e);
+      hkv, sq, skv, d, causal, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -607,15 +613,17 @@ int launch_dp(const void* q, const void* k, const void* v, void* o,
 // with d contiguous, read and written through their strides. qm, km, vm:
 // the tensor-map words of ops.tensor_map_args (dims (d, h, s, b), byte
 // strides of h, s, b, box); os: o's strides of b, h, s in elements (each a
-// multiple of 8, o 16-byte aligned). Returns a cudaError_t as int.
+// multiple of 8, o 16-byte aligned); causal: 1 for the end-aligned causal
+// mask (sq <= skv), 0 for none. Returns a cudaError_t as int.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o,
                                     const long long* qm, const long long* km,
                                     const long long* vm, const long long* os,
                                     int b, int hq, int hkv, int sq, int skv,
-                                    int d, float scale, void* stream) {
+                                    int d, int causal, float scale,
+                                    void* stream) {
   if (b < 0 || hq < 1 || hkv < 1 || hq % hkv || d < 8 || d > 128 || d % 8 ||
-      sq < 1 || sq > skv ||
+      sq < 1 || skv < 1 || (causal && sq > skv) ||
       (long long)((sq + kRows - 1) / kRows) * b * hq > 0x7fffffffll ||
       reinterpret_cast<uintptr_t>(o) % 16 != 0 || os[0] % 8 || os[1] % 8 ||
       os[2] % 8) {
@@ -623,10 +631,11 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
   }
   if (b == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int c = causal != 0;
   if (d <= 32) return launch_dp<32>(q, k, v, o, qm, km, vm, os, b, hq, hkv,
-                                    sq, skv, d, scale, s);
+                                    sq, skv, d, c, scale, s);
   if (d <= 64) return launch_dp<64>(q, k, v, o, qm, km, vm, os, b, hq, hkv,
-                                    sq, skv, d, scale, s);
+                                    sq, skv, d, c, scale, s);
   return launch_dp<128>(q, k, v, o, qm, km, vm, os, b, hq, hkv, sq, skv, d,
-                        scale, s);
+                        c, scale, s);
 }

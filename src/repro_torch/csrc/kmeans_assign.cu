@@ -15,9 +15,10 @@ namespace {
 // The interleaved order (four chains, or two) takes the instantiation of
 // d's own ceil4 (its tail sits in the last 4 columns). The one-chain order
 // reads a point's d columns under run-time guards, so any DMAX >= d serves
-// it: it is built at 16 and 40 only (the table's one-chain rows have d =
-// 2, 3, 15 and 38), which keeps the build short; no unit serves a
-// one-chain launch with d > 40.
+// it: it is built at 16 and 40 only (the port's fits have d <= 38), which
+// keeps the build short; no unit serves a one-chain launch with d > 40.
+// Each interleaved instantiation also serves the swapped interleave (a
+// run-time flag).
 Launch pick(int d, bool chain) {
   if (chain) {
     if (d <= 16) return launch<16, true>;

@@ -45,11 +45,13 @@
 //     (core.ordered.norm_vector_rows, passed in as `xvec` and `cvec`):
 //     there, the rounded products in order; dot products in the order
 //     the reference's distance einsum takes at the launch's shape
-//     (core.ordered.DOT_ORDERS, passed in as `chain`): interleaved
-//     multiply-add accumulators -- four, (a0 + a1) + (a2 + a3), plus a
-//     tail of plain products, or two where
-//     d is 1 or 2 mod 4, a0 + a1, plus an odd last product; or one
-//     multiply-add chain over d, in order. The kernel therefore agrees
+//     (core.ordered.reference_dot_order, passed in as `chain` and
+//     `swap`): interleaved multiply-add accumulators -- four, (a0 + a1) +
+//     (a2 + a3), plus a tail of plain products, or two where d is 1 or 2
+//     mod 4, a0 + a1, plus an odd last product; with `swap` the other
+//     interleave (four where d is 1 or 2 mod 4, two elsewhere: a run-time
+//     choice in every interleaved instantiation, which holds both); or
+//     one multiply-add chain over d, in order. The kernel therefore agrees
 //     with its plain version bitwise, and a fit on the card follows the
 //     same path as one on the CPU. The one chain is d dependent FMAs a
 //     point-centroid pair, where four chains are about d / 4 deep; two
@@ -166,12 +168,12 @@ __device__ __forceinline__ float norm_reg(const float (&v)[DMAX], int d,
   return sum_sq_reg<DMAX>(v, d);
 }
 
-// x . c and y . c where d is 1 or 2 mod 4 (d > 4), in the plain version's
-// order there (core.ordered.dot_nt): two interleaved multiply-add
-// accumulators (j mod 2), a0 + a1, and an odd last term's rounded product
-// added after. Below 64, DMAX is ceil4(d), so every group of 4 columns but
-// the last is whole; at 128 each column is guarded. Columns at or past d
-// are skipped.
+// x . c and y . c with two interleaved multiply-add accumulators (j mod
+// 2), a0 + a1, and an odd last term's rounded product added after: the
+// plain version's order where d is 1 or 2 mod 4 (core.ordered.dot_nt), and
+// with `swap` where it is 0 or 3 mod 4 (core.ordered.dot_swapped). Below
+// 64, DMAX is ceil4(d), so every group of 4 columns but the last is whole;
+// at 128 each column is guarded. Columns at or past d are skipped.
 template <int DMAX>
 __device__ __forceinline__ float2 dot2_two(const float (&x)[DMAX],
                                            const float (&y)[DMAX],
@@ -211,7 +213,8 @@ __device__ __forceinline__ float2 dot2_two(const float (&x)[DMAX],
 // interleaved chains where d is 1 or 2 mod 4 (dot2_two); else four
 // interleaved multiply-add accumulators over the largest multiple of 4,
 // (a0 + a1) + (a2 + a3), plus the tail's rounded products added in
-// order. c is a centroid row padded to a multiple of 4 floats, read 4 at a
+// order. With `swap` (core.ordered.dot_swapped) the two interleaves
+// trade places: four where d is 1 or 2 mod 4, two elsewhere. c is a centroid row padded to a multiple of 4 floats, read 4 at a
 // time and used for both points. DMAX is ceil4(d) for d up to 64, so the
 // tail (d % 4 terms) sits in the last 4 columns; 128 covers the rest, the
 // tail found at run time. With CHAIN, both dots are one multiply-add
@@ -221,7 +224,7 @@ __device__ __forceinline__ float2 dot2_two(const float (&x)[DMAX],
 template <int DMAX, bool CHAIN>
 __device__ __forceinline__ float2 dot2(const float (&x)[DMAX],
                                        const float (&y)[DMAX],
-                                       const float4* c, int d) {
+                                       const float4* c, int d, bool swap) {
   if (CHAIN) {
     float ax = 0.f, ay = 0.f;
 #pragma unroll
@@ -247,7 +250,8 @@ __device__ __forceinline__ float2 dot2(const float (&x)[DMAX],
     if (d > 2) ax = fmaf(x[2], v.z, ax), ay = fmaf(y[2], v.z, ay);
     return make_float2(ax, ay);
   }
-  if ((d & 3) == 1 || (d & 3) == 2) return dot2_two<DMAX>(x, y, c, d);
+  if (((d & 3) == 1 || (d & 3) == 2) != swap)
+    return dot2_two<DMAX>(x, y, c, d);
   const int main = d & ~3;
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
   float b0 = 0.f, b1 = 0.f, b2 = 0.f, b3 = 0.f;
@@ -375,13 +379,13 @@ __device__ __forceinline__ Tile tile_of(int item, int tiles, int tile_rows,
 
 // Block g walks items [g * items / G, (g + 1) * items / G) of the list of
 // (lane, tile) items, lane-major; a tile is tile_rows points of one lane.
-// CHAIN picks the dot product's order (dot2).
+// CHAIN and `swap` pick the dot product's order (dot2).
 template <int DMAX, bool CHAIN>
 __global__ void __launch_bounds__(kThreads, 2)
     assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
                   int n, int k, int d, int tiles, int tile_rows, int items,
                   int split, int stage_floats, int xvec, int cvec,
-                  int* __restrict__ labels,
+                  int swap, int* __restrict__ labels,
                   float* __restrict__ mind2) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem);
@@ -487,7 +491,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     };
 #pragma unroll 2
     for (int kk = lo; kk < hi; ++kk)
-      take(kk, dot2<DMAX, CHAIN>(xr[0], xr[1], cs4 + kk * (dp / 4), d),
+      take(kk, dot2<DMAX, CHAIN>(xr[0], xr[1], cs4 + kk * (dp / 4), d,
+                                 swap != 0),
            c2[kk]);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -538,7 +543,7 @@ cudaError_t card_of(int* device_out, int* sms, int* max_smem) {
 
 template <int DMAX, bool CHAIN>
 cudaError_t launch(const float* x, const float* c, int b, int n, int k, int d,
-                   int xvec, int cvec, int* labels, float* mind2,
+                   int xvec, int cvec, int swap, int* labels, float* mind2,
                    int* geometry,
                    cudaStream_t stream) {
   int device = 0, sms = 0, max_smem = 0;
@@ -596,7 +601,7 @@ cudaError_t launch(const float* x, const float* c, int b, int n, int k, int d,
   }
   assign_kernel<DMAX, CHAIN><<<grid, kThreads, smem, stream>>>(
       x, c, n, k, d, tiles, tile_rows, items, split, stage_floats(), xvec,
-      cvec, labels, mind2);
+      cvec, swap, labels, mind2);
   return cudaGetLastError();
 }
 
@@ -606,20 +611,22 @@ cudaError_t launch(const float* x, const float* c, int b, int n, int k, int d,
 // its C entries below report and launch what it picks, so the widths a
 // unit serves are written in that unit alone.
 using Launch = cudaError_t (*)(const float*, const float*, int, int, int,
-                               int, int, int, int*, float*, int*,
+                               int, int, int, int, int*, float*, int*,
                                cudaStream_t);
 Launch pick(int d, bool chain);
 
 }  // namespace
 
-// 1 if this unit serves width d in the dot order chain (1: one chain, 0:
-// the interleaved chains), else 0.
-extern "C" int kmeans_assign_serves(int d, int chain) {
-  return d > 0 && pick(d, chain != 0) != nullptr;
+// 1 if this unit serves width d in the dot order `order`
+// (core.ordered.DOT_ORDER_NAMES: 0 the interleaved chains, 1 one chain, 2
+// the swapped interleave, which every interleaved instantiation serves),
+// else 0.
+extern "C" int kmeans_assign_serves(int d, int order) {
+  return d > 0 && order >= 0 && order <= 2 && pick(d, order == 1) != nullptr;
 }
 
-// x (b, n, d), c (b, k, d) float32, contiguous, x 16-byte aligned; chain:
-// 1 for the one-chain dot order, 0 for the interleaved chains; xvec /
+// x (b, n, d), c (b, k, d) float32, contiguous, x 16-byte aligned; order:
+// the dot order as kmeans_assign_serves takes it; xvec /
 // cvec: the leading rows of each lane's points / centroids whose norms
 // add rounded products in order (core.ordered.norm_vector_rows of n / k
 // and d); labels (b, n) int32 and mind2 (b, n) float32 out; geometry (3
@@ -627,14 +634,15 @@ extern "C" int kmeans_assign_serves(int d, int chain) {
 // a point. Returns the CUDA error of the launch (0 = ok);
 // cudaErrorInvalidValue where the unit does not serve d in that order.
 extern "C" int kmeans_assign_f32(const float* x, const float* c, int b, int n,
-                                 int k, int d, int chain, int xvec, int cvec,
+                                 int k, int d, int order, int xvec, int cvec,
                                  int* labels, float* mind2, int* geometry,
                                  void* stream) {
   if (b <= 0 || n <= 0) return 0;
-  if (k <= 0 || d <= 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+  if (k <= 0 || d <= 0 || order < 0 || order > 2 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const Launch launch_fn = pick(d, chain != 0);
+  const Launch launch_fn = pick(d, order == 1);
   if (launch_fn == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)launch_fn(x, c, b, n, k, d, xvec, cvec, labels, mind2,
-                        geometry, static_cast<cudaStream_t>(stream));
+  return (int)launch_fn(x, c, b, n, k, d, xvec, cvec, order == 2, labels,
+                        mind2, geometry, static_cast<cudaStream_t>(stream));
 }

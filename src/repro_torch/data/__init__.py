@@ -1,5 +1,5 @@
 """Synthetic data pipelines of the port."""
 
-from .synthetic import SyntheticLM, make_pipeline
+from .synthetic import SyntheticEncDec, SyntheticLM, make_pipeline
 
-__all__ = ["SyntheticLM", "make_pipeline"]
+__all__ = ["SyntheticLM", "SyntheticEncDec", "make_pipeline"]

@@ -1,9 +1,10 @@
 """Deterministic synthetic token pipeline.
 
-Counterpart of ``repro.data.synthetic`` (the token-input families): batch
-``i`` is a pure function of (seed, step), generated on the host by the
-reference's numpy code, bit for bit, and handed over as int32 tensors on
-the pipeline's device (the card when None). A zipfian unigram marginal
+Counterpart of ``repro.data.synthetic``: batch ``i`` is a pure function
+of (seed, step), generated on the host by the reference's numpy code, bit
+for bit, and handed over as tensors on the pipeline's device (the card
+when None): int32 tokens and labels, and for the enc-dec family float32
+source frame embeddings (``SyntheticEncDec``). A zipfian unigram marginal
 plus a short-range Markov blend give non-trivial statistics.
 """
 
@@ -17,7 +18,7 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["SyntheticLM", "make_pipeline"]
+__all__ = ["SyntheticLM", "SyntheticEncDec", "make_pipeline"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +55,32 @@ class SyntheticLM:
                                            ).to(dev)}
 
 
+@dataclasses.dataclass(frozen=True)
+class SyntheticEncDec(SyntheticLM):
+    """``SyntheticLM``'s tokens and labels plus ``src_embeds``
+    ``(global_batch, src_len, d_model)`` float32, standard normal draws
+    from ``SeedSequence([seed, step, 1])``."""
+
+    d_model: int = 1024
+    src_len: int = 256
+
+    def batch(self, step: int) -> dict[str, torch.Tensor]:
+        out = super().batch(step)
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, 1]))
+        src = rng.normal(0, 1, (self.global_batch, self.src_len,
+                                self.d_model)).astype(np.float32)
+        out["src_embeds"] = torch.from_numpy(src).to(
+            resolve_device(self.device, what="SyntheticEncDec.batch"))
+        return out
+
+
 def make_pipeline(cfg, seq_len: int, global_batch: int, seed: int = 0, *,
                   device=None) -> SyntheticLM:
     if cfg.family == "encdec":
-        raise NotImplementedError("the enc-dec pipeline waits for a later "
-                                  "slice (ROADMAP.md)")
+        return SyntheticEncDec(vocab=cfg.vocab, seq_len=seq_len,
+                               global_batch=global_batch, seed=seed,
+                               device=device, d_model=cfg.d_model,
+                               src_len=min(seq_len, 256))
     return SyntheticLM(vocab=cfg.vocab, seq_len=seq_len,
                        global_batch=global_batch, seed=seed, device=device)

@@ -629,7 +629,7 @@ def explain(diff: dict, record: dict, want_fits: dict,
     near-ties only (``"near-tie picks"``). ``record`` is the ``record``
     dict this side's figures filled. A fit whose labels part explains
     nothing: the clustering kernels take the reference's dot order at
-    every fit shape (``core.ordered.DOT_ORDERS``)."""
+    every fit shape (``core.ordered.reference_dot_order``)."""
     for key in fits_behind(diff, want_fits, gcc_app):
         want = want_fits[key]
         if _digest(record[key]["labels"]) != want["labels"]:

@@ -1,8 +1,11 @@
-"""Public wrapper of the causal flash-attention kernels.
+"""Public wrapper of the flash-attention kernels.
 
 Counterpart of ``repro.kernels.flash_attention.ops``: q ``(b, hq, sq, d)``,
 k and v ``(b, hkv, skv, d)``, causal with end alignment (row i sees key
-columns j <= i + skv - sq), grouped-query heads (query head h reads kv
+columns j <= i + skv - sq) or, with ``causal=False``, bidirectional (every
+row sees every column: the reference kernel's other branch, which its
+public wrapper does not expose and the enc-dec model needs for its
+encoder and cross-attention), grouped-query heads (query head h reads kv
 head h // (hq // hkv)), float32 arithmetic from float32 or bfloat16
 inputs, output in q's type. A CPU tensor takes the plain version
 (``ref.flash_attention_ref``); a CUDA tensor launches a kernel or raises
@@ -23,9 +26,11 @@ The output is allocated ``(b, sq, hq, d)`` and returned as its
 The kernels read the real sequence lengths and head width and mask the
 ragged edge themselves, so nothing is padded and the reference's
 ``kv_start`` front-padding mask has no counterpart. Unlike the
-reference's wrapper, this one refuses sq > skv: those rows would see no
-column (the reference's oracle gives NaN there, its Pallas kernel a
-masked average), and no caller of the model makes them.
+reference's wrapper, this one refuses causal calls with sq > skv: those
+rows would see no column (the reference's oracle gives NaN there, its
+Pallas kernel a masked average), and no caller of the model makes them.
+A non-causal call takes any sq and skv >= 1 (cross-attention has
+sq != skv both ways).
 
 There is no backward, on either route (the reference's kernel has none;
 its model trains through ``attention_ref``): with grad mode on and q, k
@@ -56,25 +61,29 @@ F32_ROWS = 64            # query rows per block of the float32 kernel
 _ENTRY = {torch.float32: ("flash_attention", "flash_attention_f32"),
           torch.bfloat16: ("flash_attention_sm90", "flash_attention_bf16")}
 
-# launches of the CUDA kernels in this process, and the latest one's shape
-_launches = 0
+# launches of the CUDA kernels in this process by branch, and the latest
+# one's shape
+_launches = {"causal": 0, "non_causal": 0}
 _last_dispatch: Optional[dict] = None
 
 
-def launch_count() -> int:
-    """Number of CUDA kernel launches since the last reset."""
-    return _launches
+def launch_count(branch: Optional[str] = None) -> int:
+    """Number of CUDA kernel launches since the last reset: of both
+    branches, or of ``branch`` (``"causal"`` or ``"non_causal"``)."""
+    if branch is None:
+        return sum(_launches.values())
+    return _launches[branch]
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    for branch in _launches:
+        _launches[branch] = 0
 
 
 def last_dispatch() -> Optional[dict]:
     """Shape record of the latest kernel launch (``None`` before any):
-    ``b``, ``hq``, ``hkv``, ``sq``, ``skv``, ``d``, ``dtype``, ``source``
-    and ``grid``. Plain calls leave it untouched."""
+    ``b``, ``hq``, ``hkv``, ``sq``, ``skv``, ``d``, ``causal``, ``dtype``,
+    ``source`` and ``grid``. Plain calls leave it untouched."""
     return None if _last_dispatch is None else dict(_last_dispatch)
 
 
@@ -123,9 +132,6 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool) -> None:
-    if not causal:
-        raise NotImplementedError("kernel path is causal-only; use "
-                                  "ref.attention_ref")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q (b, hq, sq, d) and k, v (b, hkv, skv, "
                          f"d); got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -140,9 +146,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > MAX_HEAD_DIM or d % 8:
         raise ValueError(f"head width {d} must be a multiple of 8 and at "
                          f"most {MAX_HEAD_DIM}")
-    if sq < 1 or sq > skv:
-        raise ValueError(f"need 1 <= sq <= skv (got sq={sq}, skv={skv}): "
-                         "rows past skv would see no key column")
+    if sq < 1 or skv < 1:
+        raise ValueError(f"need sq >= 1 and skv >= 1 (got sq={sq}, "
+                         f"skv={skv})")
+    if causal and sq > skv:
+        raise ValueError(f"a causal call needs sq <= skv (got sq={sq}, "
+                         f"skv={skv}): rows past skv would see no key "
+                         "column")
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share one of {sorted(map(str, _ENTRY))}"
                          f"; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -153,12 +163,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def bind(fn):
     """Declare a C entry's arguments (both entries share one signature:
     q, k, v, o, the q, k, v layout words, o's strides, b, hq, hkv, sq,
-    skv, d, scale, stream)."""
+    skv, d, causal, scale, stream)."""
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         words = ctypes.POINTER(ctypes.c_longlong)
         fn.argtypes = [vp, vp, vp, vp, words, words, words, words,
-                       i, i, i, i, i, i, ctypes.c_float, vp]
+                       i, i, i, i, i, i, i, ctypes.c_float, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -172,10 +182,11 @@ def _words(values) -> ctypes.Array:
     return (ctypes.c_longlong * len(values))(*values)
 
 
-def launch(q, k, v, out, scale: float, entry=None) -> tuple:
+def launch(q, k, v, out, scale: float, entry=None, *,
+           causal: bool = True) -> tuple:
     """Launch the kernel of q's type (or the bound C ``entry`` given, of
-    the same signature) on checked q, k, v into ``out``; returns its
-    grid."""
+    the same signature) on checked q, k, v into ``out``, causal or not;
+    returns its grid."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:
@@ -189,7 +200,8 @@ def launch(q, k, v, out, scale: float, entry=None) -> tuple:
     entry = entry or _entry(q.dtype)
     code = entry(_backend.ptr(q), _backend.ptr(k), _backend.ptr(v),
                  _backend.ptr(out), *args, b, hq, hkv, sq, skv, d,
-                 float(scale), _backend.stream_handle(q.device))
+                 int(bool(causal)), float(scale),
+                 _backend.stream_handle(q.device))
     _backend.check_launch("flash_attention", code)
     return grid
 
@@ -197,7 +209,8 @@ def launch(q, k, v, out, scale: float, entry=None) -> tuple:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Causal attention; ``scale`` defaults to 1/sqrt(d). Returns the
+    """Attention, causal (end-aligned) or, with ``causal=False``,
+    bidirectional; ``scale`` defaults to 1/sqrt(d). Returns the
     ``(b, hq, sq, d)`` view of a ``(b, sq, hq, d)`` tensor. Raises
     ``RuntimeError`` under grad mode when an input requires a gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -215,11 +228,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, sq, hq, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if route == "plain":
-        return out.copy_(flash_attention_ref(q, k, v, scale=scale))
-    grid = launch(q, k, v, out, scale)
-    global _launches, _last_dispatch
-    _launches += 1
+        return out.copy_(flash_attention_ref(q, k, v, scale=scale,
+                                             causal=causal))
+    grid = launch(q, k, v, out, scale, causal=causal)
+    global _last_dispatch
+    _launches["causal" if causal else "non_causal"] += 1
     _last_dispatch = {"b": b, "hq": hq, "hkv": k.shape[1], "sq": sq,
-                      "skv": k.shape[2], "d": d, "dtype": q.dtype,
+                      "skv": k.shape[2], "d": d, "causal": bool(causal),
+                      "dtype": q.dtype,
                       "source": _ENTRY[q.dtype][0], "grid": grid}
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of causal attention.
+"""Plain PyTorch versions of attention.
 
 ``attention_ref`` is the port of the reference's oracle
 (``repro.kernels.flash_attention.ref.attention_ref``): the logits are
@@ -7,11 +7,12 @@ reference's einsum rounds them) and then upcast; softmax and the value
 product are float32. The model's CPU path uses it, because that is what
 the reference runs on the CPU.
 
-``flash_attention_ref`` is the plain version of the CUDA kernel: the same
-function on float32-upcast q, k and v, with grouped-query heads read by
-index (query head h uses kv head h // (hq // hkv)) and the result cast
-back to q's type. Unlike ``attention_ref`` at bf16, its logits are never
-rounded to bf16; the card's checks compare the kernel with it.
+``flash_attention_ref`` is the plain version of the CUDA kernels: the
+same function on float32-upcast q, k and v, causal or (``causal=False``)
+bidirectional, with grouped-query heads read by index (query head h uses
+kv head h // (hq // hkv)) and the result cast back to q's type. Unlike
+``attention_ref`` at bf16, its logits are never rounded to bf16; the
+card's checks compare the kernels with it.
 """
 
 from __future__ import annotations
@@ -52,9 +53,11 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, scale: Optional[float] = None) -> torch.Tensor:
+                        *, scale: Optional[float] = None,
+                        causal: bool = True) -> torch.Tensor:
     """The kernels' function: q ``(b, hq, sq, d)``, k/v ``(b, hkv, skv,
-    d)``, causal and end-aligned, all in float32, output in q's type
+    d)``, causal and end-aligned (every column visible with
+    ``causal=False``), all in float32, output in q's type
     (contiguous)."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
@@ -62,6 +65,6 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # same products, bit for bit
     qg = q.float().contiguous().reshape(b, hkv, hq // hkv, sq, d)
     out = attention_ref(qg, k.float().contiguous()[:, :, None],
-                        v.float().contiguous()[:, :, None], causal=True,
+                        v.float().contiguous()[:, :, None], causal=causal,
                         scale=scale)
     return out.reshape(b, hq, sq, d).to(q.dtype)

@@ -6,19 +6,20 @@ kernel's lane axis, so a ``(B, n, d)`` stack of fits is one launch.
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 the kernel of ``csrc/kmeans_assign.cuh`` or raises
 (``repro_torch.kernels.backend``). The kernel is built as three units that
-nvcc builds at once: ``kmeans_assign.cu`` (the one-chain order, and the
-interleaved order at d <= 48), ``kmeans_assign_wide.cu`` (the interleaved
-order at 48 < d <= 64) and ``kmeans_assign_128.cu`` (above 64); a launch
-goes through the first unit whose library says it serves the launch's
+nvcc builds at once: ``kmeans_assign.cu`` (the one-chain order at d <=
+40, and the interleaved orders at d <= 48), ``kmeans_assign_wide.cu``
+(the interleaved orders at 48 < d <= 64) and ``kmeans_assign_128.cu``
+(above 64); a launch goes through the first unit whose library says it serves the launch's
 order and width (``kmeans_assign_serves``).
 
 The kernel reads the points and centroids at their real widths: there is
 no padding, so no padded centroid can win. Both the kernel and the plain
-version take the dot product's order from the reference's order table at
-the launch's shape (``ref.dot_order``): interleaved chains or one chain,
-and each squared norm's from its row's place (``core.ordered.
-norm_vector_rows``), so they agree bitwise at every shape. The kernel's
-one-chain order is built for d <= 40: no unit serves a wider launch.
+version take the dot product's order from the reference's rule at the
+launch's shape (``ref.dot_order``): interleaved chains, one chain, or the
+other interleave (``core.ordered.reference_dot_order``), and each squared
+norm's from its row's place (``core.ordered.norm_vector_rows``), so they
+agree bitwise at every shape. The kernel's one-chain order is built for
+d <= 40: no unit serves a wider launch in it.
 """
 
 from __future__ import annotations
@@ -28,14 +29,16 @@ import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ...core.ordered import DOT_ORDER_NAMES, norm_vector_rows
+from ...device import resolve_device
 from .. import backend as _backend
-from ...core.ordered import norm_vector_rows
 from .ref import dot_order, kmeans_assign_ref
 
-__all__ = ["kmeans_assign", "last_dispatch", "launch_count",
-           "reset_launch_count", "launch_counts_by_shard"]
+__all__ = ["kmeans_assign", "kmeans_assign_np", "last_dispatch",
+           "launch_count", "reset_launch_count", "launch_counts_by_shard"]
 
 # launches of the CUDA kernel in this process, and the latest one's shape
 _launches = 0
@@ -71,8 +74,8 @@ def _count_launch() -> None:
 def last_dispatch() -> Optional[dict]:
     """Shape record of the latest kernel launch (``None`` before any):
     ``batch``, ``batch_shape``, ``n``, ``k``, ``d``, ``order`` (the dot
-    product's: ``"four"`` or ``"chain"``), ``grid`` (the persistent
-    blocks), ``tiles`` (the (lane, point tile) items they walk) and
+    product's: ``"four"``, ``"chain"`` or ``"swapped"``), ``grid`` (the
+    persistent blocks), ``tiles`` (the (lane, point tile) items they walk) and
     ``split`` (threads that share a point, each scanning a share of the
     centroids). Plain calls leave it untouched."""
     return None if _last_dispatch is None else dict(_last_dispatch)
@@ -95,7 +98,8 @@ def _entry(order: str, d: int):
     for unit in _UNITS:
         lib = _backend.library(unit)
         if lib.kmeans_assign_serves(ctypes.c_int(d),
-                                    ctypes.c_int(order == "chain")):
+                                    ctypes.c_int(DOT_ORDER_NAMES.index(
+                                        order))):
             fn = lib.kmeans_assign_f32
             vp, i = ctypes.c_void_p, ctypes.c_int
             fn.argtypes = [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp]
@@ -146,9 +150,21 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, *,
     return (labels.reshape(*batch_shape, n), mind2.reshape(*batch_shape, n))
 
 
+def kmeans_assign_np(x: np.ndarray, centroids: np.ndarray, *,
+                     device=None) -> tuple[np.ndarray, np.ndarray]:
+    """``kmeans_assign`` with numpy in and out (host-side callers): the
+    arrays go to ``device`` (the card when None) and the int32 labels and
+    float32 distances come back."""
+    dev = resolve_device(device, what="kmeans_assign_np")
+    labels, mind2 = kmeans_assign(
+        torch.as_tensor(np.asarray(x, np.float32), device=dev),
+        torch.as_tensor(np.asarray(centroids, np.float32), device=dev))
+    return labels.cpu().numpy(), mind2.cpu().numpy()
+
+
 def _launch(x: torch.Tensor, c: torch.Tensor, order: str):
     """One launch of the kernel on CUDA ``x (b, n, d)`` and ``c (b, k, d)``
-    with the dot product in ``order`` (``"four"`` or ``"chain"``):
+    with the dot product in ``order`` (``core.ordered.DOT_ORDER_NAMES``):
     ``(labels, mind2, geometry)``. Not counted: ``kmeans_assign`` counts
     its own launches, and a caller timing the other order calls this."""
     b, n, d = x.shape
@@ -162,7 +178,7 @@ def _launch(x: torch.Tensor, c: torch.Tensor, order: str):
     geometry = (ctypes.c_int * 3)()
     fn = _entry(order, d)
     code = fn(_backend.ptr(xb), _backend.ptr(cb), b, n, k, d,
-              int(order == "chain"), norm_vector_rows(n, d),
+              DOT_ORDER_NAMES.index(order), norm_vector_rows(n, d),
               norm_vector_rows(k, d), _backend.ptr(labels),
               _backend.ptr(mind2), geometry,
               _backend.stream_handle(x.device))

@@ -8,7 +8,12 @@ default). It keeps the reference's loop: the prompt is fed one token at a
 time through the decode path (teacher-forced prefill, which exercises the
 cache), then ``--gen`` tokens are generated greedily; it prints the
 generation rate in tokens/s. Weights are random, drawn from ``--seed``.
-Every decoder-only ``--arch`` serves (dense, MoE, hybrid, SSM).
+Every ``--arch`` serves. For the enc-dec family (``seamless-m4t-large-v2``)
+the prompt is ``(batch, prompt_len, d_model)`` source frames drawn from
+the same numpy generator after the token prompts; they are encoded, the
+cross-attention K/V of every decoder layer precomputed into the caches,
+and greedy decoding starts from token 0 at position 0 (no teacher-forced
+prefill).
 
 On the card the decode step is captured once as a CUDA graph and
 replayed at every position (the reference compiles it once with
@@ -30,17 +35,20 @@ import torch
 from ..configs import get_config
 from ..device import resolve_device
 from ..models.common import ModelConfig
+from ..models.encdec import EncDecCaches, encode, precompute_cross_kv
 from ..models.registry import decode_fn, init_params, make_decode_state
 
-__all__ = ["Generation", "generate", "make_prompts", "main"]
+__all__ = ["Generation", "generate", "make_prompts", "make_source", "main"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Generation:
     tokens: torch.Tensor        # (b, gen) int32 greedy tokens
     first_logits: torch.Tensor  # (b, vocab) float32 logits of the first
-    #                             generated step (position prompt_len - 1)
-    prefill_s: float            # teacher-forced prefill, seconds
+    #                             generated step (position prompt_len - 1;
+    #                             0 for the enc-dec family)
+    prefill_s: float            # teacher-forced prefill (enc-dec: encode
+    #                             and cross K/V), seconds
     decode_s: float             # greedy generation, seconds
 
     @property
@@ -56,12 +64,28 @@ def _sync(device: torch.device) -> None:
 def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
                  device) -> torch.Tensor:
     """The reference's prompts: ``default_rng(seed)`` integers."""
+    return make_source(cfg, batch, prompt_len, seed, device)[0]
+
+
+def make_source(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
+                device) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The reference's prompts and, for the enc-dec family, its source
+    frames ``(batch, prompt_len, d_model)`` float32, drawn after them from
+    the same ``default_rng(seed)`` (None for the other families)."""
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab, (batch, prompt_len))
-    return torch.as_tensor(prompts, dtype=torch.int32, device=device)
+    prompts = torch.as_tensor(prompts, dtype=torch.int32, device=device)
+    if cfg.family != "encdec":
+        return prompts, None
+    src = rng.normal(0, 1, (batch, prompt_len, cfg.d_model))
+    return prompts, torch.as_tensor(src.astype(np.float32), device=device)
 
 
 def _cache_tensors(caches) -> list[torch.Tensor]:
+    """The cache tensors a decode step writes (an enc-dec step writes its
+    self-attention K/V only; the cross K/V are fixed inputs)."""
+    if isinstance(caches, EncDecCaches):
+        return list(caches.self_kv)
     return [t for field in caches if field is not None
             for t in (field if isinstance(field, tuple) else (field,))]
 
@@ -101,17 +125,31 @@ def _graphed_decode(params, cfg: ModelConfig, caches, batch: int,
 
 @torch.no_grad()
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *, gen: int,
-             cache_len: int) -> Generation:
-    """The reference's serve loop on ``prompts`` ``(b, prompt_len)``; on
-    a CUDA device each step replays one captured decode graph (the
-    capture is timed with the prefill)."""
+             cache_len: int, src: Optional[torch.Tensor] = None
+             ) -> Generation:
+    """The reference's serve loop on ``prompts`` ``(b, prompt_len)``
+    (for the enc-dec family: on the source frames ``src`` ``(b, s_src,
+    d_model)``, decoding from token 0 at position 0); on a CUDA device
+    each step replays one captured decode graph (the capture is timed
+    with the prefill)."""
     batch, prompt_len = prompts.shape
-    if prompt_len + gen - 1 > cache_len:
+    encdec = cfg.family == "encdec"
+    if encdec and src is None:
+        raise ValueError(f"{cfg.name}: the enc-dec family serves source "
+                         "frames: pass src (launch.serve.make_source)")
+    start_pos = 0 if encdec else prompt_len - 1
+    if start_pos + gen > cache_len:
         raise ValueError(f"cache of {cache_len} cannot hold {prompt_len} "
                          f"prompt and {gen} generated tokens")
     device = prompts.device
-    caches = make_decode_state(cfg, batch, cache_len, device=device)
+    caches = make_decode_state(cfg, batch, cache_len, device=device,
+                               s_src=src.shape[1] if encdec else 0)
     t0 = time.perf_counter()
+    if encdec:
+        memory = encode(params, src, cfg)
+        ck, cv = precompute_cross_kv(params, memory, cfg)
+        del memory
+        caches = caches._replace(cross_k=ck, cross_v=cv)
     if device.type == "cuda":
         graphed = _graphed_decode(params, cfg, caches, batch, device)
 
@@ -119,12 +157,11 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, *, gen: int,
             return graphed(tokens, pos), c
     else:
         dfn = decode_fn(cfg)
-    for t in range(prompt_len - 1):
+    for t in range(start_pos):
         _, caches = dfn(params, prompts[:, t:t + 1], caches, t)
     _sync(device)
     prefill_s = time.perf_counter() - t0
-    tok = prompts[:, -1:]
-    start_pos = prompt_len - 1
+    tok = torch.zeros_like(prompts[:, :1]) if encdec else prompts[:, -1:]
     out_tokens = []
     first: Optional[torch.Tensor] = None
     t0 = time.perf_counter()
@@ -158,10 +195,10 @@ def main(argv=None) -> None:
     device = resolve_device(args.device, what="repro_torch.launch.serve")
     gen_ = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, generator=gen_, device=device)
-    prompts = make_prompts(cfg, args.batch, args.prompt_len, args.seed,
-                           device)
+    prompts, src = make_source(cfg, args.batch, args.prompt_len, args.seed,
+                               device)
     out = generate(params, cfg, prompts, gen=args.gen,
-                   cache_len=args.cache_len)
+                   cache_len=args.cache_len, src=src)
     print(f"generated {tuple(out.tokens.shape)} tokens in "
           f"{out.decode_s * 1e3:.1f} ms ({out.tokens_per_s:.1f} tok/s)")
     print("sample:", out.tokens[0][:16].cpu().numpy())

@@ -14,6 +14,11 @@ whole cache, masked by position, in plain products with the grouped
 layout, so the cache is never repeated per query head. Training asks
 for ``backend="plain"``: the kernel has no backward, and its wrapper
 raises on inputs that require a gradient.
+
+``mha_attend`` is the enc-dec model's entry (bidirectional encoder and
+cross-attention, causal decoder self-attention): on a CUDA tensor both
+branches launch the kernel; elsewhere, and for ``backend="plain"``, the
+reference's route with its ``causal`` flag.
 """
 
 from __future__ import annotations
@@ -30,8 +35,8 @@ from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_ref
 from .common import ModelConfig, new_param, rope
 
-__all__ = ["Attention", "attention", "make_kv_cache", "repeat_kv",
-           "CHUNKED_KV_THRESHOLD", "KV_CHUNK"]
+__all__ = ["Attention", "attention", "mha_attend", "make_kv_cache",
+           "repeat_kv", "CHUNKED_KV_THRESHOLD", "KV_CHUNK"]
 
 CHUNKED_KV_THRESHOLD = 2048
 KV_CHUNK = 1024
@@ -76,14 +81,34 @@ def _attend(q, k, v, *, window: Optional[int], backend: str = "auto"
     return attention_ref(q, k, v, causal=True, window=window)
 
 
-def _attend_chunked(q, k, v, *, window: Optional[int]) -> torch.Tensor:
+def mha_attend(q, k, v, *, causal: bool, backend: str = "auto"
+               ) -> torch.Tensor:
+    """Attention of the enc-dec stacks: q ``(b, hq, sq, dh)``, k and v
+    ``(b, hkv, skv, dh)``, causal (end-aligned) or bidirectional. On a
+    CUDA tensor (``backend="auto"``) both branches launch the flash
+    kernel; on the CPU or with ``backend="plain"``, the reference's
+    ``mha_attend``: kv heads repeated, then ``attention_ref``, or the
+    streaming softmax once the keys pass ``CHUNKED_KV_THRESHOLD``."""
+    if _backend.resolve_route(q, backend) == "kernel":
+        return flash_attention(q, k, v, causal=causal)
+    group = q.shape[1] // k.shape[1]
+    k, v = repeat_kv(k, group), repeat_kv(v, group)
+    if k.shape[2] > CHUNKED_KV_THRESHOLD:
+        return _attend_chunked(q, k, v, window=None, causal=causal)
+    return attention_ref(q, k, v, causal=causal, window=None)
+
+
+def _attend_chunked(q, k, v, *, window: Optional[int],
+                    causal: bool = True) -> torch.Tensor:
     """Streaming-softmax attention in plain products (the flash algorithm
     as a loop over kv chunks): the ``(sq, skv)`` logits never exist whole.
     Products take the operands upcast to float32 (the reference's bf16
     operands with float32 accumulation); the probabilities are rounded to
     v's type before the value product, as the reference rounds them. The
     reference pads the last chunk and masks it; a shorter last chunk gives
-    the same result."""
+    the same result. Without ``causal`` (the enc-dec model's, which has
+    no window) the reference masks only its padding columns, so no column
+    is masked here."""
     sq, dh = q.shape[2], q.shape[3]
     skv = k.shape[2]
     scale = 1.0 / math.sqrt(dh)
@@ -97,11 +122,13 @@ def _attend_chunked(q, k, v, *, window: Optional[int]) -> torch.Tensor:
         k_c = k[:, :, c0:c0 + KV_CHUNK]
         v_c = v[:, :, c0:c0 + KV_CHUNK]
         s = torch.matmul(qf, k_c.float().transpose(-1, -2)) * scale
-        cols = c0 + torch.arange(k_c.shape[2], device=q.device)[None, :]
-        mask = cols <= rows
-        if window is not None:
-            mask &= cols > rows - window
-        s = s.masked_fill(~mask, _NEG_INF)
+        if causal:
+            cols = c0 + torch.arange(k_c.shape[2],
+                                     device=q.device)[None, :]
+            mask = cols <= rows
+            if window is not None:
+                mask &= cols > rows - window
+            s = s.masked_fill(~mask, _NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)

@@ -2,15 +2,17 @@
 
 ``params_from_numpy(cfg, tree)`` takes the reference's parameter tree
 (``repro.models.registry.init_params``) as nested dicts of numpy arrays
-and returns the port's ``LM`` with the same values, so that both packages
+and returns the port's ``LM`` (or, for the enc-dec family, ``EncDec``) with
+the same values, so that both packages
 compute with the same weights; ``params_to_numpy(model)`` is its inverse.
 The layouts agree: the port keeps the reference's ``(in, out)`` weights
 (a layer computes ``x @ w``; the MoE experts' ``(e, in, out)``), so no
 leaf is transposed; the only change is that the reference's stacked
-groups — ``layers``, and the hybrid's ``supers`` and ``tail`` — whose
-leaves carry a leading axis over the group's members, are the port's
-``layers[i]``, ``supers[i]`` and ``tail[j]`` (``reference_tree``,
-``port_leaf``). A hybrid whose layer count is a multiple of 3 has an
+groups — ``layers``, the hybrid's ``supers`` and ``tail``, the enc-dec
+model's ``enc_layers`` and ``dec_layers`` — whose leaves carry a leading
+axis over the group's members, are the port's ``layers[i]``,
+``supers[i]``, ``tail[j]``, ``enc_layers[i]`` and ``dec_layers[i]``
+(``reference_tree``, ``port_leaf``). A hybrid whose layer count is a multiple of 3 has an
 empty ``tail``, ``{}`` in the reference's tree. bf16 leaves arrive as
 ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses; their
 bits are carried over as int16, and where ``ml_dtypes`` is missing
@@ -27,13 +29,14 @@ import torch
 
 from ..device import resolve_device
 from .common import ModelConfig
+from .encdec import EncDec
 from .transformer import LM
 
 __all__ = ["params_from_numpy", "params_to_numpy", "tensor_from_numpy",
            "reference_tree", "port_leaf", "STACKED"]
 
 # the reference's groups whose leaves are stacked over their members
-STACKED = ("layers", "supers", "tail")
+STACKED = ("layers", "supers", "tail", "enc_layers", "dec_layers")
 
 
 def tensor_from_numpy(a) -> torch.Tensor:
@@ -92,11 +95,12 @@ def _paths(tree, prefix: str = "") -> set[str]:
 
 
 @torch.no_grad()
-def params_from_numpy(cfg: ModelConfig, tree: dict, *, device=None) -> LM:
-    """The port's ``LM`` holding the reference tree's values, on
-    ``device`` (the card when None)."""
-    model = LM(cfg, device=resolve_device(device,
-                                          what="params_from_numpy"))
+def params_from_numpy(cfg: ModelConfig, tree: dict, *, device=None
+                      ) -> LM | EncDec:
+    """The port's ``LM`` (``EncDec`` for the enc-dec family) holding the
+    reference tree's values, on ``device`` (the card when None)."""
+    model = (EncDec if cfg.family == "encdec" else LM)(
+        cfg, device=resolve_device(device, what="params_from_numpy"))
     want = {n.rstrip(".") for n in _paths(tree)}
     have = {".".join(_tree_path(n)[0]) for n, _ in model.named_parameters()}
     if want != have:
@@ -125,7 +129,7 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return bits.view(ml_dtypes.bfloat16)
 
 
-def params_to_numpy(model: LM) -> dict:
+def params_to_numpy(model: LM | EncDec) -> dict:
     """The reference's parameter tree of ``model``'s values, on the host:
     nested dicts of numpy arrays with the ``layers`` leaves stacked; bf16
     leaves as ``ml_dtypes.bfloat16`` (their int16 bits without

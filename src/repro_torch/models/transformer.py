@@ -12,7 +12,7 @@ of the hybrid) is rematerialised in the backward
 the card, non-windowed prefill attention takes the flash kernel; the
 hybrid's windowed attention takes the reference's plain path, as the
 reference routes it), ``lm_loss`` the training one. The enc-dec family
-raises ``NotImplementedError``; it waits for a later slice (ROADMAP.md).
+is ``models.encdec``; ``LM`` refuses it.
 
 Decode threads explicit caches that ``decode_step`` updates in place: a
 KV cache for the dense and MoE families, RWKV states and the channel
@@ -47,7 +47,8 @@ __all__ = ["Block", "Recurrent", "LocalAttention", "Super", "LM", "init_lm",
            "make_decode_caches", "decode_step", "check_family"]
 
 # parameters drawn as normal x 1.0 in float32 (norm gains, the RG-LRU's lam)
-_UNIT = ("ln1", "ln2", "ln", "ln_ffn", "final_norm", "lam")
+_UNIT = ("ln1", "ln2", "ln", "ln_ffn", "ln_x", "enc_norm", "final_norm",
+         "lam")
 
 
 def init_scale(name: str) -> float:
@@ -63,12 +64,14 @@ def init_scale(name: str) -> float:
 
 
 def check_family(cfg: ModelConfig) -> None:
+    """Refuse what ``LM`` does not build: the enc-dec family (its model is
+    ``models.encdec``, which the registry dispatches to)."""
     if cfg.family not in ("dense", "moe", "hybrid", "ssm") \
             or cfg.embed_frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the decoder-only token-input "
-            f"families; family {cfg.family!r} waits for a later slice "
-            "(ROADMAP.md)")
+        raise ValueError(
+            f"{cfg.name}: LM builds the decoder-only token-input families, "
+            f"not {cfg.family!r}; the registry builds the enc-dec family "
+            "through models.encdec")
 
 
 def _norm(d: int, device) -> nn.Parameter:

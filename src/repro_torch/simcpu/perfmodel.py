@@ -198,6 +198,15 @@ def evaluate_regions_batch(features: torch.Tensor,
     return _evaluate(x, config_matrix(cfgs, device=x.device), counters=True)
 
 
+def evaluate_regions(features: torch.Tensor, cfg: UarchConfig,
+                     indices=None) -> dict[str, torch.Tensor]:
+    """Every metric for ``features (N, F)`` (rows ``indices`` when given)
+    under one config: a dict of ``(n,)`` float32 tensors, row 0 of
+    ``evaluate_regions_batch`` (the reference's ``evaluate_regions``)."""
+    return {k: v[0] for k, v in
+            evaluate_regions_batch(features, (cfg,), indices).items()}
+
+
 def cpi_batch(features: torch.Tensor, cfgs: Sequence[UarchConfig],
               indices=None) -> torch.Tensor:
     """(C, n) CPI across configs in one pass."""

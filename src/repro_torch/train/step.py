@@ -106,7 +106,8 @@ def make_train_fn(cfg: ModelConfig, opt: AdamW, *, microbatches: int = 1):
 
 def make_prefill_fn(cfg: ModelConfig, *, backend: str = "auto"):
     """(params, batch) -> last-position logits ``(b, vocab)`` of the full
-    forward. ``backend`` picks the attention route (``models.attention``)."""
+    forward (the enc-dec family's batch also holds ``src_embeds``).
+    ``backend`` picks the attention route (``models.attention``)."""
     fwd = forward_fn(cfg, backend=backend)
 
     def prefill(params, batch):

@@ -286,10 +286,46 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 4, 2, 256, 512, 64), (1, 4, 4, 512, 256, 64),   # sq < and > skv
+    (2, 6, 2, 333, 100, 40), (1, 4, 1, 257, 385, 32),   # ragged, GQA
+    (1, 2, 2, 1, 700, 128), (2, 3, 3, 130, 7, 128),     # one row, few keys
+    (2, 16, 16, 300, 1000, 64), (1, 16, 16, 1000, 300, 64),  # cross-like
+    (1, 2, 1, 130, 130, 8),                              # d padded in-kernel
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_noncausal_kernel_matches_plain(cuda, shape, dtype):
+    """The bidirectional branch (the enc-dec model's encoder and
+    cross-attention) against ``flash_attention_ref(causal=False)``: ragged
+    sq and skv, sq above skv, d = 8 to 128; counted as a non-causal
+    launch."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q, k, v = _qkv(shape, dtype, cuda, seed=sum(shape) + 1)
+    causal0 = flash_ops.launch_count("causal")
+    before = flash_ops.launch_count("non_causal")
+    out = flash_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_ops.launch_count("non_causal") == before + 1
+    assert flash_ops.launch_count("causal") == causal0
+    assert flash_ops.last_dispatch()["causal"] is False
+    assert out.dtype == dtype and out.shape == q.shape
+    rtol, atol = FLASH_TOL[dtype]
+    want = flash_attention_ref(q, k, v, causal=False).float()
+    torch.testing.assert_close(out.float(), want, rtol=rtol, atol=atol)
+    causal = flash_attention_ref(q, k, v).float() if shape[3] <= shape[4] \
+        else None
+    if causal is not None and shape[3] > 1:
+        assert not torch.allclose(want, causal, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["non_causal", "sq_gt_skv", "heads",
                                   "d_over_128", "d_not_8", "dtypes"])
 def test_flash_kernel_raises(cuda, case):
-    shape = {"sq_gt_skv": (1, 2, 2, 65, 64, 64),
+    """Refused before any launch: a causal call with sq > skv, a
+    non-causal one with no key column, bad heads, widths and types."""
+    shape = {"non_causal": (1, 2, 2, 8, 0, 64),
+             "sq_gt_skv": (1, 2, 2, 65, 64, 64),
              "heads": (1, 3, 2, 8, 8, 64),
              "d_over_128": (1, 2, 2, 8, 8, 136),
              "d_not_8": (1, 2, 2, 8, 8, 60)}.get(case, (1, 2, 2, 8, 8, 64))
@@ -297,8 +333,7 @@ def test_flash_kernel_raises(cuda, case):
     if case == "dtypes":
         q = q.to(torch.bfloat16)
     before = flash_ops.launch_count()
-    with pytest.raises(NotImplementedError if case == "non_causal"
-                       else ValueError):
+    with pytest.raises(ValueError):
         flash_ops.flash_attention(q, k, v, causal=case != "non_causal")
     assert flash_ops.launch_count() == before
 
@@ -666,13 +701,38 @@ def test_assign_kernel_bitwise_at_every_dot_order_row(cuda, shape):
 def test_assign_kernel_bitwise_in_two_chains(cuda, d):
     """Where d is 1 or 2 mod 4 the interleaved order is two chains and an
     odd last product: the kernel agrees with its plain version bit for
-    bit at every width it instantiates (ceil4(d) up to 64, then 128)."""
+    bit at every width it instantiates (ceil4(d) up to 64, then 128).
+    k = 28 takes that order at every one of these widths (at k <= 24 the
+    reference takes four chains from d = 93)."""
     from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
     gen = torch.Generator(device=cuda).manual_seed(d)
     x = torch.randn((2, 700, d), generator=gen, device=cuda)
-    c = torch.randn((2, 24, d), generator=gen, device=cuda)
+    c = torch.randn((2, 28, d), generator=gen, device=cuda)
     lab, d2 = assign_ops.kmeans_assign(x, c)
     assert assign_ops.last_dispatch()["order"] == "four"
+    want_lab, want_d2 = kmeans_assign_ref(x, c)
+    assert torch.equal(lab, want_lab) and _same_bits(d2, want_d2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,d", [
+    (1, 6861, 40, 38), (1, 6861, 8, 38), (2, 6861, 200, 38),
+    (1, 120000, 28, 15), (3, 5000, 96, 15), (2, 700, 12, 6),
+    (2, 900, 30, 7), (1, 700, 10, 21), (2, 700, 27, 16), (1, 300, 3, 5),
+    (2, 700, 20, 94), (1, 500, 18, 126), (2, 600, 30, 56)])
+def test_assign_kernel_bitwise_in_swapped_order(cuda, b, n, k, d):
+    """The third dot order (``core.ordered.dot_swapped``: four chains
+    where d is 1 or 2 mod 4, two elsewhere) at shapes where the reference
+    takes it, through every build unit: the kernel takes it too and
+    agrees with ``pairwise_d2``'s argmin bit for bit."""
+    from repro_torch.core.ordered import reference_dot_order
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
+    assert reference_dot_order(b, n, k, d) == "swapped"
+    gen = torch.Generator(device=cuda).manual_seed(b + n + k + d)
+    x = torch.randn((b, n, d), generator=gen, device=cuda)
+    c = torch.randn((b, k, d), generator=gen, device=cuda)
+    lab, d2 = assign_ops.kmeans_assign(x, c)
+    assert assign_ops.last_dispatch()["order"] == "swapped"
     want_lab, want_d2 = kmeans_assign_ref(x, c)
     assert torch.equal(lab, want_lab) and _same_bits(d2, want_d2)
 

@@ -8,7 +8,8 @@ reference's oracle ``attention_ref`` with repeated kv heads, at the five
 shapes of that test in both types. The model's CPU attention route
 (``models.attention._attend``: ``attention_ref``, or the streaming
 ``_attend_chunked`` past 2048 keys) is held against the reference's
-``_attend``. Tolerances are the reference test's: 2e-3 in float32, 3e-2
+``_attend`` (the non-causal branch and ``mha_attend``:
+``tests/test_torch_encdec.py``). Tolerances are the reference test's: 2e-3 in float32, 3e-2
 in bf16 (atol and rtol). The CUDA kernel itself runs only on the card
 (``tests/test_torch_cuda.py``).
 """
@@ -82,15 +83,17 @@ def test_model_cpu_route_matches_reference(shape, dtype):
 @pytest.mark.parametrize("case", ["non_causal", "sq_gt_skv", "heads",
                                   "d_over_128", "d_not_8"])
 def test_flash_wrapper_raises(case):
-    b, hq, hkv, sq, skv, d = {"sq_gt_skv": (1, 2, 2, 9, 8, 64),
+    """Bad shapes raise ``ValueError`` on both branches: a causal call
+    with sq > skv, and (``non_causal``, which otherwise takes any sq) a
+    call with no key column."""
+    b, hq, hkv, sq, skv, d = {"non_causal": (1, 2, 2, 8, 0, 64),
+                              "sq_gt_skv": (1, 2, 2, 9, 8, 64),
                               "heads": (1, 3, 2, 8, 8, 64),
                               "d_over_128": (1, 2, 2, 8, 8, 136),
-                              "d_not_8": (1, 2, 2, 8, 8, 60)}.get(
-        case, (1, 2, 2, 8, 8, 64))
+                              "d_not_8": (1, 2, 2, 8, 8, 60)}[case]
     q = torch.zeros((b, hq, sq, d))
     kv = torch.zeros((b, hkv, skv, d))
-    with pytest.raises(NotImplementedError if case == "non_causal"
-                       else ValueError):
+    with pytest.raises(ValueError):
         ops.flash_attention(q, kv, kv, causal=case != "non_causal")
 
 

@@ -66,6 +66,21 @@ def test_assign_plain_matches_reference(shape, k):
                                    rtol=1e-5, atol=1e-6)
 
 
+def test_assign_np_matches_reference():
+    """``kmeans_assign_np``: numpy in and out, the reference's labels and
+    distances (here on the CPU, which takes the plain version)."""
+    from repro.kernels.kmeans_assign.ops import kmeans_assign_np as jax_np
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 300, 15)).astype(np.float32)
+    c = rng.normal(size=(2, 20, 15)).astype(np.float32)
+    lab, d2 = assign_ops.kmeans_assign_np(x, c, device="cpu")
+    assert isinstance(lab, np.ndarray) and lab.dtype == np.int32
+    assert d2.dtype == np.float32 and lab.shape == d2.shape == (2, 300)
+    want_lab, want_d2 = jax_np(x, c)
+    _check_labels(lab, np.asarray(want_lab), _near_ties(x, c))
+    np.testing.assert_allclose(d2, want_d2, rtol=1e-5, atol=1e-6)
+
+
 def test_assign_ties_go_to_lowest_index():
     x = torch.zeros((1, 4, 3))
     c = torch.zeros((1, 5, 3))

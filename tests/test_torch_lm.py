@@ -88,23 +88,26 @@ def test_config_matches_reference(smoke_size):
 
 
 def test_other_archs_and_families_raise():
-    """Only the enc-dec family still raises: its architecture is not
-    registered and its family has no model; every decoder-only
-    architecture of the reference is registered and builds."""
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("seamless-m4t-large-v2")
-    encdec = dataclasses.replace(get_config(ARCH, smoke=True),
-                                 family="encdec", encoder_layers=2)
-    for build in (lambda c: TR.init_params(c, device="cpu"),
-                  lambda c: TR.make_decode_state(c, 1, 8, device="cpu"),
-                  TR.forward_fn, TR.loss_fn, TR.decode_fn):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build(encdec)
-    assert sorted(ALL_ARCHS) == sorted(
-        a for a in jax_all_archs if a != "seamless-m4t-large-v2")
+    """Every architecture of the reference is registered and builds
+    through the registry, the enc-dec one included; only an unknown name
+    raises, and ``LM`` refuses the enc-dec family (the registry builds it
+    as ``EncDec``)."""
+    from repro_torch.models.encdec import EncDec
+    from repro_torch.models.transformer import LM
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
+    assert sorted(ALL_ARCHS) == sorted(jax_all_archs)
     for arch in ALL_ARCHS:
         cfg = get_config(arch, smoke=True)
-        assert TR.init_params(cfg, device="cpu").cfg == cfg
+        model = TR.init_params(cfg, device="cpu")
+        assert model.cfg == cfg
+        assert isinstance(model, EncDec if cfg.family == "encdec" else LM)
+        TR.make_decode_state(cfg, 1, 8, device="cpu")
+        for build in (TR.forward_fn, TR.loss_fn, TR.decode_fn):
+            assert callable(build(cfg))
+    encdec = get_config("seamless-m4t-large-v2", smoke=True)
+    with pytest.raises(ValueError, match="enc-dec"):
+        LM(encdec, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["chameleon-34b", "command-r-35b",

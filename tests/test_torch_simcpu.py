@@ -61,6 +61,22 @@ def test_evaluate_and_cpi_batch_match_reference():
         .numpy(), R.cpi_batch(feats, R.CONFIGS, idx), rtol=1e-5)
 
 
+@pytest.mark.parametrize("cfg", [0, 3])
+def test_evaluate_regions_matches_reference(cfg):
+    """One config's metrics (``evaluate_regions``, the reference's
+    per-config entry) over a subset of regions, to rtol 1e-5."""
+    feats = R.get_population(APPS[1]).features
+    idx = np.arange(0, 3000, 5)
+    want = R.evaluate_regions(feats, R.CONFIGS[cfg], idx)
+    got = T.evaluate_regions(torch.as_tensor(feats), T.CONFIGS[cfg],
+                             torch.as_tensor(idx))
+    assert set(got) == set(want)
+    for name, v in want.items():
+        assert tuple(got[name].shape) == v.shape == (len(idx),)
+        np.testing.assert_allclose(got[name].numpy(), v, rtol=1e-5,
+                                   atol=1e-12, err_msg=name)
+
+
 def _banks():
     """Reference and port banks over the same two apps, same ledgers."""
     rb, tb = R.MemoBank(), T.MemoBank(device="cpu")
