@@ -73,15 +73,20 @@ after:
   each MoE prefill, never on the hybrid's windowed attention or the
   SSM), the serve loop, the tokens dropped for capacity, and
   ``SampledEval`` over 16 batches of the MoE model;
-* the trainer (``repro_torch.launch.train``) at the full size of
-  ``llama3.2-3b`` (all 28 layers, bf16 weights, float32 moments): 2 AdamW
-  steps of 8 x 1024 tokens in 2 microbatches, with step seconds,
-  tokens/s, the model-FLOPs share and peak memory, and one more step
-  under the profiler; at smoke size, the CLI's loop (8 steps that must
-  descend, a resume from step 4 held to the uninterrupted run) and one
-  step on the card against the same step on the CPU. No kernel runs
-  there: training takes the reference's attention, and the phase fails
-  if ``flash_attention`` launched.
+* the trainer (``repro_torch.launch.train``) of every family at full
+  width (bf16 weights, float32 moments, 2 AdamW steps of 8 x 1024
+  tokens): ``llama3.2-3b`` (28 layers, 2 microbatches), ``recurrentgemma-2b``
+  (26 layers, 4 microbatches) and ``seamless-m4t-large-v2`` (24 + 24
+  layers, 256 source frames a sequence) whole, ``olmoe-1b-7b`` on 8 of its
+  16 layers and ``rwkv6-7b`` on 16 of its 32 (whole, their AdamW state
+  would not fit one card), with step seconds, tokens/s, the model-FLOPs
+  share, peak memory, every parameter with a gradient moved (leaves whose
+  bf16 steps round away named) and the MoE's pairs dropped for
+  capacity; then for each family at smoke size, the CLI's loop (6 steps
+  that must descend, a resume from step 3 held to the uninterrupted
+  run) and one step on the card against the same step on the CPU. No
+  kernel runs there: training takes the reference's attention, and the
+  phase fails if ``flash_attention`` launched.
 
 The trainer runs first, while ``nvcc`` builds the kernels: it launches
 none of them. Any failure raises and exits non-zero.
@@ -226,12 +231,15 @@ def spread(t) -> str:
 # ------------------------------------------------------------------ phase 1
 def phase_build(backend_mod, also=None) -> None:
     """Build every kernel (one nvcc a source, started together); the
-    host meanwhile makes the ten apps' populations and BBVs, then runs
-    ``also`` (work that launches no kernel of the port)."""
+    host meanwhile makes the ten apps' populations and BBVs in a thread
+    of their own, beside ``also`` (work that launches no kernel of the
+    port) in this one."""
+    import threading
     import torch
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = []
+    failed = []
 
     def populations():
         # the ten apps' populations and BBVs, numpy on the host, are the
@@ -239,13 +247,25 @@ def phase_build(backend_mod, also=None) -> None:
         from repro_torch.simcpu import (APP_NAMES, get_bbvs,
                                         get_population_bank)
         start = time.perf_counter()
-        for pop in get_population_bank(APP_NAMES).pops:
-            get_bbvs(pop)
+        try:
+            for pop in get_population_bank(APP_NAMES).pops:
+                get_bbvs(pop)
+        except BaseException as e:      # raised again in the caller
+            failed.append(e)
         t0.append(time.perf_counter() - start)
-        if also is not None:
-            also()
 
-    info = backend_mod.build_all(while_building=populations)
+    def meanwhile():
+        worker = threading.Thread(target=populations)
+        worker.start()
+        try:
+            if also is not None:
+                also()
+        finally:
+            worker.join()
+        if failed:
+            raise failed[0]
+
+    info = backend_mod.build_all(while_building=meanwhile)
     log(f"populations and BBVs of the ten apps, made meanwhile on the "
         f"host: {t0[0]:.2f} s")
     for name, rec in sorted(info.items()):
@@ -3073,24 +3093,51 @@ def phase_encdec(card: str) -> dict:
 
 
 # ------------------------------------------------------------------ phase 5
-# the trainer at llama3.2-3b's full size: all 28 layers, bf16 weights,
-# float32 moments; global batch 8 x 1024 in the reference's default
-# microbatches (2 at 3.6 B parameters)
+# the trainer at full width, 2 AdamW steps of 8 x 1024 tokens each, bf16
+# weights, float32 moments: (arch, layers run, microbatches), None for the
+# whole depth and the reference's default microbatches. llama3.2-3b and
+# seamless-m4t-large-v2 as they are; recurrentgemma-2b whole in 4
+# microbatches (in the default 2 its 256k-vocab logits and their gradient
+# ran out of the card's 80 GB beside its 57 GB of state); olmoe-1b-7b and
+# rwkv6-7b cut in depth (about 16 B a parameter: bf16 weights, float32
+# moments and gradient sums, one microbatch's bf16 gradients; whole they
+# need about 110 GB)
+# (``train_full_size``'s bf16 rounding check reads two steps' moments)
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 8, 2, 3e-3
+TRAIN_RUNS = (("llama3.2-3b", None, None), ("recurrentgemma-2b", None, 4),
+              ("seamless-m4t-large-v2", None, None), ("olmoe-1b-7b", 8, None),
+              ("rwkv6-7b", 16, None))
 # the smoke-size runs on the card: the CLI's loop (batch 4, seq 64, lr
-# 5e-3, 8 steps, a checkpoint at step 4) and one step against the CPU's
-SMOKE_TRAIN = dict(steps=8, batch=4, seq=64, lr=5e-3, ckpt_every=5)
+# 5e-3, 6 steps, a checkpoint at step 3) and one step against the CPU's
+SMOKE_TRAIN = dict(steps=6, batch=4, seq=64, lr=5e-3, ckpt_every=4)
 TRAIN_RTOL = 1e-4             # the reference's bound for a resumed run
 STEP_LR = 1e-3                # lr of the card-vs-CPU step
+# its (batch, seq): the families' 2 x 128 run RWKV-6's chunk loop over two
+# chunks and past the hybrid's 64-token local window; the dense step keeps
+# its 4 x 64
+STEP_SHAPE = {LM_ARCH: (4, 64)}
+PROBE = 256                   # leading elements of a parameter's last axis
 
 
-def train_flops(cfg, tokens: int, seq: int) -> float:
-    """Model FLOPs of one train step: 6 per parameter and token, plus
-    attention's products, 12 x layers x heads x head width x seq per
-    token (the full s x s square, which the plain route computes);
-    recomputation is not counted."""
-    return (6 * cfg.param_count() * tokens
-            + 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq * tokens)
+def train_flops(cfg, model, tokens: int, seq: int, src_len: int) -> float:
+    """Model FLOPs of one train step: 6 per active parameter and token it
+    acts on (the enc-dec encoder's on the source frames), plus
+    attention's products, 12 x heads x head width x keys per query and
+    layer (the full square, which the plain route computes; the hybrid's
+    attention layers alone, none in the SSM, whose chunked products are
+    not counted); recomputation is not counted."""
+    hd = cfg.n_heads * cfg.head_dim
+    if cfg.family == "encdec":
+        n_enc = sum(p.numel() for p in model.enc_layers.parameters())
+        n_rest = sum(p.numel() for p in model.parameters()) - n_enc
+        frames = tokens // seq * src_len
+        return (6 * n_enc * frames + 6 * n_rest * tokens
+                + 12 * cfg.encoder_layers * hd * src_len * frames
+                + 12 * cfg.n_layers * hd * (seq + src_len) * tokens)
+    layers = {"ssm": 0, "hybrid": cfg.n_layers // 3}.get(cfg.family,
+                                                          cfg.n_layers)
+    return (6 * cfg.active_param_count() * tokens
+            + 12 * layers * hd * seq * tokens)
 
 
 def parted_after_step(got, want, grads, lr: float, what: str) -> int:
@@ -3117,25 +3164,286 @@ def parted_after_step(got, want, grads, lr: float, what: str) -> int:
     return parted
 
 
-def phase_train(card: str) -> dict:
-    """The trainer (``repro_torch.launch.train``) at full size and at
-    smoke size; returns the three kernels' launches on the path (none:
-    training takes the reference's attention, as the reference does)."""
+def step_on_card_grads(card_model, cpu_model, start, grads_cpu, grads_card,
+                       what: str) -> dict:
+    """Hold the card's new weights against the CPU's AdamW step (STEP_LR)
+    from the same weights ``start`` on the card's own gradients: every
+    element within TRAIN_RTOL (and lr x 1e-3), none exempt (the
+    gradients' agreement is held apart). Counts the elements that part
+    from the CPU's whole step ``cpu_model`` by as much, and the largest
+    of their clipped gradients in Adam eps, where lr g / (|g| + eps) is
+    steep in g."""
+    import torch
+    from repro_torch.optim import AdamW
+    opt = AdamW(lr=STEP_LR)
+    gnorm = float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                 for g in grads_cpu.values())))
+    scale = min(1.0, opt.clip_norm / (gnorm + 1e-9))
+    opt.apply_({n: g.cpu() for n, g in grads_card.items()},
+               opt.init(start), start)
+    worst, parted, parted_g = 0.0, 0, 0.0
+    for (name, a), b, c in zip(card_model.named_parameters(),
+                               start.parameters(), cpu_model.parameters()):
+        a, b, c = a.detach().float().cpu(), b.detach(), c.detach()
+        far = (a - b).abs() > TRAIN_RTOL * b.abs() + STEP_LR * 1e-3
+        if bool(far.any()) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: {name} parts from the CPU's step "
+                                 f"on the card's gradients at "
+                                 f"{int(far.sum())} elements")
+        worst = max(worst, float((a - b).abs().max()))
+        far = (a - c).abs() > TRAIN_RTOL * c.abs() + STEP_LR * 1e-3
+        if bool(far.any()):
+            parted += int(far.sum())
+            parted_g = max(parted_g, float(grads_cpu[name][far].abs().max())
+                           * scale / opt.eps)
+    return {"max_abs_vs_card_grads": worst, "parted": parted,
+            "parted_max_g_over_eps": parted_g}
+
+
+def bf16_steps_move(name: str, w, m, v, schedule):
+    """Where a step of a 2-step AdamW run from bf16 weights ``w`` (leaf
+    ``name``) could have moved an element with a gradient, given the
+    run's final moments ``m`` and ``v`` and lr ``schedule`` (True also
+    for any element of a leaf that is not bf16). Each step is the port's
+    own ``AdamW.update``, its bf16 update added to ``w``: the second on
+    the final moments (a zero gradient on ``m / b1`` and ``v / b2``), the
+    first from zero moments at the largest first gradient ``v`` allows,
+    of either sign (a smaller one's update lies between those two).
+    (RWKV-6's ``w_bias``: its gradient flows only where the decay's log
+    escapes the -0.5 floor, mostly at |w| > 0.25, whose half gap 2^-10
+    exceeds the warm-up's steps of 3e-4 and 6e-4, and elsewhere it is
+    near eps.)"""
+    import torch
+    from repro_torch.optim import AdamW, AdamWState
+    if w.dtype != torch.bfloat16:
+        return torch.ones_like(m, dtype=torch.bool)
+    opt = AdamW(lr=schedule, clip_norm=None)
+
+    def moves(grad, m0, v0, step: int):
+        state = AdamWState(step=torch.tensor(step, dtype=torch.int32,
+                                             device=w.device),
+                           m={name: m0}, v={name: v0})
+        update, _ = opt.update({name: grad}, state, {name: w})
+        return w + update[name] != w
+    zero = torch.zeros_like(m)
+    g_max = torch.sqrt(v / ((1 - opt.b2) * opt.b2))
+    first = moves(g_max, zero, zero, 0) | moves(-g_max, zero, zero, 0)
+    second = moves(zero, m / opt.b1, v / opt.b2, 1)
+    return (m != 0) & (first | second)
+
+
+def train_full_size(arch: str, layers, microbatches, card: str,
+                    echo) -> dict:
+    """``launch.train`` at ``arch``'s full width (``layers`` of its depth,
+    or all; ``microbatches``, or the reference's default): TRAIN_STEPS
+    steps from random weights. Fails unless every
+    loss is finite, the peak stays under 80 GB and every parameter whose
+    gradient was not zero moved, over its first PROBE columns. Named
+    apart: the leaves whose gradient was zero there (a zero first
+    moment), and the bf16 leaves where no step of the run could move an
+    element (``bf16_steps_move``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.train import WARMUP_STEPS, train
+    from repro_torch.models import moe
+    from repro_torch.models.registry import init_params
+    from repro_torch.optim import cosine_with_warmup
+    from repro_torch.train.step import default_microbatches
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    cell = ShapeCell("train_8x1024", "train", TRAIN_SEQ, TRAIN_BATCH)
+    mb = microbatches or default_microbatches(cfg, cell)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    probe = {n: p.detach()[..., :PROBE].clone()
+             for n, p in params.named_parameters()}
+    built = sum(p.numel() for p in params.parameters())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    with moe.record_routing() as routes:
+        run = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                    seq=TRAIN_SEQ, lr=TRAIN_LR, microbatches=mb,
+                    device="cuda", params=params, log=echo)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [run.losses[s] for s in range(TRAIN_STEPS)]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch} full-size train: losses {losses}")
+    zero_grad = sorted(n for n, m in run.opt_state.m.items()
+                       if not bool((m[..., :PROBE] != 0).any()))
+    unmoved = sorted(n for n, p in params.named_parameters()
+                     if torch.equal(p.detach()[..., :PROBE], probe[n]))
+    schedule = cosine_with_warmup(TRAIN_LR, WARMUP_STEPS, TRAIN_STEPS)
+    rounded_away = []
+    for name in sorted(set(unmoved) - set(zero_grad)):
+        moves = bf16_steps_move(name, probe[name],
+                                run.opt_state.m[name][..., :PROBE],
+                                run.opt_state.v[name][..., :PROBE], schedule)
+        if bool(moves.any()):
+            i = int(torch.nonzero(moves.flatten())[0])
+            raise AssertionError(
+                f"{arch} full-size train: {name} has a gradient and did not "
+                f"move (element {i}: w {float(probe[name].flatten()[i])})")
+        rounded_away.append(name)
+    if peak >= 80e9:
+        raise AssertionError(f"{arch} full-size train: peak "
+                             f"{peak / 1e9:.2f} GB")
+    src_len = min(TRAIN_SEQ, 256) if cfg.family == "encdec" else 0
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    warm_s = float(np.mean(run.times[1:]))
+    flops = train_flops(cfg, params, tokens, TRAIN_SEQ, src_len)
+    rec = {"layers": cfg.n_layers, "of_layers": get_config(arch).n_layers,
+           "params": cfg.param_count(), "built_params": built,
+           "microbatches": mb,
+           "default_microbatches": default_microbatches(cfg, cell),
+           "init_s": init_s, "losses": losses,
+           "step_s": [float(t) for t in run.times],
+           "first_step_s": float(run.times[0]), "warm_step_s": warm_s,
+           "tokens_per_s": tokens / warm_s, "model_flops": flops,
+           "mfu": flops / (warm_s * PEAK_BF16_FLOPS),
+           "peak_gb": peak / 1e9, "zero_grad_leaves": zero_grad,
+           "rounded_away_leaves": rounded_away}
+    if cfg.family == "moe":
+        rec["dropped_pairs"] = sum(int((~r.keep).sum()) for r in routes)
+        rec["routed_pairs"] = sum(r.keep.numel() for r in routes)
+    log(f"train {arch} full width ({cfg.n_layers} of "
+        f"{rec['of_layers']} layers, {built / 1e9:.4f} B parameters "
+        f"built, bf16, float32 moments, {TRAIN_BATCH} x {TRAIN_SEQ} tokens"
+        f"{f' and {src_len} source frames' if src_len else ''} in {mb} "
+        f"microbatch(es); {card}): init {init_s:.3f} s; steps "
+        f"{', '.join(f'{t:.3f}' for t in run.times)} s (first "
+        f"{rec['first_step_s']:.3f}, warm {warm_s:.3f}); "
+        f"{rec['tokens_per_s']:.1f} tokens/s; model-FLOPs share "
+        f"{rec['mfu']:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16; "
+        f"losses {', '.join(f'{v:.4f}' for v in losses)}; peak memory "
+        f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB); zero-gradient "
+        f"leaves {len(zero_grad)} {zero_grad[:6]}; leaves whose steps "
+        f"round away in bf16 {len(rounded_away)} {rounded_away[:4]}"
+        + (f"; pairs dropped for capacity {rec['dropped_pairs']} of "
+           f"{rec['routed_pairs']}" if cfg.family == "moe" else ""))
+    del run, params, probe, routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_smoke_size(arch: str, echo) -> dict:
+    """At ``arch``'s smoke size, float32: the CLI's loop descends, a run
+    resumed from its step-3 checkpoint follows it (rtol TRAIN_RTOL), and
+    one step on the card (STEP_SHAPE tokens) equals the same step on the
+    CPU: the loss, the gradients, and the new weights, against the CPU's
+    (``parted_after_step``) for the dense model, against the CPU's step
+    on the card's own gradients for the families
+    (``step_on_card_grads``)."""
     import copy
     import shutil
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeCell
     from repro_torch.data import make_pipeline
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.kmeans_assign import ops as assign_ops
-    from repro_torch.kernels.segment_stats import ops as segment_ops
     from repro_torch.launch.train import train
     from repro_torch.models.registry import init_params
     from repro_torch.optim import AdamW
     from repro_torch.optim.adamw import GradTransform
-    from repro_torch.train.step import default_microbatches, make_train_fn
+    from repro_torch.train.step import make_train_fn
+
+    t0 = time.perf_counter()
+    small = get_config(arch, smoke=True)
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    full_run = train(small, device="cuda", ckpt_dir=root / "a", log=echo,
+                     **SMOKE_TRAIN)
+    steps = SMOKE_TRAIN["steps"]
+    smoke_losses = [full_run.losses[s] for s in range(steps)]
+    if not smoke_losses[-1] < smoke_losses[0]:
+        raise AssertionError(f"{arch} smoke train: no descent "
+                             f"{smoke_losses}")
+    # a host that died after step 3's checkpoint: its directory is the
+    # uninterrupted run's without the last checkpoint
+    shutil.copytree(root / "a", root / "b")
+    shutil.rmtree(root / "b" / f"step_{steps - 1}")
+    resumed = train(small, device="cuda", ckpt_dir=root / "b", log=echo,
+                    **SMOKE_TRAIN)
+    shutil.rmtree(root, ignore_errors=True)
+    pairs = [(resumed.losses[s], full_run.losses[s])
+             for s in range(resumed.start, steps)]
+    np.testing.assert_allclose([a for a, _ in pairs], [b for _, b in pairs],
+                               rtol=TRAIN_RTOL)
+    bitwise = all(a == b for a, b in pairs)
+    loop_s = time.perf_counter() - t0
+
+    class Stash(GradTransform):
+        def apply(self, grads, ef):
+            return grads, grads
+
+    cpu_model = init_params(small, generator=torch.Generator().manual_seed(1),
+                            device="cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    start = copy.deepcopy(cpu_model)
+    opt = AdamW(lr=STEP_LR, compress=Stash())
+    rows, seq = STEP_SHAPE.get(arch, (2, 128))
+    out = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
+        batch = make_pipeline(small, seq, rows, seed=3, device=dev).batch(0)
+        _, state, loss = make_train_fn(small, opt)(model, opt.init(model),
+                                                   batch)
+        out[dev] = (float(loss), state.ef)
+    loss_delta = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    if loss_delta > TRAIN_RTOL:
+        raise AssertionError(f"{arch} card vs CPU step: loss "
+                             f"{out['cuda'][0]} vs {out['cpu'][0]}")
+    worst = 0.0
+    for name, g in out["cpu"][1].items():
+        err = float((out["cuda"][1][name].cpu() - g).abs().max())
+        worst = max(worst, err / max(float(g.abs().max()), 1e-30))
+    if worst > TRAIN_RTOL:
+        raise AssertionError(f"{arch} card vs CPU step: gradients differ "
+                             f"by {worst:.3g} of a leaf's max")
+    what = f"{arch} card vs CPU step"
+    if arch == LM_ARCH:
+        weights = {"parted": parted_after_step(
+            card_model, cpu_model, out["cpu"][1], STEP_LR, what)}
+        held = "parted at near-zero gradients"
+    else:
+        weights = step_on_card_grads(card_model, cpu_model, start,
+                                     out["cpu"][1], out["cuda"][1], what)
+        held = (f"parted from the CPU's step (the largest clipped gradient "
+                f"among them {weights['parted_max_g_over_eps']:.3g} Adam "
+                f"eps), the CPU's step on the card's gradients within "
+                f"{weights['max_abs_vs_card_grads']:.3g}")
+    rec = {"losses": smoke_losses, "resume_bitwise": bitwise,
+           "resume_max_rel": max(abs(a - b) / abs(b) for a, b in pairs),
+           "card_vs_cpu": {"batch": rows, "seq": seq,
+                           "loss_rel": loss_delta,
+                           "grad_rel": worst, **weights},
+           "loop_s": loop_s, "step_s": time.perf_counter() - t0 - loop_s}
+    log(f"train {arch} smoke size (float32, {small.n_layers} layers): CLI "
+        f"loop losses {', '.join(f'{v:.6f}' for v in smoke_losses)}; "
+        f"resumed from step {resumed.start - 1}: "
+        f"{'bitwise equal' if bitwise else 'NOT bitwise'} to the "
+        f"uninterrupted run (max rel {rec['resume_max_rel']:.3g}); card vs "
+        f"CPU step ({rows} x {seq} tokens): loss rel {loss_delta:.3g}, "
+        f"gradients within {worst:.3g} of each leaf's max, "
+        f"{weights['parted']} "
+        f"parameter elements {held}; {loop_s:.1f} s + "
+        f"{rec['step_s']:.1f} s")
+    return rec
+
+
+def phase_train(card: str) -> dict:
+    """The trainer (``repro_torch.launch.train``) of every family at full
+    width (TRAIN_RUNS) and at smoke size; returns the three kernels'
+    launches on the path (none: training takes the reference's
+    attention, as the reference does)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+    from repro_torch.kernels.segment_stats import ops as segment_ops
 
     phase_t0 = time.perf_counter()
     for ops in (flash_ops, assign_ops, segment_ops):
@@ -3150,137 +3458,36 @@ def phase_train(card: str) -> dict:
     import torch._dynamo  # noqa: F401
     dynamo_s = time.perf_counter() - t0
 
-    # 1. full size: 28 layers, bf16, float32 moments, 2 steps
-    cfg = get_config(LM_ARCH)
-    cell = ShapeCell("train_8x1024", "train", TRAIN_SEQ, TRAIN_BATCH)
-    mb = default_microbatches(cfg, cell)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_params(cfg, generator=torch.Generator(
-        device="cuda").manual_seed(0))
-    probe = {n: p.detach()[..., :256].clone()
-             for n, p in params.named_parameters()}
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    run = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                lr=TRAIN_LR, microbatches=mb, device="cuda", params=params,
-                log=echo)
-    peak = torch.cuda.max_memory_allocated()
-    losses = [run.losses[s] for s in range(TRAIN_STEPS)]
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"full-size train: losses {losses}")
-    moved = sum(not torch.equal(p.detach()[..., :256], probe[n])
-                for n, p in params.named_parameters())
-    if moved != len(probe):
-        raise AssertionError(f"full-size train: {len(probe) - moved} of "
-                             f"{len(probe)} parameters did not move")
-    if peak >= 80e9:
-        raise AssertionError(f"full-size train: peak {peak / 1e9:.2f} GB")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    warm_s = float(np.mean(run.times[1:]))
-    flops = train_flops(cfg, tokens, TRAIN_SEQ)
-    full = {"layers": cfg.n_layers, "params": cfg.param_count(),
-            "microbatches": mb, "dynamo_import_s": dynamo_s,
-            "init_s": init_s, "losses": losses,
-            "step_s": [float(t) for t in run.times],
-            "first_step_s": float(run.times[0]), "warm_step_s": warm_s,
-            "tokens_per_s": tokens / warm_s, "model_flops": flops,
-            "mfu": flops / (warm_s * PEAK_BF16_FLOPS),
-            "peak_gb": peak / 1e9}
-    log(f"train full size ({cfg.n_layers} layers, "
-        f"{cfg.param_count() / 1e9:.3f} B parameters, bf16, float32 "
-        f"moments, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {mb} "
-        f"microbatches; {card}): torch._dynamo import (checkpoint's "
-        f"first call) {dynamo_s:.3f} s; init {init_s:.3f} s; steps "
-        f"{', '.join(f'{t:.3f}' for t in run.times)} s (first "
-        f"{full['first_step_s']:.3f}, warm mean {warm_s:.3f}); "
-        f"{full['tokens_per_s']:.1f} tokens/s; model-FLOPs share "
-        f"{full['mfu']:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16; "
-        f"losses {', '.join(f'{v:.4f}' for v in losses)}; peak memory "
-        f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB)")
+    # the smoke-size runs first: on the host they share the CPU with the
+    # populations' thread (``phase_build``), which is done before the
+    # full-size runs are timed
+    seconds = {}
+    smoke = {}
+    for arch, _, _ in TRAIN_RUNS:
+        t0 = time.perf_counter()
+        smoke[arch] = train_smoke_size(arch, echo)
+        seconds[f"{arch} smoke"] = time.perf_counter() - t0
+    full = {}
+    for arch, layers, microbatches in TRAIN_RUNS:
+        t0 = time.perf_counter()
+        full[arch] = train_full_size(arch, layers, microbatches, card, echo)
+        seconds[f"{arch} full"] = time.perf_counter() - t0
 
-    del run, params, probe
-    gc.collect()
-    torch.cuda.empty_cache()
-    full_s = time.perf_counter() - phase_t0
-
-    # 2. smoke size: the CLI's loop descends, a resumed run follows it
-    small = get_config(LM_ARCH, smoke=True)
-    root = ROOT / "build" / "train_ckpt"
-    shutil.rmtree(root, ignore_errors=True)
-    full_run = train(small, device="cuda", ckpt_dir=root / "a", log=echo,
-                     **SMOKE_TRAIN)
-    steps = SMOKE_TRAIN["steps"]
-    smoke_losses = [full_run.losses[s] for s in range(steps)]
-    if not smoke_losses[-1] < smoke_losses[0]:
-        raise AssertionError(f"smoke train: no descent {smoke_losses}")
-    train(small, device="cuda", ckpt_dir=root / "b", log=lambda s: None,
-          **SMOKE_TRAIN)
-    shutil.rmtree(root / "b" / f"step_{steps - 1}")   # killed after step 4
-    resumed = train(small, device="cuda", ckpt_dir=root / "b", log=echo,
-                    **SMOKE_TRAIN)
-    shutil.rmtree(root, ignore_errors=True)
-    pairs = [(resumed.losses[s], full_run.losses[s])
-             for s in range(resumed.start, steps)]
-    np.testing.assert_allclose([a for a, _ in pairs], [b for _, b in pairs],
-                               rtol=TRAIN_RTOL)
-    bitwise = all(a == b for a, b in pairs)
-    log(f"train smoke size (CLI loop, {small.n_layers} layers, float32): "
-        f"losses {', '.join(f'{v:.6f}' for v in smoke_losses)}; resumed "
-        f"from step {resumed.start - 1}: "
-        f"{'bitwise equal' if bitwise else 'NOT bitwise'} to the "
-        "uninterrupted run (max rel "
-        f"{max(abs(a - b) / abs(b) for a, b in pairs):.3g})")
-
-    smoke_s = time.perf_counter() - phase_t0 - full_s
-
-    # 3. one smoke-size step on the card against the same step on the CPU
-    class Stash(GradTransform):
-        def apply(self, grads, ef):
-            return grads, grads
-
-    cpu_model = init_params(small, generator=torch.Generator().manual_seed(1),
-                            device="cpu")
-    card_model = copy.deepcopy(cpu_model).to("cuda")
-    opt = AdamW(lr=STEP_LR, compress=Stash())
-    out = {}
-    for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
-        batch = make_pipeline(small, 64, 4, seed=3, device=dev).batch(0)
-        _, state, loss = make_train_fn(small, opt)(model, opt.init(model),
-                                                   batch)
-        out[dev] = (float(loss), state.ef)
-    loss_delta = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
-    if loss_delta > TRAIN_RTOL:
-        raise AssertionError(f"card vs CPU step: loss {out['cuda'][0]} vs "
-                             f"{out['cpu'][0]}")
-    worst = 0.0
-    for name, g in out["cpu"][1].items():
-        err = float((out["cuda"][1][name].cpu() - g).abs().max())
-        worst = max(worst, err / max(float(g.abs().max()), 1e-30))
-    if worst > TRAIN_RTOL:
-        raise AssertionError(f"card vs CPU step: gradients differ by "
-                             f"{worst:.3g} of a leaf's max")
-    parted = parted_after_step(card_model, cpu_model, out["cpu"][1], STEP_LR,
-                               "card vs CPU step")
-    log(f"train card vs CPU step (smoke, float32): loss rel {loss_delta:.3g}"
-        f", gradients within {worst:.3g} of each leaf's max, {parted} "
-        "parameter elements parted at near-zero gradients")
-
-    launches = {"flash_attention": flash_ops.launch_count(),
+    launches = {"flash_attention": flash_ops.launch_count("causal"),
+                "flash_attention_noncausal":
+                    flash_ops.launch_count("non_causal"),
                 "kmeans_assign": assign_ops.launch_count(),
                 "segment_stats": segment_ops.launch_count()}
-    if launches["flash_attention"] != 0:
+    if flash_ops.launch_count() != 0:
         raise AssertionError(f"the train path launched flash_attention "
-                             f"{launches['flash_attention']} times")
-    log(f"train path launches {launches}; seconds: full size {full_s:.1f}, "
-        f"smoke-size loop and resume "
-        f"{smoke_s:.1f}, card vs CPU step "
-        f"{time.perf_counter() - phase_t0 - full_s - smoke_s:.1f}")
+                             f"{flash_ops.launch_count()} times")
+    log(f"train path launches {launches}; torch._dynamo import "
+        f"(checkpoint's first call) {dynamo_s:.3f} s; seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; the phase {time.perf_counter() - phase_t0:.1f}")
     log("train record " + json.dumps({
-        "full_size": full, "smoke_losses": smoke_losses,
-        "resume_bitwise": bitwise, "card_vs_cpu": {
-            "loss_rel": loss_delta, "grad_rel": worst, "parted": parted}}))
+        "card": card, "dynamo_import_s": dynamo_s, "full_size": full,
+        "smoke": smoke, "seconds": seconds}))
     return launches
 
 

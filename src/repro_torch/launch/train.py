@@ -10,14 +10,17 @@ deterministic data from (seed, step), the cosine schedule with a 10-step
 warmup, atomic checkpoints every ``--ckpt-every`` steps and at the end,
 automatic resume from the latest one, straggler flagging. Weights are
 random, drawn from ``--seed`` (the port's generator, so not the
-reference's values). Only the dense family trains (``make_train_fn``
-refuses the others: ROADMAP.md). Only the host mesh of one device runs
-(``--mesh host --model-parallel 1``); the production meshes wait for the
-port of ``distributed/{ctx,sharding}`` (ROADMAP.md, A.5).
+reference's values). Every family trains: dense, MoE, hybrid, SSM and
+enc-dec (whose batches add ``src_embeds``, 256 source frames at
+``--seq`` 1024). Only the host mesh of one device runs (``--mesh host
+--model-parallel 1``); the production meshes wait for the port of
+``distributed/{ctx,sharding}`` (ROADMAP.md, A.3).
 
 A checkpoint holds ``(params, opt_state)`` in the reference's tree and
-keys (``checkpoint_tree``): the per-layer leaves stacked, the optimizer
-state an ``AdamWState``, so either package resumes the other's
+keys (``checkpoint_tree``): each stacked group's leaves (``layers``,
+``supers`` and ``tail``, ``enc_layers`` and ``dec_layers``) stacked, a
+hybrid's empty ``tail`` as ``{}``, the optimizer state an
+``AdamWState``, so either package resumes the other's float32
 checkpoint of the same config.
 """
 
@@ -52,7 +55,7 @@ WARMUP_STEPS = 10
 
 @dataclasses.dataclass
 class TrainRun:
-    params: torch.nn.Module     # the LM, trained in place
+    params: torch.nn.Module     # the LM or EncDec, trained in place
     opt_state: AdamWState
     start: int                  # first step run here (after a resume)
     losses: dict                # step -> loss of the steps run here
@@ -61,7 +64,8 @@ class TrainRun:
 
 def checkpoint_tree(params, opt_state: AdamWState) -> tuple:
     """``(params, opt_state)`` in the reference's tree: nested dicts with
-    the ``layers`` leaves stacked (copies, on the parameters' device)."""
+    the stacked groups' leaves stacked (copies, on the parameters'
+    device)."""
     def tree(named):
         return None if named is None else reference_tree(named, torch.stack)
     return (tree({n: p.detach() for n, p in params.named_parameters()}),
@@ -91,7 +95,7 @@ def _check_mesh(mesh: str, model_parallel: int) -> None:
             f"--mesh {mesh} --model-parallel {model_parallel}: the port "
             "trains on the host mesh of one device only (--mesh host "
             "--model-parallel 1); sharded meshes wait for "
-            "distributed/{ctx,sharding} (ROADMAP.md, A.5)")
+            "distributed/{ctx,sharding} (ROADMAP.md, A.3)")
 
 
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
@@ -100,7 +104,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           model_parallel: int = 1, device=None, params=None,
           log: Callable[[str], None] = print) -> TrainRun:
     """The reference's training loop on ``device`` (the card when None).
-    ``params`` is the ``LM`` to train in place (random weights from
+    ``params`` is the model to train in place (random weights from
     ``seed`` when None). With ``ckpt_dir`` it resumes from the latest
     checkpoint there and writes one every ``ckpt_every`` steps and at the
     end."""

@@ -70,7 +70,8 @@ def port_leaf(tree: dict, name: str):
 def reference_tree(named: dict, stack: Callable = np.stack) -> dict:
     """Leaves keyed by the port's parameter names, as the reference's
     nested tree: the stacked groups' leaves stacked along a leading axis
-    by ``stack`` (``np.stack`` or ``torch.stack``)."""
+    by ``stack`` (``np.stack`` or ``torch.stack``); a hybrid's (one with
+    ``supers``) empty ``tail`` as ``{}``."""
     tree: dict = {}
     stacked: dict[tuple, dict[int, object]] = {}
     for name, leaf in named.items():
@@ -84,6 +85,8 @@ def reference_tree(named: dict, stack: Callable = np.stack) -> dict:
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = stack([rows[i] for i in range(len(rows))])
+    if "supers" in tree:
+        tree.setdefault("tail", {})
     return tree
 
 
@@ -134,8 +137,5 @@ def params_to_numpy(model: LM | EncDec) -> dict:
     nested dicts of numpy arrays with the ``layers`` leaves stacked; bf16
     leaves as ``ml_dtypes.bfloat16`` (their int16 bits without
     ``ml_dtypes``)."""
-    tree = reference_tree({name: _numpy(p)
+    return reference_tree({name: _numpy(p)
                            for name, p in model.named_parameters()})
-    if model.cfg.family == "hybrid":
-        tree.setdefault("tail", {})
-    return tree

@@ -79,9 +79,10 @@ def capacity(tokens: int, cfg: ModelConfig) -> int:
 @contextlib.contextmanager
 def record_routing():
     """Collect every ``Routing`` made inside, in call order (one per MoE
-    layer a forward or decode step; a CUDA graph's replays make none),
-    its tensors left on their device: the pairs dropped for capacity are
-    ``(~r.keep).sum()`` of each."""
+    layer a forward or decode step; a CUDA graph's replays make none, nor
+    does a train step's backward, whose rematerialised layers route their
+    tokens again), its tensors left on their device: the pairs dropped
+    for capacity are ``(~r.keep).sum()`` of each."""
     global _ROUTING_LOG
     prev, _ROUTING_LOG = _ROUTING_LOG, []
     try:
@@ -113,7 +114,10 @@ def route_scores(scores: torch.Tensor, cfg: ModelConfig) -> Routing:
     slot = slot.reshape(t, k)
     cap = capacity(t, cfg)
     r = Routing(expert, gate, slot, slot < cap, cap, margin)
-    if _ROUTING_LOG is not None:
+    # autograd's backward runs a graph task (-1 outside one): there the
+    # checkpointed layers' forward is replayed, already logged
+    in_backward = torch._C._current_graph_task_id() != -1
+    if _ROUTING_LOG is not None and not in_backward:
         _ROUTING_LOG.append(r)
     return r
 

@@ -10,9 +10,11 @@ Two traps of the reference's arithmetic are kept on purpose:
 * the clip scale is cast to each gradient's type before the multiply
   (a bf16 product for bf16 gradients);
 * weight decay applies to leaves of rank >= 2 *in the reference's tree*,
-  where the per-layer parameters are stacked along a leading
-  ``(n_layers,)`` axis: the port's ``layers.<i>.ln1`` is ``(d,)`` but the
-  reference's ``layers.ln1`` is ``(n_layers, d)``, so it is decayed, while
+  where the members of each stacked group (``models.convert.STACKED``:
+  ``layers``, the hybrid's ``supers`` and ``tail``, the enc-dec model's
+  ``enc_layers`` and ``dec_layers``) are stacked along a leading axis:
+  the port's ``layers.<i>.ln1`` is ``(d,)`` but the reference's
+  ``layers.ln1`` is ``(n_layers, d)``, so it is decayed, while
   ``final_norm`` is not (``reference_ndim``).
 
 ``update`` is the reference's functional step (it returns the updates
@@ -28,6 +30,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
+
+from ..models.convert import STACKED
 
 __all__ = ["AdamW", "AdamWState", "GradTransform", "apply_updates",
            "named_leaves", "reference_ndim"]
@@ -59,11 +63,12 @@ def named_leaves(tree) -> dict[str, torch.Tensor]:
 
 
 def reference_ndim(name: str, p: torch.Tensor) -> int:
-    """``p``'s rank in the reference's tree: the port's per-layer
-    parameters ``layers.<i>.…`` are the reference's leaves stacked along
-    a leading ``(n_layers,)`` axis (``stack_layers``)."""
+    """``p``'s rank in the reference's tree: the port's parameters
+    ``<group>.<i>.…`` of a stacked group (``layers``, ``supers``,
+    ``tail``, ``enc_layers``, ``dec_layers``) are the reference's leaves
+    stacked along a leading axis over the group's members."""
     parts = name.split(".")
-    stacked = len(parts) > 2 and parts[0] == "layers" and parts[1].isdigit()
+    stacked = len(parts) > 2 and parts[0] in STACKED and parts[1].isdigit()
     return p.ndim + int(stacked)
 
 

@@ -6,10 +6,13 @@ shard: the builders return the step functions themselves (the
 reference's ``lower_*`` and ``input_specs`` wait for the dry-run slice,
 ROADMAP.md).
 
-The train step differentiates the loss through the reference's attention
+The train step differentiates the family's loss (``registry.loss_fn``:
+dense, MoE, hybrid, SSM or enc-dec) through the reference's attention
 (``backend="plain"``; the flash kernel has no backward) with each layer
-rematerialised, as ``jax.value_and_grad`` of the reference's loss does.
-With ``microbatches > 1`` the batch is split along its leading axis and
+rematerialised where the reference's is (every layer, the hybrid's
+supers but not its tail, both enc-dec stacks), as ``jax.value_and_grad``
+of the reference's loss does. With ``microbatches > 1`` every batch
+entry (``src_embeds`` too) is split along its leading axis and
 the microbatches' gradients are summed in float32 buffers and divided,
 as the reference's ``lax.scan`` does, so the update sees float32
 gradients; with one it sees them in the parameters' dtype. The AdamW
@@ -63,16 +66,10 @@ def _requiring_grad(params: list[torch.Tensor]):
 
 def make_train_fn(cfg: ModelConfig, opt: AdamW, *, microbatches: int = 1):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    loss)``: one optimizer step on ``batch`` (``tokens``, ``labels``).
-    ``params`` (the ``LM``) and the state's moments are updated in place;
-    the loss is a float32 0-d tensor on the parameters' device. Only the
-    dense family trains: the others serve, and their training waits for
-    a later slice (ROADMAP.md), so it raises ``NotImplementedError``
-    rather than train a path no test holds."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the port trains the dense family only; training "
-            f"the {cfg.family} family waits for a later slice (ROADMAP.md)")
+    loss)``: one optimizer step on ``batch`` (``tokens``, ``labels``, and
+    ``src_embeds`` for the enc-dec family). ``params`` (the ``LM`` or
+    ``EncDec``) and the state's moments are updated in place; the loss is
+    a float32 0-d tensor on the parameters' device."""
     lfn = loss_fn(cfg, backend="plain")
 
     def loss_and_grads(params, batch):

@@ -930,22 +930,22 @@ def test_sharded_trials_equal_unsharded_on_the_card(cuda):
 
 
 # --------------------------------------------------------------- the trainer
-def _smoke_lm(seed=1):
+TRAIN_ARCHS = ["olmoe-1b-7b", "recurrentgemma-2b", "rwkv6-7b",
+               "seamless-m4t-large-v2"]
+
+
+def _smoke_lm(arch="llama3.2-3b", seed=1):
     from repro_torch.configs import get_config
     from repro_torch.models.registry import init_params
-    cfg = get_config("llama3.2-3b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     return cfg, init_params(cfg, generator=torch.Generator().manual_seed(seed),
                             device="cpu")
 
 
-@pytest.mark.cuda
-def test_train_step_on_the_card_equals_the_cpus(cuda):
-    """One float32 smoke-size train step from the same weights and batch:
-    loss rtol 1e-4, every gradient within 1e-4 of its leaf's max |g|, the
-    new parameters to rtol 1e-4 (plus lr x 1e-3) except elements whose
-    gradient lies within 1e-4 of the leaf's max of zero, where Adam's
-    first update (about +-lr) may take either sign: at most 0.1 % of a
-    leaf."""
+def _card_step_equals_cpu_step(cuda, arch, seq=64, own_grads=False):
+    """With ``own_grads`` the card's new parameters are held against the
+    CPU's AdamW step on the card's own gradients, with no element exempt,
+    instead of against the CPU's whole step."""
     import copy
     from repro_torch.data import make_pipeline
     from repro_torch.optim import AdamW
@@ -957,26 +957,61 @@ def test_train_step_on_the_card_equals_the_cpus(cuda):
             return grads, grads
 
     lr = 1e-3
-    cfg, cpu_model = _smoke_lm()
+    cfg, cpu_model = _smoke_lm(arch)
     card_model = copy.deepcopy(cpu_model).to(cuda)
+    start = copy.deepcopy(cpu_model)
     opt = AdamW(lr=lr, compress=Stash())
     out = {}
     for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
-        batch = make_pipeline(cfg, 64, 4, seed=3, device=dev).batch(0)
+        batch = make_pipeline(cfg, seq, 4, seed=3, device=dev).batch(0)
         _, state, loss = make_train_fn(cfg, opt)(model, opt.init(model),
                                                  batch)
         out[dev] = (float(loss), state.ef)
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
-    for (name, a), b in zip(card_model.named_parameters(),
-                            cpu_model.parameters()):
+    want = cpu_model
+    if own_grads:
+        plain = AdamW(lr=lr)
+        plain.apply_({n: g.cpu() for n, g in out["cuda"][1].items()},
+                     plain.init(start), start)
+        want = start
+    for (name, a), b in zip(card_model.named_parameters(), want.parameters()):
         g_cpu, g_card = out["cpu"][1][name], out["cuda"][1][name].cpu()
         assert float((g_card - g_cpu).abs().max()) <= \
             1e-4 * float(g_cpu.abs().max()), name
         a, b = a.detach().cpu(), b.detach()
         far = (a - b).abs() > 1e-4 * b.abs() + lr * 1e-3
+        if own_grads:
+            assert not bool(far.any()), name
+            continue
         near_zero = g_cpu.abs() <= 1e-4 * g_cpu.abs().max()
         assert bool(near_zero[far].all()), name
         assert int(far.sum()) <= 1e-3 * far.numel(), name
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_equals_the_cpus(cuda):
+    """One float32 smoke-size train step from the same weights and batch:
+    loss rtol 1e-4, every gradient within 1e-4 of its leaf's max |g|, the
+    new parameters to rtol 1e-4 (plus lr x 1e-3) except elements whose
+    gradient lies within 1e-4 of the leaf's max of zero, where Adam's
+    first update (about +-lr) may take either sign: at most 0.1 % of a
+    leaf."""
+    _card_step_equals_cpu_step(cuda, "llama3.2-3b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_family_train_step_on_the_card_equals_the_cpus(cuda, arch):
+    """As the dense family's, for the MoE, hybrid, SSM and enc-dec smoke
+    models, on 128 tokens (RWKV-6's chunk loop over two chunks, past the
+    hybrid's 64-token window): loss rtol 1e-4, every gradient within
+    1e-4 of its leaf's max |g|; the new parameters to rtol 1e-4 (plus lr
+    x 1e-3), no element exempt, against the CPU's AdamW step on the
+    card's own gradients. (Against the CPU's whole step, RWKV-6's
+    ``layers.0.tm.w_lora_a`` parts at 3 elements above 1e-4 of the
+    leaf's max |g|: after the clip those gradients lie within a few
+    Adam eps, where lr·g/(|g| + eps) is steep in g.)"""
+    _card_step_equals_cpu_step(cuda, arch, seq=128, own_grads=True)
 
 
 @pytest.mark.cuda
@@ -995,15 +1030,11 @@ def test_flash_attention_refuses_inputs_that_require_grad_on_the_card(cuda):
     assert flash_ops.launch_count() == before + 1
 
 
-@pytest.mark.cuda
-def test_launch_train_loop_runs_on_the_card(cuda, tmp_path):
-    """The CLI's loop on the card: the loss descends over 8 steps, a run
-    resumed from step 4's checkpoint follows the uninterrupted one to rtol
-    1e-4 (the reference's bound), and no flash kernel is launched."""
+def _train_loop_resumes(cuda, tmp_path, arch):
     import shutil
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
-    cfg = get_config("llama3.2-3b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     kw = dict(steps=8, batch=4, seq=64, lr=5e-3, ckpt_every=5, device=cuda,
               log=lambda s: None)
     before = flash_ops.launch_count()
@@ -1017,6 +1048,22 @@ def test_launch_train_loop_runs_on_the_card(cuda, tmp_path):
         assert abs(again.losses[step] - full.losses[step]) <= \
             1e-4 * abs(full.losses[step])
     assert flash_ops.launch_count() == before
+
+
+@pytest.mark.cuda
+def test_launch_train_loop_runs_on_the_card(cuda, tmp_path):
+    """The CLI's loop on the card: the loss descends over 8 steps, a run
+    resumed from step 4's checkpoint follows the uninterrupted one to rtol
+    1e-4 (the reference's bound), and no flash kernel is launched."""
+    _train_loop_resumes(cuda, tmp_path, "llama3.2-3b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_family_launch_train_loop_runs_on_the_card(cuda, tmp_path, arch):
+    """As the dense family's, for the MoE, hybrid, SSM and enc-dec smoke
+    models."""
+    _train_loop_resumes(cuda, tmp_path, arch)
 
 
 # ----------------------------------------------------- the other LM families

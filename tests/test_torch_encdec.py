@@ -298,10 +298,22 @@ def test_registry_builds_and_defaults():
 
 
 def test_training_refuses_the_encdec_family():
+    """The refusal this test held is gone: the enc-dec family trains.
+    ``make_train_fn`` builds for it, and one step on a ``SyntheticEncDec``
+    batch (tokens, labels and source frames) gives a finite loss and
+    moves the encoder's weights (its training against the reference:
+    ``tests/test_torch_train_encdec.py``)."""
     from repro_torch.optim import AdamW
     from repro_torch.train.step import make_train_fn
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_fn(get_config(ARCH, smoke=True), AdamW(lr=1e-3))
+    cfg = get_config(ARCH, smoke=True)
+    model = TR.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    before = model.enc_layers[0].attn.wq.detach().clone()
+    opt = AdamW(lr=1e-3)
+    batch = make_pipeline(cfg, 64, 2, device="cpu").batch(0)
+    _, _, loss = make_train_fn(cfg, opt)(model, opt.init(model), batch)
+    assert np.isfinite(float(loss))
+    assert not torch.equal(model.enc_layers[0].attn.wq, before)
 
 
 def test_remat_flag_changes_nothing_under_grad(smoke):

@@ -120,19 +120,29 @@ def test_dense_configs_match_reference(arch, smoke_size):
     check_config(arch, smoke_size)
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-2b",
-                                  "rwkv6-7b"])
-def test_training_refuses_the_serving_only_families(arch):
-    """``make_train_fn`` and ``launch.train`` raise for the MoE, hybrid
-    and SSM families (their training waits: ROADMAP.md)."""
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "olmoe-1b-7b",
+                                  "recurrentgemma-2b", "rwkv6-7b",
+                                  "seamless-m4t-large-v2"])
+def test_every_family_trains(arch):
+    """``make_train_fn`` builds for each family (dense, MoE, hybrid, SSM,
+    enc-dec) and ``launch.train`` runs 2 CPU steps at smoke size with
+    finite losses (the families' training against the reference:
+    ``tests/test_torch_train*.py``)."""
     from repro_torch.optim import AdamW
     from repro_torch.train.step import make_train_fn
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_fn(cfg, AdamW(lr=1e-3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train(cfg, steps=1, batch=2, seq=64, device="cpu",
-              log=lambda s: None)
+    assert callable(make_train_fn(cfg, AdamW(lr=1e-3), microbatches=2))
+    lines = []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        run = train(cfg, steps=2, batch=2, seq=64, device="cpu",
+                    log=lines.append)
+    finally:
+        torch.set_num_threads(threads)
+    assert sorted(run.losses) == [0, 1]
+    assert all(np.isfinite(v) for v in run.losses.values())
+    assert lines[0].startswith("step     0 loss ")
 
 
 def test_forward_and_loss_match_reference(smoke):

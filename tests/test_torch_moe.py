@@ -33,46 +33,10 @@ from repro_torch.models import moe as port_moe
 from repro_torch.models.convert import tensor_from_numpy
 
 ARCHS = ["olmoe-1b-7b", "qwen3-moe-235b-a22b"]
-TIE_RTOL = 1e-5
-
-
-def _reference_routing(scores, cfg):
-    """The reference's routing (``repro.models.moe.moe``, lines 51-67,
-    one group) of float32 scores ``(t, e)``: experts, gates, slots and
-    keep."""
-    t, e = scores.shape
-    k = cfg.moe_topk
-    gates, idx = jax.lax.top_k(jnp.asarray(scores)[None], k)
-    gates = jax.nn.softmax(gates, axis=-1)
-    cap = int(t * k / e * cfg.moe_capacity_factor)
-    cap = max(8, -(-cap // 8) * 8)
-    flat = idx.reshape(1, t * k)
-    onehot = jax.nn.one_hot(flat, e, dtype=jnp.int32)
-    pos = jnp.cumsum(onehot, axis=1) - onehot
-    slot = jnp.take_along_axis(pos, flat[..., None], axis=2)[..., 0]
-    return (np.asarray(idx[0]), np.asarray(gates[0]),
-            np.asarray(slot.reshape(t, k)), np.asarray(slot < cap).reshape(
-                t, k), cap)
-
-
-def _near_ties(scores, k):
-    """Tokens whose top k+1 scores hold two within ``TIE_RTOL``."""
-    top = -np.sort(-scores, axis=-1)[:, :k + 1]
-    gap = top[:, :-1] - top[:, 1:]
-    return (gap <= TIE_RTOL * np.abs(top[:, :-1])).any(axis=-1)
-
-
-def _assert_routing(got, want, ties=None):
-    expert, gate, slot, keep, cap = want
-    assert got.cap == cap
-    t = expert.shape[0]
-    ok = np.ones(t, bool) if ties is None else ~ties
-    first = t if ties is None or not ties.any() else int(np.argmax(ties))
-    np.testing.assert_array_equal(got.expert.numpy()[ok], expert[ok])
-    np.testing.assert_array_equal(got.slot.numpy()[:first], slot[:first])
-    np.testing.assert_array_equal(got.keep.numpy()[:first], keep[:first])
-    np.testing.assert_allclose(got.gate.numpy()[ok], gate[ok], rtol=1e-6,
-                               atol=1e-6)
+TIE_RTOL = F.TIE_RTOL
+_reference_routing = F.reference_routing
+_near_ties = F.near_ties
+_assert_routing = F.assert_routing
 
 
 @pytest.mark.parametrize("arch", ARCHS)

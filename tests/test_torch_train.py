@@ -295,22 +295,68 @@ def test_adamw_matches_reference(moment_dtype):
     assert clipped >= 3              # the clip was active
 
 
+# the smoke trees whose stacked groups the decay rule must see: the dense
+# ``layers``, the hybrid's ``supers`` and ``tail`` (7 layers: 2 supers and
+# one tail layer), the enc-dec model's ``enc_layers`` and ``dec_layers``
+DECAY_TREES = (("recurrentgemma-2b", {"n_layers": 7}),
+               ("seamless-m4t-large-v2", {}))
+
+
+def _smoke_tree(arch, **overrides):
+    import dataclasses
+    cj = dataclasses.replace(jax_get_config(arch, smoke=True), **overrides)
+    ct = dataclasses.replace(get_config(arch, smoke=True), **overrides)
+    pj = JR.init_params(cj, jax.random.PRNGKey(0))
+    return cj, ct, pj, jax.tree.map(np.asarray, pj)
+
+
 def test_decay_follows_the_references_stacked_shapes(f32):
-    """Zero gradients leave only the decay: ``layers.<i>.ln*`` (``(d,)``
-    here, ``(L, d)`` in the reference) decay, ``final_norm`` does not."""
-    cj, ct, pj, tree = f32
-    jopt, topt = JAdamW(lr=LR), AdamW(lr=LR)
-    ju, _ = jopt.update(jax.tree.map(jnp.zeros_like, pj), jopt.init(pj), pj)
-    ju = jax.tree.map(np.asarray, ju)
-    model = params_from_numpy(ct, tree, device="cpu")
-    zeros = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
-    tu, _ = topt.update(zeros, topt.init(model), model)
-    for name, u in tu.items():
-        np.testing.assert_allclose(u.numpy(), port_leaf(ju, name),
-                                   rtol=1e-6, err_msg=name)
-        decayed = name.rsplit(".", 1)[-1] != "final_norm"
-        assert bool(u.abs().max() > 0) == decayed, name
-    assert any(n.endswith("ln1") and tu[n].abs().max() > 0 for n in tu)
+    """Zero gradients leave only the decay, which applies where a leaf's
+    rank in the reference's tree is >= 2: ``layers.<i>.ln*`` (``(d,)``
+    here, ``(L, d)`` in the reference) decay, as do the hybrid's
+    ``supers.<i>.…`` and ``tail.<j>.…`` norms and ``lam`` and the enc-dec
+    stacks' norms, while ``final_norm`` and ``enc_norm`` do not. On the
+    dense, hybrid (with a tail) and enc-dec smoke trees."""
+    trees = [f32] + [_smoke_tree(arch, **kw) for arch, kw in DECAY_TREES]
+    names = set()
+    for cj, ct, pj, tree in trees:
+        jopt, topt = JAdamW(lr=LR), AdamW(lr=LR)
+        ju, _ = jopt.update(jax.tree.map(jnp.zeros_like, pj),
+                            jopt.init(pj), pj)
+        ju = jax.tree.map(np.asarray, ju)
+        model = params_from_numpy(ct, tree, device="cpu")
+        zeros = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
+        tu, _ = topt.update(zeros, topt.init(model), model)
+        for name, u in tu.items():
+            np.testing.assert_allclose(u.numpy(), port_leaf(ju, name),
+                                       rtol=1e-6, err_msg=name)
+            decayed = name not in ("final_norm", "enc_norm")
+            assert bool(u.abs().max() > 0) == decayed, name
+        assert any(n.endswith((".ln1", ".ln")) and tu[n].abs().max() > 0
+                   for n in tu)
+        names.update(tu)
+    assert {"tail.0.ln", "supers.1.r0.rglru.lam",
+            "enc_layers.0.ln1"} <= names
+
+
+@pytest.mark.parametrize("arch,layers", [
+    ("llama3.2-3b", None), ("olmoe-1b-7b", None), ("recurrentgemma-2b", None),
+    ("recurrentgemma-2b", 7), ("rwkv6-7b", None),
+    ("seamless-m4t-large-v2", None)])
+def test_reference_ndim_is_the_stacked_trees_rank(arch, layers):
+    """``reference_ndim`` of every parameter of each family's smoke model
+    is the rank of the reference's leaf that holds it (7 layers give the
+    hybrid a tail)."""
+    from repro_torch.models.convert import _tree_path
+    from repro_torch.optim.adamw import reference_ndim
+    _, ct, _, tree = _smoke_tree(
+        arch, **({} if layers is None else {"n_layers": layers}))
+    model = TR.init_params(ct, device="cpu")
+    for name, p in model.named_parameters():
+        node = tree
+        for key in _tree_path(name)[0]:
+            node = node[key]
+        assert reference_ndim(name, p) == node.ndim, name
 
 
 # --------------------------------------------------------------- train step
