@@ -48,7 +48,7 @@ after:
 * the fault-tolerant fleet drivers and the sweep service on all ten apps
   and 7 configs (``phase_fleet_and_service``): supervised rfv and dg
   sweeps and 10^5 supervised trials, each killed three times (the rfv
-  sweep's first attempt and every run's last a fresh engine build), and
+  sweep's first and last attempts a fresh engine build), and
   ``SweepService``
   over 64 requests with a memo cap, each held bit for bit against the
   uninterrupted or serial run and against the plain route;
@@ -69,27 +69,41 @@ after:
 * the MoE, hybrid and SSM families (``phase_families``) at full width:
   ``olmoe-1b-7b``, ``recurrentgemma-2b`` and ``rwkv6-7b`` whole,
   ``qwen3-moe-235b-a22b`` on 2 of its 94 layers: prefill through the
-  kernel route and the plain route, logits compared (flash launches on
-  each MoE prefill, never on the hybrid's windowed attention or the
-  SSM), the serve loop, the tokens dropped for capacity, and
-  ``SampledEval`` over 16 batches of the MoE model;
+  kernel route and, for the MoE models, the plain route, logits compared
+  (flash launches on each MoE prefill, never on the hybrid's windowed
+  attention or the SSM, whose routes are one computation), the serve
+  loop, the tokens dropped for capacity, and ``SampledEval`` over 16
+  batches of the MoE model;
 * the trainer (``repro_torch.launch.train``) of every family at full
   width (bf16 weights, float32 moments, 2 AdamW steps of 8 x 1024
-  tokens): ``llama3.2-3b`` (28 layers, 2 microbatches), ``recurrentgemma-2b``
-  (26 layers, 4 microbatches) and ``seamless-m4t-large-v2`` (24 + 24
-  layers, 256 source frames a sequence) whole, ``olmoe-1b-7b`` on 8 of its
-  16 layers and ``rwkv6-7b`` on 16 of its 32 (whole, their AdamW state
-  would not fit one card), with step seconds, tokens/s, the model-FLOPs
-  share, peak memory, every parameter with a gradient moved (leaves whose
-  bf16 steps round away named) and the MoE's pairs dropped for
-  capacity; then for each family at smoke size, the CLI's loop (6 steps
-  that must descend, a resume from step 3 held to the uninterrupted
+  tokens): ``llama3.2-3b`` (28 layers, 2 microbatches) and
+  ``seamless-m4t-large-v2`` (24 + 24 layers, 256 source frames a
+  sequence) whole, ``recurrentgemma-2b`` on 13 of its 26 layers (4
+  microbatches), ``olmoe-1b-7b`` on 2 of its 16 and ``rwkv6-7b`` on 4 of
+  its 32 (whole, the last two's AdamW state would not fit one card; all
+  three cut further since the sharded trainer joined), with step
+  seconds, tokens/s, the model-FLOPs share, peak memory, every parameter
+  with a gradient moved (leaves whose bf16 steps round away named) and
+  the MoE's pairs dropped for capacity; then for each family at smoke
+  size, the CLI's loop (3 steps
+  that must descend, a resume from step 1 held to the uninterrupted
   run) and one step on the card against the same step on the CPU. No
   kernel runs there: training takes the reference's attention, and the
-  phase fails if ``flash_attention`` launched.
+  phase fails if ``flash_attention`` launched;
+* sharded training (``phase_sharded_train``): ``launch.train`` on meshes
+  that name the card many times, bf16 at full width on 2 layers, 2 steps
+  each, against the unsharded step's loop from the same weights:
+  ``llama3.2-3b`` on the (2, 2) host mesh (8 x 1024) and the (16, 16)
+  production mesh (16 x 1024, 256 positions), ``olmoe-1b-7b`` on (2, 2),
+  whose ranks must drop the pairs of the unsharded step's routing groups;
+  step seconds, the bytes gathered and reduce-scattered a step on
+  distinct cards, peak memory, bytes a position holds; then at smoke size
+  in float32 the sharded step of every family against the unsharded one
+  ((1, 1) bit for bit) and the (2, 16, 16) multi-pod mesh over 512
+  entries. No kernel may launch there.
 
-The trainer runs first, while ``nvcc`` builds the kernels: it launches
-none of them. Any failure raises and exits non-zero.
+The two trainers run first, while ``nvcc`` builds the kernels: they
+launch none of them. Any failure raises and exits non-zero.
 
 Output: progress lines, then the card's name and power limit (as
 ``nvidia-smi`` reports them), one JSON line with each kernel's numbers and,
@@ -1811,10 +1825,10 @@ def phase_fleet_and_service(plain) -> dict:
     * ``supervise_sweep`` of rfv and dg with ``Centroid`` under
       ``FaultPlan.random(seed, 4 quanta, kills=3)`` (``covering_faults``:
       one fault of each kind; each must fire, costing one restart), the
-      first attempt of the rfv sweep building a fresh engine and every
-      run's final attempt another (the other attempts restart on the
-      first engine, its memo put back to the post-build state: the
-      rebuilds are the phase's longest step), against the
+      first and final attempts of the rfv sweep building a fresh engine
+      (the other attempts restart on the first engine, its memo put back
+      to the post-build state: the rebuilds are the phase's longest step;
+      2 builds since the sharded trainer joined, 4 before), against the
       uninterrupted ``run_sweep_resumable`` of the same blocking (rows,
       memo tables, charges, counters, ledgers bitwise), plain
       ``run_sweep`` (the same, the policies being deterministic) and the
@@ -1909,15 +1923,16 @@ def phase_fleet_and_service(plain) -> dict:
             def make(mesh):
                 nonlocal base
                 starts.append(time.perf_counter())
-                if base is None or len(starts) > len(faults.events):
+                # the rfv sweep's first and final attempts build afresh
+                if base is None or (i == 0 and
+                                    len(starts) > len(faults.events)):
                     last[:] = [fresh()]
                     if base is None:
                         base = last[0]
                         state0.append(base.memo.state())
                 else:
                     # the other attempts restart on the first engine, its
-                    # memo put back to the post-build state; each run's
-                    # final attempt is built afresh
+                    # memo put back to the post-build state
                     reset(base)
                     last[:] = [base]
                 return last[0]
@@ -1979,11 +1994,8 @@ def phase_fleet_and_service(plain) -> dict:
 
         def make_t(mesh):
             tries.append(mesh)
-            if len(tries) > len(faults.events):     # the final attempt
-                last[:] = [fresh()]
-            else:
-                reset(base)
-                last[:] = [base]
+            reset(base)
+            last[:] = [base]
             return last[0]
 
         zero_counts()
@@ -2725,11 +2737,11 @@ def trace_record(by_name: dict) -> dict:
 
 def phase_families(card: str) -> dict:
     """The MoE, hybrid and SSM serving paths at full width
-    (``FAMILY_RUNS``): prefill through the kernel route and the plain
-    route, logits compared; the serve loop; ``SampledEval`` over the MoE
-    model. Flash must launch on each MoE prefill and never on the hybrid
-    (windowed attention) or SSM (no attention) paths. Returns the three
-    kernels' launches."""
+    (``FAMILY_RUNS``): prefill through the kernel route and, for the MoE
+    models, the plain route, logits compared; the serve loop;
+    ``SampledEval`` over the MoE model. Flash must launch on each MoE
+    prefill and never on the hybrid (windowed attention) or SSM (no
+    attention) paths. Returns the three kernels' launches."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2779,13 +2791,17 @@ def phase_families(card: str) -> dict:
         rec["prefill_tokens_per_s"] = pb * ps / rec["prefill_s"]
         rec["prefill_routing"] = routing_record(routes)
         del routes
-        t0 = time.perf_counter()
-        plain = make_prefill_fn(cfg, backend="plain")(params, batch)
-        rec["plain_prefill_s"] = step(f"prefill {pb} x {ps} (plain route)",
-                                      t0)
-        rec["kernel_vs_plain"] = compare_logits(
-            f"{arch} prefill {pb} x {ps} kernel vs plain", kern, plain)
         if cfg.family == "moe":
+            # the hybrid's and the SSM's prefills launch no flash: their two
+            # routes are one computation (compared until the sharded
+            # trainer joined the smoke)
+            t0 = time.perf_counter()
+            plain = make_prefill_fn(cfg, backend="plain")(params, batch)
+            rec["plain_prefill_s"] = step(
+                f"prefill {pb} x {ps} (plain route)", t0)
+            rec["kernel_vs_plain"] = compare_logits(
+                f"{arch} prefill {pb} x {ps} kernel vs plain", kern, plain)
+            del plain
             log(f"{arch} prefill routing: {rec['prefill_routing']}")
             # the first prefill warms the new GEMM shapes up: time the
             # kernel route again, warm, as the plain route ran
@@ -2803,7 +2819,7 @@ def phase_families(card: str) -> dict:
                 cpu=False))
             kernel_forwards += 1
             step("traced prefill", t0)
-        del kern, plain, batch
+        del kern, batch
         torch.cuda.empty_cache()
 
         # 2. the serve loop: teacher-forced prefill through decode, greedy
@@ -3096,20 +3112,22 @@ def phase_encdec(card: str) -> dict:
 # the trainer at full width, 2 AdamW steps of 8 x 1024 tokens each, bf16
 # weights, float32 moments: (arch, layers run, microbatches), None for the
 # whole depth and the reference's default microbatches. llama3.2-3b and
-# seamless-m4t-large-v2 as they are; recurrentgemma-2b whole in 4
-# microbatches (in the default 2 its 256k-vocab logits and their gradient
-# ran out of the card's 80 GB beside its 57 GB of state); olmoe-1b-7b and
+# seamless-m4t-large-v2 as they are; recurrentgemma-2b in 4 microbatches
+# (whole, in the default 2 its 256k-vocab logits and their gradient ran
+# out of the card's 80 GB beside its 57 GB of state); olmoe-1b-7b and
 # rwkv6-7b cut in depth (about 16 B a parameter: bf16 weights, float32
 # moments and gradient sums, one microbatch's bf16 gradients; whole they
-# need about 110 GB)
+# need about 110 GB); recurrentgemma-2b, olmoe-1b-7b and rwkv6-7b cut
+# (further) for the smoke's time once the sharded trainer joined: 13 of
+# 26, 2 of 16 (from 8) and 4 of 32 (from 16) layers
 # (``train_full_size``'s bf16 rounding check reads two steps' moments)
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 8, 2, 3e-3
-TRAIN_RUNS = (("llama3.2-3b", None, None), ("recurrentgemma-2b", None, 4),
-              ("seamless-m4t-large-v2", None, None), ("olmoe-1b-7b", 8, None),
-              ("rwkv6-7b", 16, None))
+TRAIN_RUNS = (("llama3.2-3b", None, None), ("recurrentgemma-2b", 13, 4),
+              ("seamless-m4t-large-v2", None, None), ("olmoe-1b-7b", 2, None),
+              ("rwkv6-7b", 4, None))
 # the smoke-size runs on the card: the CLI's loop (batch 4, seq 64, lr
-# 5e-3, 6 steps, a checkpoint at step 3) and one step against the CPU's
-SMOKE_TRAIN = dict(steps=6, batch=4, seq=64, lr=5e-3, ckpt_every=4)
+# 5e-3, 3 steps, a checkpoint at step 1) and one step against the CPU's
+SMOKE_TRAIN = dict(steps=3, batch=4, seq=64, lr=5e-3, ckpt_every=2)
 TRAIN_RTOL = 1e-4             # the reference's bound for a resumed run
 STEP_LR = 1e-3                # lr of the card-vs-CPU step
 # its (batch, seq): the families' 2 x 128 run RWKV-6's chunk loop over two
@@ -3335,7 +3353,7 @@ def train_full_size(arch: str, layers, microbatches, card: str,
 
 def train_smoke_size(arch: str, echo) -> dict:
     """At ``arch``'s smoke size, float32: the CLI's loop descends, a run
-    resumed from its step-3 checkpoint follows it (rtol TRAIN_RTOL), and
+    resumed from its step-1 checkpoint follows it (rtol TRAIN_RTOL), and
     one step on the card (STEP_SHAPE tokens) equals the same step on the
     CPU: the loss, the gradients, and the new weights, against the CPU's
     (``parted_after_step``) for the dense model, against the CPU's step
@@ -3364,7 +3382,7 @@ def train_smoke_size(arch: str, echo) -> dict:
     if not smoke_losses[-1] < smoke_losses[0]:
         raise AssertionError(f"{arch} smoke train: no descent "
                              f"{smoke_losses}")
-    # a host that died after step 3's checkpoint: its directory is the
+    # a host that died after step 1's checkpoint: its directory is the
     # uninterrupted run's without the last checkpoint
     shutil.copytree(root / "a", root / "b")
     shutil.rmtree(root / "b" / f"step_{steps - 1}")
@@ -3491,6 +3509,352 @@ def phase_train(card: str) -> dict:
     return launches
 
 
+# the sharded trainer (``phase_sharded_train``): bf16 at full width, 2 of
+# each config's layers, 2 AdamW steps (``launch.train``'s loop) on meshes
+# that name the card many times, each held against the unsharded run from
+# the same weights and batches; (tag, arch, mesh, model parallel, pool,
+# batch)
+SHARDED_LAYERS, SHARDED_SEQ, SHARDED_STEPS, SHARDED_LR = 2, 1024, 2, 3e-3
+SHARDED_RUNS = (("llama (2, 2)", LM_ARCH, "host", 2, 4, 8),
+                ("llama (16, 16)", LM_ARCH, "production", 1, 256, 16),
+                ("olmoe (2, 2)", "olmoe-1b-7b", "host", 2, 4, 8))
+SHARDED_LOSS_RTOL = 3e-2      # bf16 losses (the families' serving bound)
+SHARDED_FAMILIES = (LM_ARCH, "olmoe-1b-7b", "recurrentgemma-2b", "rwkv6-7b",
+                    "seamless-m4t-large-v2")
+
+
+def sharded_bf16_run(tag: str, arch: str, mesh: str, mp: int, pool: int,
+                     batch: int, card: str, echo) -> dict:
+    """``launch.train`` at ``arch``'s full width on SHARDED_LAYERS layers,
+    bf16, on ``mesh`` over ``pool`` entries naming the card, against the
+    unsharded step's loop (``make_train_fn``, the loop's schedule and
+    batches) from the same weights (a copy) under ``activation_sharding``
+    with the mesh's data degree, so that the MoE routes in the same
+    groups: losses within SHARDED_LOSS_RTOL, and every weight within the
+    two steps' Adam bound of the unsharded run's (``adam_bound_share``).
+    For the MoE, the pairs each rank drops in the first step are those of
+    the unsharded step's groups, and their sum is not one group's."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.distributed import ctx as pctx
+    from repro_torch.distributed import spmd
+    from repro_torch.launch.train import WARMUP_STEPS, make_mesh, train
+    from repro_torch.models import moe
+    from repro_torch.models.registry import init_params, loss_fn
+    from repro_torch.optim import AdamW, cosine_with_warmup
+    from repro_torch.train.step import make_train_fn
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=SHARDED_LAYERS)
+    grid = make_mesh(mesh, mp, ["cuda:0"] * pool)
+    ranks = len(spmd.data_ranks(grid))
+    params = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    plain = copy.deepcopy(params)
+    schedule = cosine_with_warmup(SHARDED_LR, WARMUP_STEPS, SHARDED_STEPS)
+    pipe = make_pipeline(cfg, SHARDED_SEQ, batch, seed=0, device="cuda")
+    rec = {"arch": arch, "layers": cfg.n_layers,
+           "of_layers": get_config(arch).n_layers, "batch": batch,
+           "seq": SHARDED_SEQ}
+    one_group = None
+    if cfg.family == "moe":
+        with torch.no_grad(), moe.record_routing() as routes:
+            loss_fn(cfg, backend="plain")(plain, pipe.batch(0))
+        one_group = [r.dropped_by_group().tolist() for r in routes]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamW(lr=schedule)
+    step = make_train_fn(cfg, opt)
+    state = opt.init(plain)
+    base_losses, base_times, grouped = [], [], None
+    for s in range(SHARDED_STEPS):
+        t0 = time.perf_counter()
+        with pctx.activation_sharding(_duck_mesh(ranks)), \
+                moe.record_routing() as routes:
+            plain, state, loss = step(plain, state, pipe.batch(s))
+        base_losses.append(float(loss))
+        base_times.append(time.perf_counter() - t0)
+        if s == 0:
+            grouped = [r.dropped_by_group().tolist() for r in routes]
+    rec.update({"unsharded_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "unsharded_step_s": base_times,
+                "unsharded_losses": base_losses})
+    want = dict(plain.named_parameters())       # kept on the card
+    del state, routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with moe.record_routing() as routes:
+        run = train(cfg, params=params, mesh=mesh, model_parallel=mp,
+                    mesh_devices=["cuda:0"] * pool, steps=SHARDED_STEPS,
+                    batch=batch, seq=SHARDED_SEQ, lr=SHARDED_LR,
+                    device="cuda", log=echo)
+    peak = torch.cuda.max_memory_allocated()
+    sm = run.params
+    losses = [run.losses[s] for s in range(SHARDED_STEPS)]
+    rec.update({"mesh": sm.mesh.shape, "positions": sm.mesh.size,
+                "data_ranks": ranks, "step_s": [float(t) for t in run.times],
+                "first_step_s": float(run.times[0]),
+                "warm_step_s": float(np.mean(run.times[1:])),
+                "peak_gb": peak / 1e9, "losses": losses,
+                "loss_rel": max(abs(a - b) / abs(b)
+                                for a, b in zip(losses, base_losses)),
+                **spmd.traffic(sm.layouts, sm.moment_layouts, sm.dtypes),
+                **sm.shard_nbytes()})
+    if peak >= 80e9:
+        raise AssertionError(f"sharded {tag}: peak {peak / 1e9:.2f} GB")
+    if not rec["loss_rel"] <= SHARDED_LOSS_RTOL:
+        raise AssertionError(f"sharded {tag}: losses {losses}, unsharded "
+                             f"{base_losses}")
+    lr_sum = sum(float(schedule(torch.tensor(s + 1)))
+                 for s in range(SHARDED_STEPS))
+    worst, differ, total = adam_bound_share(
+        sm.named_parameters(), want, lr_sum, SHARDED_STEPS, f"sharded {tag}")
+    rec.update({"weights_within_share_of_bound": worst,
+                "weights_differing": differ, "weights": total})
+    if cfg.family == "moe":
+        n = cfg.n_layers
+        by_rank = [[int((~routes[r * n + layer].keep).sum())
+                    for r in range(ranks)] for layer in range(n)]
+        rec.update({"dropped_by_rank": by_rank,
+                    "dropped_by_group_unsharded": grouped,
+                    "dropped_one_group": one_group})
+        if by_rank != grouped:
+            raise AssertionError(f"sharded {tag}: dropped pairs by rank "
+                                 f"{by_rank}, the unsharded groups' "
+                                 f"{grouped}")
+        if sum(map(sum, by_rank)) == sum(map(sum, one_group)):
+            raise AssertionError(f"sharded {tag}: the groups drop as many "
+                                 f"pairs as one group ({one_group})")
+    echo(f"{tag} ({card}): {arch} full width, {cfg.n_layers} of "
+         f"{rec['of_layers']} layers, bf16, {batch} x {SHARDED_SEQ} tokens "
+         f"on {sm.mesh.shape} ({sm.mesh.size} positions naming cuda:0, "
+         f"{ranks} data ranks): steps "
+         f"{', '.join(f'{t:.3f}' for t in run.times)} s (unsharded "
+         f"{', '.join(f'{t:.3f}' for t in base_times)}); "
+         f"gathered {rec['gathered_bytes'] / 1e9:.3f} GB and "
+         f"reduce-scattered {rec['reduce_scatter_bytes'] / 1e9:.3f} GB a "
+         f"step on distinct cards; peak {peak / 1e9:.2f} GB (unsharded "
+         f"{rec['unsharded_peak_gb']:.2f}); per position "
+         f"{rec['params_per_shard'] / 1e6:.2f} MB of "
+         f"{rec['params_total'] / 1e9:.3f} GB of parameters, "
+         f"{rec['moment_per_shard'] / 1e6:.2f} MB of "
+         f"{rec['moment_total'] / 1e9:.3f} GB a moment; losses "
+         f"{', '.join(f'{v:.4f}' for v in losses)} (rel "
+         f"{rec['loss_rel']:.3g}); weights within {worst:.3g} of the bound, "
+         f"{differ} of {total} differ"
+         + (f"; dropped by rank {rec['dropped_by_rank']} = the unsharded "
+            f"groups', one group {one_group}"
+            if cfg.family == "moe" else ""))
+    del run, sm, params, routes, want, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def adam_bound_share(got, want: dict, lr_sum: float, steps: int, what: str
+                     ) -> tuple[float, int, int]:
+    """Hold weights ``got`` (named parameters) against ``want`` (name ->
+    tensor on the same device) after ``steps`` AdamW steps of two runs
+    from the same weights: each part by less than twice the steps' lr sum
+    times (1 + 0.1 |w|) plus a bf16 unit of |w| a step. Returns the
+    largest share of that bound used, the differing elements and all."""
+    import torch
+    worst, differ, total = 0.0, 0, 0
+    for name, p in got:
+        a, b = p.detach().float(), want[name].detach().float()
+        d = (a - b).abs()
+        room = 2 * lr_sum * (1 + 0.1 * b.abs()) + steps * 2.0 ** -7 * b.abs()
+        if bool((d > room).any()) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: {name} parts from the unsharded "
+                                 f"run by {float(d.max()):.3g}")
+        worst = max(worst, float((d / room).max()))
+        differ += int((d > 0).sum())
+        total += d.numel()
+    return worst, differ, total
+
+
+def sharded_smoke_checks(echo) -> dict:
+    """At each family's smoke size, float32, one step on the card from the
+    same weights (STEP_SHAPE tokens, STEP_LR): the sharded step on (2, 2)
+    against the unsharded step under ``activation_sharding`` with data 2
+    (the same MoE groups): loss and every gradient within TRAIN_RTOL (of
+    a leaf's max), the weights against the unsharded AdamW step on the
+    sharded step's own gradients (``step_on_card_grads``); the (1, 1) mesh
+    against the unsharded step, bit for bit. Then ``launch.train`` on the
+    (2, 16, 16) multi-pod mesh over 512 entries naming the card, 2 steps
+    of the dense smoke model on SHARDED_LAYERS layers, against the
+    unsharded loop (losses rtol
+    TRAIN_RTOL, weights by ``adam_bound_share``)."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.distributed import ctx as pctx
+    from repro_torch.distributed.sharding import (opt_state_specs,
+                                                  param_specs)
+    from repro_torch.distributed.spmd import ShardedModel
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import WARMUP_STEPS, train
+    from repro_torch.models.registry import init_params
+    from repro_torch.optim import AdamW, cosine_with_warmup
+    from repro_torch.optim.adamw import GradTransform
+    from repro_torch.train.step import make_train_fn
+
+    class Stash(GradTransform):
+        def apply(self, grads, ef):
+            return grads, grads
+
+    out = {}
+    for arch in SHARDED_FAMILIES:
+        small = get_config(arch, smoke=True)
+        model = init_params(small, generator=torch.Generator(
+            device="cuda").manual_seed(1), device="cuda")
+        rows, seq = STEP_SHAPE.get(arch, (2, 128))
+        batch = make_pipeline(small, seq, rows, seed=3,
+                              device="cuda").batch(0)
+        opt = AdamW(lr=STEP_LR, compress=Stash())
+        step = make_train_fn(small, opt)
+        runs = {}
+        for shape in ((2, 2), (1, 1)):
+            mesh = make_host_mesh(shape[1], devices=["cuda:0"] * (
+                shape[0] * shape[1]))
+            plain = copy.deepcopy(model)
+            with pctx.activation_sharding(_duck_mesh(shape[0])):
+                _, pstate, ploss = step(plain, opt.init(plain), batch)
+            sm = ShardedModel(copy.deepcopy(model), mesh,
+                              param_specs(model, mesh),
+                              opt_state_specs(model, mesh))
+            with pctx.activation_sharding(mesh):
+                _, sstate, sloss = make_train_fn(small, opt, mesh=mesh)(
+                    sm, opt.init(sm), batch)
+            runs[shape] = (plain, pstate, ploss, sm, sstate, sloss)
+        plain, pstate, ploss, sm, sstate, sloss = runs[(1, 1)]
+        bitwise = bool(torch.equal(sloss, ploss)) and all(
+            torch.equal(a, b) for (_, a), b in zip(sm.named_parameters(),
+                                                   plain.parameters()))
+        if not bitwise:
+            raise AssertionError(f"{arch}: the (1, 1) mesh's step is not the "
+                                 "unsharded step bit for bit")
+        plain, pstate, ploss, sm, sstate, sloss = runs[(2, 2)]
+        loss_rel = abs(float(sloss) - float(ploss)) / abs(float(ploss))
+        grad_rel = 0.0
+        for name, g in pstate.ef.items():
+            err = float((sstate.ef[name].gather("cuda") - g).abs().max())
+            grad_rel = max(grad_rel, err / max(float(g.abs().max()), 1e-30))
+        if loss_rel > TRAIN_RTOL or grad_rel > TRAIN_RTOL:
+            raise AssertionError(f"{arch} sharded vs unsharded step: loss "
+                                 f"rel {loss_rel:.3g}, gradients "
+                                 f"{grad_rel:.3g} of a leaf's max")
+        weights = step_on_card_grads(
+            sm, copy.deepcopy(plain).cpu(), copy.deepcopy(model).cpu(),
+            {n: g.cpu() for n, g in pstate.ef.items()},
+            {n: sh.gather("cuda") for n, sh in sstate.ef.items()},
+            f"{arch} sharded vs unsharded step")
+        out[arch] = {"loss_rel": loss_rel, "grad_rel": grad_rel,
+                     **weights, "one_position_bitwise": bitwise}
+        echo(f"{arch} smoke size, float32, (2, 2) vs unsharded under data "
+             f"2: loss rel {loss_rel:.3g}, gradients within {grad_rel:.3g} "
+             f"of each leaf's max; weights within "
+             f"{weights['max_abs_vs_card_grads']:.3g} of the unsharded "
+             f"AdamW step on the sharded gradients, {weights['parted']} "
+             f"elements part from the unsharded step (clipped gradients up "
+             f"to {weights['parted_max_g_over_eps']:.3g} Adam eps); (1, 1) "
+             f"bitwise the unsharded step")
+        del runs, model
+    small = dataclasses.replace(get_config(LM_ARCH, smoke=True),
+                                n_layers=SHARDED_LAYERS)
+    model = init_params(small, generator=torch.Generator(
+        device="cuda").manual_seed(2), device="cuda")
+    kw = dict(steps=SHARDED_STEPS, batch=32, seq=64, lr=5e-3, device="cuda",
+              log=echo)
+    t0 = time.perf_counter()
+    base = train(small, params=copy.deepcopy(model), **kw)
+    plain_s = time.perf_counter() - t0
+    want = dict(base.params.named_parameters())
+    t0 = time.perf_counter()
+    run = train(small, params=model, mesh="production-multipod",
+                mesh_devices=["cuda:0"] * 512, **kw)
+    pod_s = time.perf_counter() - t0
+    if run.params.mesh.shape != {"pod": 2, "data": 16, "model": 16}:
+        raise AssertionError(f"multi-pod mesh {run.params.mesh.shape}")
+    losses = [run.losses[s] for s in range(SHARDED_STEPS)]
+    wanted = [base.losses[s] for s in range(SHARDED_STEPS)]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, wanted))
+    if loss_rel > TRAIN_RTOL:
+        raise AssertionError(f"multi-pod: losses {losses}, unsharded "
+                             f"{wanted}")
+    schedule = cosine_with_warmup(5e-3, WARMUP_STEPS, SHARDED_STEPS)
+    lr_sum = sum(float(schedule(torch.tensor(s + 1)))
+                 for s in range(SHARDED_STEPS))
+    worst, differ, total = adam_bound_share(
+        run.params.named_parameters(), want, lr_sum, SHARDED_STEPS,
+        "multi-pod")
+    out["multipod"] = {"mesh": run.params.mesh.shape, "losses": losses,
+                       "loss_rel": loss_rel, "step_s": [
+                           float(t) for t in run.times],
+                       "seconds": pod_s, "unsharded_seconds": plain_s,
+                       "weights_within_share_of_bound": worst,
+                       "weights_differing": differ, "weights": total}
+    echo(f"multi-pod (2, 16, 16) over 512 entries naming cuda:0, smoke "
+         f"{LM_ARCH} on {small.n_layers} layers, 2 steps of 32 x 64: steps "
+         f"{', '.join(f'{t:.3f}' for t in run.times)} s; losses rel "
+         f"{loss_rel:.3g} to the unsharded loop; weights within {worst:.3g} "
+         f"of the bound, {differ} of {total} differ")
+    return out
+
+
+def _duck_mesh(data: int):
+    import types
+    return types.SimpleNamespace(axis_names=("data",), shape={"data": data})
+
+
+def phase_sharded_train(card: str) -> dict:
+    """Sharded training (``distributed.spmd``, ``launch.train`` on meshes
+    that name the card many times): SHARDED_RUNS at full width in bf16,
+    then ``sharded_smoke_checks``; returns the three kernels' launches
+    on the path (none: training takes the reference's attention)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+
+    phase_t0 = time.perf_counter()
+    for ops in (flash_ops, assign_ops, segment_ops):
+        ops.reset_launch_count()
+
+    def echo(line: str) -> None:
+        log(f"  sharded train: {line}")
+
+    seconds, full = {}, {}
+    for tag, arch, mesh, mp, pool, batch in SHARDED_RUNS:
+        t0 = time.perf_counter()
+        full[tag] = sharded_bf16_run(tag, arch, mesh, mp, pool, batch, card,
+                                     echo)
+        seconds[tag] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    smoke = sharded_smoke_checks(echo)
+    seconds["smoke size"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {"flash_attention": flash_ops.launch_count("causal"),
+                "flash_attention_noncausal":
+                    flash_ops.launch_count("non_causal"),
+                "kmeans_assign": assign_ops.launch_count(),
+                "segment_stats": segment_ops.launch_count()}
+    if any(launches.values()):
+        raise AssertionError(f"the sharded train path launched kernels: "
+                             f"{launches}")
+    log(f"sharded train path launches {launches}; seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; the phase {time.perf_counter() - phase_t0:.1f}")
+    log("sharded train record " + json.dumps({
+        "card": card, "full_width": full, "smoke": smoke,
+        "seconds": seconds}))
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3528,6 +3892,9 @@ def main() -> int:
     def train_while_building():
         train_path["launches"] = timed("train path (inside the build)",
                                        phase_train, card)
+        train_path["sharded"] = timed(
+            "sharded train path (inside the build)", phase_sharded_train,
+            card)
 
     timed("build", phase_build, backend_mod, train_while_building)
     gen = torch.Generator(device="cuda")
@@ -3565,6 +3932,7 @@ def main() -> int:
     by_path["families"] = timed("families path", phase_families, card)
     by_path["encdec"] = timed("enc-dec path", phase_encdec, card)
     by_path["train"] = train_path["launches"]
+    by_path["sharded_train"] = train_path["sharded"]
     log("seconds by phase: " + ", ".join(
         f"{name} {s:.1f}" for name, s in seconds.items())
         + f"; the whole script {time.perf_counter() - started:.1f}")

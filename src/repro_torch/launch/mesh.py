@@ -1,10 +1,13 @@
-"""Device meshes for the app axis and the trial axis.
+"""Device meshes: the app and trial axes, the host and production
+meshes.
 
-Counterpart of ``repro.launch.mesh``'s ``make_app_mesh``,
-``make_app_trial_mesh``, ``data_axes`` and ``axis_size``. A ``Mesh`` is
-a grid of ``torch.device``s with one name per axis: the engine shards
-its app axis (and the Monte-Carlo engine its trial axis) over it
-(``repro_torch.distributed.appaxis``).
+Counterpart of ``repro.launch.mesh``. A ``Mesh`` is a grid of
+``torch.device``s with one name per axis: the engine shards its app axis
+(and the Monte-Carlo engine its trial axis) over it
+(``repro_torch.distributed.appaxis``); the trainer shards parameters and
+optimizer moments over a ``("data", "model")`` or ``("pod", "data",
+"model")`` mesh (``make_host_mesh``, ``make_production_mesh``;
+``repro_torch.distributed.spmd``).
 
 The default pool is every visible CUDA device; an empty pool raises.
 Entries may repeat: ``make_app_mesh(devices=["cpu"] * 4)`` or
@@ -22,8 +25,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_app_mesh", "make_app_trial_mesh", "data_axes",
-           "axis_size", "default_devices", "as_device"]
+__all__ = ["Mesh", "make_app_mesh", "make_app_trial_mesh", "make_host_mesh",
+           "make_production_mesh", "data_axes", "axis_size",
+           "default_devices", "as_device"]
 
 
 def as_device(dev) -> torch.device:
@@ -124,6 +128,44 @@ def make_app_trial_mesh(app_devices: int = 1,
     for i in range(app * trial):
         grid[i // trial, i % trial] = devs[i]
     return Mesh(grid, ("app", "trial"))
+
+
+def _grid(devs: list, shape: tuple) -> np.ndarray:
+    grid = np.empty(shape, dtype=object)
+    for i, at in enumerate(np.ndindex(shape)):
+        grid[at] = devs[i]
+    return grid
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> Mesh:
+    """The reference's pod mesh: ``("data", "model")`` 16 x 16, or with
+    ``multi_pod`` ``("pod", "data", "model")`` 2 x 16 x 16, over the first
+    256 or 512 devices of the pool (``devices``, or every visible card).
+    A smaller pool raises: the mesh is never shrunk."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = int(np.prod(shape))
+    devs = list(devices) if devices is not None else default_devices()
+    if len(devs) < need:
+        raise RuntimeError(f"need {need} devices for mesh {shape}, have "
+                           f"{len(devs)}: pass devices= (a pool may name "
+                           "one device many times)")
+    return Mesh(_grid(devs[:need], shape), axes)
+
+
+def make_host_mesh(model_parallel: int = 1, *,
+                   devices: Optional[Sequence] = None) -> Mesh:
+    """``("data", "model")`` mesh of shape ``(n // mp, mp)`` over a pool
+    of n devices (``devices``, or every visible card), ``mp`` the
+    ``model_parallel`` asked for, at most n. As the reference's
+    ``jax.make_mesh``, it raises where mp does not divide n."""
+    devs = _pool(None, devices)
+    mp = max(1, min(int(model_parallel), len(devs)))
+    if len(devs) % mp:
+        raise ValueError(f"--model-parallel {mp} does not divide the "
+                         f"{len(devs)} devices of the pool")
+    return Mesh(_grid(devs, (len(devs) // mp, mp)), ("data", "model"))
 
 
 def data_axes(mesh: Mesh) -> tuple[str, ...]:

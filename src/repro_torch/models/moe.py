@@ -1,13 +1,16 @@
 """Mixture-of-Experts feed-forward with top-k token-choice routing.
 
-Counterpart of ``repro.models.moe``: the GShard grouped formulation with
-one group (the reference's group count is the data-parallel degree,
-which is 1 off a mesh). Each token picks its k highest router scores,
-softmax over those k gives the gates; every expert owns ``cap`` slots,
-and a (token, expert) pair takes the next free slot in the flattened
+Counterpart of ``repro.models.moe``: the GShard grouped formulation. The
+tokens split into ``g = distributed.ctx.moe_group_count()`` contiguous
+groups (the data-parallel degree under ``activation_sharding``, 1 off a
+mesh; 1 also when g does not divide the token count, as in the
+reference), and each group routes its own tokens with its own capacity.
+Each token picks its k highest router scores, softmax over those k gives
+the gates; every expert owns ``cap`` slots in each group, and a (token,
+expert) pair takes the next free slot of its group in the flattened
 ``(token, k)`` order or, past ``cap``, is dropped (capacity factor 1.25).
-The experts' SwiGLU runs batched over their ``(e, cap)`` slot tables, so
-the work is the capacity's, not the tokens' times e.
+The experts' SwiGLU runs batched over their ``(e, g x cap)`` slot
+tables, so the work is the capacity's, not the tokens' times e.
 
 Three details keep the reference's results:
 
@@ -15,9 +18,10 @@ Three details keep the reference's results:
   ``jax.lax.top_k`` does: a stable descending sort, then its first k
   (``torch.topk`` promises no order among equal values, and in bf16
   equal router scores are common);
-* a pair's slot is the count of earlier pairs, in the flattened order,
-  that chose the same expert (the reference's exclusive cumsum of the
-  one-hot), computed by a stable sort on the expert index;
+* a pair's slot is the count of earlier pairs of its group, in the
+  flattened order, that chose the same expert (the reference's exclusive
+  cumsum of the one-hot), computed by a stable sort on the (group,
+  expert) index;
 * the combine adds each token's gate-weighted expert outputs in float32
   in ascending expert order, starting from zero: the order of the
   reference's scatter-add over its ``(e, cap)`` table, where a token owns
@@ -34,10 +38,11 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from ..distributed.ctx import moe_group_count
 from .common import ModelConfig, new_param
 
-__all__ = ["MoE", "Routing", "capacity", "route_scores", "route", "combine",
-           "moe", "record_routing"]
+__all__ = ["MoE", "Routing", "capacity", "group_count", "route_scores",
+           "route", "combine", "moe", "record_routing"]
 
 # the routings made inside ``record_routing``
 _ROUTING_LOG: Optional[list] = None
@@ -59,13 +64,18 @@ class MoE(nn.Module):
 class Routing(NamedTuple):
     expert: torch.Tensor   # (t, k) int64, by descending score
     gate: torch.Tensor     # (t, k) float32 softmax over the k scores
-    slot: torch.Tensor     # (t, k) int64 place in the expert's slots
+    slot: torch.Tensor     # (t, k) int64 place in the group's expert slots
     keep: torch.Tensor     # (t, k) bool, slot < cap
-    cap: int
+    cap: int               # slots per expert and group
     # (t,) float32: the k-th score's lead over the (k+1)-th, relative to
     # the k-th's magnitude (inf with k = e); a small margin marks a token
     # whose choice another summation order may change
     margin: torch.Tensor
+    groups: int = 1        # contiguous token groups, t / groups tokens each
+
+    def dropped_by_group(self) -> torch.Tensor:
+        """Pairs dropped for capacity in each group, ``(groups,)``."""
+        return (~self.keep).reshape(self.groups, -1).sum(dim=1)
 
 
 def capacity(tokens: int, cfg: ModelConfig) -> int:
@@ -91,9 +101,10 @@ def record_routing():
         _ROUTING_LOG = prev
 
 
-def route_scores(scores: torch.Tensor, cfg: ModelConfig) -> Routing:
+def route_scores(scores: torch.Tensor, cfg: ModelConfig, groups: int = 1
+                 ) -> Routing:
     """Routing of ``t`` tokens from their float32 router scores
-    ``(t, e)``."""
+    ``(t, e)``, in ``groups`` contiguous groups of ``t / groups``."""
     t, e = scores.shape
     k = cfg.moe_topk
     top, expert = torch.sort(scores, dim=-1, descending=True, stable=True)
@@ -102,18 +113,19 @@ def route_scores(scores: torch.Tensor, cfg: ModelConfig) -> Routing:
               if e > k else torch.full((t,), float("inf"),
                                        device=scores.device))
     expert = expert[:, :k]
-    flat = expert.reshape(-1)
-    # slot = earlier pairs (flattened order) that chose the same expert:
-    # a pair's place in the stable sort by expert, less its expert's start
+    flat = _group_expert(expert, groups, e).reshape(-1)
+    # slot = earlier pairs of the group (flattened order) that chose the
+    # same expert: a pair's place in the stable sort by (group, expert),
+    # less that key's start
     by_expert, order = torch.sort(flat, stable=True)
     starts = torch.searchsorted(by_expert,
-                                torch.arange(e, device=flat.device))
+                                torch.arange(groups * e, device=flat.device))
     slot = torch.empty_like(flat)
     slot[order] = torch.arange(flat.numel(), device=flat.device) \
         - starts[by_expert]
     slot = slot.reshape(t, k)
-    cap = capacity(t, cfg)
-    r = Routing(expert, gate, slot, slot < cap, cap, margin)
+    cap = capacity(t // groups, cfg)
+    r = Routing(expert, gate, slot, slot < cap, cap, margin, groups)
     # autograd's backward runs a graph task (-1 outside one): there the
     # checkpointed layers' forward is replayed, already logged
     in_backward = torch._C._current_graph_task_id() != -1
@@ -122,24 +134,43 @@ def route_scores(scores: torch.Tensor, cfg: ModelConfig) -> Routing:
     return r
 
 
+def _group_expert(expert: torch.Tensor, groups: int, e: int) -> torch.Tensor:
+    """``group * e + expert`` of each pair of ``expert`` ``(t, k)``."""
+    if groups == 1:
+        return expert
+    t = expert.shape[0]
+    group = torch.arange(t, device=expert.device) // (t // groups)
+    return group[:, None] * e + expert
+
+
+def group_count(tokens: int) -> int:
+    """The routing groups of ``tokens`` tokens: ``moe_group_count()``, or
+    1 where it does not divide them (the reference's fallback)."""
+    g = moe_group_count()
+    return 1 if tokens % g else g
+
+
 def route(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> Routing:
-    """Routing of ``x`` ``(b, s, d)``'s tokens, flattened in order."""
+    """Routing of ``x`` ``(b, s, d)``'s tokens, flattened in order, in
+    ``group_count`` groups."""
     xt = x.reshape(-1, x.shape[-1])
-    return route_scores((xt @ params.router).float(), cfg)
+    return route_scores((xt @ params.router).float(), cfg,
+                        group_count(xt.shape[0]))
 
 
 def combine(ye: torch.Tensor, r: Routing) -> torch.Tensor:
-    """Each token's kept pairs' rows of ``ye`` ``(e, cap, d)``, weighted
-    by their gates in float32 and added from zero in ascending expert
-    order: ``(t, d)`` float32."""
-    e, cap, d = ye.shape
+    """Each token's kept pairs' rows of ``ye`` ``(groups x e, cap, d)``
+    (group major), weighted by their gates in float32 and added from zero
+    in ascending expert order: ``(t, d)`` float32."""
+    ge, cap, d = ye.shape
     expert, perm = torch.sort(r.expert, dim=-1)
     slot = torch.gather(r.slot, 1, perm)
     gate = torch.gather(r.gate, 1, perm)
     kept = torch.gather(r.keep, 1, perm)
-    idx = torch.where(kept, expert * cap + slot, 0)
+    key = _group_expert(expert, r.groups, ge // r.groups)
+    idx = torch.where(kept, key * cap + slot, 0)
     w = torch.where(kept, gate, 0.0)
-    terms = ye.reshape(e * cap, d)[idx].float() * w[..., None]  # (t, k, d)
+    terms = ye.reshape(ge * cap, d)[idx].float() * w[..., None]  # (t, k, d)
     out = torch.zeros_like(terms[:, 0])
     for j in range(terms.shape[1]):
         out = out + terms[:, j]
@@ -150,23 +181,30 @@ def moe(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: ``(b, s, d)`` -> ``(b, s, d)``."""
     b, s, d = x.shape
     e = cfg.moe_experts
-    xt = x.reshape(b * s, d)
     r = route(params, x, cfg)
-    tl = xt.shape[0]
+    g, cap = r.groups, r.cap
+    tl = b * s // g
 
-    # (e, cap) table of token rows (the zero pad row tl where empty): each
-    # kept pair owns its own (expert, slot); dropped pairs all go to a
-    # spare column cap, which is cut off (no mask, so no host sync)
-    flat_tok = torch.arange(tl, device=x.device)[:, None].expand(
-        tl, cfg.moe_topk).reshape(-1)
-    col = torch.where(r.keep, r.slot, r.cap).reshape(-1)
-    table = torch.full((e, r.cap + 1), tl, dtype=torch.long,
-                       device=x.device)
-    table[r.expert.reshape(-1), col] = flat_tok
-    xt_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    xe = xt_pad[table[:, :r.cap]]                        # (e, cap, d)
+    # (g x e, cap) table of rows of the padded tokens (each group's tl
+    # tokens, then its zero pad row, where empty): each kept pair owns
+    # its own (group, expert, slot); dropped pairs all go to a spare
+    # column cap, which is cut off (no mask, so no host sync)
+    xt_pad = torch.cat([x.reshape(g, tl, d), x.new_zeros((g, 1, d))],
+                       dim=1).reshape(g * (tl + 1), d)
+    pos = torch.arange(g * tl, device=x.device)
+    row = pos + pos // tl                       # the token's padded row
+    flat_row = row[:, None].expand(g * tl, cfg.moe_topk).reshape(-1)
+    pad = (torch.arange(g, device=x.device) * (tl + 1) + tl)
+    col = torch.where(r.keep, r.slot, cap).reshape(-1)
+    table = pad.repeat_interleave(e)[:, None].repeat(1, cap + 1)
+    table[_group_expert(r.expert, g, e).reshape(-1), col] = flat_row
+    xe = xt_pad[table[:, :cap]]                              # (g e, cap, d)
+    if g > 1:                                    # expert major for bmm
+        xe = xe.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
 
     gate_h = torch.nn.functional.silu(torch.bmm(xe, params.w_gate).float())
     up_h = torch.bmm(xe, params.w_up).float()
-    ye = torch.bmm((gate_h * up_h).to(x.dtype), params.w_down)  # (e, cap, d)
+    ye = torch.bmm((gate_h * up_h).to(x.dtype), params.w_down)
+    if g > 1:                                    # back to group major
+        ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g * e, cap, d)
     return combine(ye, r).to(x.dtype).reshape(b, s, d)

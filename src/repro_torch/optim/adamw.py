@@ -21,6 +21,16 @@ Two traps of the reference's arithmetic are kept on purpose:
 and a new state); ``apply_`` does the same arithmetic one parameter at a
 time and in place, adding each update to its parameter as soon as it is
 computed, so the largest parameter bounds the step's temporaries.
+
+On a mesh (``distributed.spmd.ShardedModel``) ``init`` gives moments
+sharded by the moment layouts (``distributed.sharding.opt_state_specs``)
+and ``apply_shards_`` runs the same arithmetic one moment piece at a
+time, against the matching slice of the gradient's piece (the gradients
+arrive in the moments' layout) and of the parameter's piece that holds
+it. The clip's global norm is over whole leaves (the sums of squares of
+each leaf's pieces, ``spmd.leaf_sum_sq``) and so is the compression's absmax
+(``GradTransform.apply_shards``); on a one-position mesh every piece is
+its whole leaf and the step is ``apply_``'s, bit for bit.
 """
 
 from __future__ import annotations
@@ -85,7 +95,17 @@ class AdamW:
 
     def init(self, params) -> AdamWState:
         """Zero moments (and error feedback, with ``compress``) in
-        ``moment_dtype`` beside each parameter; step 0."""
+        ``moment_dtype`` beside each parameter (sharded by its moment
+        layout for a ``ShardedModel``); step 0."""
+        from ..distributed.spmd import Sharded, ShardedModel
+        if isinstance(params, ShardedModel):
+            def zeros():
+                return {n: Sharded.zeros(lay, self.moment_dtype)
+                        for n, lay in params.moment_layouts.items()}
+            return AdamWState(
+                step=torch.zeros((), dtype=torch.int32, device=params.home),
+                m=zeros(), v=zeros(),
+                ef=zeros() if self.compress is not None else None)
         leaves = named_leaves(params)
 
         def zeros():
@@ -116,11 +136,12 @@ class AdamW:
         return grads, step, ef, scale, lr, b1c, b2c
 
     def _leaf(self, name, g, m, v, p, scale, lr, b1c, b2c, *,
-              inplace: bool):
+              inplace: bool, decay: Optional[bool] = None):
         """One parameter's update (in its dtype) and new moments. In
         place, float32 moments are overwritten; otherwise (and for other
         moment types, whose sums the reference promotes to float32) new
-        tensors are made."""
+        tensors are made. ``decay`` (by default whether ``p`` is a
+        matrix in the reference's tree) adds weight decay."""
         if scale is not None:
             g = g * scale.to(g.dtype)
         g32 = g.float()
@@ -129,7 +150,9 @@ class AdamW:
         del g, g32
         u = m / b1c
         u.div_((v / b2c).sqrt_().add_(self.eps))
-        if reference_ndim(name, p) >= 2:          # decay matrices only
+        if decay is None:
+            decay = reference_ndim(name, p) >= 2
+        if decay:                                  # decay matrices only
             u.add_(p.to(torch.float32, copy=True).mul_(self.weight_decay))
         return u.mul_(-lr).to(p.dtype), m, v
 
@@ -157,6 +180,80 @@ class AdamW:
                 scale, lr, b1c, b2c, inplace=True)
             p.add_(u)
             del u
+        return AdamWState(step=step, m=state.m, v=state.v, ef=ef)
+
+    @torch.no_grad()
+    def apply_shards_(self, grads: dict, state: AdamWState, params
+                      ) -> AdamWState:
+        """``apply_`` on a ``ShardedModel``: ``grads`` are ``Sharded``
+        leaves in the moments' layouts. Each moment piece is updated on
+        every device that holds it, and its update added to the matching
+        slice of each of the parameter's pieces that holds it (computed
+        once more, or copied, where a device holds the parameter's piece
+        but not the moment's)."""
+        from ..distributed.spmd import leaf_sum_sq
+        grads = named_leaves(grads)     # sorted, as the clip sums them
+        step = state.step + 1
+        ef = state.ef
+        if self.compress is not None:
+            grads, ef = self.compress.apply_shards(grads, ef)
+        scale = None
+        if self.clip_norm is not None:
+            gnorm = torch.sqrt(sum(leaf_sum_sq(g) for g in grads.values()))
+            scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
+        lr = self.lr(step) if callable(self.lr) else self.lr
+        b1c = 1.0 - torch.pow(self.b1, step.float())
+        b2c = 1.0 - torch.pow(self.b2, step.float())
+        on: dict = {}
+
+        def here(x, dev):               # a 0-d tensor on ``dev``
+            if not isinstance(x, torch.Tensor):
+                return x
+            if (id(x), dev) not in on:
+                on[(id(x), dev)] = x.to(dev)
+            return on[(id(x), dev)]
+
+        for name, psh in params.leaves.items():
+            m_sh, v_sh, g_sh = state.m[name], state.v[name], grads[name]
+            decay = reference_ndim(name, psh) >= 2
+            if psh.layout.spec == m_sh.layout.spec:
+                # the same pieces: every device's stacks at once
+                for dev in m_sh.stacks:
+                    u, m, v = self._leaf(
+                        name, g_sh.stacks[dev], m_sh.stacks[dev],
+                        v_sh.stacks[dev], psh.stacks[dev], here(scale, dev),
+                        here(lr, dev), here(b1c, dev), here(b2c, dev),
+                        inplace=True, decay=decay)
+                    psh.stacks[dev].add_(u)
+                    if m is not m_sh.stacks[dev]:
+                        m_sh.stacks[dev], v_sh.stacks[dev] = m, v
+                m_sh.map_(lambda t: t)         # views (and dtype) anew
+                v_sh.map_(lambda t: t)
+                continue
+            new_m: dict = {}
+            new_v: dict = {}
+            for key in m_sh.layout.keys:
+                pkey, sub = psh.layout.covering(m_sh.layout.region(key))
+                u_first = None
+                for dev in m_sh.layout.holders[key]:
+                    p = psh.pieces[pkey][dev][sub]
+                    u, new_m[(key, dev)], new_v[(key, dev)] = self._leaf(
+                        name, g_sh.pieces[key][dev], m_sh.pieces[key][dev],
+                        v_sh.pieces[key][dev], p, here(scale, dev),
+                        here(lr, dev), here(b1c, dev), here(b2c, dev),
+                        inplace=True, decay=decay)
+                    p.add_(u)
+                    u_first = u if u_first is None else u_first
+                for dev, piece in psh.pieces[pkey].items():
+                    if dev not in m_sh.pieces[key]:
+                        piece[sub].add_(u_first.to(dev))
+            for sh, new in ((m_sh, new_m), (v_sh, new_v)):
+                if any(t is not sh.pieces[k][d] for (k, d), t in new.items()):
+                    sh.set_stacks({dev: torch.stack([
+                        new[(k, dev)] for k in sh.layout.on_device[dev]])
+                        for dev in sh.stacks})
+                    sh.dtype = torch.float32
+        params.updated()
         return AdamWState(step=step, m=state.m, v=state.v, ef=ef)
 
 
@@ -192,3 +289,9 @@ class GradTransform:
     def apply(self, grads: dict, ef: dict
               ) -> tuple[dict, dict]:  # pragma: no cover - interface
         raise NotImplementedError
+
+    def apply_shards(self, grads: dict, ef: dict) -> tuple[dict, dict]:
+        """``apply`` on ``Sharded`` leaves (``distributed.spmd``); by
+        default ``apply`` itself, for transforms that only pass leaves
+        on."""
+        return self.apply(grads, ef)

@@ -1,2 +1,2 @@
-"""Serve-step builders and sampled evaluation of the LM (training waits
-for a later slice: ROADMAP.md)."""
+"""Train, prefill and serve step builders (``step``; the train step
+also on a mesh) and sampled evaluation of the LM."""

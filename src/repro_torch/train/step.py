@@ -1,10 +1,9 @@
 """Train, prefill and serve step builders (counterpart of
 ``repro.train.step``).
 
-The port runs eagerly on one device, so there is nothing to lower or
-shard: the builders return the step functions themselves (the
-reference's ``lower_*`` and ``input_specs`` wait for the dry-run slice,
-ROADMAP.md).
+The port runs eagerly, so there is nothing to lower: the builders
+return the step functions themselves (the reference's ``lower_*`` and
+``input_specs`` wait for the cost-model slice, ROADMAP.md).
 
 The train step differentiates the family's loss (``registry.loss_fn``:
 dense, MoE, hybrid, SSM or enc-dec) through the reference's attention
@@ -17,6 +16,23 @@ the microbatches' gradients are summed in float32 buffers and divided,
 as the reference's ``lax.scan`` does, so the update sees float32
 gradients; with one it sees them in the parameters' dtype. The AdamW
 update then runs one parameter at a time, in place (``AdamW.apply_``).
+
+With ``mesh`` the step takes a ``distributed.spmd.ShardedModel`` (and
+the optimizer state ``AdamW.init`` gives for it): storage is sharded
+over every mesh axis, ``"model"`` included (ZeRO-3), and compute is data
+parallel. As in the reference, the global batch splits into microbatches
+first and each microbatch's rows then split over the data-parallel
+ranks in order; each rank runs forward and backward on its rows with
+the gathered weights, under ``distributed.ctx.rank_local`` (its rows
+are one MoE routing group, the reference's groups under
+``activation_sharding``), and its gradient is added into the
+gradients' pieces (``spmd.reduce_into``, in the moments' layouts), rank
+after rank and microbatch after microbatch, in float32. The sum is
+divided by ranks x microbatches (and cast to the parameters' type with
+one microbatch), as is the loss, the mean of the ranks' means. The
+``"model"`` axis shards storage only: tensor-parallel compute is not
+part of this step. On a one-position mesh the step is the unsharded
+one, bit for bit.
 """
 
 from __future__ import annotations
@@ -26,12 +42,14 @@ import contextlib
 import torch
 
 from ..configs.base import ShapeCell
+from ..distributed import ctx
+from ..distributed import spmd
 from ..models.common import ModelConfig
 from ..models.registry import decode_fn, forward_fn, loss_fn
 from ..optim.adamw import AdamW, AdamWState
 
-__all__ = ["default_microbatches", "make_train_fn", "make_prefill_fn",
-           "make_serve_fn"]
+__all__ = ["default_microbatches", "make_train_fn", "split_rows",
+           "make_prefill_fn", "make_serve_fn"]
 
 
 def default_microbatches(cfg: ModelConfig, cell: ShapeCell) -> int:
@@ -64,13 +82,17 @@ def _requiring_grad(params: list[torch.Tensor]):
             p.requires_grad_(flag)
 
 
-def make_train_fn(cfg: ModelConfig, opt: AdamW, *, microbatches: int = 1):
+def make_train_fn(cfg: ModelConfig, opt: AdamW, *, microbatches: int = 1,
+                  mesh=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     loss)``: one optimizer step on ``batch`` (``tokens``, ``labels``, and
     ``src_embeds`` for the enc-dec family). ``params`` (the ``LM`` or
-    ``EncDec``) and the state's moments are updated in place; the loss is
-    a float32 0-d tensor on the parameters' device."""
+    ``EncDec``, or with ``mesh`` a ``ShardedModel`` on it) and the
+    state's moments are updated in place; the loss is a float32 0-d
+    tensor on the parameters' device."""
     lfn = loss_fn(cfg, backend="plain")
+    if mesh is not None:
+        return _sharded_train_fn(lfn, opt, microbatches, mesh)
 
     def loss_and_grads(params, batch):
         names, plist = zip(*params.named_parameters())
@@ -96,6 +118,58 @@ def make_train_fn(cfg: ModelConfig, opt: AdamW, *, microbatches: int = 1):
     def train_step(params, opt_state: AdamWState, batch):
         loss, grads = loss_and_grads(params, batch)
         opt_state = opt.apply_(grads, opt_state, params)
+        return params, opt_state, loss
+
+    return train_step
+
+
+def split_rows(rows: int, microbatches: int, ranks: int) -> int:
+    """Rows a data-parallel rank takes of a microbatch of a ``rows``-row
+    batch; raises ``ValueError`` where they do not split evenly."""
+    if rows % microbatches:
+        raise ValueError(f"{rows} rows do not split into {microbatches} "
+                         "microbatches")
+    per_mb = rows // microbatches
+    if per_mb % ranks:
+        raise ValueError(f"a microbatch's {per_mb} rows do not split over "
+                         f"{ranks} data-parallel ranks")
+    return per_mb // ranks
+
+
+def _sharded_train_fn(lfn, opt: AdamW, microbatches: int, mesh):
+    ranks = len(spmd.data_ranks(mesh))
+
+    def train_step(params: spmd.ShardedModel, opt_state: AdamWState,
+                   batch):
+        if params.mesh != mesh:
+            raise ValueError(f"parameters on {params.mesh}, step on {mesh}")
+        mb = max(microbatches, 1)
+        rows = next(iter(batch.values())).shape[0]
+        per = split_rows(rows, mb, ranks)
+        grads = {n: spmd.Sharded.zeros(lay, torch.float32)
+                 for n, lay in params.moment_layouts.items()}
+        lsum = torch.zeros((), dtype=torch.float32, device=params.home)
+        for i in range(mb):
+            for r, dev in enumerate(params.compute_devices()):
+                module = params.module_on(dev)
+                lo = i * per * ranks + r * per
+                sub = {k: v[lo:lo + per].to(dev) for k, v in batch.items()}
+                names, plist = zip(*module.named_parameters())
+                with ctx.rank_local(), _requiring_grad(list(plist)):
+                    loss = lfn(module, sub)
+                    g = torch.autograd.grad(loss, plist)
+                spmd.reduce_into(grads, dict(zip(names, g)))
+                del g
+                lsum = lsum + loss.detach().to(params.home)
+        n = ranks * mb
+        if n > 1:
+            for sh in grads.values():
+                sh.map_(lambda t: t.div_(n))
+        if mb == 1:
+            for name, sh in grads.items():
+                sh.map_(lambda t, d=params.dtypes[name]: t.to(d))
+        loss = lsum / n if n > 1 else lsum
+        opt_state = opt.apply_shards_(grads, opt_state, params)
         return params, opt_state, loss
 
     return train_step

@@ -2,7 +2,8 @@
 
 ``tests/test_torch_moe.py``, ``test_torch_hybrid.py`` and
 ``test_torch_ssm.py`` (serving) and ``tests/test_torch_train_moe.py``,
-``_hybrid.py``, ``_ssm.py`` and ``_encdec.py`` (training, the section at
+``_hybrid.py``, ``_ssm.py`` and ``_encdec.py`` (training), and
+``tests/test_torch_train_sharded*.py`` (sharded training, the section at
 the end) run these on their family's smoke configs: the
 reference draws the weights (``PRNGKey``) and the port takes the same
 values through ``models.convert.params_from_numpy``; tokens come from
@@ -13,6 +14,7 @@ the dense family.
 
 import contextlib
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +26,7 @@ from repro.configs import cells_for as jax_cells_for
 from repro.configs import get_config as jax_get_config
 from repro.configs.base import smoke_variant as jax_smoke_variant
 from repro.data.synthetic import make_pipeline as jax_make_pipeline
+from repro.distributed import ctx as JC
 from repro.models import registry as JR
 from repro.optim import AdamW as JAdamW
 from repro.optim.adamw import GradTransform as JGradTransform
@@ -33,7 +36,11 @@ from repro.train.step import make_train_fn as jax_make_train_fn
 from repro_torch.configs import cells_for, get_config
 from repro_torch.configs.base import smoke_variant
 from repro_torch.data import make_pipeline
+from repro_torch.distributed import spmd
+from repro_torch.distributed.ctx import activation_sharding
+from repro_torch.distributed.sharding import opt_state_specs, param_specs
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import generate, make_prompts
 from repro_torch.models import encdec as PE
 from repro_torch.models import registry as TR
@@ -659,3 +666,92 @@ def check_port_checkpoint_restores(arch, tmp_path, **overrides):
                                       state.m[name].numpy())
         np.testing.assert_array_equal(port_leaf(jv, name),
                                       state.v[name].numpy())
+
+
+# ------------------------------------------------------------ sharded steps
+# ``tests/test_torch_train_sharded*.py``: the port's sharded step on a
+# (dp, mp) mesh naming the CPU dp x mp times, against the reference's step
+# under a duck mesh of data degree dp, each port step started from the
+# reference's state before it, held as ``check_train_steps`` holds its
+# steps.
+SHARDED_STEPS = 2
+
+
+def mesh_of(dp, mp):
+    return make_host_mesh(mp, devices=["cpu"] * (dp * mp))
+
+
+def sharded(model, mesh):
+    return spmd.ShardedModel(model, mesh, param_specs(model, mesh),
+                             opt_state_specs(model, mesh))
+
+
+_REFERENCE: dict = {}
+
+
+def reference_run(arch, dp, microbatches, seq):
+    """The reference's jitted steps under data degree ``dp``: per step
+    the weights and state before it (numpy trees), its loss and the
+    gradients its update saw."""
+    key = (arch, dp, microbatches, seq)
+    if key in _REFERENCE:
+        return _REFERENCE[key]
+    cj, ct = train_configs(arch)
+    pj, tree = reference_weights(cj)
+    jopt = JAdamW(lr=TRAIN_LR, compress=_JStash())
+    jstep = jax.jit(jax_make_train_fn(cj, jopt, microbatches=microbatches))
+    pipe = jax_make_pipeline(cj, seq, TRAIN_BATCH)
+    jp, js = pj, jopt.init(pj)
+    out = []
+    with JC.activation_sharding(types.SimpleNamespace(
+            axis_names=("data",), shape={"data": dp})):
+        for step in range(SHARDED_STEPS):
+            before = (jax.tree.map(np.asarray, jp), js)
+            jp, js, jl = jstep(jp, js, pipe.batch(step))
+            out.append((before, float(jl), jax.tree.map(np.asarray, js.ef),
+                        jax.tree.map(np.asarray, jp)))
+    _REFERENCE[key] = (cj, ct, tree, out)
+    return _REFERENCE[key]
+
+
+def load_state(model, opt_state, jtree, jstate):
+    """The reference's weights and moments into a ``ShardedModel`` and
+    its sharded state."""
+    model.load_({n: torch.from_numpy(np.array(port_leaf(jtree, n)))
+                 for n, _ in model.named_parameters()})
+    for mine, theirs in ((opt_state.m, jstate.m), (opt_state.v, jstate.v)):
+        t = jax.tree.map(np.asarray, theirs)
+        for name, sh in mine.items():
+            full = torch.from_numpy(np.array(port_leaf(t, name)))
+            for key, dev, piece in sh.items():
+                piece.copy_(full[sh.layout.region(key)])
+    return opt_state._replace(step=torch.tensor(int(jstate.step),
+                                                dtype=torch.int32))
+
+
+def check_sharded_against_reference(arch, dp, mp, microbatches=1,
+                                    seq=TRAIN_SEQ):
+    """SHARDED_STEPS sharded steps on a (dp, mp) mesh, each from the
+    reference's state before it, against the reference's steps under
+    data ``dp``."""
+    cj, ct, tree, ref = reference_run(arch, dp, microbatches, seq)
+    mesh = mesh_of(dp, mp)
+    model = sharded(params_from_numpy(ct, tree, device="cpu"), mesh)
+    opt = AdamW(lr=TRAIN_LR, compress=_Stash())
+    state = opt.init(model)
+    step_fn = make_train_fn(ct, opt, microbatches=microbatches, mesh=mesh)
+    pipe = make_pipeline(ct, seq, TRAIN_BATCH, device="cpu")
+    parted = []
+    for step, ((jtree, jstate), jl, jg, jafter) in enumerate(ref):
+        state = load_state(model, state, jtree, jstate)
+        with activation_sharding(mesh):
+            model, state, loss = step_fn(model, state, pipe.batch(step))
+        np.testing.assert_allclose(float(loss), jl, rtol=1e-5,
+                                   err_msg=f"step {step}")
+        grads = {n: sh.gather("cpu") for n, sh in state.ef.items()}
+        grads_close(jg, grads, f"step {step}")
+        got = {n: np32(p).copy() for n, p in model.named_parameters()}
+        parted.append(parted_near_zero(got, jafter, jg,
+                                       3 * TRAIN_LR * 1e-3, f"step {step}"))
+    print(f"{arch} on ({dp}, {mp}), {microbatches} microbatch(es): weight "
+          f"elements parted at near-zero gradients by step {parted}")

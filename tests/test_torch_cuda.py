@@ -1154,3 +1154,115 @@ def test_serve_loop_on_the_card_equals_the_cpus(cuda, arch):
             assert int(differ[0]) > 0, "the first token parted"
     print(f"{arch}: {ties} of 4 rows part at later steps")
     assert ties <= 1
+
+
+# ------------------------------------------------------- sharded training
+def _duck(data):
+    import types
+    return types.SimpleNamespace(axis_names=("data",), shape={"data": data})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b"] + TRAIN_ARCHS)
+def test_sharded_step_on_the_card_equals_the_unsharded(cuda, arch):
+    """One float32 smoke-size step of 4 x 128 tokens on the (2, 2) mesh
+    naming the card four times against the unsharded step on the card
+    under data 2 (the same MoE groups), from the same weights: loss rtol
+    1e-5, every gradient within 1e-4 of its leaf's max |g|, and the new
+    parameters to rtol 1e-4 (plus lr x 1e-3), no element exempt, against
+    the unsharded AdamW step on the sharded step's own gradients (against
+    the unsharded whole step, elements whose clipped gradients lie within
+    a few Adam eps may part: RWKV-6's ``layers.0.tm.w_lora_a`` does, as
+    in the card-vs-CPU step); on the (1, 1) mesh, the unsharded step bit
+    for bit. No kernel is launched."""
+    import copy
+    from repro_torch.data import make_pipeline
+    from repro_torch.distributed.ctx import activation_sharding
+    from repro_torch.distributed.sharding import (opt_state_specs,
+                                                  param_specs)
+    from repro_torch.distributed.spmd import ShardedModel
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import GradTransform
+    from repro_torch.train.step import make_train_fn
+
+    class Stash(GradTransform):
+        def apply(self, grads, ef):
+            return grads, grads
+
+    lr = 1e-3
+    cfg, cpu_model = _smoke_lm(arch)
+    model = copy.deepcopy(cpu_model).to(cuda)
+    batch = make_pipeline(cfg, 128, 4, seed=3, device=cuda).batch(0)
+    opt = AdamW(lr=lr, compress=Stash())
+    before = flash_ops.launch_count()
+    for dp, mp in ((2, 2), (1, 1)):
+        mesh = make_host_mesh(mp, devices=[cuda] * (dp * mp))
+        plain = copy.deepcopy(model)
+        with activation_sharding(_duck(dp)):
+            _, pstate, ploss = make_train_fn(cfg, opt)(plain, opt.init(plain),
+                                                       batch)
+        sm = ShardedModel(copy.deepcopy(model), mesh, param_specs(model, mesh),
+                          opt_state_specs(model, mesh))
+        with activation_sharding(mesh):
+            _, sstate, sloss = make_train_fn(cfg, opt, mesh=mesh)(
+                sm, opt.init(sm), batch)
+        if dp == 1:
+            assert torch.equal(sloss, ploss)
+            for (name, a), b in zip(sm.named_parameters(), plain.parameters()):
+                assert torch.equal(a, b), name
+            continue
+        assert abs(float(sloss) - float(ploss)) <= 1e-5 * abs(float(ploss))
+        grads = {n: sh.gather(cuda) for n, sh in sstate.ef.items()}
+        for name, g in pstate.ef.items():
+            assert float((grads[name] - g).abs().max()) <= \
+                1e-4 * float(g.abs().max()), name
+        own = copy.deepcopy(model)
+        plain_opt = AdamW(lr=lr)
+        plain_opt.apply_(grads, plain_opt.init(own), own)
+        for (name, a), b in zip(sm.named_parameters(), own.parameters()):
+            far = (a - b).abs() > 1e-4 * b.abs() + lr * 1e-3
+            assert not bool(far.any()), name
+    assert flash_ops.launch_count() == before
+
+
+@pytest.mark.cuda
+def test_sharded_bf16_full_width_loop_on_the_card(cuda):
+    """``launch.train`` at ``llama3.2-3b``'s full width on 2 of its 28
+    layers, bf16, 2 steps of 8 x 1024 on the (2, 2) mesh naming the card
+    four times, against the same loop unsharded from the same weights:
+    losses rtol 3e-2 (bf16), every weight within the two steps' Adam
+    bound of the unsharded run's (twice the lr sum times 1 + 0.1 |w|,
+    plus a bf16 unit a step), peak under 80 GB, no kernel launched."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import WARMUP_STEPS, train
+    from repro_torch.models.registry import init_params
+    from repro_torch.optim import cosine_with_warmup
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), n_layers=2)
+    params = init_params(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    kw = dict(steps=2, batch=8, seq=1024, lr=3e-3, device=cuda,
+              log=lambda s: None)
+    before = flash_ops.launch_count()
+    base = train(cfg, params=copy.deepcopy(params), **kw)
+    want = {n: p.detach().float().cpu()
+            for n, p in base.params.named_parameters()}
+    want_losses = [base.losses[s] for s in range(2)]
+    del base
+    torch.cuda.reset_peak_memory_stats()
+    run = train(cfg, params=params, mesh_devices=[cuda] * 4,
+                model_parallel=2, **kw)
+    assert torch.cuda.max_memory_allocated() < 80e9
+    assert run.params.mesh.shape == {"data": 2, "model": 2}
+    schedule = cosine_with_warmup(3e-3, WARMUP_STEPS, 2)
+    lr_sum = sum(float(schedule(torch.tensor(s))) for s in (1, 2))
+    for name, p in run.params.named_parameters():
+        a, b = p.detach().float().cpu(), want[name]
+        room = 2 * lr_sum * (1 + 0.1 * b.abs()) + 2 * 2.0 ** -7 * b.abs()
+        assert bool(((a - b).abs() <= room).all()), name
+    for s in range(2):
+        assert abs(run.losses[s] - want_losses[s]) <= 3e-2 * want_losses[s]
+    assert flash_ops.launch_count() == before
