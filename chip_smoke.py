@@ -95,12 +95,19 @@ after:
   each, against the unsharded step's loop from the same weights:
   ``llama3.2-3b`` on the (2, 2) host mesh (8 x 1024) and the (16, 16)
   production mesh (16 x 1024, 256 positions), ``olmoe-1b-7b`` on (2, 2),
-  whose ranks must drop the pairs of the unsharded step's routing groups;
-  step seconds, the bytes gathered and reduce-scattered a step on
-  distinct cards, peak memory, bytes a position holds; then at smoke size
-  in float32 the sharded step of every family against the unsharded one
-  ((1, 1) bit for bit) and the (2, 16, 16) multi-pod mesh over 512
-  entries. No kernel may launch there.
+  whose ranks must keep, bit for bit, the pairs the unsharded step's
+  capacity rule in its routing groups keeps of the experts they chose;
+  each computes tensor- (and expert-) parallel on ``"model"``
+  (``distributed.tp``: the (16, 16) mesh with the query rows and the
+  vocabulary over 16 model ranks); step seconds, the bytes gathered and
+  reduce-scattered a step on distinct cards and the model axis's
+  all-gathers, reduce-scatters and all-reduces, peak memory, bytes a
+  position holds, the experts and kept pairs of each model rank; then at
+  smoke size in float32 the sharded step of every family against the
+  unsharded one ((2, 2) tensor parallel for the dense, MoE and enc-dec
+  families, data parallel for the hybrid and SSM; (1, 1) bit for bit)
+  and the (2, 16, 16) multi-pod mesh over 512 entries. No kernel may
+  launch there.
 
 The two trainers run first, while ``nvcc`` builds the kernels: they
 launch none of them. Any failure raises and exits non-zero.
@@ -1113,14 +1120,17 @@ def fused_vs_staged(engine, plan) -> dict:
     n0 = segment_ops.launch_count()
     for attempt in range(2):
         # a warm replay charges nothing, so a second one (when the
-        # profiler returned no device event at all) changes no state
+        # profiler's trace held no segment_stats launch: no device event
+        # at all, or a trace that dropped it among the others) changes no
+        # state; a replay that lacks the launch lacks it again
         warm_run = {}
         by_name, warm_ms = device_kernels(
             lambda: warm_run.update(table=run_sweep(engine, spec)))
-        if by_name:
+        if segment_launches_seen(by_name):
             break
-        log(f"fused {tag}: the profiler returned no device event for the "
-            "warm replay; replaying once more")
+        log(f"fused {tag}: the profiler's trace of the warm replay held "
+            f"no segment_stats launch ({sum(n for n, _ in by_name.values())}"
+            f" device events); replaying once more")
     warm_table, warm = warm_run["table"], warm_ms / 1e3
     replayed = segment_launches_seen(by_name)
     if segment_ops.launch_count() != n0 or replayed != eager_launches \
@@ -3519,6 +3529,7 @@ SHARDED_RUNS = (("llama (2, 2)", LM_ARCH, "host", 2, 4, 8),
                 ("llama (16, 16)", LM_ARCH, "production", 1, 256, 16),
                 ("olmoe (2, 2)", "olmoe-1b-7b", "host", 2, 4, 8))
 SHARDED_LOSS_RTOL = 3e-2      # bf16 losses (the families' serving bound)
+POD_STEPS = 2                 # the multi-pod smoke-size run
 SHARDED_FAMILIES = (LM_ARCH, "olmoe-1b-7b", "recurrentgemma-2b", "rwkv6-7b",
                     "seamless-m4t-large-v2")
 
@@ -3532,8 +3543,21 @@ def sharded_bf16_run(tag: str, arch: str, mesh: str, mp: int, pool: int,
     with the mesh's data degree, so that the MoE routes in the same
     groups: losses within SHARDED_LOSS_RTOL, and every weight within the
     two steps' Adam bound of the unsharded run's (``adam_bound_share``).
-    For the MoE, the pairs each rank drops in the first step are those of
-    the unsharded step's groups, and their sum is not one group's."""
+    The step is tensor- (and expert-) parallel on ``"model"``
+    (``distributed.tp``): the record holds the compute it took, its
+    activation layouts, and ``ShardedModel.traffic`` by type (parameter
+    gathers, gradient reduce-scatters, the model axis's all-gathers,
+    reduce-scatters and all-reduces). For the MoE, the experts each
+    model rank ran (every expert on one rank) and the kept pairs it
+    computed are recorded, and in the first step each rank's slots and
+    kept pairs must be, bit for bit, those of the unsharded step's
+    capacity rule in the data ranks' groups (``moe.place_pairs``) on the
+    experts the ranks chose. In bf16 the row-parallel partial sums
+    change the MoE's inputs in the last bit, so tokens at a routing
+    near-tie may take other experts than in the unsharded step: those
+    tokens, and how far the drops by rank lie from the unsharded step's
+    groups', are recorded (the float32 smoke-size step,
+    ``sharded_smoke_checks``, holds those drops equal)."""
     import copy
     import numpy as np
     import torch
@@ -3543,7 +3567,7 @@ def sharded_bf16_run(tag: str, arch: str, mesh: str, mp: int, pool: int,
     from repro_torch.distributed import spmd
     from repro_torch.launch.train import WARMUP_STEPS, make_mesh, train
     from repro_torch.models import moe
-    from repro_torch.models.registry import init_params, loss_fn
+    from repro_torch.models.registry import init_params, loss_fn, tp_compute
     from repro_torch.optim import AdamW, cosine_with_warmup
     from repro_torch.train.step import make_train_fn
 
@@ -3568,7 +3592,7 @@ def sharded_bf16_run(tag: str, arch: str, mesh: str, mp: int, pool: int,
     opt = AdamW(lr=schedule)
     step = make_train_fn(cfg, opt)
     state = opt.init(plain)
-    base_losses, base_times, grouped = [], [], None
+    base_losses, base_times, grouped, base_routes = [], [], None, None
     for s in range(SHARDED_STEPS):
         t0 = time.perf_counter()
         with pctx.activation_sharding(_duck_mesh(ranks)), \
@@ -3578,11 +3602,12 @@ def sharded_bf16_run(tag: str, arch: str, mesh: str, mp: int, pool: int,
         base_times.append(time.perf_counter() - t0)
         if s == 0:
             grouped = [r.dropped_by_group().tolist() for r in routes]
+            base_routes = list(routes)
     rec.update({"unsharded_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "unsharded_step_s": base_times,
                 "unsharded_losses": base_losses})
     want = dict(plain.named_parameters())       # kept on the card
-    del state, routes
+    del state
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3593,16 +3618,21 @@ def sharded_bf16_run(tag: str, arch: str, mesh: str, mp: int, pool: int,
                     device="cuda", log=echo)
     peak = torch.cuda.max_memory_allocated()
     sm = run.params
+    group = sm.last_step["group"]
     losses = [run.losses[s] for s in range(SHARDED_STEPS)]
     rec.update({"mesh": sm.mesh.shape, "positions": sm.mesh.size,
-                "data_ranks": ranks, "step_s": [float(t) for t in run.times],
+                "data_ranks": ranks, "compute": tp_compute(cfg, sm.mesh),
+                "layouts": sorted({f"{k} {d}" for k, _, d in group.layouts}),
+                "step_s": [float(t) for t in run.times],
                 "first_step_s": float(run.times[0]),
                 "warm_step_s": float(np.mean(run.times[1:])),
                 "peak_gb": peak / 1e9, "losses": losses,
                 "loss_rel": max(abs(a - b) / abs(b)
                                 for a, b in zip(losses, base_losses)),
-                **spmd.traffic(sm.layouts, sm.moment_layouts, sm.dtypes),
-                **sm.shard_nbytes()})
+                **sm.traffic(), **sm.shard_nbytes()})
+    if group is None:
+        raise AssertionError(f"sharded {tag}: the step was not tensor "
+                             "parallel")
     if peak >= 80e9:
         raise AssertionError(f"sharded {tag}: peak {peak / 1e9:.2f} GB")
     if not rec["loss_rel"] <= SHARDED_LOSS_RTOL:
@@ -3618,25 +3648,61 @@ def sharded_bf16_run(tag: str, arch: str, mesh: str, mp: int, pool: int,
         n = cfg.n_layers
         by_rank = [[int((~routes[r * n + layer].keep).sum())
                     for r in range(ranks)] for layer in range(n)]
+        experts, kept = group.moe_ranks[-1]
         rec.update({"dropped_by_rank": by_rank,
                     "dropped_by_group_unsharded": grouped,
-                    "dropped_one_group": one_group})
-        if by_rank != grouped:
-            raise AssertionError(f"sharded {tag}: dropped pairs by rank "
-                                 f"{by_rank}, the unsharded groups' "
-                                 f"{grouped}")
+                    "dropped_one_group": one_group,
+                    "experts_by_model_rank": [len(x) for x in experts],
+                    "kept_pairs_by_model_rank": [
+                        int(sum(k[m] for _, k in group.moe_ranks))
+                        for m in range(len(experts))]})
+        if sorted(e for x in experts for e in x) != list(range(
+                cfg.moe_experts)):
+            raise AssertionError(f"sharded {tag}: experts by model rank "
+                                 f"{experts}")
+        # the capacity rule of the unsharded step's groups (data ranks
+        # groups) on the experts the ranks chose: their slots and kept
+        # pairs bit for bit
+        for layer in range(n):
+            mine = [routes[r * n + layer] for r in range(ranks)]
+            slot, keep, cap = moe.place_pairs(
+                torch.cat([x.expert for x in mine]), cfg, ranks)
+            if not (cap == mine[0].cap and torch.equal(
+                    slot, torch.cat([x.slot for x in mine])) and torch.equal(
+                    keep, torch.cat([x.keep for x in mine]))):
+                raise AssertionError(
+                    f"sharded {tag}: layer {layer}'s ranks keep "
+                    f"{[int(x.keep.sum()) for x in mine]} pairs, the "
+                    f"unsharded groups' rule on their experts "
+                    f"{(keep.reshape(ranks, -1).sum(1)).tolist()}")
+        rerouted = []                   # tokens whose experts differ
+        for layer, u in enumerate(base_routes):
+            t = u.expert.shape[0] // ranks
+            got = torch.cat([routes[r * n + layer].expert
+                             for r in range(ranks)])
+            rerouted.append(int((torch.sort(got, -1).values != torch.sort(
+                u.expert, -1).values).any(-1).sum()))
+        off = sum(abs(a - b) for ra, rb in zip(by_rank, grouped)
+                  for a, b in zip(ra, rb))
+        rec.update({"dropped_off_by": off, "tokens_rerouted_by_layer":
+                    rerouted, "tokens": ranks * t})
         if sum(map(sum, by_rank)) == sum(map(sum, one_group)):
             raise AssertionError(f"sharded {tag}: the groups drop as many "
                                  f"pairs as one group ({one_group})")
     echo(f"{tag} ({card}): {arch} full width, {cfg.n_layers} of "
          f"{rec['of_layers']} layers, bf16, {batch} x {SHARDED_SEQ} tokens "
          f"on {sm.mesh.shape} ({sm.mesh.size} positions naming cuda:0, "
-         f"{ranks} data ranks): steps "
+         f"{ranks} data ranks, {rec['compute']}; layouts "
+         f"{', '.join(rec['layouts'])}): steps "
          f"{', '.join(f'{t:.3f}' for t in run.times)} s (unsharded "
          f"{', '.join(f'{t:.3f}' for t in base_times)}); "
          f"gathered {rec['gathered_bytes'] / 1e9:.3f} GB and "
          f"reduce-scattered {rec['reduce_scatter_bytes'] / 1e9:.3f} GB a "
-         f"step on distinct cards; peak {peak / 1e9:.2f} GB (unsharded "
+         f"step on distinct cards, on \"model\" all-gathered "
+         f"{rec['model_all_gather_bytes'] / 1e9:.3f}, reduce-scattered "
+         f"{rec['model_reduce_scatter_bytes'] / 1e9:.3f}, all-reduced "
+         f"{rec['model_all_reduce_bytes'] / 1e9:.6f} GB; peak "
+         f"{peak / 1e9:.2f} GB (unsharded "
          f"{rec['unsharded_peak_gb']:.2f}); per position "
          f"{rec['params_per_shard'] / 1e6:.2f} MB of "
          f"{rec['params_total'] / 1e9:.3f} GB of parameters, "
@@ -3645,10 +3711,15 @@ def sharded_bf16_run(tag: str, arch: str, mesh: str, mp: int, pool: int,
          f"{', '.join(f'{v:.4f}' for v in losses)} (rel "
          f"{rec['loss_rel']:.3g}); weights within {worst:.3g} of the bound, "
          f"{differ} of {total} differ"
-         + (f"; dropped by rank {rec['dropped_by_rank']} = the unsharded "
-            f"groups', one group {one_group}"
+         + (f"; dropped by rank {rec['dropped_by_rank']}, the unsharded "
+            f"groups' rule on the ranks' experts bit for bit; the unsharded "
+            f"step's groups {grouped} (apart by {off} pairs: tokens "
+            f"rerouted by layer {rerouted} of {ranks * t}), one group "
+            f"{one_group}; experts by model rank "
+            f"{rec['experts_by_model_rank']}, kept pairs by model rank "
+            f"{rec['kept_pairs_by_model_rank']}"
             if cfg.family == "moe" else ""))
-    del run, sm, params, routes, want, plain
+    del run, sm, group, params, routes, base_routes, want, plain
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -3683,11 +3754,15 @@ def sharded_smoke_checks(echo) -> dict:
     (the same MoE groups): loss and every gradient within TRAIN_RTOL (of
     a leaf's max), the weights against the unsharded AdamW step on the
     sharded step's own gradients (``step_on_card_grads``); the (1, 1) mesh
-    against the unsharded step, bit for bit. Then ``launch.train`` on the
-    (2, 16, 16) multi-pod mesh over 512 entries naming the card, 2 steps
-    of the dense smoke model on SHARDED_LAYERS layers, against the
-    unsharded loop (losses rtol
-    TRAIN_RTOL, weights by ``adam_bound_share``)."""
+    against the unsharded step, bit for bit. On (2, 2) the dense, MoE and
+    enc-dec steps are tensor- (and expert-) parallel, the hybrid's and
+    SSM's data parallel (ROADMAP A.4b); the record holds each family's
+    compute and bytes by type; the MoE's ranks drop exactly the pairs of
+    the unsharded step's groups. Then ``launch.train`` on the (2, 16, 16)
+    multi-pod mesh over 512 entries naming the card, POD_STEPS steps of
+    the dense smoke model on SHARDED_LAYERS layers (16 model ranks: the
+    query rows and the vocabulary over them), against the unsharded loop
+    (losses rtol TRAIN_RTOL, weights by ``adam_bound_share``)."""
     import copy
     import torch
     from repro_torch.configs import get_config
@@ -3698,7 +3773,9 @@ def sharded_smoke_checks(echo) -> dict:
     from repro_torch.distributed.spmd import ShardedModel
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import WARMUP_STEPS, train
-    from repro_torch.models.registry import init_params
+    from repro_torch.models import moe
+    from repro_torch.models.registry import (TP_FAMILIES, init_params,
+                                             tp_compute)
     from repro_torch.optim import AdamW, cosine_with_warmup
     from repro_torch.optim.adamw import GradTransform
     from repro_torch.train.step import make_train_fn
@@ -3717,20 +3794,32 @@ def sharded_smoke_checks(echo) -> dict:
                               device="cuda").batch(0)
         opt = AdamW(lr=STEP_LR, compress=Stash())
         step = make_train_fn(small, opt)
-        runs = {}
+        runs, drops = {}, {}
         for shape in ((2, 2), (1, 1)):
             mesh = make_host_mesh(shape[1], devices=["cuda:0"] * (
                 shape[0] * shape[1]))
             plain = copy.deepcopy(model)
-            with pctx.activation_sharding(_duck_mesh(shape[0])):
+            with pctx.activation_sharding(_duck_mesh(shape[0])), \
+                    moe.record_routing() as grouped:
                 _, pstate, ploss = step(plain, opt.init(plain), batch)
             sm = ShardedModel(copy.deepcopy(model), mesh,
                               param_specs(model, mesh),
                               opt_state_specs(model, mesh))
-            with pctx.activation_sharding(mesh):
+            with pctx.activation_sharding(mesh), \
+                    moe.record_routing() as ranked:
                 _, sstate, sloss = make_train_fn(small, opt, mesh=mesh)(
                     sm, opt.init(sm), batch)
             runs[shape] = (plain, pstate, ploss, sm, sstate, sloss)
+            n = small.n_layers
+            drops[shape] = (
+                [r.dropped_by_group().tolist() for r in grouped],
+                [[int((~ranked[r * n + layer].keep).sum())
+                  for r in range(shape[0])] for layer in range(n)]
+                if grouped else [])
+        if drops[(2, 2)][0] != drops[(2, 2)][1]:
+            raise AssertionError(f"{arch}: (2, 2) drops by rank "
+                                 f"{drops[(2, 2)][1]}, the unsharded "
+                                 f"groups' {drops[(2, 2)][0]}")
         plain, pstate, ploss, sm, sstate, sloss = runs[(1, 1)]
         bitwise = bool(torch.equal(sloss, ploss)) and all(
             torch.equal(a, b) for (_, a), b in zip(sm.named_parameters(),
@@ -3739,6 +3828,10 @@ def sharded_smoke_checks(echo) -> dict:
             raise AssertionError(f"{arch}: the (1, 1) mesh's step is not the "
                                  "unsharded step bit for bit")
         plain, pstate, ploss, sm, sstate, sloss = runs[(2, 2)]
+        if (sm.last_step["group"] is None) == (small.family in TP_FAMILIES):
+            raise AssertionError(f"{arch}: (2, 2) computed "
+                                 f"{sm.last_step}, not "
+                                 f"{tp_compute(small, sm.mesh)}")
         loss_rel = abs(float(sloss) - float(ploss)) / abs(float(ploss))
         grad_rel = 0.0
         for name, g in pstate.ef.items():
@@ -3754,8 +3847,11 @@ def sharded_smoke_checks(echo) -> dict:
             {n: sh.gather("cuda") for n, sh in sstate.ef.items()},
             f"{arch} sharded vs unsharded step")
         out[arch] = {"loss_rel": loss_rel, "grad_rel": grad_rel,
-                     **weights, "one_position_bitwise": bitwise}
-        echo(f"{arch} smoke size, float32, (2, 2) vs unsharded under data "
+                     **weights, "one_position_bitwise": bitwise,
+                     "compute": tp_compute(small, sm.mesh), **sm.traffic(),
+                     "dropped_by_rank": drops[(2, 2)][1]}
+        echo(f"{arch} smoke size, float32, (2, 2) "
+             f"({out[arch]['compute']}) vs unsharded under data "
              f"2: loss rel {loss_rel:.3g}, gradients within {grad_rel:.3g} "
              f"of each leaf's max; weights within "
              f"{weights['max_abs_vs_card_grads']:.3g} of the unsharded "
@@ -3768,7 +3864,7 @@ def sharded_smoke_checks(echo) -> dict:
                                 n_layers=SHARDED_LAYERS)
     model = init_params(small, generator=torch.Generator(
         device="cuda").manual_seed(2), device="cuda")
-    kw = dict(steps=SHARDED_STEPS, batch=32, seq=64, lr=5e-3, device="cuda",
+    kw = dict(steps=POD_STEPS, batch=32, seq=64, lr=5e-3, device="cuda",
               log=echo)
     t0 = time.perf_counter()
     base = train(small, params=copy.deepcopy(model), **kw)
@@ -3780,26 +3876,32 @@ def sharded_smoke_checks(echo) -> dict:
     pod_s = time.perf_counter() - t0
     if run.params.mesh.shape != {"pod": 2, "data": 16, "model": 16}:
         raise AssertionError(f"multi-pod mesh {run.params.mesh.shape}")
-    losses = [run.losses[s] for s in range(SHARDED_STEPS)]
-    wanted = [base.losses[s] for s in range(SHARDED_STEPS)]
+    losses = [run.losses[s] for s in range(POD_STEPS)]
+    wanted = [base.losses[s] for s in range(POD_STEPS)]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, wanted))
     if loss_rel > TRAIN_RTOL:
         raise AssertionError(f"multi-pod: losses {losses}, unsharded "
                              f"{wanted}")
-    schedule = cosine_with_warmup(5e-3, WARMUP_STEPS, SHARDED_STEPS)
+    schedule = cosine_with_warmup(5e-3, WARMUP_STEPS, POD_STEPS)
     lr_sum = sum(float(schedule(torch.tensor(s + 1)))
-                 for s in range(SHARDED_STEPS))
+                 for s in range(POD_STEPS))
     worst, differ, total = adam_bound_share(
-        run.params.named_parameters(), want, lr_sum, SHARDED_STEPS,
+        run.params.named_parameters(), want, lr_sum, POD_STEPS,
         "multi-pod")
+    group = run.params.last_step["group"]
     out["multipod"] = {"mesh": run.params.mesh.shape, "losses": losses,
                        "loss_rel": loss_rel, "step_s": [
                            float(t) for t in run.times],
                        "seconds": pod_s, "unsharded_seconds": plain_s,
                        "weights_within_share_of_bound": worst,
-                       "weights_differing": differ, "weights": total}
+                       "weights_differing": differ, "weights": total,
+                       "layouts": sorted({f"{k} {d}"
+                                          for k, _, d in group.layouts}),
+                       **run.params.traffic()}
     echo(f"multi-pod (2, 16, 16) over 512 entries naming cuda:0, smoke "
-         f"{LM_ARCH} on {small.n_layers} layers, 2 steps of 32 x 64: steps "
+         f"{LM_ARCH} on {small.n_layers} layers, tensor-parallel (layouts "
+         f"{', '.join(out['multipod']['layouts'])}), {POD_STEPS} step(s) "
+         f"of 32 x 64: steps "
          f"{', '.join(f'{t:.3f}' for t in run.times)} s; losses rel "
          f"{loss_rel:.3g} to the unsharded loop; weights within {worst:.3g} "
          f"of the bound, {differ} of {total} differ")

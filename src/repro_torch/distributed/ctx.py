@@ -7,10 +7,11 @@ reads it through ``moe_group_count()`` (the MoE routes its tokens in as
 many groups as the data-parallel degree) and ``seq_parallel_enabled()``.
 
 The reference's ``constrain(x, kind)`` asks GSPMD for a layout with
-``with_sharding_constraint``; a layout request moves no data in this
-port's design (``distributed.spmd``: one process drives the mesh, and
-compute is data parallel), so ``constrain`` returns ``x`` unchanged.
-``constraint_spec(shape, kind)`` gives the ``PartitionSpec`` the
+``with_sharding_constraint``. The port's ``constrain`` returns ``x``
+unchanged: its tensor-parallel step (``distributed.tp``, the models'
+``*_tp`` functions) computes each activation in the layout
+``constraint_spec(shape, kind)`` names, which is the single source of
+those decisions, fallbacks included. It gives the ``PartitionSpec`` the
 reference would ask for, for every kind it knows:
 
     bsd        (b, s, d)  batch over the data axes; seq over "model"
@@ -147,8 +148,8 @@ def constraint_spec(shape, kind: str) -> Optional[P]:
 
 
 def constrain(x, kind: str):
-    """``x`` unchanged: a layout request moves no data here
-    (``constraint_spec`` names the request)."""
+    """``x`` unchanged: the tensor-parallel step computes in the layout
+    ``constraint_spec`` names (``distributed.tp``)."""
     return x
 
 

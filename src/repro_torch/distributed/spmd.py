@@ -24,12 +24,27 @@ in that fixed order, with no atomics, so two runs give the same bits.
 ``leaf_sum_sq`` and ``leaf_abs_max`` reduce whole-leaf quantities over a
 leaf's pieces (each piece once).
 
+With ``"model"`` > 1 the dense, MoE and enc-dec steps compute each
+position's share (``distributed.tp``): ``tp_module_on`` gathers, for a
+data rank, its model positions' weights as one stack a leaf, each
+position's model shard gathered over the data axes only
+(``Sharded.gather_ranks``: ``(R, ...)``, row ``r`` the shard of model
+rank ``r``), and the whole leaf only where the compute needs it whole
+(a replicated weight, or the query-row fallback's attention weights);
+``reduce_into(..., splits)`` adds each position's gradient into the
+pieces. The positions of a data rank compute on the device of its first
+position; a piece held on another device is copied there.
+
 ``traffic(...)`` counts the bytes a step would move between distinct
-devices: what each data-parallel rank gathers (the pieces its group of
-mesh positions does not hold) and what it sends in the reduce-scatter
-(its gradient less the pieces its group keeps). On one card nothing
-crosses a link; the numbers are those of the same mesh on distinct
-cards.
+devices. With data-parallel compute: what each data-parallel rank
+gathers (the pieces its group of mesh positions does not hold) and what
+it sends in the reduce-scatter (its gradient less the pieces its group
+keeps). With tensor-parallel compute: what each position gathers of the
+region it computes with (its model shard, or the whole leaf) and sends
+of its gradient of that region, less what it holds; and the activation
+collectives on ``"model"`` by type (counted as they run,
+``tp.Group.traffic``). On one card nothing crosses a link; the numbers
+are those of the same mesh on distinct cards.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ import torch
 
 from ..launch.mesh import data_axes
 from .ctx import PartitionSpec
+from .tp import COLLECTIVES
 
 __all__ = ["Layout", "Sharded", "ShardedModel", "reduce_into",
            "leaf_sum_sq", "leaf_abs_max", "data_ranks", "traffic"]
@@ -112,6 +128,22 @@ class Layout:
         return t.view(split).permute(*range(0, 2 * nd, 2),
                                      *range(1, 2 * nd, 2))
 
+    def ranked_blocks(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """A leaf cut along ``dim`` into its ``counts[dim]`` blocks and
+        stacked, ``t`` ``(counts[dim], ...)``, viewed as ``(*counts,
+        *block)``: ``[k]`` is piece ``k``."""
+        split = [n for c, b in zip(self.counts, self.block) for n in (c, b)]
+        nd = len(self.shape)
+        return t.movedim(0, dim).view(split).permute(
+            *range(0, 2 * nd, 2), *range(1, 2 * nd, 2))
+
+    def ranked_region(self, key, dim: int) -> tuple[slice, ...]:
+        """The slices of its rank's block (``ranked_blocks``) that piece
+        ``key`` holds."""
+        region = list(self._regions[key])
+        region[dim] = slice(None)
+        return tuple(region)
+
     def covering(self, region) -> tuple[tuple, tuple[slice, ...]]:
         """The key whose piece holds ``region`` (a region of a layout
         this one's refines) and the region within that piece."""
@@ -142,8 +174,8 @@ class Sharded:
         self.stacks = stacks
         self.pieces = {key: {} for key in self.layout.keys}
         for dev, st in stacks.items():
-            for i, key in enumerate(self.layout.on_device[dev]):
-                self.pieces[key][dev] = st[i]
+            for key, piece in zip(self.layout.on_device[dev], st.unbind(0)):
+                self.pieces[key][dev] = piece
 
     @property
     def ndim(self) -> int:
@@ -209,6 +241,30 @@ class Sharded:
             out[self.layout.region(key)].copy_(src)
         return out
 
+    def gather_ranks(self, device, dim: int,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The leaf's model shards on ``device``: the leaf cut along
+        ``dim`` into its ``counts[dim]`` blocks, stacked ``(counts[dim],
+        ..., shape[dim] / counts[dim], ...)`` (into ``out`` when given),
+        each piece read from ``device`` where it is there."""
+        device = torch.device(device)
+        lay = self.layout
+        if out is None:
+            shape = list(lay.shape)
+            shape[dim] = lay.block[dim]
+            out = torch.empty((lay.counts[dim], *shape), dtype=self.dtype,
+                              device=device)
+        grid = self.grid(device) if device in self.stacks else None
+        if grid is not None:
+            lay.ranked_blocks(out, dim).copy_(grid)
+            return out
+        for key in lay.keys:
+            src = self.pieces[key].get(device, None)
+            if src is None:
+                src = self.first(key)
+            out[key[dim]][lay.ranked_region(key, dim)].copy_(src)
+        return out
+
     @torch.no_grad()
     def load_(self, full: torch.Tensor) -> None:
         """Overwrite every piece with its part of the whole leaf
@@ -229,22 +285,31 @@ class Sharded:
         return self
 
 
-def reduce_into(bufs: dict, grads: dict) -> None:
-    """Add each full gradient of ``grads`` (on any device) into the
-    pieces of its leaf in ``bufs``: one rank's share of a reduce-scatter.
-    Called rank after rank it sums the ranks in that order."""
+def reduce_into(bufs: dict, grads: dict,
+                splits: Optional[dict] = None) -> None:
+    """Add each gradient of ``grads`` (on any device) into the pieces of
+    its leaf in ``bufs``: one rank's share of a reduce-scatter. A leaf
+    whose ``splits`` entry names a dimension comes as its model shards'
+    gradients, stacked as ``Sharded.gather_ranks`` stacks the shards;
+    the others whole. Called rank after rank it sums the ranks in that
+    order."""
     dst, src = [], []
     for name, g in grads.items():
         sh = bufs[name]
+        lay = sh.layout
+        dim = (splits or {}).get(name)
         for dev in sh.stacks:
             grid = sh.grid(dev)
             if grid is not None:
                 dst.append(grid)
-                src.append(sh.layout.blocks(g.contiguous()).to(dev))
+                src.append((lay.blocks(g.contiguous()) if dim is None
+                            else lay.ranked_blocks(g, dim)).to(dev))
                 continue
-            for key in sh.layout.on_device[dev]:
+            for key in lay.on_device[dev]:
                 dst.append(sh.pieces[key][dev])
-                src.append(g[sh.layout.region(key)].to(dev))
+                src.append((g[lay.region(key)] if dim is None else
+                            g[key[dim]][lay.ranked_region(key, dim)]
+                            ).to(dev))
     torch._foreach_add_(dst, src)
 
 
@@ -288,22 +353,62 @@ def data_ranks(mesh) -> list[list[tuple]]:
     return [groups[k] for k in sorted(groups)]
 
 
+def _overlap(a: tuple[slice, ...], b: tuple[slice, ...]) -> int:
+    return math.prod(max(0, min(x.stop, y.stop) - max(x.start, y.start))
+                     for x, y in zip(a, b))
+
+
 def traffic(param_layouts: dict, grad_layouts: dict, dtypes: dict,
-            microbatches: int = 1) -> dict:
-    """Bytes one step moves on distinct devices: each data-parallel
-    rank's gather of the parameters (once a step) and its share of the
-    gradients' reduce-scatter (once a microbatch, in the parameters'
-    type)."""
+            microbatches: int = 1, splits: Optional[dict] = None,
+            activations: Optional[dict] = None) -> dict:
+    """Bytes one step moves on distinct devices: the parameters' gather
+    (once a step) and the gradients' reduce-scatter (once a microbatch,
+    in the parameters' type), and the activation collectives on
+    ``"model"`` by type (``activations``, a ``tp.Group``'s ``traffic``:
+    ``model_all_gather_bytes``, ...). Without ``splits`` the compute is
+    data parallel: each data-parallel rank gathers the pieces its group
+    of positions lacks and sends its gradient less the pieces its group
+    keeps. With ``splits`` (each leaf's dimension cut over the model
+    ranks, or None: whole) every position computes: it gathers what it
+    lacks of its region (its model shard, or the whole leaf) and sends
+    its gradient of that region less what it keeps."""
     mesh = next(iter(param_layouts.values())).mesh
-    gathered = reduced = 0.0
-    for group in data_ranks(mesh):
+    gathered = reduced = 0
+    if splits is None:
+        for group in data_ranks(mesh):
+            for name, lay in param_layouts.items():
+                nbytes = math.prod(lay.shape) * dtypes[name].itemsize
+                gathered += nbytes * (1 - lay.held_share(group))
+                reduced += microbatches * nbytes * (
+                    1 - grad_layouts[name].held_share(group))
+    else:
+        axis = mesh.axis_names.index("model")
+        ranks = mesh.shape["model"]
+        coords = list(np.ndindex(mesh.devices.shape))
         for name, lay in param_layouts.items():
-            nbytes = math.prod(lay.shape) * dtypes[name].itemsize
-            gathered += nbytes * (1 - lay.held_share(group))
-            reduced += microbatches * nbytes * (
-                1 - grad_layouts[name].held_share(group))
-    return {"gathered_bytes": int(gathered), "reduce_scatter_bytes":
-            int(reduced)}
+            glay, dim = grad_layouts[name], splits[name]
+            # positions holding the same pieces of the same model shard
+            # move the same bytes
+            kinds: dict[tuple, int] = {}
+            for c in coords:
+                k = (lay.key_at[c], glay.key_at[c], c[axis])
+                kinds[k] = kinds.get(k, 0) + 1
+            for (pkey, gkey, m), n in kinds.items():
+                need = [slice(0, d) for d in lay.shape]
+                if dim is not None:
+                    b = lay.shape[dim] // ranks
+                    need[dim] = slice(m * b, (m + 1) * b)
+                size = math.prod(r.stop - r.start for r in need)
+                item = dtypes[name].itemsize
+                gathered += n * item * (size - _overlap(need,
+                                                        lay.region(pkey)))
+                reduced += n * item * microbatches * (
+                    size - _overlap(need, glay.region(gkey)))
+    out = {"gathered_bytes": int(gathered),
+           "reduce_scatter_bytes": int(reduced)}
+    for name in COLLECTIVES:
+        out[f"model_{name}_bytes"] = int((activations or {}).get(name, 0))
+    return out
 
 
 class ShardedModel:
@@ -328,6 +433,11 @@ class ShardedModel:
         self.home = next(iter(named.values())).device
         self._modules = {self.home: module}
         self._fresh: set = {self.home}   # modules equal to the shards
+        self._tp_modules: dict = {}      # device -> (splits, module)
+        # what the last step computed with: its ``splits`` (None: data
+        # parallel), its ``tp.Group`` (None: data parallel) and its
+        # microbatches; ``traffic()`` reads it
+        self.last_step: Optional[dict] = None
 
     def compute_devices(self) -> list[torch.device]:
         """The device of each data-parallel rank (its group's first
@@ -351,9 +461,59 @@ class ShardedModel:
             self._fresh.add(device)
         return module
 
+    @torch.no_grad()
+    def tp_module_on(self, device, splits: dict) -> torch.nn.Module:
+        """The model on ``device`` as a data rank's model positions
+        compute with it: a leaf whose ``splits`` entry names a dimension
+        holds the stack of its model shards (``Sharded.gather_ranks``),
+        the others the whole leaf (gathered once after each update)."""
+        device = torch.device(device)
+        kept = self._tp_modules.get(device)
+        if kept is None or kept[0] != splits:
+            ranks = self.mesh.shape["model"]
+            memo = {}
+            for name, p in self._modules[self.home].named_parameters():
+                dim = splits[name]
+                shape = tuple(p.shape)
+                if dim is not None:
+                    for lay in (self.layouts[name],
+                                self.moment_layouts[name]):
+                        if lay.counts[dim] != ranks:
+                            raise ValueError(
+                                f"{name}: dim {dim} is stored in "
+                                f"{lay.counts[dim]} pieces, not the "
+                                f"{ranks} model ranks")
+                    shape = (ranks, *shape[:dim], shape[dim] // ranks,
+                             *shape[dim + 1:])
+                memo[id(p)] = torch.nn.Parameter(
+                    torch.empty(shape, dtype=p.dtype, device=device),
+                    requires_grad=False)
+            module = copy.deepcopy(self._modules[self.home], memo)
+            kept = self._tp_modules[device] = (dict(splits), module)
+            self._fresh.discard(("tp", device))
+        module = kept[1]
+        if ("tp", device) not in self._fresh:
+            for name, p in module.named_parameters():
+                dim = splits[name]
+                if dim is None:
+                    self.leaves[name].gather(device, out=p.data)
+                else:
+                    self.leaves[name].gather_ranks(device, dim, out=p.data)
+            self._fresh.add(("tp", device))
+        return module
+
     def updated(self) -> None:
         """The shards changed: every gathered module is stale."""
         self._fresh.clear()
+
+    def traffic(self) -> dict:
+        """``traffic`` of the last step (its microbatches, its compute's
+        splits and its activation collectives)."""
+        rec = self.last_step or {}
+        group = rec.get("group")
+        return traffic(self.layouts, self.moment_layouts, self.dtypes,
+                       rec.get("microbatches", 1), rec.get("splits"),
+                       group.traffic if group is not None else None)
 
     def named_parameters(self):
         """The gathered module's parameters on the home device."""

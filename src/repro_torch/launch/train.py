@@ -23,9 +23,13 @@ the named ``--device`` alone, else every visible card. The loop runs
 under ``distributed.ctx.activation_sharding(mesh)``; a mesh of more
 than one position trains a ``distributed.spmd.ShardedModel`` through
 ``make_train_fn(mesh=)`` (parameters by ``param_specs``, moments by
-``opt_state_specs``; the ``"model"`` axis shards storage, compute is
-data parallel), a one-position mesh the unsharded model, which is the
-same step bit for bit.
+``opt_state_specs``), a one-position mesh the unsharded model, which is
+the same step bit for bit. With ``--model-parallel`` > 1 (or the
+production meshes' 16) the dense, MoE and enc-dec families compute
+tensor- (and expert-) parallel on ``"model"`` (``distributed.tp``); the
+hybrid and SSM stay data parallel (ROADMAP A.4b). The log names the
+compute a run took and, at the end, the last step's bytes on distinct
+devices by type (``ShardedModel.traffic``).
 
 A checkpoint holds ``(params, opt_state)`` in the reference's tree and
 keys (``checkpoint_tree``, which gathers the shards): each stacked
@@ -53,7 +57,7 @@ from ..distributed.sharding import opt_state_specs, param_specs
 from ..distributed.spmd import Sharded, ShardedModel
 from ..models.common import ModelConfig
 from ..models.convert import port_leaf, reference_tree
-from ..models.registry import init_params
+from ..models.registry import init_params, tp_compute
 from ..optim import AdamW, AdamWState, cosine_with_warmup
 from ..runtime.checkpoint import (latest_step, restore_checkpoint,
                                   save_checkpoint)
@@ -162,6 +166,8 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     if sharded:
         params = ShardedModel(params, grid, param_specs(params, grid),
                               opt_state_specs(params, grid))
+        log(f"mesh {grid.shape}: {cfg.name} ({cfg.family}) computes "
+            f"{tp_compute(cfg, grid)}")
     opt_state = opt.init(params)
 
     start = 0
@@ -195,6 +201,9 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         save_checkpoint(ckpt_dir, steps - 1,
                         checkpoint_tree(params, opt_state),
                         extra={"step": steps - 1, "seed": seed})
+    if sharded and params.last_step is not None:
+        log("traffic a step on distinct devices (bytes): " + ", ".join(
+            f"{k} {v}" for k, v in params.traffic().items()))
     times = timer.times
     if times.size:
         log(f"mean step {np.mean(times)*1e3:.1f} ms  "

@@ -19,6 +19,15 @@ raises on inputs that require a gradient.
 cross-attention, causal decoder self-attention): on a CUDA tensor both
 branches launch the kernel; elsewhere, and for ``backend="plain"``, the
 reference's route with its ``causal`` flag.
+
+``attention_tp`` is the tensor-parallel training step's attention
+(``distributed.tp``; the reference's route): q, k and v take the
+layouts ``constraint_spec`` names for ``bshd`` / ``bshd_kv``. Heads
+over the model ranks: column-parallel q/k/v (each rank its heads' slice
+of ``wq``/``wk``/``wv``), row-parallel ``wo`` and a reduce-scatter (or
+all-reduce) of the ranks' partial sums. Where the heads do not divide,
+the query rows: each rank its rows of q, from the whole weights, against
+the whole k and v. K and v are computed once where they are replicated.
 """
 
 from __future__ import annotations
@@ -30,13 +39,14 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..distributed.tp import ranked_matmul
 from ..kernels import backend as _backend
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_ref
 from .common import ModelConfig, new_param, rope
 
-__all__ = ["Attention", "attention", "mha_attend", "make_kv_cache",
-           "repeat_kv", "CHUNKED_KV_THRESHOLD", "KV_CHUNK"]
+__all__ = ["Attention", "attention", "attention_tp", "mha_attend",
+           "make_kv_cache", "repeat_kv", "CHUNKED_KV_THRESHOLD", "KV_CHUNK"]
 
 CHUNKED_KV_THRESHOLD = 2048
 KV_CHUNK = 1024
@@ -99,7 +109,8 @@ def mha_attend(q, k, v, *, causal: bool, backend: str = "auto"
 
 
 def _attend_chunked(q, k, v, *, window: Optional[int],
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    q_start: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Streaming-softmax attention in plain products (the flash algorithm
     as a loop over kv chunks): the ``(sq, skv)`` logits never exist whole.
     Products take the operands upcast to float32 (the reference's bf16
@@ -108,22 +119,26 @@ def _attend_chunked(q, k, v, *, window: Optional[int],
     reference pads the last chunk and masks it; a shorter last chunk gives
     the same result. Without ``causal`` (the enc-dec model's, which has
     no window) the reference masks only its padding columns, so no column
-    is masked here."""
-    sq, dh = q.shape[2], q.shape[3]
-    skv = k.shape[2]
+    is masked here. With ``q_start`` ``(R,)`` (q ``(R, ..., sq, dh)``:
+    each model rank's query rows) rank r's rows start at ``q_start[r]``,
+    not end-aligned."""
+    sq, dh = q.shape[-2], q.shape[-1]
+    skv = k.shape[-2]
     scale = 1.0 / math.sqrt(dh)
     qf = q.float()
     rows = (torch.arange(sq, device=q.device) + (skv - sq))[:, None]
-    m = torch.full((*q.shape[:3], 1), _NEG_INF, dtype=torch.float32,
+    if q_start is not None:
+        rows = _query_rows(q, q_start)
+    m = torch.full((*q.shape[:-1], 1), _NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     for c0 in range(0, skv, KV_CHUNK):
-        k_c = k[:, :, c0:c0 + KV_CHUNK]
-        v_c = v[:, :, c0:c0 + KV_CHUNK]
+        k_c = k[..., c0:c0 + KV_CHUNK, :]
+        v_c = v[..., c0:c0 + KV_CHUNK, :]
         s = torch.matmul(qf, k_c.float().transpose(-1, -2)) * scale
         if causal:
-            cols = c0 + torch.arange(k_c.shape[2],
+            cols = c0 + torch.arange(k_c.shape[-2],
                                      device=q.device)[None, :]
             mask = cols <= rows
             if window is not None:
@@ -137,6 +152,126 @@ def _attend_chunked(q, k, v, *, window: Optional[int],
                                          v_c.float())
         m = m_new
     return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
+
+
+def _query_rows(q: torch.Tensor, q_start: torch.Tensor) -> torch.Tensor:
+    """The global row of each query of ``q`` ``(R, ..., sq, dh)``, rank
+    r's starting at ``q_start[r]``, shaped to broadcast against ``(R,
+    ..., sq, skv)`` logits."""
+    sq = q.shape[-2]
+    rows = q_start[:, None] + torch.arange(sq, device=q.device)[None, :]
+    return rows.view(q.shape[0], *(1,) * (q.dim() - 3), sq, 1)
+
+
+def _attend_rows(q, k, v, q_start: Optional[torch.Tensor], *,
+                 causal: bool) -> torch.Tensor:
+    """``attention_ref``'s arithmetic (logits in the inputs' type, then
+    float32; softmax and the value product in float32) with each model
+    rank's query rows starting at ``q_start[r]`` (None: end-aligned, as
+    ``attention_ref``), or the streaming softmax past
+    ``CHUNKED_KV_THRESHOLD`` keys. q ``(R, b, h, sq, dh)``; k, v
+    broadcastable to it."""
+    if k.shape[-2] > CHUNKED_KV_THRESHOLD:
+        return _attend_chunked(q, k, v, window=None, causal=causal,
+                               q_start=q_start)
+    if q_start is None:
+        return attention_ref(q, k, v, causal=causal)
+    logits = torch.matmul(q, k.transpose(-1, -2)).float() \
+        * (1.0 / math.sqrt(q.shape[-1]))
+    if causal:
+        ki = torch.arange(k.shape[-2], device=q.device)
+        logits = logits.masked_fill(ki > _query_rows(q, q_start),
+                                    float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs, v.float()).to(q.dtype)
+
+
+def _heads_of_ranks(t: torch.Tensor, ranks: int) -> torch.Tensor:
+    """Replicated ``(b, h, s, dh)`` as each rank's heads, ``(R, b, h / R,
+    s, dh)`` (a view)."""
+    return t.unflatten(1, (ranks, -1)).movedim(1, 0)
+
+
+def _repeat_ranked(t: torch.Tensor, group: int) -> torch.Tensor:
+    """``repeat_kv`` on each rank's ``(R, b, h, s, dh)``."""
+    r, b = t.shape[:2]
+    return repeat_kv(t.reshape(r * b, *t.shape[2:]), group).view(
+        r, b, -1, *t.shape[3:])
+
+
+def attention_tp(params: Attention, xq: torch.Tensor, cfg: ModelConfig,
+                 group, *, q_pos: torch.Tensor, causal: bool,
+                 xkv: Optional[torch.Tensor] = None,
+                 kv_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of ``xq`` over ``xkv`` (itself when None) on a data
+    rank's model positions (``group``, a ``distributed.tp.Group``), both
+    in the residual's layout (``group.seq_split``); RoPE at ``q_pos`` and
+    ``kv_pos``. ``params`` holds each leaf as ``tp_module_on`` stacks it:
+    ``(R, d, n / R)`` (``wq``, ``wk``, ``wv``) and ``(R, n / R, d)``
+    (``wo``) where their heads are split, else whole. Returns the output
+    in ``xq``'s residual layout."""
+    ranks = group.size
+    hq, hkv, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    sq = q_pos.shape[0]
+    kv_pos = q_pos if kv_pos is None else kv_pos
+    skv = kv_pos.shape[0]
+    b = xq.shape[-3]
+    q_shape, kv_shape = (b, sq, d), (b, skv, d)
+    # heads over the ranks where the weights come split
+    # (``registry.tp_weight_splits``); with whole weights, the query rows
+    # where ``bshd`` asks for them
+    kv_split = params.wk.dim() == 3
+    q_dim = 2 if params.wq.dim() == 3 else (
+        1 if group.model_dim("bshd", (b, sq, hq, dh)) == 1 else None)
+    group.check("bshd", (b, sq, hq, dh), q_dim)
+    group.check("bshd_kv", (b, skv, hkv, dh), 2 if kv_split else None)
+    kv_full, kv_once = group.whole(xq if xkv is None else xkv, kv_shape)
+    q_full = kv_full if xkv is None else None
+
+    def project(w, h):
+        if kv_split:
+            return ranked_matmul(kv_full, w).view(ranks, b, skv, h // ranks,
+                                                  dh)
+        return (kv_once @ w).view(b, skv, h, dh)
+    k = group.placed("bshd_kv", (b, skv, hkv, dh), project(params.wk, hkv))
+    v = group.placed("bshd_kv", (b, skv, hkv, dh), project(params.wv, hkv))
+    k = rope(k, kv_pos, cfg.rope_theta)
+
+    q_start = None
+    if q_dim == 2:                                       # heads
+        if q_full is None:
+            q_full, _ = group.whole(xq, q_shape)
+        q = ranked_matmul(q_full, params.wq).view(ranks, b, sq, hq // ranks,
+                                                  dh)
+        pos = q_pos
+    elif q_dim == 1:                                     # query rows
+        rows = group.rows(xq, q_shape)
+        q = (rows @ params.wq).view(ranks, b, sq // ranks, hq, dh)
+        pos = q_pos.view(ranks, 1, sq // ranks)
+        q_start = q_pos[::sq // ranks] + (skv - sq)
+    else:
+        _, q_once = group.whole(xq, q_shape) if q_full is None \
+            else (None, kv_once)
+        q = (q_once @ params.wq).view(b, sq, hq, dh)
+        pos = q_pos
+    q = rope(group.placed("bshd", (b, sq, hq, dh), q), pos, cfg.rope_theta)
+
+    q, k, v = (t.transpose(-3, -2) for t in (q, k, v))   # (.., h, s, dh)
+    grp = hq // hkv
+    if kv_split:
+        k, v = _repeat_ranked(k, grp), _repeat_ranked(v, grp)
+    else:
+        k, v = repeat_kv(k, grp), repeat_kv(v, grp)
+        if q_dim == 2:
+            k, v = _heads_of_ranks(k, ranks), _heads_of_ranks(v, ranks)
+    out = _attend_rows(q, k, v, q_start, causal=causal)
+    out = out.to(xq.dtype).transpose(-3, -2)
+    out = out.reshape(*out.shape[:-2], -1)
+    if q_dim == 2:
+        return group.from_partials(ranked_matmul(out, params.wo), q_shape)
+    if q_dim == 1:
+        return group.from_rows(out @ params.wo, q_shape)
+    return group.from_replicated(out @ params.wo, q_shape)
 
 
 def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,

@@ -11,6 +11,16 @@ decay bias and bonus ``x 0.5``. Activations and weights are bf16 for full
 configs and float32 for smoke ones. Parameters are made not requiring
 gradients; the train step (``train.step``) turns that on for its own
 duration.
+
+``embed_tp`` and ``lm_head_loss_tp`` are the tensor-parallel step's
+(``distributed.tp``): a vocab-parallel embedding (each rank looks up the
+tokens of its vocabulary rows, zeros elsewhere, and the ranks' rows are
+added into the residual's layout), and the logits in the layout
+``constraint_spec`` names for ``logits_v``: the vocabulary over the
+ranks, with a vocab-parallel cross entropy (the maximum, the sum of
+exponentials and the gold logit each reduced over the ranks, so no rank
+holds the whole ``(b, s, V)`` logits), else each rank's sequence rows
+against the whole head, else replicated.
 """
 
 from __future__ import annotations
@@ -20,8 +30,11 @@ from typing import Optional
 
 import torch
 
+from ..distributed import tp
+
 __all__ = ["ModelConfig", "rms_norm", "rope", "cross_entropy_loss",
-           "new_param", "normal_"]
+           "new_param", "normal_", "embed_tp", "lm_head_loss_tp",
+           "vocab_parallel_cross_entropy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,3 +159,66 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+def embed_tp(embed: torch.Tensor, tokens: torch.Tensor, group, shape
+             ) -> torch.Tensor:
+    """The embedding of ``tokens`` ``(b, s)`` in the residual's layout
+    (whole shape ``shape``): ``embed`` ``(R, V / R, d)``, each rank's
+    vocabulary rows (vocab parallel), or whole ``(V, d)``."""
+    if embed.dim() == 2:
+        return group.from_replicated(
+            torch.nn.functional.embedding(tokens, embed), shape)
+    ranks, rows, d = embed.shape
+    first = (torch.arange(ranks, device=tokens.device) * rows)[:, None, None]
+    local = tokens[None].long() - first
+    mine = (local >= 0) & (local < rows)
+    out = torch.nn.functional.embedding(torch.where(mine, local, 0) + first,
+                                        embed.reshape(ranks * rows, d))
+    return group.from_partials(torch.where(mine[..., None], out, 0.0),
+                               shape)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 group) -> torch.Tensor:
+    """Mean token cross-entropy in float32 of vocab-parallel ``logits``
+    ``(R, t, V / R)`` (rank r's vocabulary rows ``[r V / R, (r + 1) V /
+    R)``); labels ``(t,)``."""
+    ranks, _, rows = logits.shape
+    lf = logits.float()
+    m = tp.max_from_ranks(lf.amax(dim=-1), group)                  # (t,)
+    sumexp = tp.reduce_from_ranks(
+        torch.exp(lf - m[None, :, None]).sum(dim=-1), group)
+    first = (torch.arange(ranks, device=labels.device) * rows)[:, None]
+    local = labels[None].long() - first
+    mine = (local >= 0) & (local < rows)
+    gold = torch.gather(lf, -1, torch.where(mine, local, 0)[..., None])
+    gold = tp.reduce_from_ranks(torch.where(mine, gold[..., 0], 0.0), group)
+    return torch.mean(m + torch.log(sumexp) - gold)
+
+
+def lm_head_loss_tp(x: torch.Tensor, head: torch.Tensor,
+                    labels: torch.Tensor, group, shape) -> torch.Tensor:
+    """Mean next-token cross-entropy of the final normed residual ``x``
+    (whole shape ``shape``) against ``labels`` ``(b, s)``: ``head`` ``(R,
+    d, V / R)`` (vocab parallel) or whole ``(d, V)``."""
+    b, s, d = shape
+    vocab = head.shape[-1] * (group.size if head.dim() == 3 else 1)
+    lshape = (b, s, vocab)
+    if head.dim() == 3:
+        full, _ = group.whole(x, shape)
+        logits = group.placed("logits_v", lshape,
+                              tp.ranked_matmul(full, head))
+        return vocab_parallel_cross_entropy(
+            logits.reshape(group.size, b * s, -1), labels.reshape(-1), group)
+    if group.model_dim("logits_v", lshape) == 1:     # whole head
+        logits = group.placed("logits_v", lshape,
+                              group.rows(x, shape) @ head).float()
+        rows = tp.split_ranks(labels, 1, group.size)
+        gold = torch.gather(logits, -1, rows.long()[..., None])[..., 0]
+        per = torch.logsumexp(logits, dim=-1) - gold
+        total = tp.reduce_from_ranks(per.sum(dim=(1, 2)), group)
+        return total / (b * s)
+    _, once = group.whole(x, shape)
+    logits = group.placed("logits_v", lshape, once @ head)
+    return cross_entropy_loss(logits, labels)

@@ -28,6 +28,14 @@ Quirks kept from the reference, since the port is held to it:
   multi-token step rotates every query and key at the step's first
   position, as the reference does.
 
+``encdec_loss_tp`` is the tensor-parallel training loss on a data
+rank's model positions (``distributed.tp``), with the reference's
+layout requests: both stacks' residual streams in the ``bsd`` layout of
+their own lengths, every attention (the cross-attention's q from the
+decoder, its k and v from the encoder's output gathered whole) and MLP
+per rank, the embedding and the head vocab-parallel where the
+vocabulary divides, else the logits' sequence rows per rank.
+
 Decode reads its position from the device alone and writes its K/V rows
 in place (``index_copy_``), so one step is captured once as a CUDA graph
 and replayed at every position (``launch.serve.generate``); the cross
@@ -44,14 +52,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from .attention import (Attention, _decode_attend, make_kv_cache,
-                        mha_attend, repeat_kv)
-from .common import (ModelConfig, cross_entropy_loss, new_param, normal_,
-                     rms_norm, rope)
-from .mlp import MLP, mlp
+from .attention import (Attention, _decode_attend, attention_tp,
+                        make_kv_cache, mha_attend, repeat_kv)
+from .common import (ModelConfig, cross_entropy_loss, embed_tp,
+                     lm_head_loss_tp, new_param, normal_, rms_norm, rope)
+from .mlp import MLP, mlp, mlp_tp
 
 __all__ = ["EncBlock", "DecBlock", "EncDec", "init_encdec", "encode",
-           "forward_encdec", "encdec_loss", "EncDecCaches",
+           "forward_encdec", "encdec_loss", "encdec_loss_tp", "EncDecCaches",
            "make_encdec_caches", "decode_step_encdec", "precompute_cross_kv"]
 
 
@@ -206,6 +214,52 @@ def encdec_loss(params: EncDec, batch: dict, cfg: ModelConfig, *,
     logits = forward_encdec(params, batch["src_embeds"], batch["tokens"],
                             cfg, remat=remat, backend=backend)
     return cross_entropy_loss(logits, batch["labels"])
+
+
+def _enc_block_tp(cfg: ModelConfig, p: EncBlock, x: torch.Tensor,
+                  pos: torch.Tensor, group, shape) -> torch.Tensor:
+    group.placed("bsd", shape, x)
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    x = x + attention_tp(p.attn, h, cfg, group, q_pos=pos, causal=False)
+    return x + mlp_tp(p.ffn, rms_norm(x, p.ln2, cfg.norm_eps), group, shape)
+
+
+def _dec_block_tp(cfg: ModelConfig, p: DecBlock, x: torch.Tensor,
+                  memory: torch.Tensor, pos_t: torch.Tensor,
+                  pos_s: torch.Tensor, group, shape) -> torch.Tensor:
+    group.placed("bsd", shape, x)
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    x = x + attention_tp(p.self_attn, h, cfg, group, q_pos=pos_t,
+                         causal=True)
+    hx = rms_norm(x, p.ln_x, cfg.norm_eps)
+    x = x + attention_tp(p.cross_attn, hx, cfg, group, q_pos=pos_t,
+                         causal=False, xkv=memory, kv_pos=pos_s)
+    return x + mlp_tp(p.ffn, rms_norm(x, p.ln2, cfg.norm_eps), group, shape)
+
+
+def encdec_loss_tp(params: EncDec, batch: dict, cfg: ModelConfig, group, *,
+                   remat: bool = True) -> torch.Tensor:
+    """``encdec_loss`` computed per model rank on ``group`` (a
+    ``distributed.tp.Group``); ``params`` holds its leaves as
+    ``spmd.ShardedModel.tp_module_on`` stacks them."""
+    src = batch["src_embeds"].to(cfg.dtype)
+    b, s_src, d = src.shape
+    enc_shape = (b, s_src, d)
+    x = group.from_replicated(src, enc_shape)
+    pos_s = torch.arange(s_src, device=src.device)
+    for p in params.enc_layers:
+        x = _run(_enc_block_tp, remat, cfg, p, x, pos_s, group, enc_shape)
+    memory = rms_norm(x, params.enc_norm, cfg.norm_eps)
+    tokens = batch["tokens"]
+    shape = (b, tokens.shape[1], d)
+    y = embed_tp(params.embed, tokens, group, shape)
+    pos_t = torch.arange(tokens.shape[1], device=tokens.device)
+    for p in params.dec_layers:
+        y = _run(_dec_block_tp, remat, cfg, p, y, memory, pos_t, pos_s,
+                 group, shape)
+    group.placed("bsd", shape, y)
+    y = rms_norm(y, params.final_norm, cfg.norm_eps)
+    return lm_head_loss_tp(y, params.lm_head, batch["labels"], group, shape)
 
 
 class EncDecCaches(NamedTuple):

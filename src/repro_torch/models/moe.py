@@ -28,6 +28,16 @@ Three details keep the reference's results:
   at most one slot per expert. It is a fixed sequence of gathers and
   adds, so the card gives the same bits every run (``index_add_``'s
   atomics would not).
+
+``moe_tp`` is the tensor-parallel step's (``distributed.tp``), with the
+experts on ``"model"`` as ``ecd``/``gecd`` place them: the tokens are
+gathered whole on every model rank, the routing runs once for all of
+them (expert parallelism changes no routing: the drops are those of the
+unsharded MoE on the same tokens), each rank runs the SwiGLU
+of its own experts on their capacity slots only, and each rank's
+combine adds its own experts' gate-weighted rows in ascending expert
+order; the ranks' partial outputs are then added in rank order
+(``scatter_sum``, or an all-reduce) into the residual's layout.
 """
 
 from __future__ import annotations
@@ -39,10 +49,12 @@ import torch
 from torch import nn
 
 from ..distributed.ctx import moe_group_count
+from ..distributed.tp import split_ranks
 from .common import ModelConfig, new_param
 
 __all__ = ["MoE", "Routing", "capacity", "group_count", "route_scores",
-           "route", "combine", "moe", "record_routing"]
+           "place_pairs", "route", "combine", "combine_ranks", "moe", "moe_tp",
+           "record_routing"]
 
 # the routings made inside ``record_routing``
 _ROUTING_LOG: Optional[list] = None
@@ -113,25 +125,35 @@ def route_scores(scores: torch.Tensor, cfg: ModelConfig, groups: int = 1
               if e > k else torch.full((t,), float("inf"),
                                        device=scores.device))
     expert = expert[:, :k]
-    flat = _group_expert(expert, groups, e).reshape(-1)
-    # slot = earlier pairs of the group (flattened order) that chose the
-    # same expert: a pair's place in the stable sort by (group, expert),
-    # less that key's start
-    by_expert, order = torch.sort(flat, stable=True)
-    starts = torch.searchsorted(by_expert,
-                                torch.arange(groups * e, device=flat.device))
-    slot = torch.empty_like(flat)
-    slot[order] = torch.arange(flat.numel(), device=flat.device) \
-        - starts[by_expert]
-    slot = slot.reshape(t, k)
-    cap = capacity(t // groups, cfg)
-    r = Routing(expert, gate, slot, slot < cap, cap, margin, groups)
+    slot, keep, cap = place_pairs(expert, cfg, groups)
+    r = Routing(expert, gate, slot, keep, cap, margin, groups)
     # autograd's backward runs a graph task (-1 outside one): there the
     # checkpointed layers' forward is replayed, already logged
     in_backward = torch._C._current_graph_task_id() != -1
     if _ROUTING_LOG is not None and not in_backward:
         _ROUTING_LOG.append(r)
     return r
+
+
+def place_pairs(expert: torch.Tensor, cfg: ModelConfig, groups: int = 1
+                ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The capacity rule on chosen experts ``expert`` ``(t, k)`` in
+    ``groups`` contiguous groups: each pair's slot ``(t, k)``, whether it
+    is kept ``(t, k)``, and the slots per expert and group."""
+    t, k = expert.shape
+    flat = _group_expert(expert, groups, cfg.moe_experts).reshape(-1)
+    # slot = earlier pairs of the group (flattened order) that chose the
+    # same expert: a pair's place in the stable sort by (group, expert),
+    # less that key's start
+    by_expert, order = torch.sort(flat, stable=True)
+    starts = torch.searchsorted(
+        by_expert, torch.arange(groups * cfg.moe_experts, device=flat.device))
+    slot = torch.empty_like(flat)
+    slot[order] = torch.arange(flat.numel(), device=flat.device) \
+        - starts[by_expert]
+    slot = slot.reshape(t, k)
+    cap = capacity(t // groups, cfg)
+    return slot, slot < cap, cap
 
 
 def _group_expert(expert: torch.Tensor, groups: int, e: int) -> torch.Tensor:
@@ -177,6 +199,31 @@ def combine(ye: torch.Tensor, r: Routing) -> torch.Tensor:
     return out
 
 
+def _slot_table(r: Routing, tl: int, e: int, device) -> torch.Tensor:
+    """The ``(g x e, cap)`` table of rows of the padded tokens (each
+    group's tl tokens, then its zero pad row, where empty): each kept
+    pair owns its own (group, expert, slot); dropped pairs all go to a
+    spare column cap, which is cut off (no mask, so no host sync)."""
+    g, cap, k = r.groups, r.cap, r.expert.shape[1]
+    pos = torch.arange(g * tl, device=device)
+    row = pos + pos // tl                       # the token's padded row
+    flat_row = row[:, None].expand(g * tl, k).reshape(-1)
+    pad = (torch.arange(g, device=device) * (tl + 1) + tl)
+    col = torch.where(r.keep, r.slot, cap).reshape(-1)
+    table = pad.repeat_interleave(e)[:, None].repeat(1, cap + 1)
+    table[_group_expert(r.expert, g, e).reshape(-1), col] = flat_row
+    return table[:, :cap]
+
+
+def _swiglu(xe: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor, dtype) -> torch.Tensor:
+    """The experts' SwiGLU, batched over ``xe`` ``(e, n, d)``'s
+    experts."""
+    gate_h = torch.nn.functional.silu(torch.bmm(xe, w_gate).float())
+    up_h = torch.bmm(xe, w_up).float()
+    return torch.bmm((gate_h * up_h).to(dtype), w_down)
+
+
 def moe(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: ``(b, s, d)`` -> ``(b, s, d)``."""
     b, s, d = x.shape
@@ -184,27 +231,84 @@ def moe(params: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     r = route(params, x, cfg)
     g, cap = r.groups, r.cap
     tl = b * s // g
-
-    # (g x e, cap) table of rows of the padded tokens (each group's tl
-    # tokens, then its zero pad row, where empty): each kept pair owns
-    # its own (group, expert, slot); dropped pairs all go to a spare
-    # column cap, which is cut off (no mask, so no host sync)
     xt_pad = torch.cat([x.reshape(g, tl, d), x.new_zeros((g, 1, d))],
                        dim=1).reshape(g * (tl + 1), d)
-    pos = torch.arange(g * tl, device=x.device)
-    row = pos + pos // tl                       # the token's padded row
-    flat_row = row[:, None].expand(g * tl, cfg.moe_topk).reshape(-1)
-    pad = (torch.arange(g, device=x.device) * (tl + 1) + tl)
-    col = torch.where(r.keep, r.slot, cap).reshape(-1)
-    table = pad.repeat_interleave(e)[:, None].repeat(1, cap + 1)
-    table[_group_expert(r.expert, g, e).reshape(-1), col] = flat_row
-    xe = xt_pad[table[:, :cap]]                              # (g e, cap, d)
+    xe = xt_pad[_slot_table(r, tl, e, x.device)]             # (g e, cap, d)
     if g > 1:                                    # expert major for bmm
         xe = xe.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
-
-    gate_h = torch.nn.functional.silu(torch.bmm(xe, params.w_gate).float())
-    up_h = torch.bmm(xe, params.w_up).float()
-    ye = torch.bmm((gate_h * up_h).to(x.dtype), params.w_down)
+    ye = _swiglu(xe, params.w_gate, params.w_up, params.w_down, x.dtype)
     if g > 1:                                    # back to group major
         ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g * e, cap, d)
     return combine(ye, r).to(x.dtype).reshape(b, s, d)
+
+
+def combine_ranks(ye: torch.Tensor, r: Routing) -> torch.Tensor:
+    """``combine`` on each model rank: ``ye`` ``(R, e / R x cap, d)``
+    holds rank r's experts' slot rows (experts ``[r e / R, (r + 1) e /
+    R)``, one routing group); each rank adds its own experts' kept pairs
+    only, gate-weighted in float32, from zero in ascending expert order:
+    ``(R, t, d)`` float32 partial outputs."""
+    ranks, rows, d = ye.shape
+    per = rows // r.cap                         # experts a rank
+    expert, perm = torch.sort(r.expert, dim=-1)
+    slot = torch.gather(r.slot, 1, perm)
+    gate = torch.gather(r.gate, 1, perm)
+    kept = torch.gather(r.keep, 1, perm)
+    rank = torch.arange(ranks, device=ye.device)[:, None, None]
+    mine = kept[None] & (expert[None] // per == rank)
+    idx = torch.where(mine, ((expert % per) * r.cap + slot)[None], 0)
+    w = torch.where(mine, gate[None], 0.0)
+    terms = ye[rank, idx].float() * w[..., None]           # (R, t, k, d)
+    out = torch.zeros_like(terms[:, :, 0])
+    for j in range(terms.shape[2]):
+        out = out + terms[:, :, j]
+    return out
+
+
+def moe_tp(params: MoE, x: torch.Tensor, cfg: ModelConfig, group, shape
+           ) -> torch.Tensor:
+    """``moe`` of the residual ``x`` (whole shape ``shape``, one routing
+    group) on a data rank's model positions (``group``, a
+    ``distributed.tp.Group``), in the residual's layout. ``params``'
+    experts are stacked ``(R, e / R, ...)`` by ``tp_module_on`` where
+    ``gecd`` puts them on ``"model"``, else whole (every rank runs them,
+    replicated)."""
+    b, s, d = shape
+    e = cfg.moe_experts
+    t = b * s
+    full, once = group.whole(x, shape)
+    group.placed("gtd", (1, t, d), once.reshape(1, t, d))
+    r = route(params, once, cfg)
+    if r.groups != 1:
+        raise ValueError("the tensor-parallel MoE routes one group a data "
+                         "rank (ctx.rank_local)")
+    table = _slot_table(r, t, e, x.device)                    # (e, cap)
+    if params.w_gate.dim() == 3:                  # whole: replicated
+        group.placed("gec", (1, e, r.cap), table[None])
+        xt_pad = torch.cat([once.reshape(t, d), once.new_zeros((1, d))])
+        xe = group.placed("gecd", (1, e, r.cap, d), xt_pad[table][None])
+        y = combine(_swiglu(xe[0], params.w_gate, params.w_up,
+                            params.w_down, x.dtype), r)
+        return group.from_replicated(y.to(x.dtype).view(shape), shape)
+    ranks = group.size
+    if torch._C._current_graph_task_id() == -1:          # not a replay
+        rank = torch.arange(ranks, device=x.device)[:, None, None]
+        kept = ((r.expert[None] // (e // ranks) == rank)
+                & r.keep[None]).sum(dim=(1, 2))
+        group.moe_ranks.append(([list(range(m * e // ranks,
+                                             (m + 1) * e // ranks))
+                                 for m in range(ranks)], kept))
+    tables = split_ranks(table, 0, ranks)                # (R, e / R, cap)
+    group.placed("gec", (1, e, r.cap), tables[:, None])
+    xt_pad = torch.cat([full.reshape(ranks, t, d),
+                        full.new_zeros((ranks, 1, d))], dim=1)
+    rank = torch.arange(ranks, device=x.device)[:, None, None]
+    xe = group.placed("gecd", (1, e, r.cap, d),
+                      xt_pad[rank, tables][:, None])
+    # rank r's experts are rows [r e / R, (r + 1) e / R) of the stacks:
+    # one product over the ranks' experts
+    ye = _swiglu(xe.reshape(e, r.cap, d), params.w_gate.flatten(0, 1),
+                 params.w_up.flatten(0, 1), params.w_down.flatten(0, 1),
+                 x.dtype)                                    # (e, cap, d)
+    out = combine_ranks(ye.view(ranks, -1, d), r)
+    return group.from_partials(out.view(ranks, b, s, d), shape).to(x.dtype)

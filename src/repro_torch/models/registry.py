@@ -4,6 +4,14 @@ Counterpart of ``repro.models.registry``. ``params`` is the ``LM``
 module of a decoder-only family (dense, MoE, hybrid or SSM) or the
 ``EncDec`` module of the enc-dec family; a batch holds ``tokens`` (and
 ``labels`` for a loss), plus ``src_embeds`` for the enc-dec family.
+
+``tp_loss_fn`` and ``tp_weight_splits`` are the tensor-parallel step's
+(``distributed.tp``): the dense, MoE and enc-dec families' loss computed
+per model rank, and which dimension of each leaf the model ranks split
+(from the layouts ``ctx.constraint_spec`` names for the activations the
+leaf makes). The hybrid's and SSM's recurrent blocks have no
+tensor-parallel compute yet (ROADMAP A.4b): their sharded step stays
+data parallel.
 """
 
 from __future__ import annotations
@@ -16,7 +24,11 @@ from . import encdec, transformer
 from .common import ModelConfig
 
 __all__ = ["init_params", "forward_fn", "loss_fn", "make_decode_state",
-           "decode_fn"]
+           "decode_fn", "TP_FAMILIES", "tp_loss_fn", "tp_compute",
+           "tp_weight_splits"]
+
+# the families whose sharded step computes per model rank
+TP_FAMILIES = ("dense", "moe", "encdec")
 
 
 def init_params(cfg: ModelConfig, *,
@@ -70,3 +82,77 @@ def decode_fn(cfg: ModelConfig):
                                                               cfg)
     transformer.check_family(cfg)
     return lambda p, t, c, pos: transformer.decode_step(p, t, c, pos, cfg)
+
+
+def tp_loss_fn(cfg: ModelConfig):
+    """(params, batch, group) -> scalar loss computed per model rank of
+    ``group`` (``distributed.tp.Group``), on the reference's attention
+    route; None for a family without tensor-parallel compute."""
+    if cfg.family == "encdec":
+        return lambda p, b, g: encdec.encdec_loss_tp(p, b, cfg, g)
+    if cfg.family in TP_FAMILIES:
+        return lambda p, b, g: transformer.lm_loss_tp(p, b, cfg, g)
+    return None
+
+
+def tp_compute(cfg: ModelConfig, mesh) -> str:
+    """The compute ``cfg``'s sharded step takes on ``mesh``."""
+    if mesh.shape.get("model", 1) == 1:
+        return "data-parallel"
+    if cfg.family not in TP_FAMILIES:
+        return "data-parallel (ROADMAP A.4b)"
+    return "tensor- and expert-parallel" if cfg.family == "moe" \
+        else "tensor-parallel"
+
+
+def tp_weight_splits(cfg: ModelConfig, names, group, rows: int, seq: int,
+                     src_seq: int = 0) -> dict:
+    """Each parameter's dimension split over ``group``'s model ranks
+    (None: the rank computes with the whole leaf) for a data rank's
+    ``rows`` x ``seq`` tokens (and ``src_seq`` source frames): q/k/v by
+    columns and ``wo`` by rows where ``bshd`` / ``bshd_kv`` put heads on
+    ``"model"`` (whole in the query-row fallback and where the KV heads
+    are replicated); ``w_gate``/``w_up`` by columns and ``w_down`` by
+    rows where ``d_ff`` divides (the storage's split); the MoE's experts
+    where ``gecd`` puts them on ``"model"``; ``embed`` by vocabulary rows
+    and ``lm_head`` by columns where ``logits_v`` is vocab parallel. The
+    one owner of these splits: the models' ``*_tp`` functions read them
+    from the leaves' shapes, and the layouts hold them (``tp.Group``'s
+    ``check`` and ``placed``)."""
+    ranks = group.size
+    hq, hkv, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    vocab = group.model_dim("logits_v", (rows, seq, cfg.vocab)) == 2
+    experts = cfg.family == "moe" and group.model_dim(
+        "gecd", (1, cfg.moe_experts, 8, d)) == 1
+    ff = cfg.d_ff % ranks == 0
+
+    def lengths(name):                 # (query, key) lengths of attention
+        if name.startswith("enc_layers."):
+            return src_seq, src_seq
+        if ".cross_attn." in name:
+            return seq, src_seq
+        return seq, seq
+
+    out = {}
+    for name in names:
+        leaf = name.rsplit(".", 1)[-1]
+        dim = None
+        if name == "embed":
+            dim = 0 if vocab else None
+        elif name == "lm_head":
+            dim = 1 if vocab else None
+        elif leaf in ("wq", "wo", "wk", "wv") and "attn." in name:
+            sq, skv = lengths(name)
+            if leaf in ("wq", "wo"):
+                heads = group.model_dim("bshd", (rows, sq, hq, dh)) == 2
+                dim = (1 if leaf == "wq" else 0) if heads else None
+            else:
+                dim = 1 if group.model_dim(
+                    "bshd_kv", (rows, skv, hkv, dh)) == 2 else None
+        elif ".ffn." in name and leaf in ("w_gate", "w_up", "w_down"):
+            if cfg.family == "moe":
+                dim = 0 if experts else None
+            elif ff:
+                dim = 1 if leaf != "w_down" else 0
+        out[name] = dim
+    return out

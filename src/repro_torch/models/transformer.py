@@ -11,8 +11,14 @@ of the hybrid) is rematerialised in the backward
 ``jax.checkpoint``). ``forward`` is the inference entry (no graph; on
 the card, non-windowed prefill attention takes the flash kernel; the
 hybrid's windowed attention takes the reference's plain path, as the
-reference routes it), ``lm_loss`` the training one. The enc-dec family
-is ``models.encdec``; ``LM`` refuses it.
+reference routes it), ``lm_loss`` the training one. ``lm_loss_tp`` is
+the dense and MoE families' tensor- (and expert-) parallel loss on a
+data rank's model positions (``distributed.tp``): the residual stream
+in the ``bsd`` layout (its sequence over the model ranks where it
+divides: sequence parallelism), every layer's attention, MLP or MoE,
+the embedding and the head computed per rank (``attention_tp``,
+``mlp_tp``, ``moe_tp``, ``embed_tp``, ``lm_head_loss_tp``). The enc-dec
+family is ``models.encdec``; ``LM`` refuses it.
 
 Decode threads explicit caches that ``decode_step`` updates in place: a
 KV cache for the dense and MoE families, RWKV states and the channel
@@ -31,11 +37,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from .attention import Attention, attention, make_kv_cache, repeat_kv
-from .common import (ModelConfig, cross_entropy_loss, new_param, normal_,
-                     rms_norm, rope)
-from .mlp import MLP, mlp
-from .moe import MoE, moe
+from .attention import (Attention, attention, attention_tp, make_kv_cache,
+                        repeat_kv)
+from .common import (ModelConfig, cross_entropy_loss, embed_tp,
+                     lm_head_loss_tp, new_param, normal_, rms_norm, rope)
+from .mlp import MLP, mlp, mlp_tp
+from .moe import MoE, moe, moe_tp
 from .rglru import RGLRU, RglruState, make_rglru_state, rglru_block, \
     rglru_step
 from .rwkv6 import (RwkvChannelMix, RwkvState, RwkvTimeMix, make_rwkv_state,
@@ -43,7 +50,7 @@ from .rwkv6 import (RwkvChannelMix, RwkvState, RwkvTimeMix, make_rwkv_state,
                     rwkv_time_mix_step)
 
 __all__ = ["Block", "Recurrent", "LocalAttention", "Super", "LM", "init_lm",
-           "init_scale", "forward", "lm_loss", "DecodeCaches",
+           "init_scale", "forward", "lm_loss", "lm_loss_tp", "DecodeCaches",
            "make_decode_caches", "decode_step", "check_family"]
 
 # parameters drawn as normal x 1.0 in float32 (norm gains, the RG-LRU's lam)
@@ -264,6 +271,42 @@ def lm_loss(params: LM, batch: dict, cfg: ModelConfig, *,
     logits = _logits(params, batch["tokens"], cfg, backend=backend,
                      remat=remat)
     return cross_entropy_loss(logits, batch["labels"])
+
+
+def _block_tp(cfg: ModelConfig, layer: Block, x: torch.Tensor,
+              positions: torch.Tensor, group, shape) -> torch.Tensor:
+    group.placed("bsd", shape, x)
+    h = rms_norm(x, layer.ln1, cfg.norm_eps)
+    x = x + attention_tp(layer.attn, h, cfg, group, q_pos=positions,
+                         causal=True)
+    h2 = rms_norm(x, layer.ln2, cfg.norm_eps)
+    if cfg.family == "moe":
+        return x + moe_tp(layer.ffn, h2, cfg, group, shape)
+    return x + mlp_tp(layer.ffn, h2, group, shape)
+
+
+def lm_loss_tp(params: LM, batch: dict, cfg: ModelConfig, group, *,
+               remat: bool = True) -> torch.Tensor:
+    """``lm_loss`` of the dense and MoE families computed per model rank
+    on ``group`` (a ``distributed.tp.Group``); ``params`` holds its
+    leaves as ``spmd.ShardedModel.tp_module_on`` stacks them. Layers are
+    rematerialised as in ``lm_loss``."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    shape = (b, s, cfg.d_model)
+    x = embed_tp(params.embed, tokens, group, shape)
+    positions = torch.arange(s, device=tokens.device)
+    for layer in params.layers:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_block_tp, cfg, layer, x, positions, group, shape,
+                           use_reentrant=False)
+        else:
+            x = _block_tp(cfg, layer, x, positions, group, shape)
+    group.placed("bsd", shape, x)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    head = params.embed.transpose(-1, -2) if cfg.tie_embeddings \
+        else params.lm_head
+    return lm_head_loss_tp(x, head, batch["labels"], group, shape)
 
 
 # ------------------------------------------------------------------- decode

@@ -29,10 +29,23 @@ are one MoE routing group, the reference's groups under
 gradients' pieces (``spmd.reduce_into``, in the moments' layouts), rank
 after rank and microbatch after microbatch, in float32. The sum is
 divided by ranks x microbatches (and cast to the parameters' type with
-one microbatch), as is the loss, the mean of the ranks' means. The
-``"model"`` axis shards storage only: tensor-parallel compute is not
-part of this step. On a one-position mesh the step is the unsharded
-one, bit for bit.
+one microbatch), as is the loss, the mean of the ranks' means. On a
+mesh whose ``"model"`` axis is 1 that is the whole story, and on a
+one-position mesh the step is the unsharded one, bit for bit.
+
+With ``"model"`` > 1 the dense, MoE and enc-dec families compute each
+position's share, as the reference's GSPMD step does
+(``distributed.tp``): each data rank runs its model positions as one
+stack (``ShardedModel.tp_module_on``: each position's model shard of a
+leaf, gathered over the data axes only, or the whole leaf where the
+compute layout needs it, ``registry.tp_weight_splits``) through the
+family's ``registry.tp_loss_fn``, and each position's gradient is added
+into the pieces (``spmd.reduce_into(..., splits)``), in the same fixed
+order of microbatches and ranks. The hybrid and SSM keep the
+data-parallel compute (ROADMAP A.4b). The step leaves what it computed
+with in ``params.last_step`` (its splits, its ``tp.Group`` with the
+activation collectives' bytes and layouts, its microbatches), which
+``ShardedModel.traffic`` reads.
 """
 
 from __future__ import annotations
@@ -44,8 +57,10 @@ import torch
 from ..configs.base import ShapeCell
 from ..distributed import ctx
 from ..distributed import spmd
+from ..distributed import tp
 from ..models.common import ModelConfig
-from ..models.registry import decode_fn, forward_fn, loss_fn
+from ..models.registry import (decode_fn, forward_fn, loss_fn, tp_loss_fn,
+                               tp_weight_splits)
 from ..optim.adamw import AdamW, AdamWState
 
 __all__ = ["default_microbatches", "make_train_fn", "split_rows",
@@ -92,7 +107,7 @@ def make_train_fn(cfg: ModelConfig, opt: AdamW, *, microbatches: int = 1,
     tensor on the parameters' device."""
     lfn = loss_fn(cfg, backend="plain")
     if mesh is not None:
-        return _sharded_train_fn(lfn, opt, microbatches, mesh)
+        return _sharded_train_fn(cfg, lfn, opt, microbatches, mesh)
 
     def loss_and_grads(params, batch):
         names, plist = zip(*params.named_parameters())
@@ -136,8 +151,10 @@ def split_rows(rows: int, microbatches: int, ranks: int) -> int:
     return per_mb // ranks
 
 
-def _sharded_train_fn(lfn, opt: AdamW, microbatches: int, mesh):
+def _sharded_train_fn(cfg: ModelConfig, lfn, opt: AdamW, microbatches: int,
+                      mesh):
     ranks = len(spmd.data_ranks(mesh))
+    tp_lfn = tp_loss_fn(cfg) if mesh.shape.get("model", 1) > 1 else None
 
     def train_step(params: spmd.ShardedModel, opt_state: AdamWState,
                    batch):
@@ -146,19 +163,28 @@ def _sharded_train_fn(lfn, opt: AdamW, microbatches: int, mesh):
         mb = max(microbatches, 1)
         rows = next(iter(batch.values())).shape[0]
         per = split_rows(rows, mb, ranks)
+        group = splits = None
+        if tp_lfn is not None:
+            group = tp.Group(mesh, seq_parallel=ctx.seq_parallel_enabled())
+            src = batch.get("src_embeds")
+            splits = tp_weight_splits(
+                cfg, params.layouts, group, per, batch["tokens"].shape[1],
+                0 if src is None else src.shape[1])
         grads = {n: spmd.Sharded.zeros(lay, torch.float32)
                  for n, lay in params.moment_layouts.items()}
         lsum = torch.zeros((), dtype=torch.float32, device=params.home)
         for i in range(mb):
             for r, dev in enumerate(params.compute_devices()):
-                module = params.module_on(dev)
+                module = params.module_on(dev) if group is None \
+                    else params.tp_module_on(dev, splits)
                 lo = i * per * ranks + r * per
                 sub = {k: v[lo:lo + per].to(dev) for k, v in batch.items()}
                 names, plist = zip(*module.named_parameters())
                 with ctx.rank_local(), _requiring_grad(list(plist)):
-                    loss = lfn(module, sub)
+                    loss = lfn(module, sub) if group is None \
+                        else tp_lfn(module, sub, group)
                     g = torch.autograd.grad(loss, plist)
-                spmd.reduce_into(grads, dict(zip(names, g)))
+                spmd.reduce_into(grads, dict(zip(names, g)), splits)
                 del g
                 lsum = lsum + loss.detach().to(params.home)
         n = ranks * mb
@@ -170,6 +196,8 @@ def _sharded_train_fn(lfn, opt: AdamW, microbatches: int, mesh):
                 sh.map_(lambda t, d=params.dtypes[name]: t.to(d))
         loss = lsum / n if n > 1 else lsum
         opt_state = opt.apply_shards_(grads, opt_state, params)
+        params.last_step = {"splits": splits, "group": group,
+                            "microbatches": mb}
         return params, opt_state, loss
 
     return train_step

@@ -689,14 +689,14 @@ def sharded(model, mesh):
 _REFERENCE: dict = {}
 
 
-def reference_run(arch, dp, microbatches, seq):
+def reference_run(arch, dp, microbatches, seq, **overrides):
     """The reference's jitted steps under data degree ``dp``: per step
     the weights and state before it (numpy trees), its loss and the
     gradients its update saw."""
-    key = (arch, dp, microbatches, seq)
+    key = (arch, dp, microbatches, seq, tuple(sorted(overrides.items())))
     if key in _REFERENCE:
         return _REFERENCE[key]
-    cj, ct = train_configs(arch)
+    cj, ct = train_configs(arch, **overrides)
     pj, tree = reference_weights(cj)
     jopt = JAdamW(lr=TRAIN_LR, compress=_JStash())
     jstep = jax.jit(jax_make_train_fn(cj, jopt, microbatches=microbatches))
@@ -730,11 +730,13 @@ def load_state(model, opt_state, jtree, jstate):
 
 
 def check_sharded_against_reference(arch, dp, mp, microbatches=1,
-                                    seq=TRAIN_SEQ):
+                                    seq=TRAIN_SEQ, **overrides):
     """SHARDED_STEPS sharded steps on a (dp, mp) mesh, each from the
     reference's state before it, against the reference's steps under
-    data ``dp``."""
-    cj, ct, tree, ref = reference_run(arch, dp, microbatches, seq)
+    data ``dp`` (both on ``arch``'s smoke config with ``overrides``).
+    Returns the last step's ``ShardedModel``."""
+    cj, ct, tree, ref = reference_run(arch, dp, microbatches, seq,
+                                      **overrides)
     mesh = mesh_of(dp, mp)
     model = sharded(params_from_numpy(ct, tree, device="cpu"), mesh)
     opt = AdamW(lr=TRAIN_LR, compress=_Stash())
@@ -755,3 +757,4 @@ def check_sharded_against_reference(arch, dp, mp, microbatches=1,
                                        3 * TRAIN_LR * 1e-3, f"step {step}"))
     print(f"{arch} on ({dp}, {mp}), {microbatches} microbatch(es): weight "
           f"elements parted at near-zero gradients by step {parted}")
+    return model

@@ -3,6 +3,9 @@ the dense family, the (1, 1) mesh, the clip and the compression on
 shards, checkpoints across meshes, the CLI, the meshes, the layouts and
 their byte counts, and a mesh of two distinct devices (the MoE and the
 other families: ``tests/test_torch_train_sharded_{moe,families}.py``).
+On meshes whose ``"model"`` axis is more than 1 the dense, MoE and
+enc-dec steps compute tensor- (and expert-) parallel
+(``tests/test_torch_train_tp.py`` holds that compute on wider meshes).
 
 Meshes name the CPU several times (``make_host_mesh(mp, devices=["cpu"]
 * n)``), which runs the placement, gather, reduce-scatter and per-piece
@@ -238,9 +241,15 @@ def test_layout_place_and_gather(devices):
 
 
 def test_traffic_and_bytes_per_position():
-    """On (2, 2) a (data, model) leaf leaves each data rank's group half
-    its pieces to gather and half its gradient to send; a replicated leaf
-    moves nothing; each position holds a quarter of the 2-D leaf."""
+    """On (2, 2), data-parallel compute: a (data, model) leaf leaves each
+    data rank's group half its pieces to gather and half its gradient to
+    send; a replicated leaf moves nothing. Tensor-parallel compute (the
+    2-D leaf split by columns over the model ranks): each position
+    gathers the other data rank's half of its model shard and sends its
+    shard's gradient less its own piece; the replicated leaf is gathered
+    by no one, and its gradient, whose moment is cut over data, is sent
+    less each position's half. The activation collectives' bytes come as
+    counted. Each position holds a quarter of the 2-D leaf."""
     module = torch.nn.Module()
     module.w = torch.nn.Parameter(torch.zeros(16, 8))
     module.g = torch.nn.Parameter(torch.zeros(8))
@@ -248,11 +257,22 @@ def test_traffic_and_bytes_per_position():
     model = spmd.ShardedModel(module, mesh, {"w": ("data", "model"),
                                              "g": (None,)},
                               {"w": ("data", "model"), "g": ("data",)})
+    none = {"model_all_gather_bytes": 0, "model_reduce_scatter_bytes": 0,
+            "model_all_reduce_bytes": 0}
     t = spmd.traffic(model.layouts, model.moment_layouts, model.dtypes,
                      microbatches=2)
     assert t == {"gathered_bytes": 2 * 16 * 8 * 4 // 2,
                  "reduce_scatter_bytes": 2 * 2 * (16 * 8 * 4 // 2
-                                                  + 8 * 4 // 2)}
+                                                  + 8 * 4 // 2), **none}
+    t = spmd.traffic(model.layouts, model.moment_layouts, model.dtypes,
+                     microbatches=2, splits={"w": 1, "g": None},
+                     activations={"all_gather": 5, "all_reduce": 7})
+    assert t == {"gathered_bytes": 4 * 16 * 8 * 4 // 4,
+                 "reduce_scatter_bytes": 2 * 4 * (16 * 8 * 4 // 4
+                                                  + 8 * 4 // 2),
+                 "model_all_gather_bytes": 5,
+                 "model_reduce_scatter_bytes": 0,
+                 "model_all_reduce_bytes": 7}
     assert model.shard_nbytes() == {
         "params_per_shard": 16 * 8 * 4 // 4 + 8 * 4,
         "params_total": (16 * 8 + 8) * 4,
