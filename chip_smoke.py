@@ -78,10 +78,11 @@ after:
   width (bf16 weights, float32 moments, 2 AdamW steps of 8 x 1024
   tokens): ``llama3.2-3b`` (28 layers, 2 microbatches) and
   ``seamless-m4t-large-v2`` (24 + 24 layers, 256 source frames a
-  sequence) whole, ``recurrentgemma-2b`` on 13 of its 26 layers (4
-  microbatches), ``olmoe-1b-7b`` on 2 of its 16 and ``rwkv6-7b`` on 4 of
-  its 32 (whole, the last two's AdamW state would not fit one card; all
-  three cut further since the sharded trainer joined), with step
+  sequence) whole, ``recurrentgemma-2b`` on 3 of its 26 layers (one
+  super, 4 microbatches), ``olmoe-1b-7b`` on 1 of its 16 and ``rwkv6-7b``
+  on 1 of its 32 (whole, the last two's AdamW state would not fit one
+  card; all three cut further since the sharded trainer joined; the
+  phase fails unless a run accumulates microbatches), with step
   seconds, tokens/s, the model-FLOPs share, peak memory, every parameter
   with a gradient moved (leaves whose bf16 steps round away named) and
   the MoE's pairs dropped for capacity; then for each family at smoke
@@ -96,7 +97,9 @@ after:
   ``llama3.2-3b`` on the (2, 2) host mesh (8 x 1024) and the (16, 16)
   production mesh (16 x 1024, 256 positions), ``olmoe-1b-7b`` on (2, 2),
   whose ranks must keep, bit for bit, the pairs the unsharded step's
-  capacity rule in its routing groups keeps of the experts they chose;
+  capacity rule in its routing groups keeps of the experts they chose,
+  ``recurrentgemma-2b`` on (2, 2) on 5 layers (one super and the
+  two-layer tail) and ``rwkv6-7b`` on (2, 2) (32 of its 64 heads a rank);
   each computes tensor- (and expert-) parallel on ``"model"``
   (``distributed.tp``: the (16, 16) mesh with the query rows and the
   vocabulary over 16 model ranks); step seconds, the bytes gathered and
@@ -104,10 +107,9 @@ after:
   all-gathers, reduce-scatters and all-reduces, peak memory, bytes a
   position holds, the experts and kept pairs of each model rank; then at
   smoke size in float32 the sharded step of every family against the
-  unsharded one ((2, 2) tensor parallel for the dense, MoE and enc-dec
-  families, data parallel for the hybrid and SSM; (1, 1) bit for bit)
-  and the (2, 16, 16) multi-pod mesh over 512 entries. No kernel may
-  launch there.
+  unsharded one ((2, 2) tensor parallel for every family; (1, 1) bit
+  for bit) and the (2, 16, 16) multi-pod mesh over 512 entries. No
+  kernel may launch there.
 
 The two trainers run first, while ``nvcc`` builds the kernels: they
 launch none of them. Any failure raises and exits non-zero.
@@ -902,6 +904,14 @@ def segment_launches_seen(by_name: dict) -> int:
                if "::sum_kernel" in name)
 
 
+def trace_names(by_name: dict) -> str:
+    """A trace's kernels as ``name x launches``, by name (ROADMAP C.8:
+    what a warm replay's trace holds when it lacks its segment_stats
+    launch)."""
+    return "; ".join(f"{name[:90]} x{n}"
+                     for name, (n, _) in sorted(by_name.items())) or "none"
+
+
 def traced(label: str, fn, top: int = 10, *, cpu: bool = True) -> dict:
     """Run ``fn`` once under ``torch.profiler``: the card's busy time
     against the wall time, and the kernels that fill it. Returns
@@ -1126,11 +1136,16 @@ def fused_vs_staged(engine, plan) -> dict:
         warm_run = {}
         by_name, warm_ms = device_kernels(
             lambda: warm_run.update(table=run_sweep(engine, spec)))
+        if attempt:                     # ROADMAP C.8: both traces
+            log(f"fused {tag}: the second trace's kernels: "
+                + trace_names(by_name))
         if segment_launches_seen(by_name):
             break
-        log(f"fused {tag}: the profiler's trace of the warm replay held "
-            f"no segment_stats launch ({sum(n for n, _ in by_name.values())}"
-            f" device events); replaying once more")
+        if not attempt:
+            log(f"fused {tag}: the profiler's trace of the warm replay "
+                f"held no segment_stats launch "
+                f"({sum(n for n, _ in by_name.values())} device events; "
+                f"kernels: {trace_names(by_name)}); replaying once more")
     warm_table, warm = warm_run["table"], warm_ms / 1e3
     replayed = segment_launches_seen(by_name)
     if segment_ops.launch_count() != n0 or replayed != eager_launches \
@@ -3129,12 +3144,16 @@ def phase_encdec(card: str) -> dict:
 # moments and gradient sums, one microbatch's bf16 gradients; whole they
 # need about 110 GB); recurrentgemma-2b, olmoe-1b-7b and rwkv6-7b cut
 # (further) for the smoke's time once the sharded trainer joined: 13 of
-# 26, 2 of 16 (from 8) and 4 of 32 (from 16) layers
+# 26, 2 of 16 (from 8) and 4 of 32 (from 16) layers; once the sharded
+# trainer ran the hybrid (on 5 layers, its tail included) and the SSM
+# at full width too, 3 of 26 (one super, still in 4 microbatches), 1 of
+# 16 and 1 of 32. llama3.2-3b (2 microbatches by default) and
+# recurrentgemma-2b are the runs that accumulate gradients on the card
 # (``train_full_size``'s bf16 rounding check reads two steps' moments)
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 8, 2, 3e-3
-TRAIN_RUNS = (("llama3.2-3b", None, None), ("recurrentgemma-2b", 13, 4),
-              ("seamless-m4t-large-v2", None, None), ("olmoe-1b-7b", 2, None),
-              ("rwkv6-7b", 4, None))
+TRAIN_RUNS = (("llama3.2-3b", None, None), ("recurrentgemma-2b", 3, 4),
+              ("seamless-m4t-large-v2", None, None), ("olmoe-1b-7b", 1, None),
+              ("rwkv6-7b", 1, None))
 # the smoke-size runs on the card: the CLI's loop (batch 4, seq 64, lr
 # 5e-3, 3 steps, a checkpoint at step 1) and one step against the CPU's
 SMOKE_TRAIN = dict(steps=3, batch=4, seq=64, lr=5e-3, ckpt_every=2)
@@ -3500,6 +3519,9 @@ def phase_train(card: str) -> dict:
         t0 = time.perf_counter()
         full[arch] = train_full_size(arch, layers, microbatches, card, echo)
         seconds[f"{arch} full"] = time.perf_counter() - t0
+    if not any(rec["microbatches"] > 1 for rec in full.values()):
+        raise AssertionError("no full-size train run accumulated gradients "
+                             "over microbatches")
 
     launches = {"flash_attention": flash_ops.launch_count("causal"),
                 "flash_attention_noncausal":
@@ -3523,11 +3545,15 @@ def phase_train(card: str) -> dict:
 # each config's layers, 2 AdamW steps (``launch.train``'s loop) on meshes
 # that name the card many times, each held against the unsharded run from
 # the same weights and batches; (tag, arch, mesh, model parallel, pool,
-# batch)
+# batch, layers): recurrentgemma-2b on 5, one super (R, R, A) and the
+# two-layer tail, as the full model ends (on 2 it would run no attention)
 SHARDED_LAYERS, SHARDED_SEQ, SHARDED_STEPS, SHARDED_LR = 2, 1024, 2, 3e-3
-SHARDED_RUNS = (("llama (2, 2)", LM_ARCH, "host", 2, 4, 8),
-                ("llama (16, 16)", LM_ARCH, "production", 1, 256, 16),
-                ("olmoe (2, 2)", "olmoe-1b-7b", "host", 2, 4, 8))
+SHARDED_RUNS = (
+    ("llama (2, 2)", LM_ARCH, "host", 2, 4, 8, SHARDED_LAYERS),
+    ("llama (16, 16)", LM_ARCH, "production", 1, 256, 16, SHARDED_LAYERS),
+    ("olmoe (2, 2)", "olmoe-1b-7b", "host", 2, 4, 8, SHARDED_LAYERS),
+    ("recurrentgemma (2, 2)", "recurrentgemma-2b", "host", 2, 4, 8, 5),
+    ("rwkv6 (2, 2)", "rwkv6-7b", "host", 2, 4, 8, SHARDED_LAYERS))
 SHARDED_LOSS_RTOL = 3e-2      # bf16 losses (the families' serving bound)
 POD_STEPS = 2                 # the multi-pod smoke-size run
 SHARDED_FAMILIES = (LM_ARCH, "olmoe-1b-7b", "recurrentgemma-2b", "rwkv6-7b",
@@ -3535,8 +3561,8 @@ SHARDED_FAMILIES = (LM_ARCH, "olmoe-1b-7b", "recurrentgemma-2b", "rwkv6-7b",
 
 
 def sharded_bf16_run(tag: str, arch: str, mesh: str, mp: int, pool: int,
-                     batch: int, card: str, echo) -> dict:
-    """``launch.train`` at ``arch``'s full width on SHARDED_LAYERS layers,
+                     batch: int, layers: int, card: str, echo) -> dict:
+    """``launch.train`` at ``arch``'s full width on ``layers`` layers,
     bf16, on ``mesh`` over ``pool`` entries naming the card, against the
     unsharded step's loop (``make_train_fn``, the loop's schedule and
     batches) from the same weights (a copy) under ``activation_sharding``
@@ -3571,7 +3597,7 @@ def sharded_bf16_run(tag: str, arch: str, mesh: str, mp: int, pool: int,
     from repro_torch.optim import AdamW, cosine_with_warmup
     from repro_torch.train.step import make_train_fn
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=SHARDED_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     grid = make_mesh(mesh, mp, ["cuda:0"] * pool)
     ranks = len(spmd.data_ranks(grid))
     params = init_params(cfg, generator=torch.Generator(
@@ -3754,9 +3780,9 @@ def sharded_smoke_checks(echo) -> dict:
     (the same MoE groups): loss and every gradient within TRAIN_RTOL (of
     a leaf's max), the weights against the unsharded AdamW step on the
     sharded step's own gradients (``step_on_card_grads``); the (1, 1) mesh
-    against the unsharded step, bit for bit. On (2, 2) the dense, MoE and
-    enc-dec steps are tensor- (and expert-) parallel, the hybrid's and
-    SSM's data parallel (ROADMAP A.4b); the record holds each family's
+    against the unsharded step, bit for bit. On (2, 2) every family's
+    step is tensor- (and, the MoE's, expert-) parallel (the hybrid's over
+    128 tokens, past its 64-token window); the record holds each family's
     compute and bytes by type; the MoE's ranks drop exactly the pairs of
     the unsharded step's groups. Then ``launch.train`` on the (2, 16, 16)
     multi-pod mesh over 512 entries naming the card, POD_STEPS steps of
@@ -3798,10 +3824,16 @@ def sharded_smoke_checks(echo) -> dict:
         for shape in ((2, 2), (1, 1)):
             mesh = make_host_mesh(shape[1], devices=["cuda:0"] * (
                 shape[0] * shape[1]))
-            plain = copy.deepcopy(model)
-            with pctx.activation_sharding(_duck_mesh(shape[0])), \
-                    moe.record_routing() as grouped:
-                _, pstate, ploss = step(plain, opt.init(plain), batch)
+            if shape == (1, 1) and small.family != "moe":
+                # the data degree moves only the MoE's routing groups: the
+                # unsharded step under data 1 is the one under data 2
+                plain, pstate, ploss = runs[(2, 2)][:3]
+                grouped = []
+            else:
+                plain = copy.deepcopy(model)
+                with pctx.activation_sharding(_duck_mesh(shape[0])), \
+                        moe.record_routing() as grouped:
+                    _, pstate, ploss = step(plain, opt.init(plain), batch)
             sm = ShardedModel(copy.deepcopy(model), mesh,
                               param_specs(model, mesh),
                               opt_state_specs(model, mesh))
@@ -3931,10 +3963,10 @@ def phase_sharded_train(card: str) -> dict:
         log(f"  sharded train: {line}")
 
     seconds, full = {}, {}
-    for tag, arch, mesh, mp, pool, batch in SHARDED_RUNS:
+    for tag, arch, mesh, mp, pool, batch, layers in SHARDED_RUNS:
         t0 = time.perf_counter()
-        full[tag] = sharded_bf16_run(tag, arch, mesh, mp, pool, batch, card,
-                                     echo)
+        full[tag] = sharded_bf16_run(tag, arch, mesh, mp, pool, batch,
+                                     layers, card, echo)
         seconds[tag] = time.perf_counter() - t0
     t0 = time.perf_counter()
     smoke = sharded_smoke_checks(echo)

@@ -21,15 +21,18 @@ share one gathered copy, so on one card a step holds the shards plus one
 copy of the weights, not one a rank. ``reduce_into`` adds a rank's full
 gradient into the gradient's pieces; called rank after rank it sums them
 in that fixed order, with no atomics, so two runs give the same bits.
-``leaf_sum_sq`` and ``leaf_abs_max`` reduce whole-leaf quantities over a
-leaf's pieces (each piece once).
+``leaf_abs_max`` reduces a leaf's pieces (each piece once) to the whole
+leaf's absmax; the clip norm sums a gathered whole leaf
+(``optim.adamw``).
 
-With ``"model"`` > 1 the dense, MoE and enc-dec steps compute each
-position's share (``distributed.tp``): ``tp_module_on`` gathers, for a
+With ``"model"`` > 1 every family's step computes each position's
+share (``distributed.tp``): ``tp_module_on`` gathers, for a
 data rank, its model positions' weights as one stack a leaf, each
 position's model shard gathered over the data axes only
 (``Sharded.gather_ranks``: ``(R, ...)``, row ``r`` the shard of model
-rank ``r``), and the whole leaf only where the compute needs it whole
+rank ``r``, on any dimension: the RG-LRU's ``lam`` ``(R, w / R)`` and
+``conv_k`` ``(R, 4, w / R)`` too), and the whole leaf only where the
+compute needs it whole
 (a replicated weight, or the query-row fallback's attention weights);
 ``reduce_into(..., splits)`` adds each position's gradient into the
 pieces. The positions of a data rank compute on the device of its first
@@ -61,7 +64,7 @@ from .ctx import PartitionSpec
 from .tp import COLLECTIVES
 
 __all__ = ["Layout", "Sharded", "ShardedModel", "reduce_into",
-           "leaf_sum_sq", "leaf_abs_max", "data_ranks", "traffic"]
+           "leaf_abs_max", "data_ranks", "traffic"]
 
 
 def _names(entry) -> tuple[str, ...]:
@@ -320,16 +323,6 @@ def _one_replica(sh: Sharded) -> list[torch.Tensor]:
             st = sh.stacks[dev]
             return [st[0]] if st.shape[0] == 1 else [st]
     return [sh.first(key) for key in sh.layout.keys]
-
-
-def leaf_sum_sq(sh: Sharded) -> torch.Tensor:
-    """The sum of squares of the whole leaf (float32), over its pieces
-    (a one-piece leaf: that piece's sum, the whole leaf's)."""
-    total = None
-    for t in _one_replica(sh):
-        s = torch.sum(torch.square(t.float()))
-        total = s if total is None else total + s.to(total.device)
-    return total
 
 
 def leaf_abs_max(sh: Sharded) -> torch.Tensor:

@@ -108,6 +108,12 @@ class Group:
                              f"dim {dim} over the model ranks, the layout "
                              f"asks dim {want}")
 
+    def record(self, kind: str, shape, dim: Optional[int]) -> None:
+        """``check``, then log the layout (an activation the compute
+        holds replicated inside a function it calls whole)."""
+        self.check(kind, shape, dim)
+        self.layouts.append((kind, tuple(shape), dim))
+
     def placed(self, kind: str, shape, x: torch.Tensor) -> torch.Tensor:
         """``x`` as the compute holds a ``kind`` activation of whole
         ``shape``: ranked with ``model_dim`` cut in ``size`` parts, or,

@@ -25,11 +25,11 @@ than one position trains a ``distributed.spmd.ShardedModel`` through
 ``make_train_fn(mesh=)`` (parameters by ``param_specs``, moments by
 ``opt_state_specs``), a one-position mesh the unsharded model, which is
 the same step bit for bit. With ``--model-parallel`` > 1 (or the
-production meshes' 16) the dense, MoE and enc-dec families compute
-tensor- (and expert-) parallel on ``"model"`` (``distributed.tp``); the
-hybrid and SSM stay data parallel (ROADMAP A.4b). The log names the
-compute a run took and, at the end, the last step's bytes on distinct
-devices by type (``ShardedModel.traffic``).
+production meshes' 16) every family computes tensor- (and, the MoE,
+expert-) parallel on ``"model"`` (``distributed.tp``; the hybrid's
+RG-LRU and the SSM's RWKV mixes on the ranks' channels and heads). The
+log names the compute a run took and, at the end, the last step's bytes
+on distinct devices by type (``ShardedModel.traffic``).
 
 A checkpoint holds ``(params, opt_state)`` in the reference's tree and
 keys (``checkpoint_tree``, which gathers the shards): each stacked

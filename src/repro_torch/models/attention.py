@@ -28,6 +28,7 @@ of ``wq``/``wk``/``wv``), row-parallel ``wo`` and a reduce-scatter (or
 all-reduce) of the ranks' partial sums. Where the heads do not divide,
 the query rows: each rank its rows of q, from the whole weights, against
 the whole k and v. K and v are computed once where they are replicated.
+With ``window=`` it is the hybrid's local attention.
 """
 
 from __future__ import annotations
@@ -164,24 +165,29 @@ def _query_rows(q: torch.Tensor, q_start: torch.Tensor) -> torch.Tensor:
 
 
 def _attend_rows(q, k, v, q_start: Optional[torch.Tensor], *,
-                 causal: bool) -> torch.Tensor:
+                 causal: bool, window: Optional[int] = None
+                 ) -> torch.Tensor:
     """``attention_ref``'s arithmetic (logits in the inputs' type, then
     float32; softmax and the value product in float32) with each model
     rank's query rows starting at ``q_start[r]`` (None: end-aligned, as
     ``attention_ref``), or the streaming softmax past
-    ``CHUNKED_KV_THRESHOLD`` keys. q ``(R, b, h, sq, dh)``; k, v
-    broadcastable to it."""
+    ``CHUNKED_KV_THRESHOLD`` keys; with ``window`` (causal only) a row
+    sees the ``window`` keys up to its own position. q ``(R, b, h, sq,
+    dh)``; k, v broadcastable to it."""
     if k.shape[-2] > CHUNKED_KV_THRESHOLD:
-        return _attend_chunked(q, k, v, window=None, causal=causal,
+        return _attend_chunked(q, k, v, window=window, causal=causal,
                                q_start=q_start)
     if q_start is None:
-        return attention_ref(q, k, v, causal=causal)
+        return attention_ref(q, k, v, causal=causal, window=window)
     logits = torch.matmul(q, k.transpose(-1, -2)).float() \
         * (1.0 / math.sqrt(q.shape[-1]))
     if causal:
         ki = torch.arange(k.shape[-2], device=q.device)
-        logits = logits.masked_fill(ki > _query_rows(q, q_start),
-                                    float("-inf"))
+        rows = _query_rows(q, q_start)
+        hidden = ki > rows
+        if window is not None:
+            hidden |= ki <= rows - window
+        logits = logits.masked_fill(hidden, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs, v.float()).to(q.dtype)
 
@@ -202,14 +208,19 @@ def _repeat_ranked(t: torch.Tensor, group: int) -> torch.Tensor:
 def attention_tp(params: Attention, xq: torch.Tensor, cfg: ModelConfig,
                  group, *, q_pos: torch.Tensor, causal: bool,
                  xkv: Optional[torch.Tensor] = None,
-                 kv_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 kv_pos: Optional[torch.Tensor] = None,
+                 window: Optional[int] = None) -> torch.Tensor:
     """Attention of ``xq`` over ``xkv`` (itself when None) on a data
     rank's model positions (``group``, a ``distributed.tp.Group``), both
     in the residual's layout (``group.seq_split``); RoPE at ``q_pos`` and
     ``kv_pos``. ``params`` holds each leaf as ``tp_module_on`` stacks it:
     ``(R, d, n / R)`` (``wq``, ``wk``, ``wv``) and ``(R, n / R, d)``
-    (``wo``) where their heads are split, else whole. Returns the output
-    in ``xq``'s residual layout."""
+    (``wo``) where their heads are split, else whole. ``window`` (the
+    hybrid's local attention, causal) masks as ``_attend_chunked`` does:
+    a query sees the keys within ``window`` positions up to its own,
+    measured from the query's global position (a rank's query rows may
+    start mid-sequence). Returns the output in ``xq``'s residual
+    layout."""
     ranks = group.size
     hq, hkv, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     sq = q_pos.shape[0]
@@ -264,7 +275,7 @@ def attention_tp(params: Attention, xq: torch.Tensor, cfg: ModelConfig,
         k, v = repeat_kv(k, grp), repeat_kv(v, grp)
         if q_dim == 2:
             k, v = _heads_of_ranks(k, ranks), _heads_of_ranks(v, ranks)
-    out = _attend_rows(q, k, v, q_start, causal=causal)
+    out = _attend_rows(q, k, v, q_start, causal=causal, window=window)
     out = out.to(xq.dtype).transpose(-3, -2)
     out = out.reshape(*out.shape[:-2], -1)
     if q_dim == 2:

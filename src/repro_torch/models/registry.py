@@ -6,12 +6,10 @@ module of a decoder-only family (dense, MoE, hybrid or SSM) or the
 ``labels`` for a loss), plus ``src_embeds`` for the enc-dec family.
 
 ``tp_loss_fn`` and ``tp_weight_splits`` are the tensor-parallel step's
-(``distributed.tp``): the dense, MoE and enc-dec families' loss computed
-per model rank, and which dimension of each leaf the model ranks split
-(from the layouts ``ctx.constraint_spec`` names for the activations the
-leaf makes). The hybrid's and SSM's recurrent blocks have no
-tensor-parallel compute yet (ROADMAP A.4b): their sharded step stays
-data parallel.
+(``distributed.tp``): every family's loss computed per model rank, and
+which dimension of each leaf the model ranks split (from the layouts
+``ctx.constraint_spec`` names for the activations the leaf makes, and
+the storage's split of the recurrent blocks).
 """
 
 from __future__ import annotations
@@ -28,7 +26,7 @@ __all__ = ["init_params", "forward_fn", "loss_fn", "make_decode_state",
            "tp_weight_splits"]
 
 # the families whose sharded step computes per model rank
-TP_FAMILIES = ("dense", "moe", "encdec")
+TP_FAMILIES = ("dense", "moe", "encdec", "hybrid", "ssm")
 
 
 def init_params(cfg: ModelConfig, *,
@@ -99,8 +97,6 @@ def tp_compute(cfg: ModelConfig, mesh) -> str:
     """The compute ``cfg``'s sharded step takes on ``mesh``."""
     if mesh.shape.get("model", 1) == 1:
         return "data-parallel"
-    if cfg.family not in TP_FAMILIES:
-        return "data-parallel (ROADMAP A.4b)"
     return "tensor- and expert-parallel" if cfg.family == "moe" \
         else "tensor-parallel"
 
@@ -116,15 +112,32 @@ def tp_weight_splits(cfg: ModelConfig, names, group, rows: int, seq: int,
     rows where ``d_ff`` divides (the storage's split); the MoE's experts
     where ``gecd`` puts them on ``"model"``; ``embed`` by vocabulary rows
     and ``lm_head`` by columns where ``logits_v`` is vocab parallel. The
-    one owner of these splits: the models' ``*_tp`` functions read them
-    from the leaves' shapes, and the layouts hold them (``tp.Group``'s
-    ``check`` and ``placed``)."""
+    recurrent blocks, where the ranks divide the dimension (the storage's
+    split, ``sharding._fallback``): the hybrid's ``rglru.w_in``,
+    ``w_gate_in``, ``w_r``, ``w_i`` by columns, ``conv_k`` on dim 1,
+    ``lam`` on dim 0 and ``w_out`` by rows, all by ``rnn_width``; the
+    SSM's ``cm.wk`` by columns and ``cm.wv`` by rows (``d_ff``), ``cm.wr``
+    by columns (``d_model``) where the ranks divide both (else the channel
+    mix is whole); its ``tm.wr``/``wk``/``wv`` by columns and
+    ``tm.wo`` by rows only where the ranks divide the *heads*
+    (``bhsd``'s heads over ``"model"``): the storage splits them by
+    ``d_model`` columns, which would cut a head the chunked recurrence
+    needs whole, so with heads the ranks do not divide the time mix
+    takes them whole and runs once (``bhsd`` replicated). The decay
+    LoRA, the mixes, ``w_bias`` and ``u_bonus`` are whole. The one owner
+    of these splits: the models' ``*_tp`` functions read them from the
+    leaves' shapes, and the layouts hold them (``tp.Group``'s ``check``
+    and ``placed``)."""
     ranks = group.size
     hq, hkv, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     vocab = group.model_dim("logits_v", (rows, seq, cfg.vocab)) == 2
     experts = cfg.family == "moe" and group.model_dim(
         "gecd", (1, cfg.moe_experts, 8, d)) == 1
     ff = cfg.d_ff % ranks == 0
+    width = (cfg.rnn_width or d) % ranks == 0
+    wkv_heads = cfg.family == "ssm" and group.model_dim(
+        "bhsd", (rows, d // cfg.rwkv_head_dim, seq, cfg.rwkv_head_dim)) == 1
+    channels = ff and d % ranks == 0
 
     def lengths(name):                 # (query, key) lengths of attention
         if name.startswith("enc_layers."):
@@ -154,5 +167,12 @@ def tp_weight_splits(cfg: ModelConfig, names, group, rows: int, seq: int,
                 dim = 0 if experts else None
             elif ff:
                 dim = 1 if leaf != "w_down" else 0
+        elif ".rglru." in name and width:
+            dim = {"w_in": 1, "w_gate_in": 1, "w_r": 1, "w_i": 1,
+                   "conv_k": 1, "lam": 0, "w_out": 0}.get(leaf)
+        elif ".tm." in name and wkv_heads:
+            dim = {"wr": 1, "wk": 1, "wv": 1, "wo": 0}.get(leaf)
+        elif ".cm." in name and channels:
+            dim = {"wk": 1, "wv": 0, "wr": 1}.get(leaf)
         out[name] = dim
     return out

@@ -19,6 +19,9 @@ after folding ``h0`` into the first element, as the reference does
 before its ``jax.lax.associative_scan``. The two scans associate the
 products differently, so they agree to float32 rounding, not bitwise.
 Decode runs one step of the recurrence.
+
+``rglru_block_tp`` is the tensor-parallel training step's
+(``distributed.tp``): each model rank on its ``w / R`` channels.
 """
 
 from __future__ import annotations
@@ -28,10 +31,11 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ..distributed.tp import gather_to_ranks, ranked_matmul
 from .common import ModelConfig, new_param
 
-__all__ = ["RglruState", "RGLRU", "rglru_block", "rglru_step",
-           "make_rglru_state", "linear_scan"]
+__all__ = ["RglruState", "RGLRU", "rglru_block", "rglru_block_tp",
+           "rglru_step", "make_rglru_state", "linear_scan"]
 
 _C = 8.0
 
@@ -110,6 +114,53 @@ def rglru_block(params: RGLRU, x: torch.Tensor, cfg: ModelConfig,
     h = linear_scan(a, bx)
     out = (h * gate).to(x.dtype) @ params.w_out
     return out, RglruState(h=h[:, -1].to(state.h.dtype), conv=conv_carry)
+
+
+def rglru_block_tp(params: RGLRU, x: torch.Tensor, cfg: ModelConfig,
+                   group, shape) -> torch.Tensor:
+    """``rglru_block`` from a zero state of the residual's normed input
+    ``x`` (whole shape ``shape``, in the ``bsd`` layout) on a data rank's
+    model positions (``group``, a ``distributed.tp.Group``), in the
+    residual's layout. Where ``tp_module_on`` splits the channels (the
+    storage's ``"model"`` split of ``rnn_width``: ``w_in``,
+    ``w_gate_in``, ``w_r``, ``w_i`` by columns, ``conv_k``'s channels,
+    ``lam``, ``w_out`` by rows): the sequence gathered whole on every
+    rank, ``w_in`` and ``w_gate_in`` column-parallel, the causal conv on
+    the rank's channels, ``u``'s channels all-gathered (``w_r`` and
+    ``w_i`` take the whole width as input: their rows are not split),
+    the gates and the scan over the whole sequence on the rank's
+    channels, ``w_out`` row-parallel and its partial sums added into the
+    residual's layout (reduce-scatter onto the sequence, or all-reduce).
+    With whole weights (the ranks do not divide the width) the block
+    runs once on the whole sequence, replicated."""
+    b = shape[0]
+    if params.w_in.dim() == 2:
+        _, once = group.whole(x, shape)
+        w = params.w_in.shape[1]
+        out, _ = rglru_block(params, once, cfg, RglruState(
+            h=once.new_zeros((b, w), dtype=torch.float32),
+            conv=once.new_zeros((b, 3, w))))
+        return group.from_replicated(out, shape)
+    ranks = group.size
+    full, _ = group.whole(x, shape)                   # (R, b, s, d)
+    u = ranked_matmul(full, params.w_in)              # (R, b, s, w / R)
+    gate = torch.nn.functional.gelu(
+        ranked_matmul(full, params.w_gate_in).float(), approximate="tanh")
+    k = params.conv_k[:, :, None, None]               # (R, 4, 1, 1, w / R)
+    ext = torch.cat([u.new_zeros((ranks, b, 3, u.shape[-1])), u], dim=2)
+    u = (ext[:, :, 3:] * k[:, 3] + ext[:, :, 2:-1] * k[:, 2] +
+         ext[:, :, 1:-2] * k[:, 1] + ext[:, :, :-3] * k[:, 0])
+    u_all = gather_to_ranks(u, group, 2)              # (R, b, s, w)
+    r = torch.sigmoid(ranked_matmul(u_all, params.w_r).float())
+    i = torch.sigmoid(ranked_matmul(u_all, params.w_i).float())
+    log_a0 = torch.nn.functional.logsigmoid(params.lam.float())
+    log_a = _C * r * log_a0[:, None, None]
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-9))
+    h = linear_scan(a.flatten(0, 1), (beta * i * u.float()).flatten(0, 1))
+    h = h.view(gate.shape)                            # from a zero state
+    out = ranked_matmul((h * gate).to(x.dtype), params.w_out)
+    return group.from_partials(out, shape)
 
 
 def rglru_step(params: RGLRU, x: torch.Tensor, cfg: ModelConfig,

@@ -31,11 +31,15 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ..distributed.tp import (copy_to_ranks, gather_from_ranks,
+                              ranked_matmul, reduce_from_ranks, scatter_sum,
+                              split_to_ranks)
 from .common import ModelConfig, new_param
 
 __all__ = ["RwkvState", "RwkvTimeMix", "RwkvChannelMix",
            "rwkv_time_mix_chunked", "rwkv_time_mix_step",
-           "rwkv_channel_mix", "make_rwkv_state", "CHUNK"]
+           "rwkv_channel_mix", "make_rwkv_state", "rwkv_time_mix_chunked_tp",
+           "rwkv_channel_mix_tp", "CHUNK"]
 
 CHUNK = 64
 LORA_RANK = 64
@@ -88,11 +92,16 @@ def _project(params: RwkvTimeMix, x, x_shift):
     r = _mix(params, "r", x, x_shift) @ params.wr
     k = _mix(params, "k", x, x_shift) @ params.wk
     v = _mix(params, "v", x, x_shift) @ params.wv
+    return r, k, v, _log_decay(params, x, x_shift)
+
+
+def _log_decay(params: RwkvTimeMix, x, x_shift):
+    """The data-dependent log-decay (the LoRA on the ``w`` mix), float32,
+    clamped to ``[-0.5, 0)``."""
     w_in = _mix(params, "w", x, x_shift) @ params.w_lora_a
     w_log = torch.tanh(w_in.float()) @ params.w_lora_b.float() \
         + params.w_bias.float()
-    logw = torch.clamp_min(-torch.exp(torch.clamp(w_log, -12.0, 4.0)), -0.5)
-    return r, k, v, logw
+    return torch.clamp_min(-torch.exp(torch.clamp(w_log, -12.0, 4.0)), -0.5)
 
 
 def _f32_mm(a, b):
@@ -101,21 +110,14 @@ def _f32_mm(a, b):
     return torch.matmul(a.float(), b.float())
 
 
-def rwkv_time_mix_chunked(params: RwkvTimeMix, x: torch.Tensor,
-                          cfg: ModelConfig, state: RwkvState,
-                          chunk: int = CHUNK
-                          ) -> tuple[torch.Tensor, RwkvState]:
-    """Chunked-parallel form. x: ``(b, s, d)`` with ``s % chunk == 0``."""
-    b, s, d = x.shape
-    if s % chunk:
-        raise ValueError(f"rwkv chunked form needs the sequence ({s}) to "
-                         f"be a multiple of the chunk ({chunk})")
-    dh = cfg.rwkv_head_dim
-    h = d // dh
+def _wkv_chunked(r, k, v, logw, u, s0, chunk: int) -> tuple:
+    """The chunked WKV recurrence of ``B`` rows of ``h`` heads: r, k, v
+    ``(B, s, h dh)`` in the model's dtype, logw ``(B, s, h dh)`` float32,
+    u ``(B or 1, h, dh)`` float32, s0 ``(B, h, dh, dh)``. Returns the
+    output ``(B, s, h dh)`` in r's dtype and the final state (float32)."""
+    b, s, d = r.shape
+    h, dh = u.shape[1], u.shape[2]
     nc = s // chunk
-    x_shift = torch.cat([state.x_prev[:, None, :], x[:, :-1]], dim=1)
-    r, k, v, logw = _project(params, x, x_shift)
-    u = params.u_bonus.float().reshape(h, 1, dh)
 
     def chunks(t):      # (b, s, d) -> (b, h, nc, chunk, dh)
         return t.reshape(b, nc, chunk, h, dh).permute(0, 3, 1, 2, 4)
@@ -130,26 +132,99 @@ def rwkv_time_mix_chunked(params: RwkvTimeMix, x: torch.Tensor,
     # exp(cumex_t) exp(-cum_j), safe under the -0.5 log-decay floor
     att = _f32_mm(r_dec, (kc * torch.exp(-cum).to(dt)).transpose(-1, -2))
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
-                                 device=x.device), -1)
+                                 device=r.device), -1)
     att = att * mask
     out_intra = _f32_mm(att.to(dt), vc)
     # the bonus diagonal u k_t v_t
-    out_diag = torch.sum(rc.float() * (kc.float() * u[None, :, None]),
+    out_diag = torch.sum(rc.float() * (kc.float() * u[:, :, None, None]),
                          dim=-1, keepdim=True) * vc.float()
     k_tail = kc * torch.exp(total[:, :, :, None, :] - cum).to(dt)
     kv_tail = _f32_mm(k_tail.transpose(-1, -2), vc)   # (b, h, nc, dh, dh)
     decay = torch.exp(total)[..., None]               # (b, h, nc, dh, 1)
 
-    S = state.s.float()
+    S = s0.float()
     starts = []
     for c in range(nc):
         starts.append(S)
         S = S * decay[:, :, c] + kv_tail[:, :, c]
     out_state = torch.matmul(r_dec.float(), torch.stack(starts, dim=2))
     out = out_state + out_intra + out_diag            # (b, h, nc, chunk, dh)
-    out = out.permute(0, 2, 3, 1, 4).reshape(b, s, d).to(x.dtype)
-    return out @ params.wo, RwkvState(s=S.to(state.s.dtype),
-                                      x_prev=x[:, -1, :])
+    return out.permute(0, 2, 3, 1, 4).reshape(b, s, d).to(dt), S
+
+
+def _check_chunks(s: int, chunk: int) -> None:
+    if s % chunk:
+        raise ValueError(f"rwkv chunked form needs the sequence ({s}) to "
+                         f"be a multiple of the chunk ({chunk})")
+
+
+def rwkv_time_mix_chunked(params: RwkvTimeMix, x: torch.Tensor,
+                          cfg: ModelConfig, state: RwkvState,
+                          chunk: int = CHUNK
+                          ) -> tuple[torch.Tensor, RwkvState]:
+    """Chunked-parallel form. x: ``(b, s, d)`` with ``s % chunk == 0``."""
+    b, s, d = x.shape
+    _check_chunks(s, chunk)
+    dh = cfg.rwkv_head_dim
+    x_shift = torch.cat([state.x_prev[:, None, :], x[:, :-1]], dim=1)
+    r, k, v, logw = _project(params, x, x_shift)
+    u = params.u_bonus.float().reshape(1, d // dh, dh)
+    out, S = _wkv_chunked(r, k, v, logw, u, state.s, chunk)
+    return out.to(x.dtype) @ params.wo, RwkvState(s=S.to(state.s.dtype),
+                                                  x_prev=x[:, -1, :])
+
+
+def rwkv_time_mix_chunked_tp(params: RwkvTimeMix, x: torch.Tensor,
+                             cfg: ModelConfig, group,
+                             chunk: int = CHUNK) -> torch.Tensor:
+    """``rwkv_time_mix_chunked`` from a zero state on a data rank's model
+    positions (``group``, a ``distributed.tp.Group``): ``x`` ``(b, s,
+    d)`` the batch-only residual's normed input, replicated (the whole
+    sequence and width on every rank); returns the output so. Token
+    shift, the mixes and the decay LoRA run once on the whole ``d``.
+    Where ``tp_module_on`` splits ``wr``/``wk``/``wv`` by columns and
+    ``wo`` by rows (the ranks divide the heads: ``bhsd``'s heads over
+    ``"model"``), each rank projects its heads' columns
+    (column-parallel), takes ``logw``'s and ``u_bonus``'s columns of its
+    heads, runs the recurrence on its heads and its row block of ``wo``
+    (row-parallel); the partial sums are added over the ranks (a float32
+    all-reduce in rank order). Where the ranks would cut a head (the
+    storage's column split is by ``d_model``, not by heads), the weights
+    come whole and the whole time mix runs once, replicated (``bhsd``
+    replicated)."""
+    b, s, d = x.shape
+    _check_chunks(s, chunk)
+    dh = cfg.rwkv_head_dim
+    heads = d // dh
+    ranks = group.size
+    split = params.wr.dim() == 3
+    zeros = x.new_zeros((b, d))
+    if not split:
+        out, _ = rwkv_time_mix_chunked(
+            params, x, cfg, RwkvState(s=x.new_zeros(
+                (b, heads, dh, dh), dtype=torch.float32), x_prev=zeros),
+            chunk)
+        group.record("bhsd", (b, heads, s, dh), None)
+        return out
+    x_shift = torch.cat([zeros[:, None, :], x[:, :-1]], dim=1)
+    mine = heads // ranks
+
+    def project(name, w):
+        t = ranked_matmul(copy_to_ranks(_mix(params, name, x, x_shift),
+                                        group), w)
+        group.placed("bhsd", (b, heads, s, dh),
+                     t.view(ranks, b, s, mine, dh).transpose(2, 3))
+        return t.reshape(ranks * b, s, d // ranks)
+
+    r, k, v = (project(n, getattr(params, "w" + n)) for n in "rkv")
+    logw = split_to_ranks(_log_decay(params, x, x_shift), group, 2)
+    logw = logw.reshape(ranks * b, s, d // ranks)
+    u = params.u_bonus.float().reshape(ranks, 1, mine, dh).expand(
+        ranks, b, mine, dh).reshape(ranks * b, mine, dh)
+    out, _ = _wkv_chunked(r, k, v, logw, u, x.new_zeros(
+        (ranks * b, mine, dh, dh), dtype=torch.float32), chunk)
+    out = ranked_matmul(out.to(x.dtype).view(ranks, b, s, -1), params.wo)
+    return reduce_from_ranks(out, group)
 
 
 def rwkv_time_mix_step(params: RwkvTimeMix, x: torch.Tensor,
@@ -195,3 +270,32 @@ def rwkv_channel_mix(params: RwkvChannelMix, x: torch.Tensor,
     r = torch.sigmoid((_mix(params, "r", x, x_shift) @ params.wr).float())
     out = r * (k.to(x.dtype) @ params.wv).float()
     return out.to(x.dtype), x[:, -1, :]
+
+
+def rwkv_channel_mix_tp(params: RwkvChannelMix, x: torch.Tensor, group
+                        ) -> torch.Tensor:
+    """``rwkv_channel_mix`` from a zero last token on a data rank's model
+    positions: ``x`` ``(b, s, d)`` replicated (the batch-only residual's
+    normed input); returns the output so. The mixes run once. Where
+    ``tp_module_on`` splits the block (the ranks divide both ``d_ff`` and
+    ``d``): ``wk`` column-parallel over ``d_ff``, ``wv`` row-parallel
+    (partial sums of ``k @ wv`` over the whole ``d``), ``wr``
+    column-parallel over ``d``. The product ``r * (k @ wv)`` is formed on
+    channels: the partial sums are reduce-scattered onto each rank's
+    ``d / R`` channels, multiplied by its ``r``, and all-gathered back to
+    the replicated residual. Otherwise every rank runs the whole block."""
+    x_shift = torch.cat([x.new_zeros((x.shape[0], 1, x.shape[2])),
+                         x[:, :-1]], dim=1)
+    xk, xr = _mix(params, "k", x, x_shift), _mix(params, "r", x, x_shift)
+    if params.wk.dim() == 2:                       # whole
+        k = torch.square(torch.relu((xk @ params.wk).float()))
+        kv = k.to(x.dtype) @ params.wv
+        r = torch.sigmoid((xr @ params.wr).float())
+        return (r * kv.float()).to(x.dtype)
+    k = torch.square(torch.relu(ranked_matmul(copy_to_ranks(xk, group),
+                                              params.wk).float()))
+    kv = ranked_matmul(k.to(x.dtype), params.wv)   # partial sums
+    r = torch.sigmoid(ranked_matmul(copy_to_ranks(xr, group),
+                                    params.wr).float())
+    kv = scatter_sum(kv, group, 2)
+    return gather_from_ranks((r * kv.float()).to(x.dtype), group, 2)

@@ -12,12 +12,14 @@ of the hybrid) is rematerialised in the backward
 the card, non-windowed prefill attention takes the flash kernel; the
 hybrid's windowed attention takes the reference's plain path, as the
 reference routes it), ``lm_loss`` the training one. ``lm_loss_tp`` is
-the dense and MoE families' tensor- (and expert-) parallel loss on a
-data rank's model positions (``distributed.tp``): the residual stream
-in the ``bsd`` layout (its sequence over the model ranks where it
-divides: sequence parallelism), every layer's attention, MLP or MoE,
-the embedding and the head computed per rank (``attention_tp``,
-``mlp_tp``, ``moe_tp``, ``embed_tp``, ``lm_head_loss_tp``). The enc-dec
+every decoder family's tensor- (and expert-) parallel loss on a data
+rank's model positions (``distributed.tp``): the residual stream in the
+``bsd`` layout (its sequence over the model ranks where it divides:
+sequence parallelism; the SSM's blocks keep it ``bsd_batch_only``),
+every layer's attention, MLP, MoE, RG-LRU or RWKV mixes, the embedding
+and the head computed per rank (``attention_tp``, ``mlp_tp``,
+``moe_tp``, ``rglru_block_tp``, ``rwkv_time_mix_chunked_tp``,
+``rwkv_channel_mix_tp``, ``embed_tp``, ``lm_head_loss_tp``). The enc-dec
 family is ``models.encdec``; ``LM`` refuses it.
 
 Decode threads explicit caches that ``decode_step`` updates in place: a
@@ -37,16 +39,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed.tp import gather_from_ranks
 from .attention import (Attention, attention, attention_tp, make_kv_cache,
                         repeat_kv)
 from .common import (ModelConfig, cross_entropy_loss, embed_tp,
                      lm_head_loss_tp, new_param, normal_, rms_norm, rope)
 from .mlp import MLP, mlp, mlp_tp
 from .moe import MoE, moe, moe_tp
-from .rglru import RGLRU, RglruState, make_rglru_state, rglru_block, \
-    rglru_step
+from .rglru import (RGLRU, RglruState, make_rglru_state, rglru_block,
+                    rglru_block_tp, rglru_step)
 from .rwkv6 import (RwkvChannelMix, RwkvState, RwkvTimeMix, make_rwkv_state,
-                    rwkv_channel_mix, rwkv_time_mix_chunked,
+                    rwkv_channel_mix, rwkv_channel_mix_tp,
+                    rwkv_time_mix_chunked, rwkv_time_mix_chunked_tp,
                     rwkv_time_mix_step)
 
 __all__ = ["Block", "Recurrent", "LocalAttention", "Super", "LM", "init_lm",
@@ -285,23 +289,72 @@ def _block_tp(cfg: ModelConfig, layer: Block, x: torch.Tensor,
     return x + mlp_tp(layer.ffn, h2, group, shape)
 
 
+def _rec_tp(cfg: ModelConfig, p: Recurrent, x: torch.Tensor, group,
+            shape) -> torch.Tensor:
+    group.placed("bsd", shape, x)
+    x = x + rglru_block_tp(p.rglru, rms_norm(x, p.ln, cfg.norm_eps), cfg,
+                           group, shape)
+    return x + mlp_tp(p.ffn, rms_norm(x, p.ln_ffn, cfg.norm_eps), group,
+                      shape)
+
+
+def _super_tp(cfg: ModelConfig, p: Super, x: torch.Tensor,
+              positions: torch.Tensor, group, shape) -> torch.Tensor:
+    x = _rec_tp(cfg, p.r0, x, group, shape)
+    x = _rec_tp(cfg, p.r1, x, group, shape)
+    pa = p.attn
+    x = x + attention_tp(pa.attn, rms_norm(x, pa.ln, cfg.norm_eps), cfg,
+                         group, q_pos=positions, causal=True,
+                         window=cfg.window)
+    return x + mlp_tp(pa.ffn, rms_norm(x, pa.ln_ffn, cfg.norm_eps), group,
+                      shape)
+
+
+def _ssm_block_tp(cfg: ModelConfig, layer: Block, x: torch.Tensor,
+                  positions: torch.Tensor, group, shape) -> torch.Tensor:
+    group.placed("bsd_batch_only", shape, x)
+    x = x + rwkv_time_mix_chunked_tp(
+        layer.tm, rms_norm(x, layer.ln1, cfg.norm_eps), cfg, group)
+    return x + rwkv_channel_mix_tp(
+        layer.cm, rms_norm(x, layer.ln2, cfg.norm_eps), group)
+
+
 def lm_loss_tp(params: LM, batch: dict, cfg: ModelConfig, group, *,
                remat: bool = True) -> torch.Tensor:
-    """``lm_loss`` of the dense and MoE families computed per model rank
-    on ``group`` (a ``distributed.tp.Group``); ``params`` holds its
-    leaves as ``spmd.ShardedModel.tp_module_on`` stacks them. Layers are
-    rematerialised as in ``lm_loss``."""
+    """``lm_loss`` computed per model rank on ``group`` (a
+    ``distributed.tp.Group``); ``params`` holds its leaves as
+    ``spmd.ShardedModel.tp_module_on`` stacks them. The residual is in
+    the ``bsd`` layout, but through the SSM's blocks, which keep it
+    ``bsd_batch_only`` (the whole sequence on every rank, replicated over
+    ``"model"``: the recurrence runs over it) and return it to ``bsd``
+    before the final norm. The hybrid runs its supers' (R, R, A) and its
+    tail's recurrent layers (``rglru_block_tp``, ``mlp_tp``, windowed
+    ``attention_tp``). Layers (the hybrid's supers) are rematerialised
+    as in ``lm_loss``."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     shape = (b, s, cfg.d_model)
     x = embed_tp(params.embed, tokens, group, shape)
     positions = torch.arange(s, device=tokens.device)
-    for layer in params.layers:
+    if cfg.family == "hybrid":
+        steps = [(_super_tp, p) for p in params.supers]
+    elif cfg.family == "ssm":
+        steps = [(_ssm_block_tp, layer) for layer in params.layers]
+        if group.seq_split(shape):                 # bsd -> bsd_batch_only
+            x = gather_from_ranks(x, group, 1)
+    else:
+        steps = [(_block_tp, layer) for layer in params.layers]
+    for fn, p in steps:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_block_tp, cfg, layer, x, positions, group, shape,
+            x = checkpoint(fn, cfg, p, x, positions, group, shape,
                            use_reentrant=False)
         else:
-            x = _block_tp(cfg, layer, x, positions, group, shape)
+            x = fn(cfg, p, x, positions, group, shape)
+    if cfg.family == "hybrid":
+        for p in params.tail:
+            x = _rec_tp(cfg, p, x, group, shape)
+    if cfg.family == "ssm":
+        x = group.from_replicated(x, shape)        # back to bsd
     group.placed("bsd", shape, x)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     head = params.embed.transpose(-1, -2) if cfg.tie_embeddings \

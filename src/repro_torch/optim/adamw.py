@@ -27,10 +27,16 @@ sharded by the moment layouts (``distributed.sharding.opt_state_specs``)
 and ``apply_shards_`` runs the same arithmetic one moment piece at a
 time, against the matching slice of the gradient's piece (the gradients
 arrive in the moments' layout) and of the parameter's piece that holds
-it. The clip's global norm is over whole leaves (the sums of squares of
-each leaf's pieces, ``spmd.leaf_sum_sq``) and so is the compression's absmax
-(``GradTransform.apply_shards``); on a one-position mesh every piece is
-its whole leaf and the step is ``apply_``'s, bit for bit.
+it. The clip's global norm and the compression's absmax are over whole
+leaves: ``apply_shards_`` gathers each gradient leaf whole on the
+model's home device (one copy where that device holds every piece) and
+sums its squares as ``apply_`` does (``leaf_sum_sq``), so the norm's
+bits do not depend on how a mesh splits or stacks the leaf's pieces;
+summed piece by piece they would, and a clip scale one unit apart
+changes the update from the second step on, when ``m / sqrt(v)`` no
+longer cancels it. So ``apply_shards_`` on any mesh gives ``apply_``'s
+weights bit for bit from the same gradients (on the same kind of
+device), and only the sharded step pays for the gather.
 """
 
 from __future__ import annotations
@@ -70,6 +76,12 @@ def named_leaves(tree) -> dict[str, torch.Tensor]:
                 out[f"{prefix}{key}"] = node[key]
     walk(tree, "")
     return out
+
+
+def leaf_sum_sq(g: torch.Tensor) -> torch.Tensor:
+    """A whole gradient leaf's float32 sum of squares: the clip norm's
+    term, on the whole-leaf and the sharded path alike."""
+    return torch.sum(torch.square(g.float()))
 
 
 def reference_ndim(name: str, p: torch.Tensor) -> int:
@@ -127,8 +139,7 @@ class AdamW:
             grads, ef = self.compress.apply(grads, ef)
         scale = None
         if self.clip_norm is not None:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                   for g in grads.values()))
+            gnorm = torch.sqrt(sum(leaf_sum_sq(g) for g in grads.values()))
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
         lr = self.lr(step) if callable(self.lr) else self.lr
         b1c = 1.0 - torch.pow(self.b1, step.float())
@@ -191,7 +202,6 @@ class AdamW:
         slice of each of the parameter's pieces that holds it (computed
         once more, or copied, where a device holds the parameter's piece
         but not the moment's)."""
-        from ..distributed.spmd import leaf_sum_sq
         grads = named_leaves(grads)     # sorted, as the clip sums them
         step = state.step + 1
         ef = state.ef
@@ -199,7 +209,8 @@ class AdamW:
             grads, ef = self.compress.apply_shards(grads, ef)
         scale = None
         if self.clip_norm is not None:
-            gnorm = torch.sqrt(sum(leaf_sum_sq(g) for g in grads.values()))
+            gnorm = torch.sqrt(sum(leaf_sum_sq(g.gather(params.home))
+                                   for g in grads.values()))
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
         lr = self.lr(step) if callable(self.lr) else self.lr
         b1c = 1.0 - torch.pow(self.b1, step.float())

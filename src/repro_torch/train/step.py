@@ -33,16 +33,15 @@ one microbatch), as is the loss, the mean of the ranks' means. On a
 mesh whose ``"model"`` axis is 1 that is the whole story, and on a
 one-position mesh the step is the unsharded one, bit for bit.
 
-With ``"model"`` > 1 the dense, MoE and enc-dec families compute each
-position's share, as the reference's GSPMD step does
+With ``"model"`` > 1 every family computes each position's share, as
+the reference's GSPMD step does
 (``distributed.tp``): each data rank runs its model positions as one
 stack (``ShardedModel.tp_module_on``: each position's model shard of a
 leaf, gathered over the data axes only, or the whole leaf where the
 compute layout needs it, ``registry.tp_weight_splits``) through the
 family's ``registry.tp_loss_fn``, and each position's gradient is added
 into the pieces (``spmd.reduce_into(..., splits)``), in the same fixed
-order of microbatches and ranks. The hybrid and SSM keep the
-data-parallel compute (ROADMAP A.4b). The step leaves what it computed
+order of microbatches and ranks. The step leaves what it computed
 with in ``params.last_step`` (its splits, its ``tp.Group`` with the
 activation collectives' bytes and layouts, its microbatches), which
 ``ShardedModel.traffic`` reads.

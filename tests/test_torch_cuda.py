@@ -1375,3 +1375,104 @@ def test_tp_step_on_the_card_equals_the_unsharded(cuda, arch, dp, mp, over):
         assert float((got - g).abs().max()) <= 1e-4 * float(g.abs().max()), \
             name
     assert flash_ops.launch_count() == before
+
+
+# ------------------------------- tensor-parallel recurrent blocks, and C.7
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b"])
+def test_recurrent_tp_step_on_the_card_equals_the_cpus(cuda, arch):
+    """The hybrid's and the SSM's float32 smoke-size step of 4 x 128
+    tokens (past the hybrid's 64-token window, two RWKV chunks) on the
+    (2, 2) mesh, computed per model rank, on the card against the same
+    step on the CPU from the same weights: loss rtol 1e-4, every gradient
+    within 1e-4 of its leaf's max |g|, and the new weights within rtol
+    1e-4 (plus lr x 1e-3) of the CPU's AdamW step on the card's own
+    gradients. No kernel is launched."""
+    import copy
+    from repro_torch.data import make_pipeline
+    from repro_torch.distributed.ctx import activation_sharding
+    from repro_torch.distributed.sharding import (opt_state_specs,
+                                                  param_specs)
+    from repro_torch.distributed.spmd import ShardedModel
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import GradTransform
+    from repro_torch.train.step import make_train_fn
+
+    class Stash(GradTransform):
+        def apply(self, grads, ef):
+            return grads, grads
+
+    lr = 1e-3
+    cfg, cpu_model = _smoke_lm(arch)
+    opt = AdamW(lr=lr, compress=Stash())
+    batch = make_pipeline(cfg, 128, 4, seed=3, device="cpu").batch(0)
+    before = flash_ops.launch_count()
+    out = {}
+    for dev in ("cpu", cuda):
+        mesh = make_host_mesh(2, devices=[dev] * 4)
+        model = copy.deepcopy(cpu_model).to(dev)
+        sm = ShardedModel(model, mesh, param_specs(model, mesh),
+                          opt_state_specs(model, mesh))
+        with activation_sharding(mesh):
+            _, state, loss = make_train_fn(cfg, opt, mesh=mesh)(
+                sm, opt.init(sm), {k: v.to(dev) for k, v in batch.items()})
+        assert sm.last_step["group"] is not None
+        out[str(dev)] = (float(loss), {
+            n: sh.gather("cpu") for n, sh in state.ef.items()}, {
+            n: p.detach().cpu() for n, p in sm.named_parameters()})
+    (cl, cg, _), (gl, gg, gw) = out["cpu"], out[str(cuda)]
+    assert abs(gl - cl) <= 1e-4 * abs(cl)
+    for name, g in cg.items():
+        assert float((gg[name] - g).abs().max()) <= \
+            1e-4 * float(g.abs().max()), name
+    own = copy.deepcopy(cpu_model)
+    plain = AdamW(lr=lr)
+    plain.apply_(gg, plain.init(own), own)
+    for name, p in own.named_parameters():
+        far = (gw[name] - p.detach()).abs() > 1e-4 * p.detach().abs() \
+            + lr * 1e-3
+        assert not bool(far.any()), name
+    assert flash_ops.launch_count() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,dp,mp", [("llama3.2-3b", 2, 4),
+                                        ("recurrentgemma-2b", 2, 2),
+                                        ("rwkv6-7b", 4, 2)])
+def test_adamw_on_pieces_is_the_whole_leaf_step_on_the_card(cuda, arch, dp,
+                                                           mp):
+    """ROADMAP C.7 on the card: from the same random gradients, two
+    clipped AdamW steps on the pieces of a mesh naming the card dp x mp
+    times (``apply_shards_``, a leaf's pieces as one stack) give the
+    whole-leaf step's weights (``apply_``) bit for bit, with and without
+    int8 compression (the clip norm sums each gradient leaf gathered
+    whole, as the whole-leaf step sums it)."""
+    import copy
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import (opt_state_specs,
+                                                  param_specs)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamW, Int8EF
+
+    _, cpu_model = _smoke_lm(arch)
+    model = copy.deepcopy(cpu_model).to(cuda)
+    mesh = make_host_mesh(mp, devices=[cuda] * (dp * mp))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for compress in (None, Int8EF()):
+        opt = AdamW(lr=1e-2, clip_norm=1.0, compress=compress)
+        plain = copy.deepcopy(model)
+        sm = spmd.ShardedModel(copy.deepcopy(model), mesh,
+                               param_specs(model, mesh),
+                               opt_state_specs(model, mesh))
+        pstate, sstate = opt.init(plain), opt.init(sm)
+        for _ in range(2):
+            grads = {n: torch.randn(p.shape, generator=gen, device=cuda)
+                     * 3 for n, p in plain.named_parameters()}
+            pieces = {n: spmd.Sharded.place(g, sm.moment_layouts[n])
+                      for n, g in grads.items()}
+            pstate = opt.apply_(grads, pstate, plain)
+            sstate = opt.apply_shards_(pieces, sstate, sm)
+            for (name, a), b in zip(sm.named_parameters(),
+                                    plain.parameters()):
+                assert torch.equal(a, b), name

@@ -28,9 +28,8 @@ port's unsharded step (every weight, moment and loss, two steps, with
 and without microbatches and int8 compression); the int8 compression on
 shards against its whole-leaf result; two steps on a mesh of ``"cpu"``
 and ``"cpu:0"`` (per-piece paths) against the one-device mesh (stacked
-paths). The clip's norm on shards is held to the whole-leaf norm at
-rtol 1e-6 and a clipped step to the whole-leaf step within 1e-6 of a
-leaf's max (the pieces' sums of squares are summed in another order).
+paths). The clip's norm on shards (each leaf gathered whole) is the
+whole-leaf norm bit for bit, and so is a clipped step's result.
 The CLI and checkpoint cases hold losses at rtol 1e-5 to the run they
 continue.
 """
@@ -53,6 +52,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.registry import init_params
 from repro_torch.optim import AdamW, Int8EF
+from repro_torch.optim.adamw import leaf_sum_sq
 from repro_torch.train.step import make_train_fn
 
 LR = F.TRAIN_LR
@@ -138,22 +138,20 @@ def test_int8_on_shards_is_the_whole_leaf_result():
 
 
 def test_clip_on_shards_is_the_whole_leaf_result():
-    """The clip norm over pieces equals the whole leaves' (rtol 1e-6),
-    and one clipped AdamW step on the pieces equals the whole-leaf step
-    (to 1e-6 of a leaf's max) with the norm far above the clip."""
+    """The clip norm over pieces (each leaf gathered whole) is the whole
+    leaves' bit for bit, and so is one clipped AdamW step on the pieces
+    against the whole-leaf step, with the norm far above the clip."""
     module, model, grads, ef, gs, _ = _random_shards(1)
     for name, g in grads.items():
-        np.testing.assert_allclose(float(spmd.leaf_sum_sq(gs[name])),
-                                   float(torch.sum(g * g)), rtol=1e-6)
+        assert torch.equal(leaf_sum_sq(gs[name].gather(model.home)),
+                           torch.sum(g * g)), name
     opt = AdamW(lr=0.1, clip_norm=1.0)
     plain = copy.deepcopy(module)
     opt.apply_(grads, opt.init(plain), plain)
     opt.apply_shards_(gs, opt.init(model), model)
     for (name, a), (_, b) in zip(plain.named_parameters(),
                                  model.named_parameters()):
-        np.testing.assert_allclose(b.detach().numpy(), a.detach().numpy(),
-                                   rtol=0,
-                                   atol=1e-6 * float(a.detach().abs().max()))
+        assert torch.equal(b, a), name
 
 
 def test_microbatch_rows_must_split_over_the_ranks():

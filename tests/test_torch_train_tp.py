@@ -1,34 +1,45 @@
-"""The tensor- and expert-parallel train step of the dense, MoE and
-enc-dec families (``"model"`` > 1; ``repro_torch.distributed.tp``) on
-the CPU, at smoke size in float32, on meshes that name ``"cpu"``
-several times.
+"""The tensor- and expert-parallel train step of every family
+(``"model"`` > 1; ``repro_torch.distributed.tp``) on the CPU, at smoke
+size in float32, on meshes that name ``"cpu"`` several times. The
+hybrid's and SSM's steps take 128 tokens (``seq_of``: past the hybrid's
+64-token window, two RWKV chunks), the others 64.
 
 * Against the reference's jitted step under the same data degree
   (``lm_family_checks.check_sharded_against_reference``, whose
   docstring in ``tests/test_torch_train_sharded.py`` gives the
   tolerances: losses rtol 1e-5, gradients within 1e-4 of a leaf's max,
   weights within 3·lr·1e-3 but at near-zero gradients) on (1, 4), (2,
-  4) and the enc-dec model's (1, 2) and (2, 2) (the dense and MoE (1,
-  2), (2, 2) and (2, 2) x 2 microbatches are in
-  ``test_torch_train_sharded{,_moe}.py``), and on configs that force the
-  query-row fallback, replicated K/V and sequence-sharded logits.
+  4), the enc-dec model's (1, 2) and (2, 2), and the hybrid's and SSM's
+  (2, 2) x 2 microbatches (the dense and MoE (1, 2), (2, 2) and (2, 2)
+  x 2 microbatches are in ``test_torch_train_sharded{,_moe}.py``), and
+  on configs that force the query-row fallback, replicated K/V and
+  sequence-sharded logits (the recurrent blocks' fallbacks:
+  ``tests/test_torch_tp_recurrent.py``). The hybrid's and SSM's weights
+  after a step are held bit for bit to the whole-leaf AdamW step on the
+  step's own gradients and to the reference's element by element, with
+  no cap on a leaf's share of elements parted at near-zero gradients
+  (``own_update``: their 256-element vectors hold gradients a few Adam
+  eps from zero, whose first update the gradients' rounding moves).
 * Against the port's unsharded step under ``activation_sharding`` of
   the same data degree (the same MoE groups), with and without
   microbatches and int8 compression: the first step from the same
   state within the tolerances above (int8: losses rtol 1e-5 and the
   weights within two Adam steps, 2·lr, since a gradient at a rounding
   edge may round to the other int8 level), the second step's loss rtol
-  1e-5.
-* ``"model"`` = 1 meshes, and the hybrid and SSM on a ``"model"`` > 1
-  mesh, take the data-parallel step: losses and gradients bit for bit
-  those written out here as the step was before tensor-parallel compute
-  (each rank's whole gradient added in rank order).
+  1e-5; the hybrid's and SSM's first step as with ``own_update``.
+* ``"model"`` = 1 meshes take the data-parallel step: losses and
+  gradients bit for bit those written out here as the step was before
+  tensor-parallel compute (each rank's whole gradient added in rank
+  order), and the weights after bit for bit the whole-leaf AdamW step
+  on them (the clip norm sums each gradient leaf gathered whole, so it
+  does not depend on how a leaf's pieces are stacked).
 * A data rank's positions on distinct devices give the one-device
-  stack's losses and gradients bit for bit.
+  stack's losses, gradients and weights bit for bit.
 * Each activation's layout is ``constraint_spec``'s; the MoE's drops by
   rank equal the unsharded step's groups'; the model-axis bytes of
-  ``traffic`` equal a closed form of the shapes; ``launch.train`` logs
-  the compute each family takes and the bytes by type.
+  ``traffic`` equal a closed form of the shapes (the dense model's, the
+  hybrid's and the SSM's); ``launch.train`` logs the compute each family
+  takes and the bytes by type.
 """
 
 import copy
@@ -57,6 +68,13 @@ from repro_torch.train.step import make_train_fn
 LR = F.TRAIN_LR
 mesh_of, sharded = F.mesh_of, F.sharded
 FALLBACKS = {"n_heads": 6, "n_kv_heads": 2, "vocab": 510}
+RECURRENT = ("recurrentgemma-2b", "rwkv6-7b")
+
+
+def seq_of(arch):
+    """Tokens a row: 128 for the hybrid (past its 64-token window) and the
+    SSM (two RWKV chunks), else ``lm_family_checks.TRAIN_SEQ``."""
+    return 128 if arch in RECURRENT else F.TRAIN_SEQ
 
 
 class Stash(GradTransform):
@@ -79,9 +97,14 @@ def smoke(arch, **over):
     ("llama3.2-3b", 1, 4, 1), ("llama3.2-3b", 2, 4, 2),
     ("olmoe-1b-7b", 1, 4, 1), ("olmoe-1b-7b", 2, 4, 1),
     ("seamless-m4t-large-v2", 1, 2, 1), ("seamless-m4t-large-v2", 2, 2, 2),
-    ("seamless-m4t-large-v2", 1, 4, 1), ("seamless-m4t-large-v2", 2, 4, 1)])
+    ("seamless-m4t-large-v2", 1, 4, 1), ("seamless-m4t-large-v2", 2, 4, 1),
+    ("recurrentgemma-2b", 1, 4, 1), ("recurrentgemma-2b", 2, 4, 1),
+    ("recurrentgemma-2b", 2, 2, 2), ("rwkv6-7b", 1, 4, 1),
+    ("rwkv6-7b", 2, 4, 1), ("rwkv6-7b", 2, 2, 2)])
 def test_tp_step_matches_reference(arch, dp, mp, microbatches):
-    model = F.check_sharded_against_reference(arch, dp, mp, microbatches)
+    model = F.check_sharded_against_reference(
+        arch, dp, mp, microbatches, seq=seq_of(arch),
+        own_update=arch in RECURRENT)
     assert model.last_step["group"] is not None
 
 
@@ -101,7 +124,7 @@ def _step_pair(arch, dp, mp, microbatches, compress, steps=2):
     ``dp``, from the same weights; per step (loss, loss, grads, grads,
     weights, weights), the first step's both from the same state."""
     cfg, base = smoke(arch)
-    pipe = make_pipeline(cfg, F.TRAIN_SEQ, F.TRAIN_BATCH, device="cpu")
+    pipe = make_pipeline(cfg, seq_of(arch), F.TRAIN_BATCH, device="cpu")
     mesh = mesh_of(dp, mp)
     opt = AdamW(lr=LR, compress=compress or Stash())
     plain = copy.deepcopy(base)
@@ -132,7 +155,8 @@ def _step_pair(arch, dp, mp, microbatches, compress, steps=2):
     ("llama3.2-3b", 2, 2, 1), ("llama3.2-3b", 1, 4, 2),
     ("olmoe-1b-7b", 2, 2, 2), ("olmoe-1b-7b", 2, 4, 1),
     ("seamless-m4t-large-v2", 2, 2, 1),
-    ("seamless-m4t-large-v2", 1, 2, 2)])
+    ("seamless-m4t-large-v2", 1, 2, 2), ("recurrentgemma-2b", 2, 2, 1),
+    ("rwkv6-7b", 1, 4, 2)])
 def test_tp_step_matches_unsharded_step(arch, dp, mp, microbatches,
                                         compress):
     out = _step_pair(arch, dp, mp, microbatches,
@@ -140,6 +164,19 @@ def test_tp_step_matches_unsharded_step(arch, dp, mp, microbatches,
     for got, want, *_ in out:
         np.testing.assert_allclose(got, want, rtol=1e-5)
     _, _, sg, pg, sw, pw = out[0]
+    own = arch in RECURRENT and not compress
+    if own:
+        # the hybrid's and SSM's 256-element vectors hold gradients a few
+        # Adam eps from zero: the first step's weights are held bit for
+        # bit to the whole-leaf AdamW step on the sharded gradients, and
+        # to the unsharded step element by element, with no cap on a
+        # leaf's parted share (``check_sharded_against_reference``'s
+        # ``own_update``)
+        _, plain = smoke(arch)
+        opt = AdamW(lr=LR, compress=Stash())
+        opt.apply_(sg, opt.init(plain), plain)
+        for name, p in plain.named_parameters():
+            assert torch.equal(sw[name], p.detach()), name
     for name, p in pw.items():
         d = (sw[name] - p).abs()
         if compress:
@@ -150,7 +187,7 @@ def test_tp_step_matches_unsharded_step(arch, dp, mp, microbatches,
         assert float((sg[name] - pg[name]).abs().max()) <= 1e-4 * scale, \
             name
         far = d > 3 * LR * 1e-3
-        assert int(far.sum()) <= 1e-3 * d.numel(), name
+        assert own or int(far.sum()) <= 1e-3 * d.numel(), name
         assert bool((g[far] <= 1e-4 * scale).all()), name
 
 
@@ -211,16 +248,14 @@ def _weights_before(out, base):
 @pytest.mark.parametrize("arch,dp,mp,microbatches,seq", [
     ("llama3.2-3b", 2, 1, 2, 64), ("llama3.2-3b", 4, 1, 1, 64),
     ("olmoe-1b-7b", 4, 1, 1, 64), ("seamless-m4t-large-v2", 2, 1, 1, 64),
-    ("recurrentgemma-2b", 2, 2, 1, 128), ("rwkv6-7b", 2, 2, 2, 128)])
+    ("recurrentgemma-2b", 2, 1, 1, 128), ("rwkv6-7b", 2, 1, 2, 128)])
 def test_data_parallel_compute_is_unchanged_bitwise(arch, dp, mp,
                                                     microbatches, seq):
-    """``"model"`` = 1 meshes, and the hybrid and SSM on ``"model"`` > 1
-    (no tensor-parallel recurrent blocks yet: ROADMAP A.4b), take the
-    data-parallel step: two steps' losses and gradients bit for bit those
-    written out here from the same weights, and the weights after within
-    rtol 1e-6 (atol 1e-8, a unit in the last place at the weights' 0.02
-    scale) of the whole-leaf AdamW step on them (the update of pieces
-    stacked in other shapes may part by such a unit: ROADMAP C.7)."""
+    """``"model"`` = 1 meshes take the data-parallel step: two steps'
+    losses and gradients bit for bit those written out here from the
+    same weights, and the weights after bit for bit the whole-leaf AdamW
+    step on them (each leaf's clip sum of squares is the same bits
+    however its pieces are stacked)."""
     cfg, base = smoke(arch)
     pipe = make_pipeline(cfg, seq, 4, device="cpu")
     batches = [pipe.batch(s) for s in range(2)]
@@ -242,23 +277,23 @@ def test_data_parallel_compute_is_unchanged_bitwise(arch, dp, mp,
             assert torch.equal(grads[n], g), n
         pstate = opt.apply_(wgrads, pstate, plain)
         for n, p in plain.named_parameters():
-            torch.testing.assert_close(after[n], p.detach(), rtol=1e-6,
-                                       atol=1e-8)
+            assert torch.equal(after[n], p.detach()), n
 
 
 @pytest.mark.parametrize("arch,over", [
     ("llama3.2-3b", FALLBACKS), ("olmoe-1b-7b", {}),
-    ("seamless-m4t-large-v2", {})])
+    ("seamless-m4t-large-v2", {}), ("recurrentgemma-2b", {}),
+    ("rwkv6-7b", {})])
 def test_distinct_devices_are_the_stacked_path_bitwise(arch, over):
     """A data rank's model positions on ``"cpu"`` and ``"cpu:0"`` (their
     pieces copied to the rank's first device), or each data rank on its
-    own device: from the same weights, two steps' losses and gradients
-    are the one-device mesh's bit for bit, and so are the byte counts;
-    the weights after within rtol 1e-6, atol 1e-8 (the update of pieces
-    stacked in other shapes may part by a unit in the last place:
-    ROADMAP C.7)."""
+    own device: from the same weights, two steps' losses, gradients and
+    weights after are the one-device mesh's bit for bit, and so are the
+    byte counts (the SSM on 64 tokens, one RWKV chunk; the others on
+    32)."""
     cfg, base = smoke(arch, **over)
-    pipe = make_pipeline(cfg, 32, 8, device="cpu")
+    pipe = make_pipeline(cfg, 64 if arch == "rwkv6-7b" else 32, 8,
+                         device="cpu")
     batches = [pipe.batch(s) for s in range(2)]
     one, want = _stash_steps(cfg, base, make_host_mesh(
         4, devices=["cpu"] * 8), batches)
@@ -272,8 +307,7 @@ def test_distinct_devices_are_the_stacked_path_bitwise(arch, over):
             assert torch.equal(la, lb)
             for n in ga:
                 assert torch.equal(ga[n], gb[n]), n
-                torch.testing.assert_close(wa[n], wb[n], rtol=1e-6,
-                                           atol=1e-8)
+                assert torch.equal(wa[n], wb[n]), n
         assert model.traffic() == one.traffic()
 
 
@@ -288,12 +322,22 @@ def test_distinct_devices_are_the_stacked_path_bitwise(arch, over):
      {("bsd", 1), ("bshd", 2), ("bshd_kv", 2), ("logits_v", 2),
       ("gtd", None), ("gec", 1), ("gecd", 1)}),
     ("seamless-m4t-large-v2", 64, True, FALLBACKS,
-     {("bsd", 1), ("bshd", 1), ("bshd_kv", None), ("logits_v", 1)})])
+     {("bsd", 1), ("bshd", 1), ("bshd_kv", None), ("logits_v", 1)}),
+    ("recurrentgemma-2b", 128, True, {},
+     {("bsd", 1), ("bshd", 2), ("bshd_kv", None), ("logits_v", 2)}),
+    ("rwkv6-7b", 128, True, {},
+     {("bsd", 1), ("bsd_batch_only", None), ("bhsd", 1), ("logits_v", 2)}),
+    ("rwkv6-7b", 64, False, {"rwkv_head_dim": 128},
+     {("bsd", None), ("bsd_batch_only", None), ("bhsd", None),
+      ("logits_v", 2)})])
 def test_step_layouts_are_constraint_spec(arch, seq, sp, over, want):
     """On (1, 4) each activation the step places has the model dim
     ``constraint_spec`` asks for under the step's context; the kinds and
     their layouts are the expected ones (``bsd`` sequence-parallel only
-    with ``seq_parallel`` and a length the ranks divide)."""
+    with ``seq_parallel`` and a length the ranks divide; the SSM's blocks
+    on ``bsd_batch_only``, then ``bsd`` before the head; its time mix's
+    heads over the ranks, ``bhsd``, or, with 2 heads of 128 the 4 ranks
+    would cut, whole on every rank)."""
     cfg, base = smoke(arch, **over)
     mesh = mesh_of(1, 4)
     model = sharded(base, mesh)
@@ -411,6 +455,66 @@ def test_model_axis_traffic_closed_form(dp, mp, microbatches):
         + positions * norms * (dp - 1) // dp)
 
 
+@pytest.mark.parametrize("arch,over,dp,mp,microbatches", [
+    ("recurrentgemma-2b", {}, 1, 2, 1), ("recurrentgemma-2b", {}, 2, 2, 2),
+    ("recurrentgemma-2b", {"n_layers": 7}, 1, 4, 1),
+    ("rwkv6-7b", {}, 1, 2, 1), ("rwkv6-7b", {}, 2, 4, 1),
+    ("rwkv6-7b", {}, 1, 16, 1)])
+def test_recurrent_model_axis_traffic_closed_form(arch, over, dp, mp,
+                                                 microbatches):
+    """The model axis's bytes of the hybrid's and the SSM's steps in
+    closed form: a global batch of B x s tokens, float32, R = mp ranks,
+    N = (R - 1) B s d 4 bytes (an all-gather or a reduce-scatter of the
+    residual), N_w likewise of the RG-LRU's width, the embedding, the
+    head and the vocab-parallel loss as in
+    ``test_model_axis_traffic_closed_form`` (2 N each way and three (B,
+    s) all-reduces). The hybrid, sequence parallel, heads over the ranks
+    and K/V replicated (MQA): a recurrent layer all-gathers the sequence
+    for its RG-LRU and its MLP and u's channels (N_w), and
+    reduce-scatters two partial sums; the backward runs the conjugates; an
+    attention layer gathers and scatters twice (its K/V from the one
+    gathered input). A super is rematerialised up to its last
+    reduce-scatter, a tail layer is not: a super moves 18 N + 4 N_w
+    gathered and 17 N + 2 N_w scattered, a tail layer 4 N + N_w each.
+    The SSM, its blocks on the batch-only residual (one all-gather into
+    it after the embedding; its backward's all-gather out of it before
+    the head): the time mix all-reduces ``wo``'s partial sums (2 N) and,
+    backward, the gradients of the three mixed inputs of ``wr``, ``wk``,
+    ``wv`` (3 x 2 N), and all-gathers the decay's gradient (N); the
+    channel mix reduce-scatters ``k @ wv`` onto channels and all-gathers
+    the product (backward: an all-gather, and two 2 N all-reduces). A
+    rematerialised block runs again up to its channel mix's product: a
+    block moves 3 N gathered, 2 N scattered and 14 N all-reduced. With
+    heads the ranks would cut (8 on 16) the time mix is whole and moves
+    nothing: 2 N, 2 N and 4 N."""
+    cfg, base = smoke(arch, **over)
+    L, d, s, B = cfg.n_layers, cfg.d_model, 128, F.TRAIN_BATCH
+    mesh = mesh_of(dp, mp)
+    model = sharded(base, mesh)
+    opt = AdamW(lr=LR)
+    batch = make_pipeline(cfg, s, B, device="cpu").batch(0)
+    with activation_sharding(mesh):
+        make_train_fn(cfg, opt, microbatches=microbatches, mesh=mesh)(
+            model, opt.init(model), batch)
+    n = (mp - 1) * B * s * d * 4
+    loss = 3 * 2 * (mp - 1) * B * s * 4
+    t = model.traffic()
+    if cfg.family == "hybrid":
+        nw = (mp - 1) * B * s * cfg.rnn_width * 4
+        supers, tail = divmod(L, 3)
+        gathered = supers * (18 * n + 4 * nw) + tail * (4 * n + nw) + 2 * n
+        scattered = supers * (17 * n + 2 * nw) + tail * (4 * n + nw) + 2 * n
+        reduced = loss
+    else:
+        cut = cfg.d_model // cfg.rwkv_head_dim % mp != 0
+        gathered = (2 if cut else 3) * L * n + 4 * n
+        scattered = 2 * L * n + 2 * n
+        reduced = (4 if cut else 14) * L * n + loss
+    assert t["model_all_gather_bytes"] == gathered
+    assert t["model_reduce_scatter_bytes"] == scattered
+    assert t["model_all_reduce_bytes"] == reduced
+
+
 def test_launch_logs_the_compute_and_traffic():
     lines = []
     for arch in ("llama3.2-3b", "olmoe-1b-7b", "rwkv6-7b"):
@@ -420,5 +524,5 @@ def test_launch_logs_the_compute_and_traffic():
     text = "\n".join(lines)
     assert "llama3.2-3b-smoke (dense) computes tensor-parallel" in text
     assert "(moe) computes tensor- and expert-parallel" in text
-    assert "(ssm) computes data-parallel (ROADMAP A.4b)" in text
+    assert "rwkv6-7b-smoke (ssm) computes tensor-parallel" in text
     assert text.count("model_all_gather_bytes") == 3
