@@ -72,7 +72,7 @@ after:
   kernel route and, for the MoE models, the plain route, logits compared
   (flash launches on each MoE prefill, never on the hybrid's windowed
   attention or the SSM, whose routes are one computation), the serve
-  loop, the tokens dropped for capacity, and ``SampledEval`` over 16
+  loop, the tokens dropped for capacity, and ``SampledEval`` over 12
   batches of the MoE model;
 * the trainer (``repro_torch.launch.train``) of every family at full
   width (bf16 weights, float32 moments, 2 AdamW steps of 8 x 1024
@@ -111,6 +111,27 @@ after:
   for bit) and the (2, 16, 16) multi-pod mesh over 512 entries. No
   kernel may launch there.
 
+The cost model (``phase_cost_model``): a child process that sees no
+card starts after the kernels' build and, beside the later phases,
+traces the card's
+program of ``llama3.2-3b``'s ``train_4k``, ``prefill_32k`` and
+``decode_32k`` cells on the (16, 16) production mesh at ``LM_LAYERS``
+layers and ``decode_32k`` whole (``repro_torch.launch.dryrun``:
+memory, FLOPs, bytes, collectives a position), and the two programs the
+card runs here: the LM path's kernel-route prefill (4 x 4096, flash)
+and the trainer's ``llama3.2-3b`` step. The LM and trainer phases run
+those two once more under the counting mode (``launch.cost_analysis.
+CostMode``) on real tensors: their FLOPs must equal the traced
+programs' exactly (flash counted once a real launch), the predicted
+argument-plus-temp bytes are printed beside
+``torch.cuda.max_memory_allocated()``, and no measured time may lie
+below its roofline bound (``launch.roofline``: the H100 SXM5's
+datasheet figures). Each program has two bounds: the eager program's
+(its traced FLOPs and every operator's operands) and the function's
+(``function_work``: the products the model needs, the prefill's head at
+the last position only, and each argument read and each output written
+once), each printed with its share of the measured time.
+
 The two trainers run first, while ``nvcc`` builds the kernels: they
 launch none of them. Any failure raises and exits non-zero.
 
@@ -122,9 +143,11 @@ rest of the repository, it prints no result and exits non-zero.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -2606,6 +2629,7 @@ def phase_lm() -> dict:
     _step("prefill 4 x 4096 (plain attention)", t0)
     compare_logits("prefill 4 x 4096 kernel vs plain", kern, plain)
     del kern, plain
+    kernel_forwards += count_prefill(cfg, params, batch)
 
     # 2. prefill 1 x 32768 (the prefill_32k cell's sequence length)
     long_batch = make_pipeline(cfg, 32768, 1, seed=1,
@@ -2733,7 +2757,9 @@ FAMILY_RUNS = (
     ("recurrentgemma-2b", None, (4, 4096), (4, 128, 32), False),
     ("rwkv6-7b", None, (4, 4096), (4, 128, 32), False),
 )
-FAMILY_EVAL_BATCHES, FAMILY_EVAL_PHASE1 = 16, 8
+# 12 eval batches (16 before the cost model's counted runs were paid
+# for), 8 of them in phase 1
+FAMILY_EVAL_BATCHES, FAMILY_EVAL_PHASE1 = 12, 8
 FAMILY_CACHE = 256
 ROUTING_TIE = 1e-5       # a token's k-th router score leads by less: a tie
 
@@ -2951,7 +2977,7 @@ def phase_families(card: str) -> dict:
 # the enc-dec family at seamless-m4t-large-v2's full size (24 + 24 layers,
 # d_model 1024, 16 heads of 64, vocabulary 256,206; bf16): prefill over 4 x
 # 4096 source frames and target tokens, the serve loop (batch 4, 4096
-# frames, 32 tokens), SampledEval over 16 batches of 4 x 2048 tokens (the
+# frames, 32 tokens), SampledEval over 12 batches of 4 x 2048 tokens (the
 # reference's pipeline gives them 256 frames)
 ENCDEC_ARCH = "seamless-m4t-large-v2"
 ENCDEC_PREFILL = (4, 4096)
@@ -3344,6 +3370,8 @@ def train_full_size(arch: str, layers, microbatches, card: str,
     src_len = min(TRAIN_SEQ, 256) if cfg.family == "encdec" else 0
     tokens = TRAIN_BATCH * TRAIN_SEQ
     warm_s = float(np.mean(run.times[1:]))
+    if arch == LM_ARCH and layers is None:
+        count_train_step(cfg, params, run.opt_state, mb, warm_s, peak)
     flops = train_flops(cfg, params, tokens, TRAIN_SEQ, src_len)
     rec = {"layers": cfg.n_layers, "of_layers": get_config(arch).n_layers,
            "params": cfg.param_count(), "built_params": built,
@@ -3989,6 +4017,266 @@ def phase_sharded_train(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ cost model
+# llama3.2-3b's cells traced on the (16, 16) production mesh at LM_LAYERS
+# layers, and decode_32k whole (``launch.dryrun``), by a child process
+# that sees no card, beside the phases after the build
+COST_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+COST_DIR = ROOT / "build" / "cost_model"
+COST_WAIT_S = 600           # the most the smoke waits for the child at its end
+# the programs this smoke runs on the card, counted under ``CostMode``
+# by ``count_prefill`` and ``count_train_step``
+COUNTED: dict = {}
+
+
+def trace_program(kind: str, cfg, batch: int, seq: int,
+                  microbatches: int = 1) -> dict:
+    """Trace one program the card runs here, unsharded, on the card's
+    routes (the kernel-route prefill, or the trainer's step): its FLOPs,
+    bytes, flash calls, argument bytes and temporaries."""
+    import torch
+    from repro_torch.device import tracing
+    from repro_torch.launch.cost_analysis import CostMode
+    from repro_torch.models.registry import init_params
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import make_prefill_fn, make_train_fn
+
+    t0 = time.perf_counter()
+    with tracing("cuda") as dev:
+        params = init_params(cfg, device=dev, abstract=True)
+        toks = torch.empty((batch, seq), dtype=torch.int32, device=dev)
+        nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+        if kind == "prefill":
+            def run():
+                make_prefill_fn(cfg)(params, {"tokens": toks})
+            args = nbytes + toks.numel() * 4
+        else:
+            opt = AdamW(lr=TRAIN_LR)
+            state = opt.init(params, abstract=True)
+            step = make_train_fn(cfg, opt, microbatches=microbatches)
+
+            def run():
+                step(params, state, {"tokens": toks, "labels": toks})
+            moments = sum(t.numel() * t.element_size()
+                          for tree in (state.m, state.v)
+                          for t in tree.values())
+            args = nbytes + moments + 2 * toks.numel() * 4 + 4
+        with CostMode() as mode:
+            run()
+    tr = mode.trace
+    return {"flops": tr.flops, "bytes": tr.bytes,
+            "transcendentals": tr.transcendentals,
+            "flash_calls": tr.calls("repro_torch.flash_attention"),
+            "argument_bytes": args, "temp_bytes": tr.peak_bytes,
+            "batch": batch, "seq": seq, "n_layers": cfg.n_layers,
+            "trace_s": time.perf_counter() - t0}
+
+
+def function_work(kind: str, prog: dict) -> tuple[int, int]:
+    """The FLOPs and bytes the function of a traced program (``prog``,
+    ``trace_program``'s) needs at least: the model's products at every
+    position (the input embedding a lookup, no product; attention's
+    scores not counted), the prefill's head at the last position only
+    (the program computes it at every position, as the reference's does),
+    the train step's forward and backward (3 x); each argument read once
+    and each output written once (the prefill's ``(b, vocab)`` logits;
+    the step's parameters, moments and step count)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=prog["n_layers"])
+    d, v = cfg.d_model, cfg.vocab
+    body = cfg.active_param_count() - v * d * (1 if cfg.tie_embeddings
+                                               else 2)
+    b, s = prog["batch"], prog["seq"]
+    args = prog["argument_bytes"]
+    if kind == "prefill":
+        return (2 * body * b * s + 2 * b * d * v,
+                args + b * v * cfg.dtype.itemsize)
+    batch_bytes = 2 * b * s * 4                  # int32 tokens and labels
+    return 6 * (body + v * d) * b * s, 2 * args - batch_bytes
+
+
+def cost_model_traces(out: str) -> int:
+    """The child's work (a process that sees no card: ``tracing`` builds
+    on the meta device standing in for it): the dry run's cells and the
+    two programs, as JSON into ``out``."""
+    import shutil
+    t0 = time.perf_counter()
+    os.nice(19)             # the smoke's own phases come first on the host
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    whole = get_config(LM_ARCH)
+    cut = dataclasses.replace(whole, n_layers=LM_LAYERS)
+    shutil.rmtree(COST_DIR / "records", ignore_errors=True)
+    recs = {}
+    for shape in COST_CELLS:
+        recs[f"{shape} on {LM_LAYERS} layers"] = dryrun.run_cell(
+            LM_ARCH, shape, "single", COST_DIR / "records" / "cut",
+            cfg=cut)
+    recs["decode_32k whole"] = dryrun.run_cell(
+        LM_ARCH, "decode_32k", "single", COST_DIR / "records" / "whole",
+        cfg=whole)
+    programs = {
+        "prefill": trace_program("prefill", cut, 4, 4096),
+        "train": trace_program("train", whole, TRAIN_BATCH, TRAIN_SEQ,
+                               microbatches=2)}
+    pathlib.Path(out).write_text(json.dumps(
+        {"records": recs, "programs": programs,
+         "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def start_cost_model():
+    """Start the child that traces (``cost_model_traces``); it sees no
+    card (``CUDA_VISIBLE_DEVICES`` empty)."""
+    COST_DIR.mkdir(parents=True, exist_ok=True)
+    out = COST_DIR / "traces.json"
+    if out.exists():
+        out.unlink()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    with open(COST_DIR / "child.log", "w") as child_log:
+        proc = subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--cost-model-traces", str(out)], env=env, stdout=child_log,
+            stderr=subprocess.STDOUT)
+    # a smoke that fails before it waits for the child stops it too
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, time.perf_counter()
+
+
+def count_prefill(cfg, params, batch) -> int:
+    """The LM path's kernel-route prefill once warm (timed) and once
+    under ``CostMode`` (counted, with its real flash launches and peak
+    memory); returns the forwards run (2)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.cost_analysis import CostMode
+    from repro_torch.train.step import make_prefill_fn
+    prefill = make_prefill_fn(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    launches = flash_ops.launch_count()
+    with CostMode() as mode:
+        prefill(params, batch)
+    torch.cuda.synchronize()
+    tr = mode.trace
+    COUNTED["prefill"] = {
+        "flops": tr.flops, "bytes": tr.bytes,
+        "flash_calls": tr.calls("repro_torch.flash_attention"),
+        "flash_launches": flash_ops.launch_count() - launches,
+        "ms": warm_ms, "max_memory_allocated":
+            torch.cuda.max_memory_allocated()}
+    log(f"LM prefill 4 x 4096 warm {warm_ms:.3f} ms; counted "
+        f"{tr.flops} FLOPs, {tr.bytes} bytes, "
+        f"{COUNTED['prefill']['flash_calls']} flash calls")
+    return 2
+
+
+def count_train_step(cfg, params, opt_state, microbatches: int,
+                     warm_s: float, run_peak: int) -> None:
+    """The trainer's ``LM_ARCH`` step once more (a third step, on the
+    run's weights and moments) under ``CostMode``."""
+    import torch
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.cost_analysis import CostMode
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import make_train_fn
+    step = make_train_fn(cfg, AdamW(lr=TRAIN_LR), microbatches=microbatches)
+    b = make_pipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0,
+                      device="cuda").batch(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with CostMode() as mode:
+        step(params, opt_state, b)
+    torch.cuda.synchronize()
+    COUNTED["train"] = {"flops": mode.trace.flops,
+                        "bytes": mode.trace.bytes,
+                        "ms": warm_s * 1e3, "max_memory_allocated": run_peak}
+
+
+def phase_cost_model(child, card: str) -> dict:
+    """Wait for the child's traces; print each record; hold the counted
+    programs' FLOPs equal to the traced ones', print the predicted
+    argument-plus-temp bytes beside the measured peaks, and fail where a
+    measured time lies below its roofline bound."""
+    from repro_torch.launch.roofline import CARD, bound_ms
+    proc, out, started = child
+    waited = time.perf_counter()
+    try:
+        proc.wait(timeout=COST_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError("the cost model's traces took longer than "
+                             f"{COST_WAIT_S} s after the smoke")
+    text = (COST_DIR / "child.log").read_text()
+    for line in text.splitlines()[-20:]:
+        log(f"  cost model child: {line}")
+    if proc.returncode != 0 or not out.exists():
+        raise AssertionError(f"the cost model's child exited "
+                             f"{proc.returncode}")
+    got = json.loads(out.read_text())
+    log(f"cost model: the child ran {got['seconds']:.1f} s beside the "
+        f"smoke, which waited for it {time.perf_counter() - waited:.1f} s "
+        f"at {waited - started:.1f} s")
+    for name, rec in got["records"].items():
+        if not rec.get("ok"):
+            raise AssertionError(f"cost model {name}: {rec.get('error')}")
+        log(f"cost model {name}: trace {rec['lower_s']} s, analysis "
+            f"{rec['compile_s']} s")
+        log("cost record " + json.dumps(
+            {k: v for k, v in rec.items() if k != "traceback"}))
+    bounds = {}
+    for kind in ("prefill", "train"):
+        want, have = got["programs"][kind], COUNTED.get(kind)
+        if have is None:
+            raise AssertionError(f"cost model: the {kind} was not counted")
+        if have["flops"] != want["flops"]:
+            raise AssertionError(
+                f"cost model {kind}: counted {have['flops']} FLOPs on the "
+                f"card, traced {want['flops']}")
+        bound, by = bound_ms(want["flops"], want["bytes"])
+        fn_flops, fn_bytes = function_work(kind, want)
+        fn_bound, fn_by = bound_ms(fn_flops, fn_bytes)
+        bounds[kind] = {"bound_ms": bound, "bound_by": by, "ms": have["ms"],
+                        "flops": want["flops"], "traced_bytes":
+                            want["bytes"], "counted_bytes": have["bytes"],
+                        "function_bound_ms": fn_bound,
+                        "function_bound_by": fn_by,
+                        "function_flops": fn_flops,
+                        "function_bytes": fn_bytes,
+                        "trace_s": want["trace_s"]}
+        predicted = want["argument_bytes"] + want["temp_bytes"]
+        log(f"cost model {kind}: FLOPs {have['flops']} counted = traced; "
+            f"bytes counted {have['bytes']}, traced {want['bytes']}; "
+            f"measured {have['ms']:.3f} ms against the eager program's "
+            f"bound {bound:.3f} ms ({by}; share {bound / have['ms']:.4f}) "
+            f"and the function's {fn_bound:.3f} ms ({fn_flops} FLOPs, "
+            f"{fn_bytes} bytes; {fn_by}; share "
+            f"{fn_bound / have['ms']:.4f}) ({CARD}; this card {card}); "
+            f"predicted argument + temp {predicted / 2**30:.2f} GiB beside "
+            f"max_memory_allocated {have['max_memory_allocated'] / 2**30:.2f}"
+            " GiB")
+        if have["ms"] < max(bound, fn_bound):
+            raise AssertionError(
+                f"cost model {kind}: {have['ms']:.3f} ms measured, below "
+                f"its bound {max(bound, fn_bound):.3f}")
+    pre = got["programs"]["prefill"]
+    if not (COUNTED["prefill"]["flash_calls"] == pre["flash_calls"]
+            == COUNTED["prefill"]["flash_launches"] == LM_LAYERS):
+        raise AssertionError(f"cost model: flash calls counted "
+                             f"{COUNTED['prefill']}, traced "
+                             f"{pre['flash_calls']}")
+    return {"programs": got["programs"], "counted": COUNTED,
+            "bounds": bounds}
+
+
 def main() -> int:
     try:
         import torch
@@ -4031,6 +4319,8 @@ def main() -> int:
             card)
 
     timed("build", phase_build, backend_mod, train_while_building)
+    # after the trainers, whose CPU steps share the host's cores
+    cost_child = start_cost_model()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     assign = timed("kmeans_assign checks", check_kmeans_assign, gen)
@@ -4067,6 +4357,9 @@ def main() -> int:
     by_path["encdec"] = timed("enc-dec path", phase_encdec, card)
     by_path["train"] = train_path["launches"]
     by_path["sharded_train"] = train_path["sharded"]
+    cost = timed("cost model (waiting for its child)", phase_cost_model,
+                 cost_child, card)
+    log("cost model record " + json.dumps(cost))
     log("seconds by phase: " + ", ".join(
         f"{name} {s:.1f}" for name, s in seconds.items())
         + f"; the whole script {time.perf_counter() - started:.1f}")
@@ -4143,4 +4436,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cost-model-traces"]:
+        sys.exit(cost_model_traces(sys.argv[2]))
     sys.exit(main())

@@ -38,6 +38,13 @@ compute needs it whole
 pieces. The positions of a data rank compute on the device of its first
 position; a piece held on another device is copied there.
 
+``ShardedCaches`` keeps a decode step's caches as ``Sharded`` leaves by
+``sharding.cache_specs`` (the batch over the data axes, on ``"model"`` a
+KV cache's heads, else its head width, and a recurrent state's longest
+dimension past the batch), on a mesh whose positions all name one
+device: each data rank's decode reads and writes its pieces in place,
+as views ``(R, ...)`` of its model positions' pieces (``rank_views``).
+
 ``traffic(...)`` counts the bytes a step would move between distinct
 devices. With data-parallel compute: what each data-parallel rank
 gathers (the pieces its group of mesh positions does not hold) and what
@@ -63,8 +70,8 @@ from ..launch.mesh import data_axes
 from .ctx import PartitionSpec
 from .tp import COLLECTIVES
 
-__all__ = ["Layout", "Sharded", "ShardedModel", "reduce_into",
-           "leaf_abs_max", "data_ranks", "traffic"]
+__all__ = ["Layout", "Sharded", "ShardedModel", "ShardedCaches",
+           "reduce_into", "leaf_abs_max", "data_ranks", "traffic"]
 
 
 def _names(entry) -> tuple[str, ...]:
@@ -534,3 +541,104 @@ class ShardedModel:
                            for lay in self.moment_layouts.values())
         return {"params_per_shard": per, "params_total": total,
                 "moment_per_shard": moment, "moment_total": moment_total}
+
+
+def _is_leaf(x) -> bool:
+    return x is not None and (not isinstance(x, tuple)
+                              or isinstance(x, PartitionSpec))
+
+
+def _leaves(tree) -> list:
+    """The leaves of a tree of (named) tuples, in order (None is no
+    leaf; a ``PartitionSpec`` is one)."""
+    if tree is None:
+        return []
+    if _is_leaf(tree):
+        return [tree]
+    return [leaf for sub in tree for leaf in _leaves(sub)]
+
+
+def _rebuild(tree, leaves):
+    """``tree``'s structure with its leaves taken in order from the
+    iterator ``leaves``."""
+    if tree is None:
+        return None
+    if _is_leaf(tree):
+        return next(leaves)
+    parts = [_rebuild(sub, leaves) for sub in tree]
+    return type(tree)(*parts) if hasattr(tree, "_fields") \
+        else type(tree)(parts)
+
+
+class ShardedCaches:
+    """A decode step's caches (the family's cache tuple) stored as
+    ``Sharded`` leaves on ``mesh`` by ``specs`` (the same structure,
+    ``sharding.cache_specs``). Every position of the mesh must name one
+    device, which then holds every piece as one stack a leaf, so a data
+    rank's pieces are views of it and a step updates them in place. A
+    leaf's ``model_dims`` entry is the dimension its spec puts on
+    ``"model"`` (None: whole on every model position)."""
+
+    def __init__(self, caches, specs, mesh):
+        devs = {str(d) for d in mesh.devices.flat}
+        if len(devs) != 1:
+            raise NotImplementedError(
+                "the sharded decode keeps its caches in place on a mesh "
+                f"that names one device; this one names {sorted(devs)}")
+        self.mesh = mesh
+        self.device = mesh.devices.flat[0]
+        self.structure = caches
+        leaves, spec_leaves = _leaves(caches), _leaves(specs)
+        if len(leaves) != len(spec_leaves):
+            raise ValueError("the cache specs do not match the caches")
+        self.leaves = [Sharded.place(t, Layout(t.shape, sp, mesh))
+                       for t, sp in zip(leaves, spec_leaves)]
+        self.model_dims = [next((i for i, e in enumerate(sh.layout.spec)
+                                 if "model" in _names(e)), None)
+                           for sh in self.leaves]
+        self._whole: dict[int, torch.Tensor] = {}
+
+    def dims(self):
+        """``model_dims`` in the caches' structure."""
+        return _rebuild(self.structure, iter(self.model_dims))
+
+    def rank_views(self, data_index: int):
+        """The caches as data rank ``data_index`` computes with them, in
+        their structure: a leaf with a batch (dimension 1) is a view of
+        the rank's pieces, ``(R, ...)`` stacked by model rank where the
+        spec names ``"model"`` (its dimension cut in R), else the rank's
+        one piece; a leaf without one (the hybrid's ring positions, the
+        enc-dec's memory positions) is the whole leaf, gathered once a
+        step and written back by ``commit``."""
+        views = []
+        for i, (sh, m) in enumerate(zip(self.leaves, self.model_dims)):
+            lay = sh.layout
+            if len(lay.shape) < 3:
+                if i not in self._whole:
+                    self._whole[i] = sh.gather(self.device)
+                views.append(self._whole[i])
+                continue
+            grid = sh.grid(self.device)
+            at = [slice(None) if d == m else
+                  (data_index if d == 1 and lay.counts[1] > 1 else 0)
+                  for d in range(len(lay.shape))]
+            views.append(grid[tuple(at)])
+        return _rebuild(self.structure, iter(views))
+
+    @torch.no_grad()
+    def commit(self) -> None:
+        """Write the whole leaves ``rank_views`` handed out back into
+        their pieces."""
+        for i, whole in self._whole.items():
+            self.leaves[i].load_(whole)
+        self._whole.clear()
+
+    def gather(self):
+        """The whole caches on the mesh's device, in their structure."""
+        return _rebuild(self.structure,
+                        iter([sh.gather(self.device) for sh in self.leaves]))
+
+    def nbytes_per_device(self) -> int:
+        """The bytes of cache a mesh position holds."""
+        return sum(math.prod(sh.layout.block) * sh.dtype.itemsize
+                   for sh in self.leaves)

@@ -43,7 +43,11 @@ experts' slots; its combine is ``scatter_sum`` (or
 between distinct devices, counted as a ring moves them: an all-gather
 or a reduce-scatter of an ``N``-byte tensor ``(R - 1) N`` over the
 group, an all-reduce ``2 (R - 1) N`` (``N`` in the tensor's type;
-rematerialised layers count again, as they run again). ``model_dim``
+rematerialised layers count again, as they run again). ``calls`` keeps,
+by type, how many collectives ran and the bytes of the result each
+position holds after one (``N`` for an all-gather or an all-reduce,
+``N / R`` for a reduce-scatter), the cost model's per-device view
+(``launch.cost_analysis.model_axis_collectives``). ``model_dim``
 asks ``ctx.constraint_spec`` where a kind of activation keeps
 ``"model"``; ``placed`` checks a tensor against that layout and logs
 it, ``check`` a split the compute took from its weights' shape.
@@ -76,6 +80,8 @@ class Group:
         self.size = int(mesh.shape["model"])
         self.seq_parallel = seq_parallel
         self.traffic = {name: 0 for name in COLLECTIVES}
+        # by type: [collectives run, result bytes a position holds]
+        self.calls = {name: [0, 0] for name in COLLECTIVES}
         self.layouts: list[tuple[str, tuple, Optional[int]]] = []
         # per MoE layer run (not its rematerialisation): the experts each
         # model rank ran and the kept (token, expert) pairs it computed,
@@ -170,8 +176,13 @@ class Group:
         return split_to_ranks(y, self, 1) if self.seq_split(shape) else y
 
     def count(self, what: str, t: torch.Tensor, times: int = 1) -> None:
-        self.traffic[what] += times * (self.size - 1) * t.numel() \
-            * t.element_size()
+        """One collective of type ``what`` on the whole tensor ``t``
+        (``times`` 2 for an all-reduce's two ring passes)."""
+        nbytes = t.numel() * t.element_size()
+        self.traffic[what] += times * (self.size - 1) * nbytes
+        self.calls[what][0] += 1
+        self.calls[what][1] += nbytes // self.size \
+            if what == "reduce_scatter" else nbytes
 
 
 def ranked_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..device import traces_card
+
 __all__ = ["ROUTES", "resolve_route", "library", "build_all", "build_info",
            "check_launch", "ptr", "stream_handle", "shard_scope",
            "current_shard", "BUILD_DIR", "CSRC_DIR"]
@@ -77,7 +79,7 @@ def resolve_route(t: torch.Tensor, backend: str) -> str:
                          f"{ROUTES}")
     if backend == "plain":
         return "plain"
-    if t.is_cuda:
+    if t.is_cuda or traces_card(t.device):
         return "kernel"
     if t.device.type == "cpu":
         return "plain"

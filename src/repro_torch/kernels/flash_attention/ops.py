@@ -37,6 +37,17 @@ its model trains through ``attention_ref``): with grad mode on and q, k
 or v requiring a gradient the wrapper raises ``RuntimeError``, so a
 gradient is never dropped unseen. Training takes the model's
 ``backend="plain"`` route.
+
+The kernel route goes through one operator, ``repro_torch::
+flash_attention`` (``torch.library.custom_op``), so a program that
+reaches flash can be traced: under ``FakeTensorMode`` (the cost model's
+abstract path, ``launch.cost_analysis``) its fake gives the output's
+shape and launches nothing, and its FLOPs formula (``flash_flops``,
+registered with ``torch.utils.flop_counter``) counts the work the kernel
+does. On a real CUDA tensor the operator launches the same kernel as
+before (same grid, ``last_dispatch()``); the launch counter counts real
+launches only, so a trace leaves it untouched (a traced program keeps
+its flash calls in its own op log).
 """
 
 from __future__ import annotations
@@ -47,12 +58,15 @@ from typing import Optional
 
 import torch
 
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
+
 from .. import backend as _backend
 from .ref import flash_attention_ref
 
 __all__ = ["flash_attention", "last_dispatch", "launch_count",
-           "reset_launch_count", "tensor_map_args", "MAX_HEAD_DIM",
-           "BF16_ROWS"]
+           "reset_launch_count", "tensor_map_args", "flash_flops",
+           "MAX_HEAD_DIM", "BF16_ROWS", "F32_ROWS"]
 
 MAX_HEAD_DIM = 128
 BF16_ROWS = 128          # query rows per block and keys per K/V tile (bf16)
@@ -126,7 +140,7 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
     if bad:
         raise ValueError(f"{name}: strides {tuple(t.stride())} must be "
                          "multiples of 8 elements")
-    if t.data_ptr() % 16:
+    if not is_fake(t) and t.data_ptr() % 16:
         raise ValueError(f"{name}: data must start on a 16-byte boundary")
 
 
@@ -206,6 +220,58 @@ def launch(q, k, v, out, scale: float, entry=None, *,
     return grid
 
 
+def flash_flops(q_shape, k_shape, dtype: torch.dtype, causal: bool) -> int:
+    """FLOPs of one kernel launch as the kernel does them: per ``(b,
+    hq)``, query tile ``i`` (``R`` rows: 128 in bf16, 64 in float32)
+    takes ``n_i`` key tiles of ``K = R`` keys, each two ``R x K x d``
+    products done whole (ragged edges masked, not skipped), so
+
+        flops = 4 b hq R K d sum_i n_i,
+
+    with ``n_i = ceil(skv / K)`` bidirectional (every tile) and, causal,
+    ``n_i = ceil((min((i + 1) R, sq) + skv - sq) / K)`` (the tiles on or
+    below the end-aligned diagonal; those wholly above it are skipped).
+    Where ``sq = skv = n R`` that is ``2 b hq d s (s + R)`` causal and
+    ``4 b hq d s^2`` bidirectional."""
+    b, hq, sq, d = q_shape
+    skv = k_shape[2]
+    rows = BF16_ROWS if dtype == torch.bfloat16 else F32_ROWS
+    tiles = 0
+    for i in range(-(-sq // rows)):
+        kv_end = min((i + 1) * rows, sq) + skv - sq if causal else skv
+        tiles += -(-kv_end // rows)
+    return 4 * b * hq * rows * rows * d * tiles
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float, causal: bool) -> torch.Tensor:
+    """The kernel of q's type on checked CUDA tensors: returns the
+    ``(b, sq, hq, d)`` output."""
+    b, hq, sq, d = q.shape
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    grid = launch(q, k, v, out.transpose(1, 2), scale, causal=causal)
+    global _last_dispatch
+    _launches["causal" if causal else "non_causal"] += 1
+    _last_dispatch = {"b": b, "hq": hq, "hkv": k.shape[1], "sq": sq,
+                      "skv": k.shape[2], "d": d, "causal": bool(causal),
+                      "dtype": q.dtype,
+                      "source": _ENTRY[q.dtype][0], "grid": grid}
+    return out
+
+
+@_flash_op.register_fake
+def _(q, k, v, scale, causal):
+    b, hq, sq, d = q.shape
+    return q.new_empty((b, sq, hq, d))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention, get_raw=True)
+def _flash_op_flops(q, k, v, scale, causal, *, out_val=None, **kwargs
+                    ) -> int:
+    return flash_flops(tuple(q.shape), tuple(k.shape), q.dtype, causal)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -225,16 +291,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     route = _backend.resolve_route(q, "auto")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on the same device")
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
     if route == "plain":
+        out = torch.empty((b, sq, hq, d), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
         return out.copy_(flash_attention_ref(q, k, v, scale=scale,
                                              causal=causal))
-    grid = launch(q, k, v, out, scale, causal=causal)
-    global _last_dispatch
-    _launches["causal" if causal else "non_causal"] += 1
-    _last_dispatch = {"b": b, "hq": hq, "hkv": k.shape[1], "sq": sq,
-                      "skv": k.shape[2], "d": d, "causal": bool(causal),
-                      "dtype": q.dtype,
-                      "source": _ENTRY[q.dtype][0], "grid": grid}
-    return out
+    return torch.ops.repro_torch.flash_attention(
+        q, k, v, float(scale), bool(causal)).transpose(1, 2)

@@ -25,6 +25,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..device import is_traced, resolve_device
+
 __all__ = ["Mesh", "make_app_mesh", "make_app_trial_mesh", "make_host_mesh",
            "make_production_mesh", "data_axes", "axis_size",
            "default_devices", "as_device"]
@@ -32,8 +34,12 @@ __all__ = ["Mesh", "make_app_mesh", "make_app_trial_mesh", "make_host_mesh",
 
 def as_device(dev) -> torch.device:
     """``dev`` as a ``torch.device``; a CUDA device gets its index (the
-    current one when it names none) and must exist."""
+    current one when it names none) and must exist; the device
+    ``repro_torch.device.tracing`` names is the one its tensors are made
+    on."""
     d = torch.device(dev)
+    if is_traced(d):
+        return resolve_device(d)
     if d.type != "cuda":
         return d
     if not torch.cuda.is_available():

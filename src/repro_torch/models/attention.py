@@ -29,6 +29,18 @@ all-reduce) of the ranks' partial sums. Where the heads do not divide,
 the query rows: each rank its rows of q, from the whole weights, against
 the whole k and v. K and v are computed once where they are replicated.
 With ``window=`` it is the hybrid's local attention.
+
+``decode_attention_tp`` and ``cross_attention_tp`` are the sharded
+decode step's (one new token per row, the residual replicated over the
+model ranks): the cache comes as each model rank's part, split as
+``sharding.cache_specs`` splits it. By heads: q, k and v
+column-parallel (each rank its heads' columns), the new k and v written
+into the rank's heads, attention on them, ``wo`` row-parallel and the
+partial sums all-reduced. By head width (the KV heads do not divide):
+q, k and v computed once from the whole weights, each rank writes and
+reads its slice of every head's width, the ranks' partial q.k logits
+all-reduced (float32, rank order), the softmax replicated, each rank's
+slice of the value product all-gathered, and ``wo`` whole.
 """
 
 from __future__ import annotations
@@ -40,17 +52,26 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..distributed.tp import ranked_matmul
+from ..distributed.tp import (copy_to_ranks, gather_from_ranks,
+                              ranked_matmul, reduce_from_ranks,
+                              split_to_ranks)
 from ..kernels import backend as _backend
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_ref
 from .common import ModelConfig, new_param, rope
 
 __all__ = ["Attention", "attention", "attention_tp", "mha_attend",
-           "make_kv_cache", "repeat_kv", "CHUNKED_KV_THRESHOLD", "KV_CHUNK"]
+           "make_kv_cache", "repeat_kv", "decode_attention_tp",
+           "cross_attention_tp", "cache_split", "layer_of",
+           "CHUNKED_KV_THRESHOLD", "KV_CHUNK", "BF16_ATTENTION_OPERANDS"]
 
 CHUNKED_KV_THRESHOLD = 2048
 KV_CHUNK = 1024
+# the reference's switch of the streaming softmax (``_attend_chunked``):
+# True, the probabilities are rounded to v's type before the value
+# product (its bf16 operands); False, float32 operands and float32
+# probabilities. ``launch.perf``'s ``f32attn`` / ``bf16attn`` set it.
+BF16_ATTENTION_OPERANDS = True
 _NEG_INF = -1e30
 
 
@@ -115,8 +136,11 @@ def _attend_chunked(q, k, v, *, window: Optional[int],
     """Streaming-softmax attention in plain products (the flash algorithm
     as a loop over kv chunks): the ``(sq, skv)`` logits never exist whole.
     Products take the operands upcast to float32 (the reference's bf16
-    operands with float32 accumulation); the probabilities are rounded to
-    v's type before the value product, as the reference rounds them. The
+    operands with float32 accumulation, or with
+    ``BF16_ATTENTION_OPERANDS`` False its float32 operands: the same
+    products); the probabilities are rounded to v's type before the value
+    product where ``BF16_ATTENTION_OPERANDS`` is True, as the reference
+    rounds them, and stay float32 where it is False. The
     reference pads the last chunk and masks it; a shorter last chunk gives
     the same result. Without ``causal`` (the enc-dec model's, which has
     no window) the reference masks only its padding columns, so no column
@@ -149,8 +173,9 @@ def _attend_chunked(q, k, v, *, window: Optional[int],
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.matmul(p.to(v_c.dtype).float(),
-                                         v_c.float())
+        if BF16_ATTENTION_OPERANDS:
+            p = p.to(v_c.dtype).float()
+        acc = acc * alpha + torch.matmul(p, v_c.float())
         m = m_new
     return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
 
@@ -345,6 +370,132 @@ def _decode_attend(q, k, v, positions, *, window: Optional[int]
     probs = torch.softmax(logits, dim=-1)
     out = torch.matmul(probs.to(v.dtype).float(), v[:, :, None].float())
     return out.reshape(b, hq, s, dh).to(q.dtype)
+
+
+def cache_split(model_dim) -> Optional[str]:
+    """How a ``(b, h, s, dh)`` KV cache's model dimension (of its
+    stacked ``(L, b, h, s, dh)`` leaf, ``ShardedCaches.model_dims``)
+    splits it: ``"heads"``, ``"width"`` or None (whole). A split of the
+    sequence (neither heads nor width divide) is refused."""
+    if model_dim is None:
+        return None
+    if model_dim in (2, 4):
+        return "heads" if model_dim == 2 else "width"
+    raise NotImplementedError(
+        "a KV cache split over its sequence (neither its heads nor its "
+        "head width divide the model ranks) has no per-rank decode")
+
+
+def layer_of(t: torch.Tensor, i: int, dim) -> torch.Tensor:
+    """Layer ``i`` of a stacked cache leaf as a data rank holds it:
+    ``(R, L, ...)`` by model rank where ``dim`` (its model dimension,
+    ``spmd.ShardedCaches.model_dims``) is not None, else ``(L, ...)``."""
+    return t[:, i] if dim is not None else t[i]
+
+
+def _heads(w: torch.Tensor, x: torch.Tensor, heads: int, dh: int, split,
+           group) -> torch.Tensor:
+    """``x @ w`` as heads: ``(R, b, s, heads / R, dh)`` from the ranks'
+    columns where ``split`` is ``"heads"``, else ``(b, s, heads, dh)``
+    once."""
+    b, s = x.shape[0], x.shape[1]
+    if split == "heads":
+        return ranked_matmul(copy_to_ranks(x, group), w).view(
+            group.size, b, s, heads // group.size, dh)
+    return (x @ w).view(b, s, heads, dh)
+
+
+def _cache_write(cache: torch.Tensor, t: torch.Tensor, slot: torch.Tensor,
+                 split, group) -> None:
+    """The new ``t`` (``(R, b, h / R, 1, dh)`` by heads, else ``(b, h,
+    1, dh)``) into the rank's ``cache`` at ``slot``, in place."""
+    if split == "width":
+        t = split_to_ranks(t, group, 3)
+    cache.index_copy_(-2, slot, t.to(cache.dtype))
+
+
+def _cache_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                  valid: Optional[torch.Tensor], split, group
+                  ) -> torch.Tensor:
+    """Single-query attention of q (``(R, b, hq / R, 1, dh)`` by heads,
+    else ``(b, hq, 1, dh)``) against a rank's cache (``(R, b, hkv / R,
+    S, dh)``, ``(R, b, hkv, S, dh / R)`` or whole ``(b, hkv, S, dh)``),
+    the slots ``valid`` ``(S,)`` visible (None: all), in float32 as
+    ``_decode_attend``; returns q's layout (whole by width)."""
+    dh = q.shape[-1]
+    hkv = ck.shape[-3] * (group.size if split == "heads" else 1)
+    lead = q.shape[:-3]
+    hq_r = q.shape[-3]
+    qg = q.reshape(*lead, ck.shape[-3], hq_r // ck.shape[-3], 1, dh)
+    if split == "width":
+        qg = split_to_ranks(qg, group, 4)
+    logits = torch.matmul(qg.float(), ck.unsqueeze(-3).float()
+                          .transpose(-1, -2))
+    if split == "width":
+        logits = reduce_from_ranks(logits, group)
+    logits = logits * (1.0 / math.sqrt(dh))
+    if valid is not None:
+        logits = logits.masked_fill(~valid, float("-inf"))
+    probs = torch.softmax(logits, dim=-1).to(cv.dtype).float()
+    if split == "width":
+        out = torch.matmul(copy_to_ranks(probs, group),
+                           cv.unsqueeze(-3).float())
+        out = gather_from_ranks(out, group, 4)
+        return out.reshape(*lead, hkv * (hq_r // ck.shape[-3]), 1,
+                           dh).to(q.dtype)
+    out = torch.matmul(probs, cv.unsqueeze(-3).float())
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, split, group
+              ) -> torch.Tensor:
+    """The attention output (q's layout) through ``wo``: row-parallel
+    partial sums all-reduced by heads, else once; ``(b, 1, d)``."""
+    if split == "heads":
+        r, b, h, s, dh = out.shape
+        y = out.transpose(2, 3).reshape(r, b, s, h * dh)
+        return reduce_from_ranks(ranked_matmul(y, wo), group)
+    b, h, s, dh = out.shape
+    return out.transpose(1, 2).reshape(b, s, h * dh) @ wo
+
+
+def decode_attention_tp(params: Attention, x: torch.Tensor,
+                        cfg: ModelConfig, group, positions: torch.Tensor,
+                        ck: torch.Tensor, cv: torch.Tensor, split, *,
+                        slot: torch.Tensor, valid: torch.Tensor,
+                        rope_at: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """A decode step's self-attention of the replicated ``x`` ``(b, 1,
+    d)`` on a data rank's model positions against their cache parts
+    ``ck``/``cv`` (split ``split``, ``cache_split``): RoPE at ``rope_at``
+    (``positions`` when None), the new k and v written at ``slot`` in
+    place, the slots ``valid`` visible. ``params`` comes split by heads
+    (``(R, d, n / R)``, ``(R, n / R, d)``) where ``split`` is
+    ``"heads"``, else whole. Returns ``(b, 1, d)``, replicated."""
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    at = positions if rope_at is None else rope_at
+    q = rope(_heads(params.wq, x, hq, dh, split, group), at, cfg.rope_theta)
+    k = rope(_heads(params.wk, x, hkv, dh, split, group), at,
+             cfg.rope_theta)
+    v = _heads(params.wv, x, hkv, dh, split, group)
+    q, k, v = (t.transpose(-3, -2) for t in (q, k, v))   # (.., h, 1, dh)
+    _cache_write(ck, k, slot, split, group)
+    _cache_write(cv, v, slot, split, group)
+    out = _cache_attend(q, ck, cv, valid, split, group)
+    return _out_proj(out, params.wo, split, group)
+
+
+def cross_attention_tp(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+                       group, ck: torch.Tensor, cv: torch.Tensor, split, *,
+                       rope_at: torch.Tensor) -> torch.Tensor:
+    """The enc-dec decode step's cross-attention of the replicated ``x``
+    against the rank's parts of the precomputed cross K/V (every source
+    slot visible); q rotated at ``rope_at``."""
+    hq, dh = cfg.n_heads, cfg.head_dim
+    q = rope(_heads(params.wq, x, hq, dh, split, group), rope_at,
+             cfg.rope_theta).transpose(-3, -2)
+    out = _cache_attend(q, ck, cv, None, split, group)
+    return _out_proj(out, params.wo, split, group)
 
 
 def make_kv_cache(cfg: ModelConfig, batch: int, s_max: int, n_layers: int,

@@ -34,7 +34,7 @@ from ..distributed import tp
 
 __all__ = ["ModelConfig", "rms_norm", "rope", "cross_entropy_loss",
            "new_param", "normal_", "embed_tp", "lm_head_loss_tp",
-           "vocab_parallel_cross_entropy"]
+           "last_logits_tp", "vocab_parallel_cross_entropy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,28 +197,59 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(m + torch.log(sumexp) - gold)
 
 
-def lm_head_loss_tp(x: torch.Tensor, head: torch.Tensor,
-                    labels: torch.Tensor, group, shape) -> torch.Tensor:
-    """Mean next-token cross-entropy of the final normed residual ``x``
-    (whole shape ``shape``) against ``labels`` ``(b, s)``: ``head`` ``(R,
-    d, V / R)`` (vocab parallel) or whole ``(d, V)``."""
-    b, s, d = shape
+def _head_logits_tp(x: torch.Tensor, head: torch.Tensor, group, shape
+                    ) -> tuple[torch.Tensor, Optional[int]]:
+    """The logits ``(b, s, V)`` of the final normed residual ``x`` (whole
+    shape ``shape``) at every position, in the ``logits_v`` layout, and
+    the dimension it puts on ``"model"``: ``head`` ``(R, d, V / R)``
+    (vocab parallel, ``(R, b, s, V / R)``: 2) or whole ``(d, V)`` (each
+    rank's sequence rows ``(R, b, s / R, V)``: 1; or replicated ``(b, s,
+    V)``: None). The loss and the prefill's last logits both take them,
+    so a step costs the same head on every ``"model"`` degree as the
+    unsharded forward and the reference's program."""
+    b, s, _ = shape
     vocab = head.shape[-1] * (group.size if head.dim() == 3 else 1)
     lshape = (b, s, vocab)
     if head.dim() == 3:
         full, _ = group.whole(x, shape)
-        logits = group.placed("logits_v", lshape,
-                              tp.ranked_matmul(full, head))
+        return group.placed("logits_v", lshape,
+                            tp.ranked_matmul(full, head)), 2
+    if group.model_dim("logits_v", lshape) == 1:
+        return group.placed("logits_v", lshape,
+                            group.rows(x, shape) @ head), 1
+    _, once = group.whole(x, shape)
+    return group.placed("logits_v", lshape, once @ head), None
+
+
+def lm_head_loss_tp(x: torch.Tensor, head: torch.Tensor,
+                    labels: torch.Tensor, group, shape) -> torch.Tensor:
+    """Mean next-token cross-entropy of the final normed residual ``x``
+    (whole shape ``shape``) against ``labels`` ``(b, s)``
+    (``_head_logits_tp``'s logits)."""
+    b, s, _ = shape
+    logits, dim = _head_logits_tp(x, head, group, shape)
+    if dim == 2:
         return vocab_parallel_cross_entropy(
             logits.reshape(group.size, b * s, -1), labels.reshape(-1), group)
-    if group.model_dim("logits_v", lshape) == 1:     # whole head
-        logits = group.placed("logits_v", lshape,
-                              group.rows(x, shape) @ head).float()
+    if dim == 1:
+        logits = logits.float()
         rows = tp.split_ranks(labels, 1, group.size)
         gold = torch.gather(logits, -1, rows.long()[..., None])[..., 0]
         per = torch.logsumexp(logits, dim=-1) - gold
         total = tp.reduce_from_ranks(per.sum(dim=(1, 2)), group)
         return total / (b * s)
-    _, once = group.whole(x, shape)
-    logits = group.placed("logits_v", lshape, once @ head)
     return cross_entropy_loss(logits, labels)
+
+
+def last_logits_tp(x: torch.Tensor, head: torch.Tensor, group, shape
+                   ) -> torch.Tensor:
+    """The last position's logits ``(b, V)``, replicated, of
+    ``_head_logits_tp``'s: vocab parallel, each rank's vocabulary's row
+    all-gathered; split by sequence, the last rank's last row (each
+    rank's last row all-gathered, the others dropped)."""
+    logits, dim = _head_logits_tp(x, head, group, shape)
+    if dim == 2:
+        return tp.gather_from_ranks(logits[:, :, -1], group, 1)
+    if dim == 1:
+        return tp.gather_to_ranks(logits[:, :, -1:], group, 1)[0, :, -1]
+    return logits[:, -1]

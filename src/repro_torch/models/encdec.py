@@ -53,13 +53,16 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import (Attention, _decode_attend, attention_tp,
-                        make_kv_cache, mha_attend, repeat_kv)
+                        cache_split, cross_attention_tp, decode_attention_tp,
+                        layer_of, make_kv_cache, mha_attend, repeat_kv)
 from .common import (ModelConfig, cross_entropy_loss, embed_tp,
-                     lm_head_loss_tp, new_param, normal_, rms_norm, rope)
+                     last_logits_tp, lm_head_loss_tp, new_param, normal_,
+                     rms_norm, rope)
 from .mlp import MLP, mlp, mlp_tp
 
 __all__ = ["EncBlock", "DecBlock", "EncDec", "init_encdec", "encode",
-           "forward_encdec", "encdec_loss", "encdec_loss_tp", "EncDecCaches",
+           "forward_encdec", "encdec_loss", "encdec_loss_tp",
+           "prefill_encdec_tp", "EncDecCaches", "decode_step_encdec_tp",
            "make_encdec_caches", "decode_step_encdec", "precompute_cross_kv"]
 
 
@@ -237,11 +240,10 @@ def _dec_block_tp(cfg: ModelConfig, p: DecBlock, x: torch.Tensor,
     return x + mlp_tp(p.ffn, rms_norm(x, p.ln2, cfg.norm_eps), group, shape)
 
 
-def encdec_loss_tp(params: EncDec, batch: dict, cfg: ModelConfig, group, *,
-                   remat: bool = True) -> torch.Tensor:
-    """``encdec_loss`` computed per model rank on ``group`` (a
-    ``distributed.tp.Group``); ``params`` holds its leaves as
-    ``spmd.ShardedModel.tp_module_on`` stacks them."""
+def _final_tp(params: EncDec, batch: dict, cfg: ModelConfig, group,
+              remat: bool) -> tuple[torch.Tensor, tuple]:
+    """The decoder's final normed residual per model rank, in the ``bsd``
+    layout, and its whole shape."""
     src = batch["src_embeds"].to(cfg.dtype)
     b, s_src, d = src.shape
     enc_shape = (b, s_src, d)
@@ -258,8 +260,26 @@ def encdec_loss_tp(params: EncDec, batch: dict, cfg: ModelConfig, group, *,
         y = _run(_dec_block_tp, remat, cfg, p, y, memory, pos_t, pos_s,
                  group, shape)
     group.placed("bsd", shape, y)
-    y = rms_norm(y, params.final_norm, cfg.norm_eps)
+    return rms_norm(y, params.final_norm, cfg.norm_eps), shape
+
+
+def encdec_loss_tp(params: EncDec, batch: dict, cfg: ModelConfig, group, *,
+                   remat: bool = True) -> torch.Tensor:
+    """``encdec_loss`` computed per model rank on ``group`` (a
+    ``distributed.tp.Group``); ``params`` holds its leaves as
+    ``spmd.ShardedModel.tp_module_on`` stacks them."""
+    y, shape = _final_tp(params, batch, cfg, group, remat)
     return lm_head_loss_tp(y, params.lm_head, batch["labels"], group, shape)
+
+
+@torch.no_grad()
+def prefill_encdec_tp(params: EncDec, batch: dict, cfg: ModelConfig, group
+                      ) -> torch.Tensor:
+    """The sharded prefill's forward: ``encdec_loss_tp``'s without the
+    loss, its logits over every target position, of which it returns the
+    last position's ``(b, vocab)`` (``common.last_logits_tp``)."""
+    y, shape = _final_tp(params, batch, cfg, group, remat=False)
+    return last_logits_tp(y, params.lm_head, group, shape)
 
 
 class EncDecCaches(NamedTuple):
@@ -329,6 +349,45 @@ def decode_step_encdec(params: EncDec, tokens: torch.Tensor,
         x = x + mlp(p.ffn, rms_norm(x, p.ln2, cfg.norm_eps))
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x @ params.lm_head, caches
+
+
+@torch.no_grad()
+def decode_step_encdec_tp(params: EncDec, tokens: torch.Tensor,
+                          caches: EncDecCaches, dims: EncDecCaches, pos,
+                          cfg: ModelConfig, group) -> torch.Tensor:
+    """``decode_step_encdec`` on a data rank's model positions
+    (``group``, the residual replicated): ``caches`` the rank's views of
+    the ``spmd.ShardedCaches`` and ``dims`` each leaf's model dimension.
+    Self-attention against its KV cache and cross-attention against the
+    precomputed cross K/V, each by heads or by head width
+    (``attention.decode_attention_tp``, ``cross_attention_tp``; both
+    rotated at the step's first position, as the reference), the MLP as
+    in training, the embedding and head vocab parallel where they come
+    split. Returns the next position's logits ``(b, vocab)``,
+    replicated; the self-attention caches are updated in place."""
+    b = tokens.shape[0]
+    shape = (b, 1, cfg.d_model)
+    x = embed_tp(params.embed, tokens, group, shape)
+    positions = pos + torch.arange(1, device=tokens.device)
+    first = positions[:1]
+    ck_all, cv_all = caches.self_kv
+    kd, xd = dims.self_kv[0], dims.cross_k
+    split, xsplit = cache_split(kd), cache_split(xd)
+    valid = torch.arange(ck_all.shape[-2], device=x.device)[None, :] \
+        <= positions[:, None]
+    for i, p in enumerate(params.dec_layers):
+        h = rms_norm(x, p.ln1, cfg.norm_eps)
+        x = x + decode_attention_tp(
+            p.self_attn, h, cfg, group, positions, layer_of(ck_all, i, kd),
+            layer_of(cv_all, i, kd), split, slot=positions, valid=valid,
+            rope_at=first)
+        hx = rms_norm(x, p.ln_x, cfg.norm_eps)
+        x = x + cross_attention_tp(
+            p.cross_attn, hx, cfg, group, layer_of(caches.cross_k, i, xd),
+            layer_of(caches.cross_v, i, xd), xsplit, rope_at=first)
+        x = x + mlp_tp(p.ffn, rms_norm(x, p.ln2, cfg.norm_eps), group, shape)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return last_logits_tp(x, params.lm_head, group, shape)
 
 
 @torch.no_grad()

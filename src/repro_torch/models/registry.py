@@ -18,21 +18,47 @@ from typing import Optional, Union
 
 import torch
 
+from ..device import is_traced, resolve_device, traced_device
 from . import encdec, transformer
 from .common import ModelConfig
 
 __all__ = ["init_params", "forward_fn", "loss_fn", "make_decode_state",
-           "decode_fn", "TP_FAMILIES", "tp_loss_fn", "tp_compute",
+           "decode_fn", "TP_FAMILIES", "tp_loss_fn", "tp_prefill_fn",
+           "tp_decode_fn", "tp_decode_splits", "tp_compute",
            "tp_weight_splits"]
 
 # the families whose sharded step computes per model rank
 TP_FAMILIES = ("dense", "moe", "encdec", "hybrid", "ssm")
 
 
+def _abstract_device(device, what: str) -> torch.device:
+    """The device of an abstract build: only inside ``device.tracing``,
+    and only the device it names."""
+    if traced_device() is None:
+        raise RuntimeError(f"{what}(abstract=True) builds a traced "
+                           "program's tensors: call it inside "
+                           "repro_torch.device.tracing(device)")
+    dev = resolve_device(device, what=what)
+    if not is_traced(dev):
+        raise RuntimeError(f"{what}(abstract=True) on {dev}, but the "
+                           f"trace is on {traced_device()}")
+    return dev
+
+
 def init_params(cfg: ModelConfig, *,
                 generator: Optional[torch.Generator] = None,
-                device=None) -> Union[transformer.LM, encdec.EncDec]:
-    """Random weights on ``device`` (the card when None), drawn there."""
+                device=None, abstract: bool = False
+                ) -> Union[transformer.LM, encdec.EncDec]:
+    """Random weights on ``device`` (the card when None), drawn there.
+    With ``abstract`` (inside ``repro_torch.device.tracing`` only, the
+    counterpart of the reference's ``abstract=True``) the parameters are
+    built on the traced device uninitialised, with no random draw."""
+    if abstract:
+        dev = _abstract_device(device, "init_params")
+        if cfg.family == "encdec":
+            return encdec.EncDec(cfg, device=dev)
+        transformer.check_family(cfg)
+        return transformer.LM(cfg, device=dev)
     if cfg.family == "encdec":
         return encdec.init_encdec(cfg, generator=generator, device=device)
     return transformer.init_lm(cfg, generator=generator, device=device)
@@ -63,10 +89,14 @@ def forward_fn(cfg: ModelConfig, *, backend: str = "auto"):
 
 
 def make_decode_state(cfg: ModelConfig, batch: int, s_max: int, *,
-                      s_src: int = 0, device=None):
+                      s_src: int = 0, device=None, abstract: bool = False):
     """The family's decode caches: ``transformer.DecodeCaches``, or for
     the enc-dec family ``encdec.EncDecCaches`` with ``s_src`` source
-    positions (128 when 0, as the reference's default)."""
+    positions (128 when 0, as the reference's default). With
+    ``abstract`` (inside ``repro_torch.device.tracing`` only) they are
+    built on the traced device, where nothing is allocated."""
+    if abstract:
+        device = _abstract_device(device, "make_decode_state")
     if cfg.family == "encdec":
         return encdec.make_encdec_caches(cfg, batch, s_max, s_src or 128,
                                          device=device)
@@ -91,6 +121,54 @@ def tp_loss_fn(cfg: ModelConfig):
     if cfg.family in TP_FAMILIES:
         return lambda p, b, g: transformer.lm_loss_tp(p, b, cfg, g)
     return None
+
+
+def tp_prefill_fn(cfg: ModelConfig):
+    """(params, batch, group) -> the last position's logits ``(b,
+    vocab)`` computed per model rank of ``group`` (``tp_loss_fn``'s
+    forward without the loss), on the reference's attention route."""
+    if cfg.family == "encdec":
+        return lambda p, b, g: encdec.prefill_encdec_tp(p, b, cfg, g)
+    transformer.check_family(cfg)
+    return lambda p, b, g: transformer.prefill_tp(p, b["tokens"], cfg, g)
+
+
+def tp_decode_fn(cfg: ModelConfig):
+    """(params, tokens, caches, dims, pos, group) -> the next position's
+    logits ``(b, vocab)`` computed per model rank of ``group`` against
+    the rank's cache views (``spmd.ShardedCaches.rank_views``, model
+    dimensions ``dims``), the caches updated in place."""
+    if cfg.family == "encdec":
+        return lambda p, t, c, d, pos, g: encdec.decode_step_encdec_tp(
+            p, t, c, d, pos, cfg, g)
+    transformer.check_family(cfg)
+    return lambda p, t, c, d, pos, g: transformer.decode_step_tp(
+        p, t, c, d, pos, cfg, g)
+
+
+def tp_decode_splits(cfg: ModelConfig, names, group, rows: int,
+                     dims) -> dict:
+    """``tp_weight_splits`` of a decode step (one token a row, the
+    residual replicated) whose caches the model ranks split as ``dims``
+    (``spmd.ShardedCaches.dims()``): the attention weights by heads only
+    where the KV caches are split by heads (by head width the step
+    computes q, k and v once), the RG-LRU only where its state is split
+    by channels, the RWKV time mix only where its state is split by
+    heads; the rest as in training."""
+    out = tp_weight_splits(cfg, names, group, rows, 1, 1)
+    kv = getattr(dims, "kv", None) or getattr(dims, "self_kv", None)
+    heads = kv is not None and kv[0] == 2
+    rglru = getattr(dims, "rglru", None)
+    rwkv = getattr(dims, "rwkv", None)
+    for name in out:
+        leaf = name.rsplit(".", 1)[-1]
+        if "attn." in name and leaf in ("wq", "wk", "wv", "wo"):
+            out[name] = ({"wo": 0}.get(leaf, 1)) if heads else None
+        elif ".rglru." in name and (rglru is None or rglru.h is None):
+            out[name] = None
+        elif ".tm." in name and (rwkv is None or rwkv.s != 2):
+            out[name] = None
+    return out
 
 
 def tp_compute(cfg: ModelConfig, mesh) -> str:

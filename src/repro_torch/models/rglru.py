@@ -31,10 +31,12 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from ..distributed.tp import gather_to_ranks, ranked_matmul
+from ..distributed.tp import (copy_to_ranks, gather_to_ranks, ranked_matmul,
+                              reduce_from_ranks)
 from .common import ModelConfig, new_param
 
 __all__ = ["RglruState", "RGLRU", "rglru_block", "rglru_block_tp",
+           "rglru_step_tp",
            "rglru_step", "make_rglru_state", "linear_scan"]
 
 _C = 8.0
@@ -173,6 +175,48 @@ def rglru_step(params: RGLRU, x: torch.Tensor, cfg: ModelConfig,
     h = a[:, 0] * state.h.float() + bx[:, 0]
     out = (h[:, None, :] * gate).to(x.dtype) @ params.w_out
     return out, RglruState(h=h.to(state.h.dtype), conv=conv_carry)
+
+
+def rglru_step_tp(params: RGLRU, x: torch.Tensor, cfg: ModelConfig,
+                  group, h: torch.Tensor, conv: torch.Tensor
+                  ) -> torch.Tensor:
+    """``rglru_step`` of the replicated ``x`` ``(b, 1, d)`` on a data
+    rank's model positions, the state updated in place. Where
+    ``tp_module_on`` splits the channels (as in ``rglru_block_tp``) the
+    state comes as the ranks' channels, ``h`` ``(R, b, w / R)`` float32
+    and ``conv`` ``(R, b, 3, w / R)`` (``sharding.cache_specs`` puts the
+    width on ``"model"``): ``w_in`` and ``w_gate_in`` column-parallel,
+    the conv on the rank's channels, ``u``'s channels all-gathered for
+    ``w_r`` and ``w_i``, the recurrence on the rank's channels, ``w_out``
+    row-parallel and its partial sums all-reduced. With whole weights the
+    step runs once on the whole state ``(b, w)``, ``(b, 3, w)``.
+    Returns ``(b, 1, d)``, replicated."""
+    if params.w_in.dim() == 2:
+        out, st = rglru_step(params, x, cfg, RglruState(h, conv))
+        h.copy_(st.h)
+        conv.copy_(st.conv)
+        return out
+    full = copy_to_ranks(x, group)                    # (R, b, 1, d)
+    u = ranked_matmul(full, params.w_in)              # (R, b, 1, w / R)
+    gate = torch.nn.functional.gelu(
+        ranked_matmul(full, params.w_gate_in).float(), approximate="tanh")
+    k = params.conv_k[:, :, None, None]               # (R, 4, 1, 1, w / R)
+    ext = torch.cat([conv.to(u.dtype), u], dim=2)     # (R, b, 4, w / R)
+    u = (ext[:, :, 3:] * k[:, 3] + ext[:, :, 2:-1] * k[:, 2] +
+         ext[:, :, 1:-2] * k[:, 1] + ext[:, :, :-3] * k[:, 0])
+    conv.copy_(ext[:, :, -3:])
+    u_all = gather_to_ranks(u, group, 2)              # (R, b, 1, w)
+    r = torch.sigmoid(ranked_matmul(u_all, params.w_r).float())
+    i = torch.sigmoid(ranked_matmul(u_all, params.w_i).float())
+    log_a = _C * r * torch.nn.functional.logsigmoid(
+        params.lam.float())[:, None, None]
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-9))
+    new = a[:, :, 0] * h.float() + (beta * i * u.float())[:, :, 0]
+    out = ranked_matmul((new[:, :, None, :] * gate).to(x.dtype),
+                        params.w_out)
+    h.copy_(new.to(h.dtype))
+    return reduce_from_ranks(out, group)
 
 
 def make_rglru_state(cfg: ModelConfig, batch: int, n_layers: int, *,

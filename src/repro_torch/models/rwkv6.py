@@ -26,7 +26,7 @@ sequence and a carried last token across calls.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -39,7 +39,7 @@ from .common import ModelConfig, new_param
 __all__ = ["RwkvState", "RwkvTimeMix", "RwkvChannelMix",
            "rwkv_time_mix_chunked", "rwkv_time_mix_step",
            "rwkv_channel_mix", "make_rwkv_state", "rwkv_time_mix_chunked_tp",
-           "rwkv_channel_mix_tp", "CHUNK"]
+           "rwkv_channel_mix_tp", "rwkv_time_mix_step_tp", "CHUNK"]
 
 CHUNK = 64
 LORA_RANK = 64
@@ -248,6 +248,47 @@ def rwkv_time_mix_step(params: RwkvTimeMix, x: torch.Tensor,
     return out, RwkvState(s=S_new.to(state.s.dtype), x_prev=x[:, -1, :])
 
 
+def rwkv_time_mix_step_tp(params: RwkvTimeMix, x: torch.Tensor,
+                          cfg: ModelConfig, group, s: torch.Tensor,
+                          x_prev: torch.Tensor) -> torch.Tensor:
+    """``rwkv_time_mix_step`` of the replicated ``x`` ``(b, 1, d)`` on a
+    data rank's model positions; ``x_prev`` ``(b, d)`` whole. Where
+    ``tp_module_on`` splits ``wr``/``wk``/``wv`` by heads (as
+    ``rwkv_time_mix_chunked_tp``), the state comes as the ranks' heads,
+    ``s`` ``(R, b, h / R, dh, dh)`` (``sharding.cache_specs`` puts the
+    heads on ``"model"``): the mixes and the decay LoRA once, each rank
+    its heads' projections, decay and bonus, its heads' recurrence, its
+    rows of ``wo``, the partial sums all-reduced. Otherwise the whole
+    step once on the whole state ``(b, h, dh, dh)``. The state is
+    updated in place; returns ``(b, 1, d)``, replicated."""
+    if params.wr.dim() == 2:
+        out, st = rwkv_time_mix_step(params, x, cfg, RwkvState(s, x_prev))
+        s.copy_(st.s)
+        return out
+    b, _, d = x.shape
+    dh = cfg.rwkv_head_dim
+    ranks = group.size
+    mine = d // dh // ranks
+    x_shift = x_prev[:, None, :]
+
+    def project(name):
+        t = ranked_matmul(copy_to_ranks(_mix(params, name, x, x_shift),
+                                        group), getattr(params, "w" + name))
+        return t.view(ranks, b, mine, dh).float()
+
+    r, k, v = project("r"), project("k"), project("v")
+    logw = split_to_ranks(_log_decay(params, x, x_shift), group, 2)
+    w = torch.exp(logw.reshape(ranks, b, mine, dh))
+    u = params.u_bonus.float().reshape(ranks, mine, dh)
+    S = s.float()                                     # (R, b, h / R, dh, dh)
+    kv = k[..., :, None] * v[..., None, :]
+    out = torch.matmul(r[..., None, :], S + u[:, None, :, :, None] * kv)
+    s.copy_((S * w[..., None] + kv).to(s.dtype))
+    out = ranked_matmul(out.reshape(ranks, b, 1, d // ranks).to(x.dtype),
+                        params.wo)
+    return reduce_from_ranks(out, group)
+
+
 def make_rwkv_state(cfg: ModelConfig, batch: int, n_layers: int, *,
                     device) -> RwkvState:
     """Zeroed stacked states: s ``(n_layers, b, h, dh, dh)`` float32,
@@ -272,7 +313,8 @@ def rwkv_channel_mix(params: RwkvChannelMix, x: torch.Tensor,
     return out.to(x.dtype), x[:, -1, :]
 
 
-def rwkv_channel_mix_tp(params: RwkvChannelMix, x: torch.Tensor, group
+def rwkv_channel_mix_tp(params: RwkvChannelMix, x: torch.Tensor, group,
+                        x_prev: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """``rwkv_channel_mix`` from a zero last token on a data rank's model
     positions: ``x`` ``(b, s, d)`` replicated (the batch-only residual's
@@ -283,9 +325,12 @@ def rwkv_channel_mix_tp(params: RwkvChannelMix, x: torch.Tensor, group
     column-parallel over ``d``. The product ``r * (k @ wv)`` is formed on
     channels: the partial sums are reduce-scattered onto each rank's
     ``d / R`` channels, multiplied by its ``r``, and all-gathered back to
-    the replicated residual. Otherwise every rank runs the whole block."""
-    x_shift = torch.cat([x.new_zeros((x.shape[0], 1, x.shape[2])),
-                         x[:, :-1]], dim=1)
+    the replicated residual. Otherwise every rank runs the whole block.
+    ``x_prev`` ``(b, d)`` (a decode step's last token) takes the zero
+    last token's place."""
+    first = x.new_zeros((x.shape[0], 1, x.shape[2])) if x_prev is None \
+        else x_prev[:, None, :]
+    x_shift = torch.cat([first, x[:, :-1]], dim=1)
     xk, xr = _mix(params, "k", x, x_shift), _mix(params, "r", x, x_shift)
     if params.wk.dim() == 2:                       # whole
         k = torch.square(torch.relu((xk @ params.wk).float()))

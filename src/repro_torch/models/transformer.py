@@ -39,23 +39,27 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..distributed.tp import gather_from_ranks
-from .attention import (Attention, attention, attention_tp, make_kv_cache,
+from ..distributed.tp import gather_from_ranks, split_ranks
+from .attention import (Attention, attention, attention_tp, cache_split,
+                        decode_attention_tp, layer_of, make_kv_cache,
                         repeat_kv)
 from .common import (ModelConfig, cross_entropy_loss, embed_tp,
-                     lm_head_loss_tp, new_param, normal_, rms_norm, rope)
+                     last_logits_tp, lm_head_loss_tp, new_param, normal_,
+                     rms_norm, rope)
 from .mlp import MLP, mlp, mlp_tp
 from .moe import MoE, moe, moe_tp
 from .rglru import (RGLRU, RglruState, make_rglru_state, rglru_block,
-                    rglru_block_tp, rglru_step)
+                    rglru_block_tp, rglru_step, rglru_step_tp)
 from .rwkv6 import (RwkvChannelMix, RwkvState, RwkvTimeMix, make_rwkv_state,
                     rwkv_channel_mix, rwkv_channel_mix_tp,
                     rwkv_time_mix_chunked, rwkv_time_mix_chunked_tp,
-                    rwkv_time_mix_step)
+                    rwkv_time_mix_step, rwkv_time_mix_step_tp)
 
 __all__ = ["Block", "Recurrent", "LocalAttention", "Super", "LM", "init_lm",
-           "init_scale", "forward", "lm_loss", "lm_loss_tp", "DecodeCaches",
-           "make_decode_caches", "decode_step", "check_family"]
+           "init_scale", "forward", "lm_loss", "lm_loss_tp", "prefill_tp",
+           "DecodeCaches",
+           "make_decode_caches", "decode_step", "decode_step_tp",
+           "check_family"]
 
 # parameters drawn as normal x 1.0 in float32 (norm gains, the RG-LRU's lam)
 _UNIT = ("ln1", "ln2", "ln", "ln_ffn", "ln_x", "enc_norm", "final_norm",
@@ -319,19 +323,10 @@ def _ssm_block_tp(cfg: ModelConfig, layer: Block, x: torch.Tensor,
         layer.cm, rms_norm(x, layer.ln2, cfg.norm_eps), group)
 
 
-def lm_loss_tp(params: LM, batch: dict, cfg: ModelConfig, group, *,
-               remat: bool = True) -> torch.Tensor:
-    """``lm_loss`` computed per model rank on ``group`` (a
-    ``distributed.tp.Group``); ``params`` holds its leaves as
-    ``spmd.ShardedModel.tp_module_on`` stacks them. The residual is in
-    the ``bsd`` layout, but through the SSM's blocks, which keep it
-    ``bsd_batch_only`` (the whole sequence on every rank, replicated over
-    ``"model"``: the recurrence runs over it) and return it to ``bsd``
-    before the final norm. The hybrid runs its supers' (R, R, A) and its
-    tail's recurrent layers (``rglru_block_tp``, ``mlp_tp``, windowed
-    ``attention_tp``). Layers (the hybrid's supers) are rematerialised
-    as in ``lm_loss``."""
-    tokens = batch["tokens"]
+def _final_tp(params: LM, tokens: torch.Tensor, cfg: ModelConfig, group,
+              remat: bool) -> tuple[torch.Tensor, tuple]:
+    """The final normed residual of ``tokens`` ``(b, s)`` per model rank,
+    in the ``bsd`` layout, and its whole shape."""
     b, s = tokens.shape
     shape = (b, s, cfg.d_model)
     x = embed_tp(params.embed, tokens, group, shape)
@@ -356,10 +351,41 @@ def lm_loss_tp(params: LM, batch: dict, cfg: ModelConfig, group, *,
     if cfg.family == "ssm":
         x = group.from_replicated(x, shape)        # back to bsd
     group.placed("bsd", shape, x)
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    head = params.embed.transpose(-1, -2) if cfg.tie_embeddings \
+    return rms_norm(x, params.final_norm, cfg.norm_eps), shape
+
+
+def _head_tp(params: LM, cfg: ModelConfig) -> torch.Tensor:
+    return params.embed.transpose(-1, -2) if cfg.tie_embeddings \
         else params.lm_head
-    return lm_head_loss_tp(x, head, batch["labels"], group, shape)
+
+
+def lm_loss_tp(params: LM, batch: dict, cfg: ModelConfig, group, *,
+               remat: bool = True) -> torch.Tensor:
+    """``lm_loss`` computed per model rank on ``group`` (a
+    ``distributed.tp.Group``); ``params`` holds its leaves as
+    ``spmd.ShardedModel.tp_module_on`` stacks them. The residual is in
+    the ``bsd`` layout, but through the SSM's blocks, which keep it
+    ``bsd_batch_only`` (the whole sequence on every rank, replicated over
+    ``"model"``: the recurrence runs over it) and return it to ``bsd``
+    before the final norm. The hybrid runs its supers' (R, R, A) and its
+    tail's recurrent layers (``rglru_block_tp``, ``mlp_tp``, windowed
+    ``attention_tp``). Layers (the hybrid's supers) are rematerialised
+    as in ``lm_loss``."""
+    x, shape = _final_tp(params, batch["tokens"], cfg, group, remat)
+    return lm_head_loss_tp(x, _head_tp(params, cfg), batch["labels"],
+                           group, shape)
+
+
+@torch.no_grad()
+def prefill_tp(params: LM, tokens: torch.Tensor, cfg: ModelConfig, group
+               ) -> torch.Tensor:
+    """The sharded prefill's forward: ``lm_loss_tp``'s without the loss,
+    its logits over every position (from the vocab-parallel head where
+    ``logits_v`` puts the vocabulary on ``"model"``), of which it returns
+    the last position's ``(b, vocab)``, replicated
+    (``common.last_logits_tp``)."""
+    x, shape = _final_tp(params, tokens, cfg, group, remat=False)
+    return last_logits_tp(x, _head_tp(params, cfg), group, shape)
 
 
 # ------------------------------------------------------------------- decode
@@ -504,3 +530,109 @@ def decode_step(params: LM, tokens: torch.Tensor, caches: DecodeCaches,
                      else mlp(layer.ffn, h2))
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x @ params.head(), caches
+
+
+def _rows_whole(t: torch.Tensor, i: int, dim, group) -> torch.Tensor:
+    """Layer ``i`` of an ``(L, b, d)`` state whole ``(b, d)``: its width
+    all-gathered where the ranks hold parts ``(R, L, b, d / R)``."""
+    if dim is None:
+        return t[i]
+    return gather_from_ranks(t[:, i], group, 1)
+
+
+def _rows_store(t: torch.Tensor, i: int, dim, new: torch.Tensor) -> None:
+    """``new`` ``(b, d)`` into layer ``i`` of an ``(L, b, d)`` state
+    (each rank its part of the width where ``dim`` splits it)."""
+    if dim is None:
+        t[i].copy_(new)
+    else:
+        t[:, i].copy_(split_ranks(new, 1, t.shape[0]))
+
+
+@torch.no_grad()
+def decode_step_tp(params: LM, tokens: torch.Tensor, caches: DecodeCaches,
+                   dims: DecodeCaches, pos, cfg: ModelConfig, group
+                   ) -> torch.Tensor:
+    """``decode_step`` on a data rank's model positions (``group``, its
+    residual replicated: ``seq_parallel=False``): ``caches`` holds the
+    rank's views of the ``spmd.ShardedCaches`` (``rank_views``) and
+    ``dims`` each leaf's model dimension. The embedding and head vocab
+    parallel where ``tp_module_on`` splits them; the dense and MoE
+    attention against their KV caches by heads or by head width
+    (``decode_attention_tp``), MLPs and experts as in training
+    (``mlp_tp``, ``moe_tp``); the hybrid's RG-LRU steps on their
+    channels (``rglru_step_tp``) and its ring attention by heads or
+    width, its ring positions whole; the SSM's time mix on its heads
+    (``rwkv_time_mix_step_tp``) with the token-shift states' widths
+    all-gathered, and its channel mix as in training. Returns the next
+    position's logits ``(b, vocab)``, replicated; the caches are updated
+    in place."""
+    b = tokens.shape[0]
+    shape = (b, 1, cfg.d_model)
+    x = embed_tp(params.embed, tokens, group, shape)
+    positions = pos + torch.arange(1, device=tokens.device)
+    if cfg.family == "ssm":
+        st, sd = caches.rwkv, dims.rwkv
+        if sd.s not in (None, 2):
+            raise NotImplementedError(
+                "an RWKV state split over its head width has no per-rank "
+                "decode (the ranks do not divide the heads)")
+        for i, layer in enumerate(params.layers):
+            h = rms_norm(x, layer.ln1, cfg.norm_eps)
+            x = x + rwkv_time_mix_step_tp(
+                layer.tm, h, cfg, group, layer_of(st.s, i, sd.s),
+                _rows_whole(st.x_prev, i, sd.x_prev, group))
+            _rows_store(st.x_prev, i, sd.x_prev, h[:, -1])
+            hc = rms_norm(x, layer.ln2, cfg.norm_eps)
+            x = x + rwkv_channel_mix_tp(
+                layer.cm, hc, group,
+                x_prev=_rows_whole(caches.cm_prev, i, dims.cm_prev, group))
+            _rows_store(caches.cm_prev, i, dims.cm_prev, hc[:, -1])
+    elif cfg.family == "hybrid":
+        ck, cv = caches.kv
+        kd = dims.kv[0]
+        split = cache_split(kd)
+        rg, rd, rp = caches.rglru, dims.rglru, caches.ring_pos
+        win = ck.shape[-2]
+        slot = positions % win
+        window = cfg.window or win
+
+        def rec(x, p: Recurrent, li: int):
+            x = x + rglru_step_tp(p.rglru, rms_norm(x, p.ln, cfg.norm_eps),
+                                  cfg, group, layer_of(rg.h, li, rd.h),
+                                  layer_of(rg.conv, li, rd.conv))
+            return x + mlp_tp(p.ffn, rms_norm(x, p.ln_ffn, cfg.norm_eps),
+                              group, shape)
+
+        for i, sp in enumerate(params.supers):
+            x = rec(x, sp.r0, 2 * i)
+            x = rec(x, sp.r1, 2 * i + 1)
+            pa = sp.attn
+            rp[i].index_copy_(0, slot, positions.to(rp.dtype))
+            valid = (rp[i] >= 0) & (rp[i] <= positions) \
+                & (rp[i] > positions - window)
+            x = x + decode_attention_tp(
+                pa.attn, rms_norm(x, pa.ln, cfg.norm_eps), cfg, group,
+                positions, layer_of(ck, i, kd), layer_of(cv, i, kd), split,
+                slot=slot, valid=valid)
+            x = x + mlp_tp(pa.ffn, rms_norm(x, pa.ln_ffn, cfg.norm_eps),
+                           group, shape)
+        for j, p in enumerate(params.tail):
+            x = rec(x, p, 2 * len(params.supers) + j)
+    else:
+        ck, cv = caches.kv
+        kd = dims.kv[0]
+        split = cache_split(kd)
+        valid = torch.arange(ck.shape[-2], device=x.device)[None, :] \
+            <= positions[:, None]
+        for i, layer in enumerate(params.layers):
+            h = rms_norm(x, layer.ln1, cfg.norm_eps)
+            x = x + decode_attention_tp(
+                layer.attn, h, cfg, group, positions, layer_of(ck, i, kd),
+                layer_of(cv, i, kd), split, slot=positions, valid=valid)
+            h2 = rms_norm(x, layer.ln2, cfg.norm_eps)
+            x = x + (moe_tp(layer.ffn, h2, cfg, group, shape)
+                     if cfg.family == "moe" else
+                     mlp_tp(layer.ffn, h2, group, shape))
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return last_logits_tp(x, _head_tp(params, cfg), group, shape)

@@ -105,11 +105,18 @@ class AdamW:
     compress: Optional["GradTransform"] = None
     moment_dtype: Any = torch.float32
 
-    def init(self, params) -> AdamWState:
+    def init(self, params, *, abstract: bool = False) -> AdamWState:
         """Zero moments (and error feedback, with ``compress``) in
         ``moment_dtype`` beside each parameter (sharded by its moment
-        layout for a ``ShardedModel``); step 0."""
+        layout for a ``ShardedModel``); step 0. ``abstract`` (the
+        reference's) asks for the state of a traced program: only inside
+        ``repro_torch.device.tracing``, where nothing is allocated."""
+        from ..device import traced_device
         from ..distributed.spmd import Sharded, ShardedModel
+        if abstract and traced_device() is None:
+            raise RuntimeError("AdamW.init(abstract=True) builds a traced "
+                               "program's state: call it inside "
+                               "repro_torch.device.tracing(device)")
         if isinstance(params, ShardedModel):
             def zeros():
                 return {n: Sharded.zeros(lay, self.moment_dtype)

@@ -1,9 +1,16 @@
 """Train, prefill and serve step builders (counterpart of
 ``repro.train.step``).
 
-The port runs eagerly, so there is nothing to lower: the builders
-return the step functions themselves (the reference's ``lower_*`` and
-``input_specs`` wait for the cost-model slice, ROADMAP.md).
+The port runs eagerly: the builders return the step functions
+themselves. ``lower_train_step``, ``lower_prefill``, ``lower_serve_step``
+and ``lower_cell`` are the reference's dry run: each traces its step on
+the card's program (``repro_torch.device.tracing``: fake tensors on the
+device, nothing allocated, so a machine without a card traces it too)
+on a mesh of the shape given that names the traced device at every
+position, with every operator recorded (``launch.cost_analysis``), and
+returns a ``Lowered`` whose ``compile()`` gives the memory, cost and
+collective analyses. ``input_specs`` are the cell's model inputs
+(``TensorSpec``: shape and dtype).
 
 The train step differentiates the family's loss (``registry.loss_fn``:
 dense, MoE, hybrid, SSM or enc-dec) through the reference's attention
@@ -50,20 +57,58 @@ activation collectives' bytes and layouts, its microbatches), which
 from __future__ import annotations
 
 import contextlib
+import math
+import time
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..configs.base import ShapeCell
+from ..device import tracing
 from ..distributed import ctx
 from ..distributed import spmd
 from ..distributed import tp
+from ..distributed.sharding import (batch_specs, cache_specs,
+                                    opt_state_specs, param_specs)
+from ..launch import cost_analysis as ca
+from ..launch.mesh import Mesh
 from ..models.common import ModelConfig
-from ..models.registry import (decode_fn, forward_fn, loss_fn, tp_loss_fn,
+from ..models.registry import (decode_fn, forward_fn, init_params, loss_fn,
+                               make_decode_state, tp_decode_fn,
+                               tp_decode_splits, tp_loss_fn, tp_prefill_fn,
                                tp_weight_splits)
 from ..optim.adamw import AdamW, AdamWState
 
 __all__ = ["default_microbatches", "make_train_fn", "split_rows",
-           "make_prefill_fn", "make_serve_fn"]
+           "make_prefill_fn", "make_serve_fn", "TensorSpec", "input_specs",
+           "lower_train_step", "lower_prefill", "lower_serve_step",
+           "lower_cell"]
+
+
+class TensorSpec(NamedTuple):
+    """A model input's shape and dtype (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """The shape and dtype of every model input of a shape cell: int32
+    tokens (and labels, to train) ``(b, s)``, the enc-dec family's
+    ``src_embeds`` ``(b, s, d)`` in the model's type (source frames at
+    the target's length, as the reference keeps them); decode, one new
+    token ``(b, 1)`` against a cache of length s."""
+    b, s = cell.global_batch, cell.seq_len
+    if cell.kind == "decode":
+        return {"tokens": TensorSpec((b, 1), torch.int32)}
+    out = {"tokens": TensorSpec((b, s), torch.int32)}
+    if cell.kind == "train":
+        out["labels"] = TensorSpec((b, s), torch.int32)
+    if cfg.family == "encdec":
+        out["src_embeds"] = TensorSpec((b, s, cfg.d_model), cfg.dtype)
+    return out
 
 
 def default_microbatches(cfg: ModelConfig, cell: ShapeCell) -> int:
@@ -202,11 +247,29 @@ def _sharded_train_fn(cfg: ModelConfig, lfn, opt: AdamW, microbatches: int,
     return train_step
 
 
-def make_prefill_fn(cfg: ModelConfig, *, backend: str = "auto"):
+def make_prefill_fn(cfg: ModelConfig, *, backend: str = "auto",
+                    mesh=None):
     """(params, batch) -> last-position logits ``(b, vocab)`` of the full
     forward (the enc-dec family's batch also holds ``src_embeds``).
-    ``backend`` picks the attention route (``models.attention``)."""
+    ``backend`` picks the attention route (``models.attention``). The
+    head runs over every position on every mesh, as the reference's
+    does, and the last position is kept.
+
+    With ``mesh`` the prefill takes a ``spmd.ShardedModel`` (the
+    serving specs, ``sharding.param_specs(serving=True)``, as the
+    reference lowers it): the batch's rows split over the data-parallel
+    ranks in order, and each rank computes its rows under
+    ``ctx.rank_local`` (one MoE routing group a rank). On a ``"model"``
+    > 1 mesh a rank's model positions compute per model rank
+    (``registry.tp_prefill_fn``: the train step's forward, the reference's
+    attention route, sequence parallel as the reference's
+    ``activation_sharding(mesh)`` default, the logits from the
+    vocab-parallel head); else the forward of ``backend``. The
+    ranks' logits are joined in order on the model's home device; what
+    the step computed with is left in ``params.last_step``."""
     fwd = forward_fn(cfg, backend=backend)
+    if mesh is not None:
+        return _sharded_prefill_fn(cfg, fwd, mesh)
 
     def prefill(params, batch):
         return fwd(params, batch)[:, -1, :]
@@ -214,10 +277,58 @@ def make_prefill_fn(cfg: ModelConfig, *, backend: str = "auto"):
     return prefill
 
 
-def make_serve_fn(cfg: ModelConfig):
+def _sharded_prefill_fn(cfg: ModelConfig, fwd, mesh):
+    ranks = len(spmd.data_ranks(mesh))
+    tp_fwd = tp_prefill_fn(cfg) if mesh.shape.get("model", 1) > 1 else None
+
+    @torch.no_grad()
+    def prefill(params: spmd.ShardedModel, batch):
+        if params.mesh != mesh:
+            raise ValueError(f"parameters on {params.mesh}, step on {mesh}")
+        rows = next(iter(batch.values())).shape[0]
+        per = split_rows(rows, 1, ranks)
+        group = splits = None
+        if tp_fwd is not None:
+            group = tp.Group(mesh, seq_parallel=True)
+            src = batch.get("src_embeds")
+            splits = tp_weight_splits(
+                cfg, params.layouts, group, per, batch["tokens"].shape[1],
+                0 if src is None else src.shape[1])
+        outs = []
+        for r, dev in enumerate(params.compute_devices()):
+            module = params.module_on(dev) if group is None \
+                else params.tp_module_on(dev, splits)
+            sub = {k: v[r * per:(r + 1) * per].to(dev)
+                   for k, v in batch.items()}
+            with ctx.rank_local():
+                out = fwd(module, sub)[:, -1, :] if group is None \
+                    else tp_fwd(module, sub, group)
+            outs.append(out.to(params.home))
+        params.last_step = {"splits": splits, "group": group,
+                            "microbatches": 1}
+        return torch.cat(outs)
+
+    return prefill
+
+
+def make_serve_fn(cfg: ModelConfig, *, mesh=None):
     """(params, tokens, caches, pos) -> (greedy next tokens ``(b, 1)``
-    int32, caches); the caches are updated in place."""
+    int32, caches); the caches are updated in place.
+
+    With ``mesh`` the step takes a ``spmd.ShardedModel`` (the serving
+    specs) and the caches as a ``spmd.ShardedCaches`` (by
+    ``sharding.cache_specs``, on a mesh that names one device): the
+    rows split over the data-parallel ranks in order, or, where the
+    ranks do not divide the batch, the whole batch runs once (the
+    reference replicates it: batch 1 at ``long_500k``). Each rank
+    computes under ``ctx.rank_local`` against its views of the caches;
+    on a ``"model"`` > 1 mesh per model rank (``registry.tp_decode_fn``,
+    ``seq_parallel=False``, the weights split as
+    ``registry.tp_decode_splits`` says), else with ``decode_fn``. What
+    the step computed with is left in ``params.last_step``."""
     dfn = decode_fn(cfg)
+    if mesh is not None:
+        return _sharded_serve_fn(cfg, dfn, mesh)
 
     def serve_step(params, tokens, caches, pos):
         logits, caches = dfn(params, tokens, caches, pos)
@@ -225,3 +336,219 @@ def make_serve_fn(cfg: ModelConfig):
         return next_tok[:, None], caches
 
     return serve_step
+
+
+def _sharded_serve_fn(cfg: ModelConfig, dfn, mesh):
+    ranks = len(spmd.data_ranks(mesh))
+    tp_dec = tp_decode_fn(cfg) if mesh.shape.get("model", 1) > 1 else None
+
+    @torch.no_grad()
+    def serve_step(params: spmd.ShardedModel, tokens,
+                   caches: spmd.ShardedCaches, pos):
+        if params.mesh != mesh or caches.mesh != mesh:
+            raise ValueError(f"parameters on {params.mesh}, caches on "
+                             f"{caches.mesh}, step on {mesh}")
+        rows = tokens.shape[0]
+        n = ranks if rows % ranks == 0 else 1
+        per = rows // n
+        group = splits = None
+        dims = caches.dims()
+        if tp_dec is not None:
+            group = tp.Group(mesh, seq_parallel=False)
+            splits = tp_decode_splits(cfg, params.layouts, group, per, dims)
+        outs = []
+        for r, dev in enumerate(params.compute_devices()[:n]):
+            module = params.module_on(dev) if group is None \
+                else params.tp_module_on(dev, splits)
+            sub = tokens[r * per:(r + 1) * per].to(dev)
+            views = caches.rank_views(r)
+            with ctx.rank_local():
+                if group is None:
+                    last = dfn(module, sub, views, pos)[0][:, -1, :]
+                else:
+                    last = tp_dec(module, sub, views, dims, pos, group)
+            outs.append(torch.argmax(last, dim=-1).to(torch.int32)
+                        .to(params.home))
+        caches.commit()
+        params.last_step = {"splits": splits, "group": group,
+                            "microbatches": 1, "data_ranks": n}
+        return torch.cat(outs)[:, None], caches
+
+    return serve_step
+
+
+# ------------------------------------------------------------------ lowering
+def _traced_mesh(mesh, dev: torch.device) -> Mesh:
+    """A mesh of ``mesh``'s axes and shape (a ``launch.mesh.Mesh`` or
+    anything with ``axis_names`` and a ``shape`` dict) naming the traced
+    device at every position."""
+    shape = tuple(int(mesh.shape[a]) for a in mesh.axis_names)
+    grid = np.empty(shape, dtype=object)
+    for at in np.ndindex(shape):
+        grid[at] = dev
+    return Mesh(grid, mesh.axis_names)
+
+
+def _block_bytes(layouts: dict, dtypes) -> int:
+    """Per-device bytes of the leaves laid out by ``layouts`` (``dtypes``
+    a dtype each, or one for all)."""
+    return sum(math.prod(lay.block) * (dtypes[n] if isinstance(dtypes, dict)
+                                       else dtypes).itemsize
+               for n, lay in layouts.items())
+
+
+def _fake_inputs(cfg: ModelConfig, cell: ShapeCell, dev) -> dict:
+    return {k: torch.empty(sp.shape, dtype=sp.dtype, device=dev)
+            for k, sp in input_specs(cfg, cell).items()}
+
+
+def _batch_bytes(cfg: ModelConfig, cell: ShapeCell, mesh, kind: str) -> int:
+    specs = batch_specs(cfg, mesh, kind)
+    return sum(math.prod(spmd.Layout(sp.shape, specs[k], mesh).block)
+               * sp.dtype.itemsize
+               for k, sp in input_specs(cfg, cell).items())
+
+
+def _collectives(model: spmd.ShardedModel, grads: bool) -> dict:
+    rec = model.last_step or {}
+    group = rec.get("group")
+    parts = [ca.data_axis_collectives(
+        model.layouts, model.dtypes,
+        model.moment_layouts if grads else None, rec.get("splits"),
+        rec.get("microbatches", 1))]
+    if group is not None:
+        parts.append(ca.model_axis_collectives(
+            group, len(spmd.data_ranks(model.mesh))))
+    return ca.merge_collectives(*parts)
+
+
+def _run_traced(fn, n_devices: int) -> ca.Trace:
+    trace = ca.Trace(n_devices)
+    t0 = time.perf_counter()
+    with ca.CostMode(trace):
+        fn()
+    trace.seconds = time.perf_counter() - t0
+    return trace
+
+
+def lower_train_step(cfg: ModelConfig, cell: ShapeCell, mesh,
+                     opt: Optional[AdamW] = None, *,
+                     microbatches: Optional[int] = None,
+                     fsdp: Optional[bool] = None) -> ca.Lowered:
+    """Trace one sharded train step (``make_train_fn(mesh=)``) of the
+    cell on the card over ``mesh``'s shape, nothing allocated. As the
+    reference: bf16 moments from 1e11 parameters, ``default_microbatches``
+    unless given, parameters and moments donated, and ``fsdp`` read by
+    nothing (its dry run ignores it too). The memory analysis's
+    argument bytes are the parameters, moments, step and batch a
+    position holds (``param_specs``, ``opt_state_specs``,
+    ``batch_specs``); outputs the first three and the loss; alias the
+    donated ones."""
+    del fsdp                        # unread, as in the reference
+    if opt is None:
+        opt = AdamW(moment_dtype=torch.bfloat16
+                    if cfg.param_count() >= 1e11 else torch.float32)
+    if microbatches is None:
+        microbatches = default_microbatches(cfg, cell)
+    with tracing("cuda") as dev:
+        tmesh = _traced_mesh(mesh, dev)
+        params = init_params(cfg, device=dev, abstract=True)
+        model = spmd.ShardedModel(params, tmesh, param_specs(params, tmesh),
+                                  opt_state_specs(params, tmesh))
+        opt_state = opt.init(model, abstract=True)
+        batch = _fake_inputs(cfg, cell, dev)
+        step = make_train_fn(cfg, opt, microbatches=microbatches,
+                             mesh=tmesh)
+        with ctx.activation_sharding(tmesh):
+            trace = _run_traced(lambda: step(model, opt_state, batch),
+                                tmesh.size)
+        trace.collectives = _collectives(model, grads=True)
+        p_b = _block_bytes(model.layouts, model.dtypes)
+        m_b = _block_bytes(model.moment_layouts, opt.moment_dtype) * (
+            2 + (opt.compress is not None))
+        state_b = p_b + m_b + 4                     # the int32 step
+        memory = {"argument": state_b + _batch_bytes(cfg, cell, tmesh,
+                                                     "train"),
+                  "output": state_b + 4,            # the float32 loss
+                  "alias": state_b}
+    return ca.Lowered(trace, memory, f"train {cfg.name} {cell.name} "
+                      f"mesh {dict(tmesh.shape)} mb {microbatches}")
+
+
+def lower_prefill(cfg: ModelConfig, cell: ShapeCell, mesh,
+                  serving_params: bool = True) -> ca.Lowered:
+    """Trace the sharded prefill (``make_prefill_fn(mesh=)``) of the cell
+    on the card over ``mesh``'s shape under the serving specs (with
+    ``serving_params``); a ``"model"`` = 1 mesh takes the card's
+    attention route (the flash kernel). The output is the replicated
+    ``(b, vocab)`` last logits."""
+    with tracing("cuda") as dev:
+        tmesh = _traced_mesh(mesh, dev)
+        params = init_params(cfg, device=dev, abstract=True)
+        specs = param_specs(params, tmesh, serving=serving_params)
+        model = spmd.ShardedModel(params, tmesh, specs, specs)
+        batch = _fake_inputs(cfg, cell, dev)
+        step = make_prefill_fn(cfg, mesh=tmesh)
+        with ctx.activation_sharding(tmesh):
+            trace = _run_traced(lambda: step(model, batch), tmesh.size)
+        trace.collectives = _collectives(model, grads=False)
+        memory = {"argument": _block_bytes(model.layouts, model.dtypes)
+                  + _batch_bytes(cfg, cell, tmesh, "prefill"),
+                  "output": cell.global_batch * cfg.vocab
+                  * cfg.dtype.itemsize,
+                  "alias": 0}
+    return ca.Lowered(trace, memory, f"prefill {cfg.name} {cell.name} "
+                      f"mesh {dict(tmesh.shape)}")
+
+
+def lower_serve_step(cfg: ModelConfig, cell: ShapeCell, mesh,
+                     serving_params: bool = True) -> ca.Lowered:
+    """Trace one sharded decode step (``make_serve_fn(mesh=)``): one
+    token a row against caches of the cell's length (``s_src = min(s,
+    4096)`` source positions for the enc-dec family) laid out by
+    ``cache_specs``, at position ``s - 1``; the caches donated. Where the
+    data ranks do not divide the batch (``long_500k``'s one row) the
+    port computes it once where the reference computes it on every data
+    rank, so its per-device FLOPs are the reference's over the data
+    ranks there."""
+    b, s = cell.global_batch, cell.seq_len
+    with tracing("cuda") as dev:
+        tmesh = _traced_mesh(mesh, dev)
+        params = init_params(cfg, device=dev, abstract=True)
+        specs = param_specs(params, tmesh, serving=serving_params)
+        model = spmd.ShardedModel(params, tmesh, specs, specs)
+        whole = make_decode_state(cfg, b, s, s_src=min(s, 4096), device=dev,
+                                  abstract=True)
+        caches = spmd.ShardedCaches(whole, cache_specs(cfg, whole, tmesh),
+                                    tmesh)
+        del whole
+        tokens = torch.empty((b, 1), dtype=torch.int32, device=dev)
+        pos = torch.full((), s - 1, dtype=torch.int32, device=dev)
+        step = make_serve_fn(cfg, mesh=tmesh)
+        with ctx.activation_sharding(tmesh, seq_parallel=False):
+            trace = _run_traced(lambda: step(model, tokens, caches, pos),
+                                tmesh.size)
+        trace.collectives = _collectives(model, grads=False)
+        cache_b = caches.nbytes_per_device()
+        dp = len(spmd.data_ranks(tmesh))
+        tok_b = (b // dp if b % dp == 0 else b) * 4
+        memory = {"argument": _block_bytes(model.layouts, model.dtypes)
+                  + tok_b + cache_b + 4,
+                  "output": tok_b + cache_b,
+                  "alias": cache_b}
+    return ca.Lowered(trace, memory, f"decode {cfg.name} {cell.name} "
+                      f"mesh {dict(tmesh.shape)}")
+
+
+def lower_cell(cfg: ModelConfig, cell: ShapeCell, mesh,
+               opt: Optional[AdamW] = None,
+               microbatches: Optional[int] = None,
+               serving_params: bool = True,
+               fsdp: Optional[bool] = None) -> ca.Lowered:
+    """Dispatch on the cell kind (the dry-run entry point)."""
+    if cell.kind == "train":
+        return lower_train_step(cfg, cell, mesh, opt,
+                                microbatches=microbatches, fsdp=fsdp)
+    if cell.kind == "prefill":
+        return lower_prefill(cfg, cell, mesh, serving_params=serving_params)
+    return lower_serve_step(cfg, cell, mesh, serving_params=serving_params)

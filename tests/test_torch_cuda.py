@@ -1476,3 +1476,87 @@ def test_adamw_on_pieces_is_the_whole_leaf_step_on_the_card(cuda, arch, dp,
             for (name, a), b in zip(sm.named_parameters(),
                                     plain.parameters()):
                 assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_traced_and_real_flops_are_equal_on_the_card(cuda, kind):
+    """The cost model's trace (fake CUDA tensors on the card's program)
+    and the same program run on the card, both under ``CostMode``: equal
+    FLOPs, the prefill's through the flash kernel (its formula counted
+    once a real launch); a trace launches nothing."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.device import tracing
+    from repro_torch.launch.cost_analysis import CostMode
+    from repro_torch.models.registry import init_params
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import make_prefill_fn, make_train_fn
+    cfg = dataclasses.replace(get_config("llama3.2-3b", smoke=True),
+                              dtype=torch.bfloat16)
+
+    before = flash_ops.launch_count()
+    with tracing("cuda") as dev:
+        assert dev.type == "cuda"
+        params = init_params(cfg, device=dev, abstract=True)
+        toks = torch.zeros((4, 256), dtype=torch.int32, device=dev)
+        opt = AdamW(lr=1e-3)
+        state = opt.init(params, abstract=True)
+        run = (lambda: make_prefill_fn(cfg)(params, {"tokens": toks})) \
+            if kind == "prefill" else (lambda: make_train_fn(
+                cfg, opt, microbatches=2)(params, state,
+                                         {"tokens": toks, "labels": toks}))
+        with CostMode() as fake:
+            run()
+    assert flash_ops.launch_count() == before
+    params = init_params(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (4, 256), dtype=torch.int32,
+                         device=cuda)
+    opt = AdamW(lr=1e-3)
+    state = opt.init(params)
+    run = (lambda: make_prefill_fn(cfg)(params, {"tokens": toks})) \
+        if kind == "prefill" else (lambda: make_train_fn(
+            cfg, opt, microbatches=2)(params, state,
+                                     {"tokens": toks, "labels": toks}))
+    with CostMode() as real:
+        run()
+    flash = cfg.n_layers if kind == "prefill" else 0
+    assert flash_ops.launch_count() == before + flash
+    assert real.trace.calls("repro_torch.flash_attention") \
+        == fake.trace.calls("repro_torch.flash_attention") == flash
+    assert real.trace.flops == fake.trace.flops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-7b"])
+def test_sharded_serving_on_the_card_equals_the_unsharded(cuda, arch):
+    """The sharded prefill and three sharded decode steps on a (2, 2)
+    mesh naming the card, float32 at smoke size, against the unsharded
+    steps on the card: logits within 1e-4, tokens equal."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import cache_specs, param_specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import init_params, make_decode_state
+    from repro_torch.train.step import make_prefill_fn, make_serve_fn
+    cfg = get_config(arch, smoke=True)
+    params = init_params(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(1))
+    mesh = make_host_mesh(2, devices=["cuda:0"] * 4)
+    specs = param_specs(params, mesh, serving=True)
+    model = spmd.ShardedModel(copy.deepcopy(params), mesh, specs, specs)
+    toks = torch.randint(0, cfg.vocab, (4, 128), dtype=torch.int32,
+                         device=cuda)
+    want = make_prefill_fn(cfg, backend="plain")(params, {"tokens": toks})
+    got = make_prefill_fn(cfg, mesh=mesh)(model, {"tokens": toks})
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    caches = make_decode_state(cfg, 4, 32)
+    whole = copy.deepcopy(caches)
+    sharded = spmd.ShardedCaches(whole, cache_specs(cfg, whole, mesh), mesh)
+    plain, step = make_serve_fn(cfg), make_serve_fn(cfg, mesh=mesh)
+    for t in range(3):
+        nu, caches = plain(params, toks[:, t:t + 1], caches, t)
+        ns, _ = step(model, toks[:, t:t + 1], sharded, t)
+        assert torch.equal(ns, nu)
