@@ -584,6 +584,7 @@ def to_jsonable(x):
 
 
 def load_reference(path=REFERENCE_JSON) -> dict:
+    """The reference's committed figure numbers (``REFERENCE_JSON``)."""
     with open(path) as f:
         return json.load(f)
 

@@ -165,10 +165,12 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    """A tensor's data pointer as a C ``void *`` argument."""
     return ctypes.c_void_p(t.data_ptr())
 
 
 def stream_handle(device: torch.device) -> ctypes.c_void_p:
+    """The device's current CUDA stream as a C ``cudaStream_t`` argument."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 

@@ -90,6 +90,7 @@ def launch_count(branch: Optional[str] = None) -> int:
 
 
 def reset_launch_count() -> None:
+    """Set the launch count of every branch to 0."""
     for branch in _launches:
         _launches[branch] = 0
 

@@ -113,6 +113,7 @@ def _time_ms(fn, iters: int = 20) -> float:
 
 
 def main(argv=None) -> int:
+    """Time each variant on the card; 1 where no CUDA device is visible."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.parse_args(argv)
     if not torch.cuda.is_available():

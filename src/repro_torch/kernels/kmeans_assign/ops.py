@@ -52,6 +52,7 @@ def launch_count() -> int:
 
 
 def reset_launch_count() -> None:
+    """Set the launch count, and the count by shard, to 0."""
     global _launches
     _launches = 0
     _by_shard.clear()
