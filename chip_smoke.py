@@ -44,7 +44,14 @@ after:
   in ``paper_figs_reference.json``; both clustering kernels bitwise
   against their plain versions at the figures' new shapes (k = 50 over
   gcc's 120,000 BBVs, k = 500 over a phase-1 sample); every figure fit
-  must give the reference's labels;
+  must give the reference's labels; ``kmeans_assign`` at one shape of
+  each dot order (``ORDER_SHAPES``), four of them widths only the tiled
+  unit serves, and the tiled unit timed beside ``kmeans_assign.cu``
+  where that unit serves;
+* the wide path (``phase_wide``): ``kmeans_bank`` over the ten apps'
+  unprojected BBVs (10, 120000, 256) at k = 20 and ``kmeans_batch`` over
+  gcc's BBVs projected to 64 features at k = 64, a few Lloyd steps each,
+  through the kernels (the tiled unit) and the plain route, bit for bit;
 * the fault-tolerant fleet drivers and the sweep service on all ten apps
   and 7 configs (``phase_fleet_and_service``): supervised rfv and dg
   sweeps and 10^5 supervised trials, each killed three times (the rfv
@@ -210,18 +217,21 @@ def time_ms_spread(fn, *, reps: int = 15, iters: int = 20
     return t[len(t) // 2], t[0], t[-1]
 
 
-def device_ms(fn, names, *, iters: int = 10) -> dict:
+def device_ms(fn, names, *, iters: int = 10, required=None) -> dict:
     """Device milliseconds per call of each kernel whose name holds one of
     ``names`` (``torch.profiler``), over ``iters`` warmed calls of
-    ``fn``."""
+    ``fn``; traced again (five times at most) while one of ``required``
+    (all ``names`` when None) is missing or nothing was found."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     out = {}
-    # a trace now and then holds no device event at all: trace again
-    for _ in range(3):
+    # a trace now and then lacks a kernel's device events, or holds none
+    need = names if required is None else required
+    for _ in range(5):
+        out = {}
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -232,7 +242,7 @@ def device_ms(fn, names, *, iters: int = 10) -> dict:
                     if f"::{name}" in e.name:
                         out[name] = out.get(name, 0.0) + \
                             e.time_range.elapsed_us() / 1e3 / iters
-        if out:
+        if out and all(name in out for name in need):
             break
     return out
 
@@ -272,6 +282,11 @@ def assign_device_ms(x, c, order: str) -> float:
 
 def spread(t) -> str:
     return f"{t[0]:.4f} ms (median; {t[1]:.4f}-{t[2]:.4f})"
+
+
+def card_ms(t) -> str:
+    """A device time for the log: "not measured" where no trace held it."""
+    return "not measured" if t is None else f"{t:.4f}"
 
 
 # ------------------------------------------------------------------ phase 1
@@ -570,7 +585,7 @@ def check_main_path_inputs(latency: dict) -> dict:
                                    2.0 * b * n * k * d + 2.0 * b * n * d)
         log(f"kmeans_assign {tag} main-path input (b={b}, n={n}, d={d}, "
             f"k={k}): bitwise equal to plain; kernel {spread(ms_t)} (on "
-            f"the card {on_card:.4f} ms), plain "
+            f"the card {card_ms(on_card)} ms), plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), bound "
             f"share {bound_ms / ms:.3f}; grid "
             f"{assign_ops.last_dispatch()['grid']}")
@@ -580,7 +595,7 @@ def check_main_path_inputs(latency: dict) -> dict:
         other_dev = assign_device_ms(x, old, other_order(order))
         log(f"  kmeans_assign {tag}: the reference's dot order here is "
             f"{order}; in the other order {spread(other_t)} (on the card "
-            f"{other_dev:.4f} ms)")
+            f"{card_ms(other_dev)} ms)")
         row["kmeans_assign"] = {"max_abs_err": err, "ms": ms,
                                 "ms_range": ms_t[1:],
                                 "device_ms": on_card,
@@ -629,7 +644,7 @@ def check_main_path_inputs(latency: dict) -> dict:
                     lambda: seg_ops._launch(xb, lb, k, bit, work))
             del work
             on_card = device_ms(lambda: seg_ops.segment_stats(vals, lab, k),
-                                CLUSTER_KERNELS)
+                                CLUSTER_KERNELS, required=())
             valid = lab >= 0
             flat = (torch.where(valid, lab, 0).long()
                     + k * torch.arange(b, device="cuda")[:, None]).reshape(-1)
@@ -1456,12 +1471,23 @@ def run_flows(engine, apps=None) -> dict:
     return {"steps": steps, "apps": out}
 
 
-# (b, n, k, d) of one shape in each of the reference's three dot orders,
-# keyed "<order>_<width>_k<k>" (core.ordered.reference_dot_order)
+# (b, n, k, d) of one shape in each of the reference's three dot orders
+# of k >= 2 at the main path's widths (kmeans_assign.cu), two past d = 48
+# (d = 64 over the bank's ten lanes, d = 100: the tiled unit, which took
+# them over from two register-resident units, three and two times slower
+# there), and the wide path's two fits (the tiled unit: one chain above
+# d = 40, four chains above d = 128), keyed "<order>_<width>_k<k>"
+# (core.ordered.reference_dot_order). Where kmeans_assign.cu serves, the
+# tiled unit is timed beside it on the same inputs
 ORDER_SHAPES = {"four_rfv_k20": (1, 6861, 20, 38),
                 "chain_rfv_k50": (1, 6861, 50, 38),
                 "swapped_rfv_k40": (1, 6861, 40, 38),
-                "swapped_bbv_k28": (1, 120000, 28, 15)}
+                "swapped_bbv_k28": (1, 120000, 28, 15),
+                "four_bbv_d64_k20": (10, 120000, 20, 64),
+                "four_rfv_d100_k20": (1, 6861, 20, 100),
+                "chain_gcc_d64_k64": (1, 120000, 64, 64),
+                "four_raw_bbv_k20": (10, 120000, 20, 256)}
+TILED = "kmeans_assign_tiled"
 
 
 def check_new_shapes(engine, record: dict) -> dict:
@@ -1513,8 +1539,8 @@ def check_new_shapes(engine, record: dict) -> dict:
         log(f"kmeans_assign {tag} (b={b}, n={n}, d={d}, k={k}): labels and "
             f"distances bitwise equal to plain; kernel {spread(ms_t)} in the "
             f"reference's order here ({order}; {spread(other_t)} in the "
-            f"other; on the card {dev:.4f} and {other_dev:.4f} ms), plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"other; on the card {card_ms(dev)} and {card_ms(other_dev)} "
+            f"ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}), bound share {bound_ms / ms:.3f}")
         # the centroid update of that step: [x, 1] summed by label
         vals = torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
@@ -1541,10 +1567,24 @@ def check_new_shapes(engine, record: dict) -> dict:
             f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"index_add_ {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}), bound share {bound_ms / ms:.3f}")
-    # one shape of each dot order on random points: the RFV width at the
-    # engine's k = 20 (four chains, which are two at d = 38), k = 50 (one
-    # chain) and k = 40 (the swapped order: four chains at d = 38), and
-    # the BBV width at k = 28 (swapped: two chains at d = 15)
+    out["kmeans_assign"].update(check_order_shapes())
+    # these launches hold the kernels against plain: they are not the path's
+    assign_ops._launches, segment_ops._launches = n_launch
+    return out
+
+
+def check_order_shapes() -> dict:
+    """``kmeans_assign`` bitwise against plain at each of ``ORDER_SHAPES``
+    on random points, timed beside its bound, and the tiled unit beside
+    the unit that serves. The RFV width at the engine's k = 20 (four
+    chains, which are two at d = 38), k = 50 (one chain) and k = 40 (the
+    swapped order: four chains at d = 38), the BBV width at k = 28
+    (swapped: two chains at d = 15), and the wider ones. Not a launch of
+    any path: the caller restores the counts."""
+    import torch
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+
+    out = {"kmeans_assign": {}}
     for tag, (b, n, k, d) in ORDER_SHAPES.items():
         gen = torch.Generator(device="cuda").manual_seed(n + k + d)
         x = torch.randn((b, n, d), generator=gen, device="cuda")
@@ -1558,6 +1598,7 @@ def check_new_shapes(engine, record: dict) -> dict:
                 f"kmeans_assign {tag} ({order}): {int((lab_k != lab_p).sum())}"
                 f" labels, {int((d2_k != d2_p).sum())} distances differ from "
                 "plain")
+        unit = assign_ops.last_dispatch()["unit"]
         ms_t = time_ms_spread(lambda: assign_ops.kmeans_assign(x, c))
         plain_ms = time_ms(lambda: assign_ops.kmeans_assign(
             x, c, backend="plain"), iters=3)
@@ -1568,16 +1609,119 @@ def check_new_shapes(engine, record: dict) -> dict:
             "max_abs_err": 0.0, "ms": ms_t[0], "ms_range": ms_t[1:],
             "device_ms": dev, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "shape": [b, n, k, d], "order": order}
+            "shape": [b, n, k, d], "order": order, "unit": unit}
+        # the tiled unit's launch is two kernels here: their device times,
+        # and where another unit serves, the tiled unit's time beside it
+        parts = device_ms(lambda: assign_ops._launch(x, c, order, TILED),
+                          ["assign_kernel_norms", "assign_kernel_tiled"])
+        out["kmeans_assign"][tag]["tiled_device_ms_by_kernel"] = parts
+        log(f"  {tag} on the card by kernel of the tiled unit: " + ", ".join(
+            f"{name} {ms:.4f} ms" for name, ms in parts.items()))
+        if unit != TILED:
+            lab_t, d2_t = assign_ops._launch(x, c, order, TILED)[:2]
+            if not (torch.equal(lab_t, lab_k) and same_bits(d2_t, d2_k)):
+                raise AssertionError(f"kmeans_assign {tag}: the tiled unit "
+                                     f"differs from {unit}")
+            tiled_t = time_ms_spread(
+                lambda: assign_ops._launch(x, c, order, TILED))
+            out["kmeans_assign"][tag].update(
+                tiled_ms=tiled_t[0], tiled_range=tiled_t[1:],
+                tiled_device_ms=sum(parts.values()))
+            log(f"  {tag}: the tiled unit, bitwise equal to {unit} here, "
+                f"{spread(tiled_t)} (on the card {sum(parts.values()):.4f} "
+                f"ms) against {unit}'s {spread(ms_t)} (on the card "
+                f"{card_ms(dev)} ms)")
+            del lab_t, d2_t
         log(f"kmeans_assign {tag} (b={b}, n={n}, d={d}, k={k}): the "
             f"reference's order here is {order}; bitwise equal to plain; "
-            f"kernel {spread(ms_t)} (on the card {dev:.4f} ms), plain "
+            f"kernel {spread(ms_t)} (on the card {card_ms(dev)} ms), plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), bound "
             f"share {bound_ms / ms_t[0]:.3f}")
         del x, c, lab_k, d2_k, lab_p, d2_p
-    # these launches hold the kernels against plain: they are not the path's
-    assign_ops._launches, segment_ops._launches = n_launch
-    return out
+    return out["kmeans_assign"]
+
+
+# the wide path's fits: few Lloyd steps at full size
+WIDE_ITERS = 3
+WIDE_BANK_K = 20              # the engine's strata
+WIDE_GCC = ("502.gcc_r", 64, 64)   # app, projected width, k (one chain)
+
+
+def phase_wide() -> tuple[dict, dict]:
+    """The clustering API at the widths only the tiled unit serves, on the
+    bank's own data: (a) ``kmeans_bank`` over the ten apps' unprojected
+    BBVs, (10, 120000, 256), k = 20, the bank's mask as weights (four
+    chains); (b) ``kmeans_batch`` on gcc's BBVs projected to 64 features,
+    k = 64 (one chain). Both through the kernels, counted from 0, then
+    through the plain route on the card: labels, centroids, inertia and
+    iterations bit for bit. Also ``segment_stats``' scratch at (a)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core.clustering import (kmeans_bank, kmeans_batch,
+                                             random_project)
+    from repro_torch.kernels.kmeans_assign import ops as assign_ops
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+    from repro_torch.simcpu import (APP_NAMES, NUM_BLOCKS, get_bbvs,
+                                    get_population_bank)
+
+    pops = get_population_bank(APP_NAMES).pops
+    n_max = max(p.n_regions for p in pops)
+    x = torch.zeros((len(pops), n_max, NUM_BLOCKS), device="cuda")
+    mask = torch.zeros((len(pops), n_max), device="cuda")
+    for a, pop in enumerate(pops):
+        x[a, :pop.n_regions] = torch.as_tensor(get_bbvs(pop), device="cuda")
+        mask[a, :pop.n_regions] = 1.0
+    app, width, k_gcc = WIDE_GCC
+    z = random_project(torch.as_tensor(get_bbvs(pops[APP_NAMES.index(app)]),
+                                       device="cuda"), width,
+                       key=prng.PRNGKey(0, device="cuda"))
+
+    def fits(backend: str):
+        secs = {}
+        t0 = time.perf_counter()
+        bank = kmeans_bank(x, WIDE_BANK_K, weights=mask, seed=0,
+                           max_iters=WIDE_ITERS, backend=backend)
+        torch.cuda.synchronize()
+        secs["bank"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gcc = kmeans_batch(z, k_gcc, seeds=[0], max_iters=WIDE_ITERS,
+                           backend=backend)[0]
+        torch.cuda.synchronize()
+        secs["gcc"] = time.perf_counter() - t0
+        return bank, gcc, secs
+
+    assign_ops.reset_launch_count()
+    segment_ops.reset_launch_count()
+    bank, gcc, secs = fits("auto")
+    launches = {"kmeans_assign": assign_ops.launch_count(),
+                "segment_stats": segment_ops.launch_count()}
+    unit = assign_ops.last_dispatch()["unit"]
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"wide path never launched {name}")
+    if unit != "kmeans_assign_tiled":
+        raise AssertionError(f"wide path served by {unit}")
+    p_bank, p_gcc, p_secs = fits("plain")
+    for what, got, want in (("bank", bank, p_bank), ("gcc", gcc, p_gcc)):
+        for field in ("labels", "centroids", "inertia", "iterations"):
+            g, w = getattr(got, field), getattr(want, field)
+            if not (same_bits(g, w) if torch.is_tensor(g) else g == w):
+                raise AssertionError(f"wide {what} {field}: kernel route "
+                                     "differs from plain")
+    work = segment_ops._lib()[1](*x.shape[:2], WIDE_BANK_K, NUM_BLOCKS + 1)
+    detail = {"bank_shape": list(x.shape), "bank_k": WIDE_BANK_K,
+              "gcc_shape": list(z.shape), "gcc_k": k_gcc,
+              "iterations": [int(i) for i in bank.iterations.tolist()]
+              + [gcc.iterations], "seconds": secs, "plain_seconds": p_secs,
+              "segment_stats_scratch_bytes": 4 * int(work),
+              "launches": launches}
+    log(f"wide path: bank {tuple(x.shape)} k = {WIDE_BANK_K} and {app} "
+        f"{tuple(z.shape)} k = {k_gcc}, {WIDE_ITERS} Lloyd steps at most: "
+        f"kernels {secs['bank']:.2f} / {secs['gcc']:.2f} s, plain "
+        f"{p_secs['bank']:.2f} / {p_secs['gcc']:.2f} s; labels, centroids,"
+        f" inertia and iterations bitwise equal; launches {launches}; "
+        f"segment_stats scratch {4 * int(work) / 2**30:.3f} GiB")
+    return launches, detail
 
 
 def fig12_breakdown(engine, app: str = "523.xalancbmk_r") -> dict:
@@ -4337,6 +4481,8 @@ def main() -> int:
                                   phase_flow_and_figures, engine, plain)
     del engine
     gc.collect()
+    wide_path, wide_detail = timed("wide fits", phase_wide)
+    gc.collect()
     fleet_paths = timed("fleet and service", phase_fleet_and_service, plain)
     del plain
     gc.collect()
@@ -4351,7 +4497,8 @@ def main() -> int:
         f"{(torch.cuda.memory_allocated() - before) / 2**20:.1f} MiB "
         "once cuBLAS's workspaces are freed")
     by_path = {"simulation": simulation, "fused_and_trials": fused_path,
-               "flow_and_figures": flow_path, **fleet_paths,
+               "flow_and_figures": flow_path, "wide": wide_path,
+               **fleet_paths,
                "mesh": mesh_path, "lm": timed("LM path", phase_lm)}
     by_path["families"] = timed("families path", phase_families, card)
     by_path["encdec"] = timed("enc-dec path", phase_encdec, card)
@@ -4377,15 +4524,14 @@ def main() -> int:
         {"name": "kmeans_assign", "route": "cuda",
          "source": "src/repro_torch/csrc/kmeans_assign.cuh",
          "build_units": ["src/repro_torch/csrc/kmeans_assign.cu",
-                         "src/repro_torch/csrc/kmeans_assign_wide.cu",
-                         "src/repro_torch/csrc/kmeans_assign_128.cu"],
+                         "src/repro_torch/csrc/kmeans_assign_tiled.cu"],
          "replaces": "src/repro/kernels/kmeans_assign/kmeans_assign.py:41",
          **launches("kmeans_assign"), **main_inputs["bbv"]["kmeans_assign"],
          "other_shapes": {"rfv": main_inputs["rfv"]["kmeans_assign"],
                           **new_shapes["kmeans_assign"],
                           "synthetic": assign},
          "traced_build": traced["assign_kernel"],
-         "mesh": mesh_detail["kmeans_assign"]},
+         "mesh": mesh_detail["kmeans_assign"], "wide_fits": wide_detail},
         {"name": "segment_stats", "route": "cuda",
          "source": "src/repro_torch/csrc/segment_stats.cu",
          "replaces": "src/repro/kernels/segment_stats/segment_stats.py:28",

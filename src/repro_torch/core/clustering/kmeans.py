@@ -78,7 +78,7 @@ def _update_centroids(x: torch.Tensor, labels: torch.Tensor, k: int,
     sums, _, _ = segment_stats(vals, labels, k, backend=backend)
     counts = sums[..., -1]
     means = sums[..., :-1] / torch.clamp_min(counts, 1.0)[..., None]
-    return torch.where((counts > 0)[..., None], means, old)
+    return torch.where((counts > 0)[..., None], flush_subnormals(means), old)
 
 
 def _kmeanspp_init(keys: torch.Tensor, x: torch.Tensor, k: int,
@@ -244,13 +244,24 @@ def _as_keys(keys, seeds, device) -> torch.Tensor:
     return keys[None] if keys.dim() == 1 else keys
 
 
+def flush_subnormals(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with its float32 subnormals read as zeros of their sign, as
+    XLA runs the reference's programs (flush-to-zero, denormals-are-zero).
+    A fit's points flush where the fit starts and its centroid means
+    where the update makes them, the two places where the bank's raw
+    BBVs (which hold subnormal block counts) give subnormals; in between
+    they would take sums far below float32's smallest normal."""
+    return torch.where(t.abs() < torch.finfo(torch.float32).tiny, t * 0.0,
+                       t)
+
+
 def _as_points(features, device, rank: int) -> torch.Tensor:
     x = torch.as_tensor(features)
     x = x.to(device if device is not None else x.device, torch.float32)
     if x.dim() != rank:
         shape = "(n, d)" if rank == 2 else "(A, n, d)"
         raise ValueError(f"expected {shape}, got {tuple(x.shape)}")
-    return x
+    return flush_subnormals(x)
 
 
 def kmeans_batch(features, k: int, *, keys=None, seeds=None,
@@ -318,8 +329,9 @@ def kmeans_bank(features, k: int, *, weights=None, key=None, seed: int = 0,
     ``mesh`` (an ``("app",)`` mesh) the lanes are split over its devices:
     each shard's steps launch both kernels at its local shape, so a lane's
     result is the unsharded one wherever the local shape's dot and norm
-    orders are the full shape's (``core.ordered.reference_dot_order``: the
-    dot's depends on k and d alone, so only the norms' can part).
+    orders are the full shape's (``core.ordered.reference_dot_order``: from
+    k = 2 the dot's depends on k and d alone, so only the norms' can part;
+    one centroid's also on the lane count).
     """
     x = _as_points(features, device, 3)
     if k < 1 or k > x.shape[1]:

@@ -1,12 +1,16 @@
 // Build unit of the nearest-centroid assignment kernel (kmeans_assign.cuh),
 // which replaces the TPU kernel `_assign_kernel` / `kmeans_assign_padded`
 // in src/repro/kernels/kmeans_assign/kmeans_assign.py: the one-chain dot
-// order, and the interleaved order at d <= 48; kmeans_assign_wide.cu
-// builds it at 48 < d <= 64 and kmeans_assign_128.cu above. The
-// instantiations are most of the kernel build (its time grows about as the
-// square of the width), and the three units build at once. The wrapper
-// launches through the first unit that serves a launch's order and width
-// (`kmeans_assign_serves`, kernels/kmeans_assign/ops.py).
+// order at d <= 40, and the interleaved orders at d <= 48, the main path's
+// fits among them (d = 15 and 38). kmeans_assign_tiled.cu, which streams
+// the depth instead of holding a row in registers, serves every order at
+// every width: everything above d = 48 (where it is faster than wider
+// instantiations of this kernel were, which spilled), the one chain above
+// d = 40, and the one-centroid orders. The instantiations are most of this
+// unit's build (its time grows about as the square of the width); the two
+// units build at once. The wrapper launches through the first unit that
+// serves a launch's order and width (`kmeans_assign_serves`,
+// kernels/kmeans_assign/ops.py).
 
 #include "kmeans_assign.cuh"
 
@@ -15,8 +19,9 @@ namespace {
 // The interleaved order (four chains, or two) takes the instantiation of
 // d's own ceil4 (its tail sits in the last 4 columns). The one-chain order
 // reads a point's d columns under run-time guards, so any DMAX >= d serves
-// it: it is built at 16 and 40 only (the port's fits have d <= 38), which
-// keeps the build short; no unit serves a one-chain launch with d > 40.
+// it: it is built at 16 and 40 only (the port's figure fits have d <= 38),
+// which keeps the build short; kmeans_assign_tiled.cu serves the one chain
+// above d = 40.
 // Each interleaved instantiation also serves the swapped interleave (a
 // run-time flag).
 Launch pick(int d, bool chain) {

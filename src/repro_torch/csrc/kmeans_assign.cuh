@@ -1,9 +1,11 @@
 #pragma once
 
 // Nearest-centroid assignment for a batch of independent k-means lanes:
-// the kernel and its launcher, built by three units (kmeans_assign.cu,
-// kmeans_assign_wide.cu, kmeans_assign_128.cu), each instantiating its
-// share of the widths.
+// the register-resident kernel and its launcher, built by
+// kmeans_assign.cu at the widths up to d = 48. A second unit,
+// kmeans_assign_tiled.cu, streams the depth instead and serves every
+// width and order (everything above d = 48, the one chain above d = 40,
+// the one-centroid orders); the wrapper asks the units in that order.
 //
 // Replaces the TPU kernel `_assign_kernel` / `kmeans_assign_padded` in
 // src/repro/kernels/kmeans_assign/kmeans_assign.py. For lane b and point i
@@ -42,8 +44,10 @@
 //     squared norms as one multiply-add chain up to 32 terms, else in
 //     windows of 32, except the leading rows of a lane (points) or of its
 //     centroids that the reference adds in its vector body at d = 5 to 8
-//     (core.ordered.norm_vector_rows, passed in as `xvec` and `cvec`):
-//     there, the rounded products in order; dot products in the order
+//     (core.ordered.norm_vector_form, passed in as `xvec` and `cvec`,
+//     with one centroid or one point a lane counted by lane; `xlast` /
+//     `clast` where the fifth square is a multiply-add): there, the
+//     rounded products in order; dot products in the order
 //     the reference's distance einsum takes at the launch's shape
 //     (core.ordered.reference_dot_order, passed in as `chain` and
 //     `swap`): interleaved multiply-add accumulators -- four, (a0 + a1) +
@@ -102,31 +106,36 @@ __device__ float sum_sq_row(const float* v, int d) {
 
 // sum of v[j]^2 over j < d as rounded products added in order (no
 // contraction): the reference's order for the rows of a norm in its
-// vector body (core.ordered.sum_sq_rows)
-__device__ float sum_prod_row(const float* v, int d) {
+// vector body (core.ordered.sum_sq_rows); with `last` (two rows at d = 5)
+// the fifth square is a multiply-add onto the first four's sum
+__device__ float sum_prod_row(const float* v, int d, bool last) {
   float acc = 0.f;
-  for (int j = 0; j < d; ++j) acc = __fadd_rn(acc, __fmul_rn(v[j], v[j]));
-  return acc;
+  const int m = last ? d - 1 : d;
+  for (int j = 0; j < m; ++j) acc = __fadd_rn(acc, __fmul_rn(v[j], v[j]));
+  return last ? fmaf(v[m], v[m], acc) : acc;
 }
 
 template <int DMAX>
-__device__ float sum_prod_reg(const float (&v)[DMAX], int d) {
+__device__ float sum_prod_reg(const float (&v)[DMAX], int d, bool last) {
   float acc = 0.f;
+  const int m = last ? d - 1 : d;
 #pragma unroll
   for (int j = 0; j < DMAX; ++j) {
-    if (j < d) acc = __fadd_rn(acc, __fmul_rn(v[j], v[j]));
+    if (j < m) acc = __fadd_rn(acc, __fmul_rn(v[j], v[j]));
+    else if (j == m && last) acc = fmaf(v[j], v[j], acc);
   }
   return acc;
 }
 
 // a point's squared norm in the order of its row's place: rounded
-// products in order for the first `vec` rows of a lane, else sum_sq_reg.
-// Only d = 5 to 8 has such rows (core.ordered.norm_vector_rows), so only
-// the instantiations that serve those widths (DMAX 8, and 16 for the
-// one-chain order) compile the first form
+// products in order (`last`: the fifth by a multiply-add) for the first
+// `vec` rows of a lane, else sum_sq_reg. Only d = 5 to 8 has such rows
+// (core.ordered.norm_vector_form), so only the instantiations that serve
+// those widths (DMAX 8, and 16 for the one-chain order) compile the first
+// form
 template <int DMAX>
 __device__ __forceinline__ float norm_reg(const float (&v)[DMAX], int d,
-                                          bool vec);
+                                          bool vec, bool last);
 
 // the same on a point held in registers (compile-time indices only); the
 // order follows d, not DMAX, since a one-chain instantiation serves every
@@ -161,9 +170,9 @@ __device__ float sum_sq_reg(const float (&v)[DMAX], int d) {
 
 template <int DMAX>
 __device__ __forceinline__ float norm_reg(const float (&v)[DMAX], int d,
-                                          bool vec) {
+                                          bool vec, bool last) {
   if constexpr (DMAX <= 16) {
-    if (vec) return sum_prod_reg<DMAX>(v, d);
+    if (vec) return sum_prod_reg<DMAX>(v, d, last);
   }
   return sum_sq_reg<DMAX>(v, d);
 }
@@ -385,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
                   int n, int k, int d, int tiles, int tile_rows, int items,
                   int split, int stage_floats, int xvec, int cvec,
-                  int swap, int* __restrict__ labels,
+                  int xlast, int clast, int swap, int* __restrict__ labels,
                   float* __restrict__ mind2) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem);
@@ -438,9 +447,12 @@ __global__ void __launch_bounds__(kThreads, 2)
         cs[t] = j < d ? cl[kk * d + j] : 0.f;
       }
       consumers_sync();
+      // a centroid's norm takes its order from its place: its index, or
+      // with one centroid a lane, the lane's
       for (int kk = threadIdx.x; kk < k; kk += kConsumers)
-        c2[kk] = kk < cvec ? sum_prod_row(cs + kk * dp, d)
-                           : sum_sq_row(cs + kk * dp, d);
+        c2[kk] = (k == 1 ? lane : kk) < cvec
+                     ? sum_prod_row(cs + kk * dp, d, clast != 0)
+                     : sum_sq_row(cs + kk * dp, d);
       consumers_sync();
       cur = lane;
     }
@@ -471,10 +483,13 @@ __global__ void __launch_bounds__(kThreads, 2)
           if (j < d) xr[h][j] = xp[j];
       }
     }
-    // a point's norm takes its order from its row in the lane
+    // a point's norm takes its order from its row in the lane (with one
+    // point a lane, from the lane)
     const int row0 = (i - lane * tiles) * tile_rows;
-    const float x2a = norm_reg<DMAX>(xr[0], d, row0 + p[0] < xvec);
-    const float x2b = norm_reg<DMAX>(xr[1], d, row0 + p[1] < xvec);
+    const float x2a = norm_reg<DMAX>(
+        xr[0], d, (n == 1 ? lane : row0 + p[0]) < xvec, xlast != 0);
+    const float x2b = norm_reg<DMAX>(
+        xr[1], d, (n == 1 ? lane : row0 + p[1]) < xvec, xlast != 0);
     float best[2] = {INFINITY, INFINITY};
     int arg[2] = {lo, lo};
     auto take = [&](int kk, float2 dots, float norm) {
@@ -543,7 +558,8 @@ cudaError_t card_of(int* device_out, int* sms, int* max_smem) {
 
 template <int DMAX, bool CHAIN>
 cudaError_t launch(const float* x, const float* c, int b, int n, int k, int d,
-                   int xvec, int cvec, int swap, int* labels, float* mind2,
+                   int xvec, int cvec, int xlast, int clast, int swap,
+                   int* labels, float* mind2,
                    int* geometry,
                    cudaStream_t stream) {
   int device = 0, sms = 0, max_smem = 0;
@@ -601,7 +617,7 @@ cudaError_t launch(const float* x, const float* c, int b, int n, int k, int d,
   }
   assign_kernel<DMAX, CHAIN><<<grid, kThreads, smem, stream>>>(
       x, c, n, k, d, tiles, tile_rows, items, split, stage_floats(), xvec,
-      cvec, swap, labels, mind2);
+      cvec, xlast, clast, swap, labels, mind2);
   return cudaGetLastError();
 }
 
@@ -611,30 +627,40 @@ cudaError_t launch(const float* x, const float* c, int b, int n, int k, int d,
 // its C entries below report and launch what it picks, so the widths a
 // unit serves are written in that unit alone.
 using Launch = cudaError_t (*)(const float*, const float*, int, int, int,
-                               int, int, int, int, int*, float*, int*,
-                               cudaStream_t);
+                               int, int, int, int, int, int, int*, float*,
+                               int*, cudaStream_t);
 Launch pick(int d, bool chain);
 
 }  // namespace
 
 // 1 if this unit serves width d in the dot order `order`
 // (core.ordered.DOT_ORDER_NAMES: 0 the interleaved chains, 1 one chain, 2
-// the swapped interleave, which every interleaved instantiation serves),
+// the swapped interleave, which every interleaved instantiation serves;
+// 3 and 4, the one-centroid orders, only kmeans_assign_tiled.cu serves),
 // else 0.
 extern "C" int kmeans_assign_serves(int d, int order) {
   return d > 0 && order >= 0 && order <= 2 && pick(d, order == 1) != nullptr;
 }
 
+// Floats of scratch a launch needs in `work` (none in these units).
+extern "C" long long kmeans_assign_work(int b, int n, int k, int d,
+                                        int order) {
+  return 0;
+}
+
 // x (b, n, d), c (b, k, d) float32, contiguous, x 16-byte aligned; order:
-// the dot order as kmeans_assign_serves takes it; xvec /
-// cvec: the leading rows of each lane's points / centroids whose norms
-// add rounded products in order (core.ordered.norm_vector_rows of n / k
-// and d); labels (b, n) int32 and mind2 (b, n) float32 out; geometry (3
-// ints, out): the persistent grid, the (lane, tile) items and the threads
-// a point. Returns the CUDA error of the launch (0 = ok);
-// cudaErrorInvalidValue where the unit does not serve d in that order.
+// the dot order as kmeans_assign_serves takes it; xvec / cvec: the leading
+// rows of each lane's points / centroids (of the lanes, where n / k is 1)
+// whose norms add rounded products in order, xlast / clast: 1 where they
+// add the fifth square by a multiply-add (core.ordered.norm_vector_form);
+// work: kmeans_assign_work floats of scratch (unused here); labels (b, n)
+// int32 and mind2 (b, n) float32 out; geometry (3 ints, out): the
+// persistent grid, the (lane, tile) items and the threads a point. Returns
+// the CUDA error of the launch (0 = ok); cudaErrorInvalidValue where the
+// unit does not serve d in that order.
 extern "C" int kmeans_assign_f32(const float* x, const float* c, int b, int n,
                                  int k, int d, int order, int xvec, int cvec,
+                                 int xlast, int clast, float* work,
                                  int* labels, float* mind2, int* geometry,
                                  void* stream) {
   if (b <= 0 || n <= 0) return 0;
@@ -643,6 +669,7 @@ extern "C" int kmeans_assign_f32(const float* x, const float* c, int b, int n,
     return (int)cudaErrorInvalidValue;
   const Launch launch_fn = pick(d, order == 1);
   if (launch_fn == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)launch_fn(x, c, b, n, k, d, xvec, cvec, order == 2, labels,
-                        mind2, geometry, static_cast<cudaStream_t>(stream));
+  return (int)launch_fn(x, c, b, n, k, d, xvec, cvec, xlast, clast,
+                        order == 2, labels, mind2, geometry,
+                        static_cast<cudaStream_t>(stream));
 }

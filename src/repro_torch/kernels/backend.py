@@ -30,6 +30,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 from typing import Callable, Optional
 
@@ -115,16 +116,27 @@ def _start(name: str):
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
-    return proc, tmp, out, time.perf_counter()
+    rec = {"t0": time.perf_counter()}
+
+    def wait():
+        # drains nvcc's output as it comes and times its own exit, however
+        # long the caller's work beside the build takes
+        rec["output"] = proc.communicate()
+        rec["seconds"] = time.perf_counter() - rec["t0"]
+
+    waiter = threading.Thread(target=wait, daemon=True)
+    waiter.start()
+    return proc, tmp, out, waiter, rec
 
 
 def _finish(name: str, started) -> None:
     if started is None:
         _BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "(cached)"})
         return
-    proc, tmp, out, t0 = started
-    stdout, stderr = proc.communicate()
-    seconds = time.perf_counter() - t0
+    proc, tmp, out, waiter, rec = started
+    waiter.join()
+    stdout, stderr = rec["output"]
+    seconds = rec["seconds"]
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{stdout}{stderr}")

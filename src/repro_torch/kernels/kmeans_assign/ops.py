@@ -4,22 +4,27 @@ Counterpart of ``repro.kernels.kmeans_assign.ops``. Every input rank
 takes one path: the axes before the trailing ``(n, d)`` flatten into the
 kernel's lane axis, so a ``(B, n, d)`` stack of fits is one launch.
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-the kernel of ``csrc/kmeans_assign.cuh`` or raises
-(``repro_torch.kernels.backend``). The kernel is built as three units that
-nvcc builds at once: ``kmeans_assign.cu`` (the one-chain order at d <=
-40, and the interleaved orders at d <= 48), ``kmeans_assign_wide.cu``
-(the interleaved orders at 48 < d <= 64) and ``kmeans_assign_128.cu``
-(above 64); a launch goes through the first unit whose library says it serves the launch's
-order and width (``kmeans_assign_serves``).
+the kernel or raises (``repro_torch.kernels.backend``). The kernel is
+built as two units that nvcc builds at once, asked in this order
+(``_UNITS``); a launch goes through the first whose library says it
+serves the launch's order and width (``kmeans_assign_serves``):
+
+* ``kmeans_assign.cu`` (``csrc/kmeans_assign.cuh``, a point's row held in
+  registers): the one-chain order at d <= 40, the interleaved orders at
+  d <= 48, the main path's fits (d = 15 and 38) among them;
+* ``kmeans_assign_tiled.cu`` (the depth streamed through shared memory):
+  every order at every d, so everything above d = 48, the one chain
+  above d = 40, and the one-centroid orders (``"vector"``, ``"gemv"``).
+  It takes scratch for the squared norms (``kmeans_assign_work``), which
+  the wrapper allocates.
 
 The kernel reads the points and centroids at their real widths: there is
 no padding, so no padded centroid can win. Both the kernel and the plain
 version take the dot product's order from the reference's rule at the
-launch's shape (``ref.dot_order``): interleaved chains, one chain, or the
-other interleave (``core.ordered.reference_dot_order``), and each squared
-norm's from its row's place (``core.ordered.norm_vector_rows``), so they
-agree bitwise at every shape. The kernel's one-chain order is built for
-d <= 40: no unit serves a wider launch in it.
+launch's shape (``ref.dot_order``: ``core.ordered.reference_dot_order``),
+and each squared norm's from its row's place
+(``core.ordered.norm_vector_form``), so they agree bitwise at every
+shape. ``last_dispatch()["unit"]`` names the unit that served.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ...core.ordered import DOT_ORDER_NAMES, norm_vector_rows
+from ...core.ordered import DOT_ORDER_NAMES, norm_vector_form
 from ...device import resolve_device
 from .. import backend as _backend
 from .ref import dot_order, kmeans_assign_ref
@@ -75,8 +80,9 @@ def _count_launch() -> None:
 def last_dispatch() -> Optional[dict]:
     """Shape record of the latest kernel launch (``None`` before any):
     ``batch``, ``batch_shape``, ``n``, ``k``, ``d``, ``order`` (the dot
-    product's: ``"four"``, ``"chain"`` or ``"swapped"``), ``grid`` (the
-    persistent blocks), ``tiles`` (the (lane, point tile) items they walk) and
+    product's: one of ``core.ordered.DOT_ORDER_NAMES``), ``unit`` (the
+    build unit that served, ``_UNITS``), ``grid`` (the blocks along the
+    points), ``tiles`` (the (lane, point tile) items they walk) and
     ``split`` (threads that share a point, each scanning a share of the
     centroids). Plain calls leave it untouched."""
     return None if _last_dispatch is None else dict(_last_dispatch)
@@ -89,25 +95,39 @@ def _reset_dispatch_record() -> None:
 
 # the build units, asked in this order which serves a launch (a unit is
 # built the first time it is asked)
-_UNITS = ("kmeans_assign", "kmeans_assign_wide", "kmeans_assign_128")
+_UNITS = ("kmeans_assign", "kmeans_assign_tiled")
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(order: str, d: int):
-    """The C entry of the first build unit that serves this order and
-    width (each library reports it: ``kmeans_assign_serves``)."""
-    for unit in _UNITS:
-        lib = _backend.library(unit)
-        if lib.kmeans_assign_serves(ctypes.c_int(d),
-                                    ctypes.c_int(DOT_ORDER_NAMES.index(
-                                        order))):
-            fn = lib.kmeans_assign_f32
-            vp, i = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [vp, vp, i, i, i, i, i, i, i, vp, vp, vp, vp]
-            fn.restype = ctypes.c_int
-            return fn
+def _unit(unit: str):
+    """``(serves, entry, work)`` of one build unit's library: whether it
+    serves a width and order (``kmeans_assign_serves``), its C entry and
+    its scratch query."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib = _backend.library(unit)
+    serves = lib.kmeans_assign_serves
+    serves.argtypes = [i, i]
+    serves.restype = ctypes.c_int
+    fn = lib.kmeans_assign_f32
+    fn.argtypes = [vp, vp, i, i, i, i, i, i, i, i, i, vp, vp, vp, vp, vp]
+    fn.restype = ctypes.c_int
+    work = lib.kmeans_assign_work
+    work.argtypes = [i, i, i, i, i]
+    work.restype = ctypes.c_longlong
+    return serves, fn, work
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(order: str, d: int, unit: Optional[str] = None):
+    """``(unit, entry, work)`` of the first build unit that serves this
+    order and width (or of ``unit``, which must serve it)."""
+    for name in _UNITS if unit is None else (unit,):
+        serves, fn, work = _unit(name)
+        if serves(d, DOT_ORDER_NAMES.index(order)):
+            return name, fn, work
     raise ValueError(f"no kmeans_assign build unit serves d = {d} in the "
-                     f"{order!r} dot order")
+                     f"{order!r} dot order"
+                     + ("" if unit is None else f" among ({unit!r},)"))
 
 
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, *,
@@ -146,6 +166,7 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, *,
     _count_launch()
     _last_dispatch = {"batch": b, "batch_shape": batch_shape, "n": n,
                       "k": k, "d": d, "order": order,
+                      "unit": _entry(order, d)[0],
                       "grid": (geometry[0],), "tiles": geometry[1],
                       "split": geometry[2]}
     return (labels.reshape(*batch_shape, n), mind2.reshape(*batch_shape, n))
@@ -163,11 +184,14 @@ def kmeans_assign_np(x: np.ndarray, centroids: np.ndarray, *,
     return labels.cpu().numpy(), mind2.cpu().numpy()
 
 
-def _launch(x: torch.Tensor, c: torch.Tensor, order: str):
+def _launch(x: torch.Tensor, c: torch.Tensor, order: str,
+            unit: Optional[str] = None):
     """One launch of the kernel on CUDA ``x (b, n, d)`` and ``c (b, k, d)``
-    with the dot product in ``order`` (``core.ordered.DOT_ORDER_NAMES``):
+    with the dot product in ``order`` (``core.ordered.DOT_ORDER_NAMES``),
+    through ``unit`` (the first that serves when None):
     ``(labels, mind2, geometry)``. Not counted: ``kmeans_assign`` counts
-    its own launches, and a caller timing the other order calls this."""
+    its own launches, and a caller timing another order or unit calls
+    this."""
     b, n, d = x.shape
     k = c.shape[1]
     xb = x.float().contiguous()
@@ -177,11 +201,15 @@ def _launch(x: torch.Tensor, c: torch.Tensor, order: str):
     labels = torch.empty((b, n), dtype=torch.int32, device=x.device)
     mind2 = torch.empty((b, n), dtype=torch.float32, device=x.device)
     geometry = (ctypes.c_int * 3)()
-    fn = _entry(order, d)
-    code = fn(_backend.ptr(xb), _backend.ptr(cb), b, n, k, d,
-              DOT_ORDER_NAMES.index(order), norm_vector_rows(n, d),
-              norm_vector_rows(k, d), _backend.ptr(labels),
-              _backend.ptr(mind2), geometry,
+    _, fn, work_floats = _entry(order, d, unit)
+    which = DOT_ORDER_NAMES.index(order)
+    work = torch.empty(work_floats(b, n, k, d, which), dtype=torch.float32,
+                       device=x.device)
+    xvec, xlast = norm_vector_form(n, b, d)
+    cvec, clast = norm_vector_form(k, b, d)
+    code = fn(_backend.ptr(xb), _backend.ptr(cb), b, n, k, d, which, xvec,
+              cvec, int(xlast), int(clast), _backend.ptr(work),
+              _backend.ptr(labels), _backend.ptr(mind2), geometry,
               _backend.stream_handle(x.device))
     _backend.check_launch("kmeans_assign", code)
     return labels, mind2, geometry

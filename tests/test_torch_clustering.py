@@ -195,3 +195,135 @@ def test_kmeans_bank_fit_unchanged_by_dropping_weight_zero_rows(
                        seed=0)
     for field in ("centroids", "labels", "inertia", "iterations"):
         assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
+# ------------------------------------ wide fits on the bank's own BBVs
+BBV_APPS = ("502.gcc_r", "505.mcf_r", "523.xalancbmk_r")
+BBV_ROWS = 2000
+WIDE_ITERS = 25
+
+
+@pytest.fixture(scope="module")
+def bank_bbvs():
+    """``BBV_ROWS`` regions (in order, seeded choice) of three apps' real
+    BBVs, ``(3, BBV_ROWS, 256)`` float32 block counts, and their random
+    projection to 64 features (the port's, given to both packages)."""
+    from repro_torch.simcpu import get_bbvs, get_population
+    rng = np.random.default_rng(29)
+    rows = []
+    for app in BBV_APPS:
+        bbv = get_bbvs(get_population(app))
+        rows.append(bbv[np.sort(rng.choice(len(bbv), BBV_ROWS,
+                                           replace=False))])
+    raw = np.stack(rows).astype(np.float32)
+    z = random_project(torch.from_numpy(raw), 64,
+                       key=prng.PRNGKey(0)).numpy()
+    return {256: raw, 64: z}
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread: beside the suite's other workers a thread pool
+    per process waits on descheduled threads (``tests/lm_family_checks.py``
+    says more)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _same_fit(x, got, want, what: str) -> int:
+    """Labels equal but at reference near-ties (none away from them),
+    centroids and iterations bit for bit: the near-tie flips found."""
+    bad, at_ties = _exceptions(x, want.centroids, got.labels.numpy(),
+                               want.labels)
+    assert bad == 0, f"{what}: {bad} labels differ away from near-ties"
+    np.testing.assert_array_equal(got.centroids.numpy(), want.centroids,
+                                  err_msg=what)
+    np.testing.assert_array_equal(np.asarray(got.iterations),
+                                  np.asarray(want.iterations), err_msg=what)
+    return at_ties
+
+
+@pytest.mark.parametrize("d,k", [(64, 64), (256, 20)])
+def test_wide_fits_match_reference_on_bank_bbvs(bank_bbvs,
+                                                one_torch_thread, d, k):
+    """``kmeans``, ``kmeans_batch`` and ``kmeans_bank`` at the widths the
+    card's wide path serves (d = 64 at k = 64: one chain; the raw d = 256
+    BBVs at k = 20: four chains) against the reference's ``backend="jnp"``
+    fits on the same points, the port in its own float mode (its fits
+    read subnormals as zeros, as XLA does: ``flush_subnormals``; the raw
+    BBVs hold some, 0.17 % of the values here): labels under the near-tie
+    rule, centroids and iterations bitwise, inertia to rtol 1e-5 (a sum
+    over the fit's points in another order)."""
+    x = bank_bbvs[d]
+    assert ordered.reference_dot_order(3, BBV_ROWS, k, d) == \
+        ("chain" if d == 64 else "four")
+    flips = 0
+    want = jax_kmeans(x[0], k, seed=0, max_iters=WIDE_ITERS)
+    got = kmeans(torch.from_numpy(x[0]), k, seed=0, max_iters=WIDE_ITERS)
+    flips += _same_fit(x[0], got, want, "kmeans")
+    np.testing.assert_allclose(got.inertia, want.inertia, rtol=1e-5)
+    for g, w in zip(kmeans_batch(torch.from_numpy(x[1]), k, seeds=[0, 5],
+                                 max_iters=WIDE_ITERS),
+                    jax_batch(x[1], k, seeds=[0, 5], max_iters=WIDE_ITERS)):
+        flips += _same_fit(x[1], g, w, "kmeans_batch")
+    wts = np.ones(x.shape[:2], np.float32)
+    wts[2, -300:] = 0.0                      # a ragged lane's padding
+    want = jax_bank(x, k, weights=wts, seed=0, max_iters=WIDE_ITERS)
+    got = kmeans_bank(torch.from_numpy(x), k, weights=torch.from_numpy(wts),
+                      seed=0, max_iters=WIDE_ITERS)
+    flips += _same_fit(x, got, want, "kmeans_bank")
+    np.testing.assert_allclose(got.inertia.numpy(), want.inertia, rtol=1e-5)
+    assert flips == 0, f"{flips} labels flipped at near-ties"
+
+
+def test_raw_bbv_fit_parts_from_reference_only_at_subnormals(
+        bank_bbvs, one_torch_thread, monkeypatch):
+    """ROADMAP C.9, what the fits' flush repairs: with subnormals kept
+    (``flush_subnormals`` taken out) the port's bank fit on the raw
+    d = 256 BBVs gives the reference's labels, and parts from its
+    centroids, but only at elements whose cluster holds a subnormal value
+    in that column, which XLA reads as zero."""
+    monkeypatch.setattr(km_module, "flush_subnormals", lambda t: t)
+    x = bank_bbvs[256]
+    want = jax_bank(x, 20, seed=0, max_iters=WIDE_ITERS)
+    got = kmeans_bank(torch.from_numpy(x), 20, seed=0, max_iters=WIDE_ITERS)
+    np.testing.assert_array_equal(got.labels.numpy(), want.labels)
+    tiny = np.finfo(np.float32).tiny
+    parted = np.argwhere(got.centroids.numpy() != want.centroids)
+    assert len(parted) > 0
+    for a, j, col in parted:
+        members = x[a][want.labels[a] == j][:, col]
+        assert ((members != 0) & (np.abs(members) < tiny)).any(), (a, j, col)
+
+
+def test_flush_subnormals_keeps_signs_and_normals():
+    """Subnormals become zeros of their sign; zeros, the smallest
+    normals, infinities and NaN pass unchanged."""
+    tiny = np.finfo(np.float32).tiny
+    t = torch.tensor([tiny / 2, -tiny / 2, tiny, -tiny, 0.0, -0.0, 1.0,
+                      float("inf"), float("nan")])
+    got = km_module.flush_subnormals(t)
+    want = torch.tensor([0.0, -0.0, tiny, -tiny, 0.0, -0.0, 1.0,
+                         float("inf"), float("nan")])
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    assert torch.equal(got[:-1], want[:-1]) and bool(got[-1].isnan())
+
+
+def test_wide_assignment_matches_reference_pallas_kernel(
+        bank_bbvs, one_torch_thread):
+    """The port's assignment at d = 256 against the reference's Pallas
+    kernel in interpret mode (its own padding to 128-multiples of d and
+    k, its own product order): labels under the near-tie rule, distances
+    to rtol 1e-5 and atol 1e-6 of the largest distance."""
+    from repro.kernels.kmeans_assign.ops import kmeans_assign as jax_assign
+    from repro_torch.kernels.kmeans_assign.ops import kmeans_assign
+    x = bank_bbvs[256][:, :512]
+    c = x[:, 7:27].copy()
+    lab, d2 = kmeans_assign(torch.from_numpy(x), torch.from_numpy(c))
+    want_lab, want_d2 = (np.asarray(a) for a in jax_assign(x, c))
+    bad, _ = _exceptions(x, c, lab.numpy(), want_lab)
+    assert bad == 0
+    np.testing.assert_allclose(d2.numpy(), want_d2, rtol=1e-5,
+                               atol=1e-6 * float(want_d2.max()))

@@ -737,6 +737,96 @@ def test_assign_kernel_bitwise_in_swapped_order(cuda, b, n, k, d):
     assert torch.equal(lab, want_lab) and _same_bits(d2, want_d2)
 
 
+# ------------------------------------------ the wide path (tiled unit)
+def _order_k(order: str, d: int) -> tuple[int, int]:
+    """(lanes, k) at which the reference's rule takes ``order`` at width
+    d: one lane at k = 1 for the vector loop, two for the matrix-vector
+    loop, else the first k from a short list that the rule maps there."""
+    from repro_torch.core.ordered import reference_dot_order
+    if order in ("vector", "gemv"):
+        return (1 if order == "vector" else 2), 1
+    for k in (20, 28, 50, 40, 2, 65, 100, 12, 30):
+        if reference_dot_order(2, 3001, k, d) == order:
+            return 2, k
+    raise AssertionError(f"no k gives {order} at d = {d}")
+
+
+def _assign_bitwise(cuda, b, n, k, d, order=None):
+    """The kernel against its plain version on the card at (b, n, k, d),
+    two centroids repeated (exact ties go to the lower index), labels and
+    distances bit for bit; returns the dispatch record."""
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
+    gen = torch.Generator(device=cuda).manual_seed(b * 7 + n + k + d)
+    x = torch.randn((b, n, d), generator=gen, device=cuda)
+    c = torch.randn((b, k, d), generator=gen, device=cuda)
+    if k > 3:
+        c[:, 3] = c[:, 1]
+        c[:, -1] = c[:, 1]
+    lab, d2 = assign_ops.kmeans_assign(x, c)
+    rec = assign_ops.last_dispatch()
+    if order is not None:
+        assert rec["order"] == order
+    want_lab, want_d2 = kmeans_assign_ref(x, c)
+    assert torch.equal(lab, want_lab) and _same_bits(d2, want_d2)
+    if k > 3:
+        assert not ((lab == 3) | (lab == k - 1)).any()
+    return rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [41, 44, 63, 64, 100, 128])
+def test_assign_kernel_bitwise_in_one_chain_above_40(cuda, d):
+    """The one-chain order above d = 40, which the register-resident
+    unit does not build: the tiled unit serves it, bit for bit."""
+    rec = _assign_bitwise(cuda, 2, 3001, 50, d, "chain")
+    assert rec["unit"] == "kmeans_assign_tiled"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["four", "chain", "swapped", "vector",
+                                   "gemv"])
+@pytest.mark.parametrize("d", [129, 130, 256, 257, 512, 1000])
+def test_assign_kernel_bitwise_in_every_order_above_128(cuda, d, order):
+    """Every dot order above d = 128 (one chain restarted every 512
+    columns at d = 1000, the one-centroid loops), through the tiled
+    unit, bit for bit with the plain version."""
+    b, k = _order_k(order, d)
+    rec = _assign_bitwise(cuda, b, 3001, k, d, order)
+    assert rec["unit"] == "kmeans_assign_tiled"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["four", "chain", "vector", "gemv"])
+@pytest.mark.parametrize("d", [1025, 2049])
+def test_assign_kernel_bitwise_past_1024(cuda, d, order):
+    """Past d = 1024: the norms' window tree of two levels, one chain over
+    three and five 512-column blocks, the vector loop not unrolled."""
+    b, k = _order_k(order, d)
+    _assign_bitwise(cuda, b, 501, k, d, order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 20, 28, 64, 500, 1024])
+@pytest.mark.parametrize("d", [64, 256])
+def test_assign_kernel_bitwise_by_k_and_lanes(cuda, d, k, b):
+    """k from one centroid to 1,024 over one to three lanes, at a width
+    inside the register-resident units' and one beyond it: whichever
+    unit serves, labels (ties included) and distances bit for bit."""
+    _assign_bitwise(cuda, b, 1003, k, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,d", [(2, 9, 1, 5), (2, 1, 1, 6),
+                                     (3, 2, 2, 5), (2, 2, 1, 7),
+                                     (1, 2, 20, 5)])
+def test_assign_kernel_bitwise_in_the_norms_lane_order(cuda, b, n, k, d):
+    """One centroid or one point a lane: the norms' vector rows are the
+    lanes (``core.ordered.norm_vector_form``), and two rows at d = 5 add
+    the fifth square by a multiply-add; every unit follows."""
+    _assign_bitwise(cuda, b, n, k, d)
+
+
 # --------------------------------- resumed sweeps and coalesced requests
 def _fresh_engine(backend="auto"):
     from repro_torch.experiments import ExperimentEngine

@@ -237,8 +237,7 @@ def test_unknown_backend_raises(name):
 KERNEL_SOURCES = {"flash_attention": "flash_attention",
                   "flash_attention_sm90": "flash_attention",
                   "kmeans_assign": "kmeans_assign",
-                  "kmeans_assign_wide": "kmeans_assign",
-                  "kmeans_assign_128": "kmeans_assign",
+                  "kmeans_assign_tiled": "kmeans_assign",
                   "segment_stats": "segment_stats"}
 
 

@@ -351,8 +351,6 @@ def test_reference_norm_order_by_row_place(d):
         in_order = in_order + pt[:, j] * pt[:, j]
     pool = pool[(one_chain != in_order).numpy()]
     for m in NORM_ROWS:
-        if (m, d) == (2, 5):
-            continue        # a third order there (norm_vector_rows)
         other = 3 if m != 3 else 5
         x = pool[:m][None]
         c = pool[m:m + other][None]
