@@ -737,6 +737,11 @@ FAMILY_FLASH = {
 }
 
 
+# recurrentgemma-2b's heads (10 of 256 against one kv head) at 4096
+# tokens without its 2048-token window: flash's column blocks
+WIDE_FLASH = "recurrentgemma-2b d256 (no window)"
+
+
 # seamless-m4t-large-v2's attention (16 heads of 64, MHA) over 4 x 4096
 # tokens: the encoder's and the cross-attention's bidirectional branch
 # (source and target 4096, and 1000 target rows against 4096 source frames
@@ -761,7 +766,10 @@ def check_flash(gen) -> dict:
     encoder's in float32 too) in bf16; strided (projection-layout) inputs
     against contiguous ones, bitwise; bf16 timings at the LM, family and
     enc-dec shapes beside their bounds and
-    ``scaled_dot_product_attention``."""
+    ``scaled_dot_product_attention``; a padded width (d = 60) and column
+    blocks (d = 256) in both types, and ``recurrentgemma-2b``'s heads
+    without its window (``WIDE_FLASH``, d = 256), timed beside SDPA and
+    the kernel's own FLOPs (its scores once per column block)."""
     import torch
     from repro_torch.kernels import backend
     from repro_torch.kernels.flash_attention import ops
@@ -778,7 +786,9 @@ def check_flash(gen) -> dict:
              (1, 4, 4, 512, 512, 128),               # tests/test_kernels.py
              (1, 3, 1, 7, 1000, 128), (2, 4, 1, 7, 129, 32),  # 7-row appends
              (1, 4, 4, 1, 300, 40),                  # 1-row append, d 40
-             (2, 6, 2, 333, 333, 40), (1, 4, 1, 257, 385, 64)]  # ragged
+             (2, 6, 2, 333, 333, 40), (1, 4, 1, 257, 385, 64),  # ragged
+             (1, 4, 2, 130, 300, 60),                # d padded to 64
+             (2, 4, 2, 200, 300, 256)]               # column blocks
     bidirectional = [(1, 4, 2, 256, 512, 64), (1, 4, 4, 512, 256, 64),
                      (2, 6, 2, 333, 100, 40), (1, 2, 2, 1, 700, 128),
                      (2, 3, 3, 130, 7, 128)]
@@ -787,6 +797,7 @@ def check_flash(gen) -> dict:
              "eval": ((4, 24, 8, 2048, 2048, 128), True),
              "long": ((1, 1, 1, 32768, 32768, 128), True),
              **{tag: (s, True) for tag, s in FAMILY_FLASH.items()},
+             WIDE_FLASH: ((4, 10, 1, 4096, 4096, 256), True),
              **ENCDEC_FLASH}
     cases = [(s, dt, "bhsd", True) for s in small
              for dt in (torch.float32, torch.bfloat16)]
@@ -845,10 +856,18 @@ def check_flash(gen) -> dict:
                      f"{bound_ms:.4f} ms ({bound_by}), bound share "
                      f"{bound_ms / ms:.4f}, scaled_dot_product_attention "
                      f"{lib_ms:.4f} ms")
+            plan = ops.last_dispatch()
+            kernel_flops = ops.flash_flops(q.shape, k.shape, dtype, causal)
             out[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": lib_ms, "shape": list(shape),
-                        "causal": causal}
+                        "causal": causal, "kernel_flops": kernel_flops,
+                        "plan": {key: plan[key] for key in
+                                 ("padded_d", "dp", "col_blocks", "grid")}}
+            line += (f"; the kernel's own work {kernel_flops:.4g} FLOP "
+                     f"({kernel_flops / flops:.3f}x the bound's: "
+                     f"{plan['col_blocks']} column block(s) of "
+                     f"{plan['dp']})")
             del qc, kc, vc
         log(line)
         del q, k, v, got, want, diff
@@ -1567,9 +1586,104 @@ def check_new_shapes(engine, record: dict) -> dict:
             f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"index_add_ {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}), bound share {bound_ms / ms:.3f}")
+    any_k = check_any_k(record["gcc/502.gcc_r/50"])
+    out["segment_stats"].update(any_k)
     out["kmeans_assign"].update(check_order_shapes())
     # these launches hold the kernels against plain: they are not the path's
     assign_ops._launches, segment_ops._launches = n_launch
+    return out
+
+
+# segment counts past the one-block partition's 11,264 (the ranged one) on
+# gcc's projected update shape, and a fit at such a k (n, k, d, Lloyd
+# steps): gcc's first 30,000 projected rows
+ANY_K = (20000, 120000)
+ANY_K_FIT = (30000, 12000, 2)
+# the ranged partition's kernels, then the passes both partitions share
+RANGED_KERNELS = ["count_ranged_kernel", "sizes_ranged_kernel",
+                  "starts_ranged_kernel", "scatter_ranged_kernel",
+                  "order_kernel", "sum_kernel"]
+
+
+def check_any_k(fit: dict) -> dict:
+    """``segment_stats`` at (1, 120000, 16), gcc's update shape ([z, 1],
+    z its 15 projected features), with k = 20,000 and 120,000 (seeded
+    random labels, -1 and k among them): bitwise against plain, timed
+    beside ``index_add_``, its bytes bound and its scratch. Then
+    ``kmeans_batch`` at k = 12,000 over gcc's first 30,000 projected rows,
+    2 Lloyd steps, through the kernels and the plain route: labels,
+    centroids, inertia and iterations bit for bit. Not a launch of any
+    path: the caller restores the counts."""
+    import torch
+    from repro_torch.core.clustering import kmeans_batch
+    from repro_torch.kernels.segment_stats import ops as segment_ops
+    from repro_torch.kernels.segment_stats.ref import segment_stats_ref
+
+    z = fit["z"].float().contiguous()
+    vals = torch.cat([z, torch.ones_like(z[:, :1])], dim=-1)[None]
+    b, n, d = vals.shape
+    out = {}
+    for k in ANY_K:
+        gen = torch.Generator(device="cuda").manual_seed(k)
+        lab = torch.randint(-1, k + 1, (b, n), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        got = segment_ops.segment_stats(vals, lab, k)
+        rec = segment_ops.last_dispatch()
+        want = segment_stats_ref(vals, lab, k)
+        if not all(same_bits(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"segment_stats k = {k}: differs from plain")
+        ms = time_ms(lambda: segment_ops.segment_stats(vals, lab, k))
+        plain_ms = time_ms(lambda: segment_stats_ref(vals, lab, k), iters=3)
+        valid = (lab >= 0) & (lab < k)
+        flat = torch.where(valid, lab, 0).long().reshape(-1)
+        w = torch.where(valid[..., None], vals, 0.0).reshape(b * n, d)
+        acc = torch.zeros((b * k, d), device="cuda")
+        lib_ms = time_ms(lambda: acc.zero_().index_add_(0, flat, w))
+        bound_ms, bound_by = bound(4 * (b * n * d + b * n + 2 * b * k * d
+                                        + b * k), 3.0 * b * n * d + b * n)
+        scratch = 4 * int(segment_ops._lib()[1](b, n, k, d))
+        passes = device_ms(lambda: segment_ops.segment_stats(vals, lab, k),
+                           RANGED_KERNELS)
+        out[f"gcc_k{k}"] = {
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "shape": [b, n, k, d], "scratch_bytes": scratch,
+            "device_ms_by_kernel": passes,
+            "geometry": {key: rec[key] for key in
+                         ("tiles", "tile_rows", "ranges", "grid",
+                          "ordered")}}
+        log(f"segment_stats gcc (b={b}, n={n}, d={d}, k={k}; tiles of "
+            f"{rec['tile_rows']} rows, {rec['ranges']} ranges): bitwise equal"
+            f" to plain; kernel {ms:.4f} ms (on the card " + ", ".join(
+                f"{name} {t:.4f}" for name, t in passes.items())
+            + f" ms), plain {plain_ms:.4f} ms, "
+            f"index_add_ {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), bound share {bound_ms / ms:.3f}; scratch "
+            f"{scratch / 2**20:.1f} MiB")
+        del got, want, lab, valid, flat, w, acc
+    n_fit, k_fit, steps = ANY_K_FIT
+    pts = z[:n_fit].contiguous()
+    fits, secs = {}, {}
+    for route in ("auto", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits[route] = kmeans_batch(pts, k_fit, seeds=[0], max_iters=steps,
+                                   backend=route)[0]
+        torch.cuda.synchronize()
+        secs[route] = time.perf_counter() - t0
+    for field in ("labels", "centroids", "inertia", "iterations"):
+        g, w = getattr(fits["auto"], field), getattr(fits["plain"], field)
+        if not (same_bits(g, w) if torch.is_tensor(g) else g == w):
+            raise AssertionError(f"kmeans_batch k = {k_fit}: {field} of the "
+                                 "kernel route differs from plain")
+    out[f"gcc_fit_k{k_fit}"] = {
+        "shape": [1, n_fit, k_fit, z.shape[1]], "lloyd_steps": steps,
+        "iterations": fits["auto"].iterations, "seconds": secs["auto"],
+        "plain_seconds": secs["plain"]}
+    log(f"kmeans_batch gcc's first {n_fit} projected rows, k = {k_fit}, "
+        f"{steps} Lloyd steps: labels, centroids, inertia and iterations "
+        f"bitwise equal through both routes; kernels {secs['auto']:.2f} s, "
+        f"plain {secs['plain']:.2f} s")
     return out
 
 
@@ -4558,6 +4672,7 @@ def main() -> int:
          **launches("flash_attention"), **flash["main"],
          "other_shapes": {"eval": flash["eval"], "long": flash["long"],
                           **{tag: flash[tag] for tag in FAMILY_FLASH},
+                          WIDE_FLASH: flash[WIDE_FLASH],
                           "seamless decoder self":
                               flash["seamless decoder self"]},
          "sass": flash["sass"]},

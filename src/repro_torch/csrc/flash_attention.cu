@@ -20,8 +20,9 @@
 // of float32 FMAs, against 0.54 GB of q, k, v and o, 0.16 ms at 3.35 TB/s.
 // It stays off the tensor cores on purpose (TF32 would change the float32
 // numbers). What it does:
-//   * one block per (b * hq, 64-row query tile); tiles are issued heaviest
-//     first (the last query tile sees the most columns);
+//   * one block per (64-row query tile, b * hq), in a one-dimensional grid;
+//     tiles are issued heaviest first (the last query tile sees the most
+//     columns);
 //   * 64-row K and V tiles staged in shared memory as float32 (64 KB at
 //     d = 128, above the 48 KB default, so the launch raises the limit);
 //   * four threads per query row: each holds a quarter of q and of the
@@ -39,7 +40,10 @@
 //   * masked scores are the finite -1e30 of the reference, never -inf, so
 //     the running max never computes -inf - (-inf).
 // d is padded (in registers and shared memory only) to 32, 64 or 128, a
-// template parameter; the wrapper accepts d <= 128 that is a multiple of 8.
+// template parameter; wider heads take one block per 128 output columns
+// (WIDE, below), which computes S over the whole d in 128-column chunks.
+// The kernel takes d that is a multiple of 8; the wrapper copies other
+// widths once into a buffer padded with zeros.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,40 +90,60 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* src,
   }
 }
 
-template <int DP>
+// WIDE (d > 128, DP = 128): the block takes output columns 128 cb ..
+// 128 cb + 127 (column block cb) and computes each score over the whole
+// d, 128 columns at a time: a K chunk is staged and the thread's quarter
+// of the same q chunk read again from global memory (L1 / L2) for every
+// key tile, each chunk's partial dot joined across the row's four
+// threads and added to the score; V's slice is staged with the last
+// chunk. So every column block sees the same scores, and q's and the
+// accumulator's registers stay those of d = 128.
+template <int DP, bool WIDE>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, Strides qs,
-          Strides ks, Strides vs, Strides os, int hq, int hkv, int sq,
-          int skv, int d, int causal, float scale) {
+          Strides ks, Strides vs, Strides os, int bhs, int hq, int hkv,
+          int sq, int skv, int d, int causal, float scale) {
   constexpr int kChunks = DP / 16;  // float4 chunks of a row per thread
   extern __shared__ float4 smem[];
   float* sk = reinterpret_cast<float*>(smem);
   float* sv = sk + kKeys * DP;
 
-  const int bh = blockIdx.x;
+  // block -> (query tile, batch * head, column block): the heaviest
+  // query tiles first
+  const int col_blocks = WIDE ? (d + DP - 1) / DP : 1;
+  const int n_qtiles = (sq + kRows - 1) / kRows;
+  int idx = blockIdx.x;
+  const int cb = idx % col_blocks;
+  idx /= col_blocks;
+  const int bh = idx % bhs;
+  const int q_tile = n_qtiles - 1 - idx / bhs;
   const int batch = bh / hq;
   const int head = bh % hq;
   const int kv_head = head / (hq / hkv);
-  const int q_tile = gridDim.y - 1 - blockIdx.y;  // heaviest tiles first
   const int q0 = q_tile * kRows;
   const int row = threadIdx.x / kPerRow;  // 0..63
   const int part = threadIdx.x % kPerRow;
   const int qrow = q0 + row;              // row in [0, sq) when valid
   const int offset = skv - sq;            // end alignment
+  const int c0 = cb * DP;                 // first output column
 
   const float* qb = q + batch * qs.b + head * qs.h;
   const float* kb = k + batch * ks.b + kv_head * ks.h;
   const float* vb = v + batch * vs.b + kv_head * vs.h;
 
-  // this thread's quarter of its query row: chunks part, part + 4, ...
+  // this thread's quarter of its query row (of one 128-column chunk when
+  // WIDE): chunks part, part + 4, ...
   float4 qr[kChunks];
+  auto load_q = [&](int col0) {
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int col = (part + 4 * i) * 4;
-    qr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (qrow < sq && col < d) qr[i] = load4(qb + qrow * qs.s + col);
-  }
+    for (int i = 0; i < kChunks; ++i) {
+      const int col = col0 + (part + 4 * i) * 4;
+      qr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (qrow < sq && col < d) qr[i] = load4(qb + qrow * qs.s + col);
+    }
+  };
+  if (!WIDE) load_q(0);
   float4 acc[kChunks];
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -129,36 +153,53 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int last_row = min(q0 + kRows, sq) - 1;
   const int kv_end = causal ? min(skv, last_row + offset + 1) : skv;
   const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+  const int q_chunks = WIDE ? (d + DP - 1) / DP : 1;
 
   for (int t = 0; t < n_tiles; ++t) {
     const int kv0 = t * kKeys;
-    __syncthreads();  // the previous tile's readers are done
-    stage_tile<DP>(sk, kb, ks.s, kv0, skv, d);
-    stage_tile<DP>(sv, vb, vs.s, kv0, skv, d);
-    __syncthreads();
-
     // scores: thread `part` keeps s[jj] for key column kv0 + 4 jj + part
     float s[kKeys / kPerRow];
 #pragma unroll
-    for (int jj = 0; jj < kKeys / kPerRow; ++jj) s[jj] = kNegInf;
+    for (int jj = 0; jj < kKeys / kPerRow; ++jj) s[jj] = WIDE ? 0.f : kNegInf;
+    for (int qc = 0; qc < q_chunks; ++qc) {
+      __syncthreads();  // the previous readers of sk and sv are done
+      stage_tile<DP>(sk, kb + qc * DP, ks.s, kv0, skv, d - qc * DP);
+      if (qc == q_chunks - 1)
+        stage_tile<DP>(sv, vb + c0, vs.s, kv0, skv, d - c0);
+      if (WIDE) load_q(qc * DP);
+      __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(sk + j * DP);
-      float dot = 0.f;
+      for (int j = 0; j < kKeys; ++j) {
+        const float4* kr = reinterpret_cast<const float4*>(sk + j * DP);
+        float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < kChunks; ++i) {
-        const float4 kk = kr[part + 4 * i];
-        dot = fmaf(qr[i].x, kk.x, dot);
-        dot = fmaf(qr[i].y, kk.y, dot);
-        dot = fmaf(qr[i].z, kk.z, dot);
-        dot = fmaf(qr[i].w, kk.w, dot);
+        for (int i = 0; i < kChunks; ++i) {
+          const float4 kk = kr[part + 4 * i];
+          dot = fmaf(qr[i].x, kk.x, dot);
+          dot = fmaf(qr[i].y, kk.y, dot);
+          dot = fmaf(qr[i].z, kk.z, dot);
+          dot = fmaf(qr[i].w, kk.w, dot);
+        }
+        dot += __shfl_xor_sync(kFull, dot, 1);
+        dot += __shfl_xor_sync(kFull, dot, 2);
+        if (WIDE) {
+          if ((j % kPerRow) == part) s[j / kPerRow] += dot;
+        } else {
+          const int col = kv0 + j;
+          const bool visible =
+              col < skv && (!causal || col <= qrow + offset);
+          if ((j % kPerRow) == part) s[j / kPerRow] = visible ? dot * scale
+                                                              : kNegInf;
+        }
       }
-      dot += __shfl_xor_sync(kFull, dot, 1);
-      dot += __shfl_xor_sync(kFull, dot, 2);
-      const int col = kv0 + j;
-      const bool visible = col < skv && (!causal || col <= qrow + offset);
-      if ((j % kPerRow) == part) s[j / kPerRow] = visible ? dot * scale
-                                                          : kNegInf;
+    }
+    if (WIDE) {
+#pragma unroll
+      for (int jj = 0; jj < kKeys / kPerRow; ++jj) {
+        const int col = kv0 + kPerRow * jj + part;
+        const bool visible = col < skv && (!causal || col <= qrow + offset);
+        s[jj] = visible ? s[jj] * scale : kNegInf;
+      }
     }
 
     // online softmax over the tile (the row's four threads agree exactly)
@@ -205,18 +246,18 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 
   if (qrow >= sq) return;
   const float denom = fmaxf(l, 1e-30f);
-  float* ob = o + batch * os.b + head * os.h + qrow * os.s;
+  float* ob = o + batch * os.b + head * os.h + qrow * os.s + c0;
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
     const int col = (part + 4 * i) * 4;
-    if (col < d) {
+    if (c0 + col < d) {
       store4(ob + col, make_float4(acc[i].x / denom, acc[i].y / denom,
                                    acc[i].z / denom, acc[i].w / denom));
     }
   }
 }
 
-template <int DP>
+template <int DP, bool WIDE>
 int launch_dp(const float* q, const float* k, const float* v, float* o,
               const Strides& qs, const Strides& ks, const Strides& vs,
               const Strides& os, int b, int hq, int hkv, int sq, int skv,
@@ -225,15 +266,16 @@ int launch_dp(const float* q, const float* k, const float* v, float* o,
   static bool attribute_set = false;
   if (!attribute_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd<DP, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     attribute_set = true;
   }
-  const dim3 grid(b * hq, (sq + kRows - 1) / kRows);
-  flash_fwd<DP><<<grid, kThreads, smem, stream>>>(q, k, v, o, qs, ks, vs, os,
-                                                  hq, hkv, sq, skv, d, causal,
-                                                  scale);
+  const long long blocks = (long long)((sq + kRows - 1) / kRows) * b * hq *
+                           (WIDE ? (d + DP - 1) / DP : 1);
+  flash_fwd<DP, WIDE><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      q, k, v, o, qs, ks, vs, os, b * hq, hq, hkv, sq, skv, d, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -254,9 +296,10 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    int b, int hq, int hkv, int sq, int skv,
                                    int d, int causal, float scale,
                                    void* stream) {
-  if (b < 0 || hq < 1 || hkv < 1 || hq % hkv || d < 8 || d > 128 || d % 8 ||
+  if (b < 0 || hq < 1 || hkv < 1 || hq % hkv || d < 8 || d % 8 ||
       sq < 1 || skv < 1 || (causal && sq > skv) ||
-      (sq + kRows - 1) / kRows > 65535) {
+      (long long)((sq + kRows - 1) / kRows) * b * hq * ((d + 127) / 128) >
+          0x7fffffffll) {
     return (int)cudaErrorInvalidValue;
   }
   for (const void* p : {q, k, v, static_cast<const void*>(o)}) {
@@ -278,10 +321,13 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   const Strides a = strides(qs), bk = strides(ks), c = strides(vs),
                 e = strides(os);
   const int cz = causal != 0;
-  if (d <= 32) return launch_dp<32>(qt, kt, vt, ot, a, bk, c, e, b, hq, hkv,
-                                    sq, skv, d, cz, scale, s);
-  if (d <= 64) return launch_dp<64>(qt, kt, vt, ot, a, bk, c, e, b, hq, hkv,
-                                    sq, skv, d, cz, scale, s);
-  return launch_dp<128>(qt, kt, vt, ot, a, bk, c, e, b, hq, hkv, sq, skv, d,
-                        cz, scale, s);
+  if (d <= 32) return launch_dp<32, false>(qt, kt, vt, ot, a, bk, c, e, b,
+                                           hq, hkv, sq, skv, d, cz, scale, s);
+  if (d <= 64) return launch_dp<64, false>(qt, kt, vt, ot, a, bk, c, e, b,
+                                           hq, hkv, sq, skv, d, cz, scale, s);
+  if (d <= 128) return launch_dp<128, false>(qt, kt, vt, ot, a, bk, c, e, b,
+                                             hq, hkv, sq, skv, d, cz, scale,
+                                             s);
+  return launch_dp<128, true>(qt, kt, vt, ot, a, bk, c, e, b, hq, hkv, sq,
+                              skv, d, cz, scale, s);
 }

@@ -49,7 +49,10 @@
 //   * the epilogue divides by max(l, 1e-30), rounds to bf16, stages the tile
 //     in the consumer's own part of the Q buffer and writes 16-byte chunks.
 // d is padded (in shared memory only, by TMA's zero fill) to 32, 64 or 128,
-// a template parameter; the wrapper accepts d <= 128 that is a multiple of 8.
+// a template parameter. Wider heads take flash_fwd_sm90_wide (below): one
+// block per 128 output columns, S over the whole d in 128-column chunks.
+// The kernels take d that is a multiple of 8 (16-byte TMA strides); the
+// wrapper copies other widths once into a buffer padded with zeros.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -269,6 +272,112 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// ---------------------------------------------------------- consumer steps
+// One S tile of a consumer (64 rows x 128 keys, the wgmma fragment: row
+// row_a and row_a + 8, columns 8 (i / 4) + 2 quad + i % 2): scaled to the
+// log2 domain, the diagonal and ragged tiles masked, then the online
+// softmax: sc becomes P (float32), acc (the O fragment) is rescaled, the
+// running maxima and this thread's partial sums move on.
+template <int N>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[64], float (&acc)[N], float& m_a, float& m_b, float& l_a,
+    float& l_b, int kv0, int first_row, int row_a, int quad, int offset,
+    int skv, int causal, float scale_log2) {
+  const bool masked =
+      (causal && kv0 + kKeys - 1 > first_row + offset) || kv0 + kKeys > skv;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    float x = sc[i] * scale_log2;
+    if (masked) {
+      const int col = kv0 + 8 * (i / 4) + 2 * quad + (i % 2);
+      const int row = row_a + 8 * ((i % 4) / 2);
+      if ((causal && col > row + offset) || col >= skv) x = kNegInf;
+    }
+    sc[i] = x;
+  }
+  float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    if ((i % 4) < 2) mx_a = fmaxf(mx_a, sc[i]);
+    else mx_b = fmaxf(mx_b, sc[i]);
+  }
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+  const float alpha_a = exp2f(m_a - mx_a);
+  const float alpha_b = exp2f(m_b - mx_b);
+  m_a = mx_a;
+  m_b = mx_b;
+  float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const bool top = (i % 4) < 2;
+    const float p = exp2f(sc[i] - (top ? mx_a : mx_b));
+    sc[i] = p;
+    if (top) sum_a += p;
+    else sum_b += p;
+  }
+  l_a = l_a * alpha_a + sum_a;
+  l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= (i % 4) < 2 ? alpha_a : alpha_b;
+}
+
+// P as the A fragment of k-step kk (keys 16 kk ..): registers 4 kk + r
+// hold the pair (sc[8 kk + 2 r], sc[8 kk + 2 r + 1]), as bf16 hi and, but
+// with FLASH_SINGLE_P, lo = bf16(P - hi).
+__device__ __forceinline__ void split_p(const float (&sc)[64],
+                                        uint32_t (&hi)[32],
+                                        uint32_t (&lo)[32]) {
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    const float p0 = sc[2 * r], p1 = sc[2 * r + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+    hi[r] = *reinterpret_cast<const uint32_t*>(&h);
+#ifndef FLASH_SINGLE_P
+    const float2 hf = __bfloat1622float2(h);
+    const __nv_bfloat162 w = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+    lo[r] = *reinterpret_cast<const uint32_t*>(&w);
+#endif
+  }
+}
+
+// O += hi . V (+ lo . V) over the V tile at v_tile (Tile<DP>'s layout:
+// rows are keys, d contiguous, so B is MN-major), then waits for it.
+template <int DP>
+__device__ __forceinline__ void pv_tile(float (&acc)[DP / 2],
+                                        uint32_t (&hi)[32],
+                                        uint32_t (&lo)[32], uint32_t v_tile) {
+  using T = Tile<DP>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    wgmma_rs(acc, hi + 4 * kk,
+             gmma_desc(v_tile + kk * 16 * T::kRowBytes, T::kBoxBytes,
+                       T::kAtom, T::kLayout));
+  }
+#ifndef FLASH_SINGLE_P
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    wgmma_rs(acc, lo + 4 * kk,
+             gmma_desc(v_tile + kk * 16 * T::kRowBytes, T::kBoxBytes,
+                       T::kAtom, T::kLayout));
+  }
+#endif
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) fence_reg(acc[i]);
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    fence_reg(hi[r]);
+#ifndef FLASH_SINGLE_P
+    fence_reg(lo[r]);
+#endif
+  }
+}
+
 // ------------------------------------------------------------------ kernel
 template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -391,96 +500,12 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int i = 0; i < 64; ++i) fence_reg(sc[i]);
 
-      // scale to the log2 domain; mask the diagonal and ragged tiles
-      const int kv0 = t * kKeys;
-      const bool masked =
-          (causal && kv0 + kKeys - 1 > first_row + offset) ||
-          kv0 + kKeys > skv;
-#pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        float x = sc[i] * scale_log2;
-        if (masked) {
-          const int col = kv0 + 8 * (i / 4) + 2 * quad + (i % 2);
-          const int row = row_a + 8 * ((i % 4) / 2);
-          if ((causal && col > row + offset) || col >= skv) x = kNegInf;
-        }
-        sc[i] = x;
-      }
-      float mx_a = m_a, mx_b = m_b;
-#pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        if ((i % 4) < 2) mx_a = fmaxf(mx_a, sc[i]);
-        else mx_b = fmaxf(mx_b, sc[i]);
-      }
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-      const float alpha_a = exp2f(m_a - mx_a);
-      const float alpha_b = exp2f(m_b - mx_b);
-      m_a = mx_a;
-      m_b = mx_b;
-      float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        const bool top = (i % 4) < 2;
-        const float p = exp2f(sc[i] - (top ? mx_a : mx_b));
-        sc[i] = p;
-        if (top) sum_a += p;
-        else sum_b += p;
-      }
-      l_a = l_a * alpha_a + sum_a;
-      l_b = l_b * alpha_b + sum_b;
-#pragma unroll
-      for (int i = 0; i < DP / 2; ++i) acc[i] *= (i % 4) < 2 ? alpha_a
-                                                            : alpha_b;
-
-      // P as the A fragment of k-step kk (keys 16 kk ..): registers
-      // 4 kk + r hold the pair (sc[8 kk + 2 r], sc[8 kk + 2 r + 1])
-      uint32_t hi[32];
-#ifndef FLASH_SINGLE_P
-      uint32_t lo[32];
-#endif
-#pragma unroll
-      for (int r = 0; r < 32; ++r) {
-        const float p0 = sc[2 * r], p1 = sc[2 * r + 1];
-        const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-        hi[r] = *reinterpret_cast<const uint32_t*>(&h);
-#ifndef FLASH_SINGLE_P
-        const float2 hf = __bfloat1622float2(h);
-        const __nv_bfloat162 w = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
-        lo[r] = *reinterpret_cast<const uint32_t*>(&w);
-#endif
-      }
-
-      // O += hi . V (+ lo . V); V rows are keys, d contiguous (MN-major)
+      softmax_tile(sc, acc, m_a, m_b, l_a, l_b, t * kKeys, first_row,
+                   row_a, quad, offset, skv, causal, scale_log2);
+      uint32_t hi[32], lo[32];
+      split_p(sc, hi, lo);
       mbar_wait(v_full(s), parity);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk) {
-        wgmma_rs(acc, hi + 4 * kk,
-                 gmma_desc(v_tile + kk * 16 * T::kRowBytes, T::kBoxBytes,
-                           T::kAtom, T::kLayout));
-      }
-#ifndef FLASH_SINGLE_P
-#pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk) {
-        wgmma_rs(acc, lo + 4 * kk,
-                 gmma_desc(v_tile + kk * 16 * T::kRowBytes, T::kBoxBytes,
-                           T::kAtom, T::kLayout));
-      }
-#endif
-      wgmma_commit();
-      wgmma_wait_all();
-#pragma unroll
-      for (int i = 0; i < DP / 2; ++i) fence_reg(acc[i]);
-#pragma unroll
-      for (int r = 0; r < 32; ++r) {
-        fence_reg(hi[r]);
-#ifndef FLASH_SINGLE_P
-        fence_reg(lo[r]);
-#endif
-      }
+      pv_tile<DP>(acc, hi, lo, v_tile);
       mbar_arrive(empty(s));
     }
 
@@ -520,6 +545,196 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
         const uint4 val = *reinterpret_cast<const uint4*>(chunk_ptr(r, ch * 8));
         *reinterpret_cast<uint4*>(o + batch * o_sb + head * o_sh +
                                   row * o_ss + ch * 8) = val;
+      }
+    }
+  }
+}
+
+
+// --------------------------------------------------------- wide kernel
+// d > 128: a consumer's O fragment holds 128 columns (64 floats a
+// thread, as at d = 128), so each block takes one 128-column slice of
+// the output (column block cb) and computes S over the whole d: per key
+// tile, ceil(d / 128) steps each bring a 128-column chunk of Q and of K
+// (two 64-column boxes each; a box wholly past d is not loaded, and its
+// k-steps are skipped) into one slot of a kSlots ring, accumulating one
+// S fragment; then V's slice of the tile comes through the next slot.
+// Every column block computes the same S in the same order, so all see
+// the same P. S costs ceil(d / 128) times the MMA work of the unsplit
+// product; Q is read again for every key tile (from L2).
+constexpr int kSlots = 3;
+using Wide = Tile<128>;
+constexpr int kSlotBytes = 2 * Wide::kBytes;  // a Q chunk and a K chunk
+constexpr int kWideSmem = kSlots * kSlotBytes + 1024 + 256;
+
+// S += Q K^T over the first STEPS k-steps (16 columns each) of a
+// 128-column chunk: Q's 64 rows of this consumer at q_part, K at k_part,
+// both two 64-column boxes as TMA wrote them.
+template <int STEPS>
+__device__ __forceinline__ void s_steps(float (&sc)[64], uint32_t q_part,
+                                        uint32_t k_part) {
+  using T = Wide;
+#pragma unroll
+  for (int kk = 0; kk < STEPS; ++kk) {
+    const uint32_t at = (kk / 4) * T::kBoxBytes + (kk % 4) * 32;
+    wgmma_ss(sc, gmma_desc(q_part + at, 16, T::kAtom, T::kLayout),
+             gmma_desc(k_part + at, 16, T::kAtom, T::kLayout), 1);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90_wide(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    __nv_bfloat16* __restrict__ o, long long o_sb,
+                    long long o_sh, long long o_ss, int batches, int hq,
+                    int hkv, int sq, int skv, int d, int causal,
+                    float scale_log2) {
+  using T = Wide;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bars = base + kSlots * kSlotBytes;
+  auto slot = [&](int u) { return base + (uint32_t)(u * kSlotBytes); };
+  auto full = [&](int u) { return bars + 8u * u; };
+  auto empty = [&](int u) { return bars + 8u * (kSlots + u); };
+
+  // block -> (query tile, batch, kv head, query head, column block); the
+  // column blocks of a head, then its group's heads, are neighbours
+  const int chunks = (d + 127) / 128;
+  const int group = hq / hkv;
+  const int n_qtiles = (sq + kRows - 1) / kRows;
+  int idx = blockIdx.x;
+  const int cb = idx % chunks;
+  idx /= chunks;
+  const int g = idx % group;
+  idx /= group;
+  const int kv_head = idx % hkv;
+  idx /= hkv;
+  const int batch = idx % batches;
+  const int q_tile = n_qtiles - 1 - idx / batches;
+  const int head = kv_head * group + g;
+  const int q0 = q_tile * kRows;
+  const int offset = skv - sq;
+  const int last_row = min(q0 + kRows, sq) - 1;
+  const int kv_end = causal ? min(skv, last_row + offset + 1) : skv;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+  // 64-column boxes of column chunk c that hold columns below d
+  auto boxes = [&](int c) { return min(2, (d - 128 * c + 63) / 64); };
+
+  if (threadIdx.x == 0) {
+    for (int u = 0; u < kSlots; ++u) {
+      mbar_init(full(u), 1);
+      mbar_init(empty(u), 2 * 128);  // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int use = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        for (int c = 0; c <= chunks; ++c, ++use) {
+          const int u = use % kSlots;
+          mbar_wait(empty(u), ((use / kSlots) & 1) ^ 1);
+          if (c < chunks) {              // Q and K, columns 128 c ..
+            const int nb = boxes(c);
+            mbar_expect_tx(full(u), 2 * nb * T::kBoxBytes);
+            for (int bx = 0; bx < nb; ++bx) {
+              tma_load(slot(u) + bx * T::kBoxBytes, &tq, full(u),
+                       128 * c + bx * 64, head, q0, batch);
+              tma_load(slot(u) + T::kBytes + bx * T::kBoxBytes, &tk,
+                       full(u), 128 * c + bx * 64, kv_head, t * kKeys,
+                       batch);
+            }
+          } else {                       // V, columns 128 cb ..
+            const int nb = boxes(cb);
+            mbar_expect_tx(full(u), nb * T::kBoxBytes);
+            for (int bx = 0; bx < nb; ++bx) {
+              tma_load(slot(u) + bx * T::kBoxBytes, &tv, full(u),
+                       128 * cb + bx * 64, kv_head, t * kKeys, batch);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumer
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;                 // consumer 0 or 1: 64 rows each
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32;
+    const int quad = lane % 4;
+    const int row_a = q0 + 64 * c + 16 * warp + lane / 4;  // and row_a + 8
+    const int first_row = q0 + 64 * c;
+
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float m_a = kNegInf, m_b = kNegInf;
+    float l_a = 0.f, l_b = 0.f;
+
+    int use = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      // S = Q K^T, chunk by chunk, k-steps of 16 columns below d
+      float sc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+      for (int ch = 0; ch < chunks; ++ch, ++use) {
+        const int u = use % kSlots;
+        const uint32_t q_part = slot(u) + 64 * c * T::kRowBytes;
+        const uint32_t k_part = slot(u) + T::kBytes;
+        mbar_wait(full(u), (use / kSlots) & 1);
+        wgmma_fence();
+        switch (min(8, (d - 128 * ch + 15) / 16)) {
+          case 8: s_steps<8>(sc, q_part, k_part); break;
+          case 7: s_steps<7>(sc, q_part, k_part); break;
+          case 6: s_steps<6>(sc, q_part, k_part); break;
+          case 5: s_steps<5>(sc, q_part, k_part); break;
+          case 4: s_steps<4>(sc, q_part, k_part); break;
+          case 3: s_steps<3>(sc, q_part, k_part); break;
+          case 2: s_steps<2>(sc, q_part, k_part); break;
+          default: s_steps<1>(sc, q_part, k_part); break;
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int i = 0; i < 64; ++i) fence_reg(sc[i]);
+        mbar_arrive(empty(u));
+      }
+
+      softmax_tile(sc, acc, m_a, m_b, l_a, l_b, t * kKeys, first_row,
+                   row_a, quad, offset, skv, causal, scale_log2);
+      uint32_t hi[32], lo[32];
+      split_p(sc, hi, lo);
+      const int u = use % kSlots;
+      mbar_wait(full(u), (use / kSlots) & 1);
+      pv_tile<128>(acc, hi, lo, slot(u));
+      mbar_arrive(empty(u));
+      ++use;
+    }
+
+    // epilogue: bf16 pairs straight from the fragment to o (columns past
+    // d are never written; a V box wholly past d left them undefined)
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+    const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+    const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int row = row_a + 8 * ((i % 4) / 2);
+      const int col = 128 * cb + 8 * (i / 4) + 2 * quad;
+      if (row < sq && col < d) {
+        const float inv = (i % 4) < 2 ? inv_a : inv_b;
+        *reinterpret_cast<__nv_bfloat162*>(o + batch * o_sb + head * o_sh +
+                                           row * o_ss + col) =
+            __floats2bfloat162_rn(acc[i] * inv, acc[i + 1] * inv);
       }
     }
   }
@@ -607,6 +822,33 @@ int launch_dp(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// d > 128: flash_fwd_sm90_wide, ceil(d / 128) column blocks a query tile.
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                const long long* qm, const long long* km, const long long* vm,
+                const long long* os, int b, int hq, int hkv, int sq, int skv,
+                int d, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map<128>(&tq, q, qm, d, hq, sq, b) ||
+      !make_map<128>(&tk, k, km, d, hkv, skv, b) ||
+      !make_map<128>(&tv, v, vm, d, hkv, skv, b)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  static bool attribute_set = false;
+  if (!attribute_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_sm90_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kWideSmem);
+    if (err != cudaSuccess) return (int)err;
+    attribute_set = true;
+  }
+  const long long blocks =
+      (long long)((sq + kRows - 1) / kRows) * b * hq * ((d + 127) / 128);
+  flash_fwd_sm90_wide<<<(unsigned)blocks, kThreads, kWideSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), os[0], os[1], os[2], b, hq,
+      hkv, sq, skv, d, causal, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (b, hq, sq, d), k and v (b, hkv, skv, d), o (b, hq, sq, d), all bf16
@@ -614,7 +856,9 @@ int launch_dp(const void* q, const void* k, const void* v, void* o,
 // the tensor-map words of ops.tensor_map_args (dims (d, h, s, b), byte
 // strides of h, s, b, box); os: o's strides of b, h, s in elements (each a
 // multiple of 8, o 16-byte aligned); causal: 1 for the end-aligned causal
-// mask (sq <= skv), 0 for none. Returns a cudaError_t as int.
+// mask (sq <= skv), 0 for none. d: a multiple of 8 (the wrapper pads
+// other widths): d <= 32, 64 and 128 take flash_fwd_sm90<32, 64, 128>,
+// wider heads flash_fwd_sm90_wide. Returns a cudaError_t as int.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o,
                                     const long long* qm, const long long* km,
@@ -622,9 +866,10 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int b, int hq, int hkv, int sq, int skv,
                                     int d, int causal, float scale,
                                     void* stream) {
-  if (b < 0 || hq < 1 || hkv < 1 || hq % hkv || d < 8 || d > 128 || d % 8 ||
+  if (b < 0 || hq < 1 || hkv < 1 || hq % hkv || d < 8 || d % 8 ||
       sq < 1 || skv < 1 || (causal && sq > skv) ||
-      (long long)((sq + kRows - 1) / kRows) * b * hq > 0x7fffffffll ||
+      (long long)((sq + kRows - 1) / kRows) * b * hq * ((d + 127) / 128) >
+          0x7fffffffll ||
       reinterpret_cast<uintptr_t>(o) % 16 != 0 || os[0] % 8 || os[1] % 8 ||
       os[2] % 8) {
     return (int)cudaErrorInvalidValue;
@@ -636,6 +881,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     sq, skv, d, c, scale, s);
   if (d <= 64) return launch_dp<64>(q, k, v, o, qm, km, vm, os, b, hq, hkv,
                                     sq, skv, d, c, scale, s);
-  return launch_dp<128>(q, k, v, o, qm, km, vm, os, b, hq, hkv, sq, skv, d,
-                        c, scale, s);
+  if (d <= 128) return launch_dp<128>(q, k, v, o, qm, km, vm, os, b, hq,
+                                      hkv, sq, skv, d, c, scale, s);
+  return launch_wide(q, k, v, o, qm, km, vm, os, b, hq, hkv, sq, skv, d, c,
+                     scale, s);
 }

@@ -622,6 +622,19 @@ cudaError_t launch(const float* x, const float* c, int b, int n, int k, int d,
 }
 
 
+// Whether a lane's k centroids of width d fit in a block's shared memory
+// on the current device beside the least tile (4 rows): this unit holds
+// them all there (d = 15 to about k = 3,400, d = 38 to about 1,400).
+bool centroids_fit(int k, int d) {
+  int device = 0, sms = 0, max_smem = 0;
+  if (card_of(&device, &sms, &max_smem) != cudaSuccess) return false;
+  const size_t fixed = 2 * kStages * sizeof(uint64_t) +
+                       (size_t)((long long)k * ((d + 3) & ~3) + k) *
+                           sizeof(float);
+  return fixed + (size_t)kStages * ((4 * d + 3) & ~3) * sizeof(float) <=
+         (size_t)max_smem;
+}
+
 // A build unit's launch function for one order and width, or nullptr
 // where the unit has no instantiation for them. Each unit defines `pick`;
 // its C entries below report and launch what it picks, so the widths a
@@ -636,10 +649,11 @@ Launch pick(int d, bool chain);
 // 1 if this unit serves width d in the dot order `order`
 // (core.ordered.DOT_ORDER_NAMES: 0 the interleaved chains, 1 one chain, 2
 // the swapped interleave, which every interleaved instantiation serves;
-// 3 and 4, the one-centroid orders, only kmeans_assign_tiled.cu serves),
-// else 0.
-extern "C" int kmeans_assign_serves(int d, int order) {
-  return d > 0 && order >= 0 && order <= 2 && pick(d, order == 1) != nullptr;
+// 3 and 4, the one-centroid orders, only kmeans_assign_tiled.cu serves)
+// with k centroids a lane (those that fit in shared memory), else 0.
+extern "C" int kmeans_assign_serves(int d, int order, int k) {
+  return d > 0 && k > 0 && order >= 0 && order <= 2 &&
+         pick(d, order == 1) != nullptr && centroids_fit(k, d);
 }
 
 // Floats of scratch a launch needs in `work` (none in these units).

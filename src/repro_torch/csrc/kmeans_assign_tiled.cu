@@ -197,18 +197,18 @@ __device__ __forceinline__ bool wins(float d2, int i, float best, int arg) {
 // keep the lower index; neighbouring rows of the tile, so its 16-byte
 // reads of four columns hit distinct banks). The columns after the chains
 // (at most 3) are read from global memory at the end. Grid: (point tiles,
-// lanes).
+// lanes lane0 ..), 65,535 lanes a launch at most.
 template <int LANES>
 __global__ void __launch_bounds__(kThreads, 2)
     assign_kernel_tiled(const float* __restrict__ x,
                         const float* __restrict__ c,
                         const float* __restrict__ x2,
                         const float* __restrict__ c2, int n, int k, int d,
-                        int* __restrict__ labels,
+                        int lane0, int* __restrict__ labels,
                         float* __restrict__ mind2) {
   __shared__ __align__(16) float xs[kTileP][kChunk + 4];
   __shared__ __align__(16) float cs[kTileK][kChunk + 4];
-  const int lane = blockIdx.y;
+  const int lane = lane0 + blockIdx.y;
   const int p0 = blockIdx.x * kTileP;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int main = d - d % LANES;
@@ -469,9 +469,10 @@ __global__ void assign_kernel_one_centroid(const float* __restrict__ x,
 }  // namespace
 
 // 1 if this unit serves width d in the dot order `order`
-// (core.ordered.DOT_ORDER_NAMES): every d >= 1 in every order.
-extern "C" int kmeans_assign_serves(int d, int order) {
-  return d > 0 && order >= 0 && order <= 4;
+// (core.ordered.DOT_ORDER_NAMES) with k centroids a lane: every d >= 1 and
+// k >= 1 in every order.
+extern "C" int kmeans_assign_serves(int d, int order, int k) {
+  return d > 0 && k > 0 && order >= 0 && order <= 4;
 }
 
 // Floats of scratch a launch needs in `work`: the points' and the
@@ -496,7 +497,7 @@ extern "C" int kmeans_assign_f32(const float* x, const float* c, int b, int n,
                                  void* stream) {
   if (b <= 0 || n <= 0) return 0;
   if (k <= 0 || d <= 0 || order < 0 || order > 4 || work == nullptr ||
-      b > 65535 || ((order == kVector || order == kGemv) && k != 1))
+      ((order == kVector || order == kGemv) && k != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* x2 = work;
@@ -519,10 +520,10 @@ extern "C" int kmeans_assign_f32(const float* x, const float* c, int b, int n,
                                                        order, labels, mind2);
     return (int)cudaGetLastError();
   }
-  const dim3 grid((n + kTileP - 1) / kTileP, b);
+  const int tiles = (n + kTileP - 1) / kTileP;
   if (geometry != nullptr) {
-    geometry[0] = (int)grid.x;
-    geometry[1] = (int)(grid.x * grid.y);
+    geometry[0] = tiles;
+    geometry[1] = (int)min((long long)tiles * b, 0x7fffffffLL);
     geometry[2] = 16;
   }
   // the interleave's chains: 4 or 2 (dot_nt's by d mod 4, dot_swapped's the
@@ -532,6 +533,11 @@ extern "C" int kmeans_assign_f32(const float* x, const float* c, int b, int n,
   const auto kernel = lanes == 4   ? assign_kernel_tiled<4>
                       : lanes == 2 ? assign_kernel_tiled<2>
                                    : assign_kernel_tiled<1>;
-  kernel<<<grid, kThreads, 0, s>>>(x, c, x2, c2, n, k, d, labels, mind2);
-  return (int)cudaGetLastError();
+  // gridDim.y takes 65,535 lanes: more go to further launches
+  for (int lane0 = 0; lane0 < b; lane0 += 65535) {
+    kernel<<<dim3(tiles, min(65535, b - lane0)), kThreads, 0, s>>>(
+        x, c, x2, c2, n, k, d, lane0, labels, mind2);
+    if (cudaError_t e = cudaGetLastError()) return (int)e;
+  }
+  return 0;
 }

@@ -48,6 +48,29 @@
 //
 // No float atomics anywhere; the partition uses no atomics at all.
 //
+// Passes 1-3 keep one int place per segment in a block's shared memory,
+// which holds 11,264 of them (kRange) beside a tile's order. Above that k
+// the partition is ranged, and the places sit in a (lane, tile, segment)
+// table in device memory instead:
+//
+//   1. count:   one block per (tile, range of 11,264 segments, lane): a
+//               tile is 256 ceil(k / 8192) rows, walked 256 at a time
+//               (place_tile carries the places from one to the next), so
+//               the table holds about 32 ints a row whatever k is; a
+//               block sees only the labels in its range;
+//   2. scan:    one thread per (lane, segment) turns its column of the
+//               table into the place of each tile's first member within
+//               the segment, and its size; one block per lane then lays
+//               the segments out in order, each padded to a multiple of 4
+//               rows (16-byte TMA sources, and 4n rows of padding at most
+//               where k is near n, not 32n);
+//   3. scatter: as the count, each row copied straight to its place.
+//
+// Passes 4-5 are the same on both partitions. Ranges keep the row order
+// (a segment's members in one tile are placed in row order, and tiles in
+// order), and cost one read of the labels per range. Lanes beyond 65,535
+// go to further launches of the grid's y axis, 65,535 lanes each.
+//
 // What bounds it on an H100: at the main path's BBV centroid update (10 x
 // 120000 rows of 16 floats and the labels) bytes take 25 us at 3.35 TB/s,
 // but each output is a serial chain of float32 adds as long as its
@@ -58,7 +81,11 @@
 // 32 rows with 8 shared-memory loads; the stages arrive whole, far ahead.
 // Gathering the rows one by one in the sum pass held a producer warp to
 // 16-30 cycles a row, well above the chain, so the scatter pass, which
-// runs on the whole card at once, moves them instead.
+// runs on the whole card at once, moves them instead. Where k is near n
+// (the ranged partition) the chains are a few rows long and the bytes
+// few; what leads there is work a segment: the item order, one block
+// scanning every item once for each length class present, and the sum
+// pass's set-up of a warp pair an item.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,8 +93,11 @@
 namespace {
 
 constexpr int kTileRows = 256;       // rows per partition tile (8 warps)
-constexpr int kMaxSegments = 11264;  // places of one tile, and its order,
+constexpr int kRange = 11264;        // places of one tile, and its order,
                                      // in the 48 KB of smem of a block
+constexpr int kRangedRows = 8192;    // segments per 256 rows of a ranged
+                                     // partition's tile
+constexpr int kMaxLanes = 65535;     // lanes of one launch (gridDim.y)
 constexpr int kCols = 16;            // columns of one work item
 constexpr int kRows = 32;            // rows a consumer loads at once
 constexpr int kBatches = 4;          // loads of one stage
@@ -88,17 +118,30 @@ __device__ __forceinline__ size_t gathered_at(int lane, int chunk, int pad,
          ((size_t)(p >> 2) * w + c) * 4 + (p & 3);
 }
 
-// Walks one tile's rows warp by warp in row order. place[s] holds the
-// next place of segment s on entry and one past the tile's last member on
-// exit. Returns the thread's row's place, or -1 for a dead row or none.
-// Every thread of the block must call it (it synchronises the block).
-__device__ int place_tile(const int* __restrict__ lab, int r0, int n, int k,
-                          int* place) {
+// Copies row r of lane lb (d values) to place p of the gathered rows.
+__device__ __forceinline__ void copy_row(const float* __restrict__ x, int lb,
+                                         int n, int d, int pad, int r, int p,
+                                         float* __restrict__ gathered) {
+  const float* row = x + ((size_t)lb * n + r) * d;
+  for (int j = 0; j < d; ++j) {
+    const int chunk = j / kCols, c = j - chunk * kCols;
+    const int w = min(kCols, d - chunk * kCols);
+    gathered[gathered_at(lb, chunk, pad, d, w, p, c)] = row[j];
+  }
+}
+
+// Walks 256 rows warp by warp in row order. place[s - lo] holds the next
+// place of segment s in [lo, hi) on entry and one past the rows' last
+// member on exit. Returns the thread's row's place, or -1 for a dead row,
+// one outside [lo, hi) or none. Every thread of the block must call it
+// (it synchronises the block).
+__device__ int place_tile(const int* __restrict__ lab, int r0, int n, int lo,
+                          int hi, int* place) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = r0 + threadIdx.x;
   int l = r < n ? lab[r] : -1;
-  const bool valid = l >= 0 && l < k;
-  if (!valid) l = -1;
+  const bool valid = l >= lo && l < hi;
+  l = valid ? l - lo : -1;
   const unsigned same = __match_any_sync(0xffffffffu, l);
   const int rank = __popc(same & ((1u << lane) - 1u));
   int at = -1;
@@ -115,12 +158,12 @@ __device__ int place_tile(const int* __restrict__ lab, int r0, int n, int k,
 
 // offsets (b, k, tiles): members of segment s in tile t of each lane
 __global__ void count_kernel(const int* __restrict__ labels, int n, int k,
-                             int tiles, int* __restrict__ offsets) {
+                             int tiles, int lane0, int* __restrict__ offsets) {
   extern __shared__ int place[];
-  const int lb = blockIdx.y, tile = blockIdx.x;
+  const int lb = lane0 + blockIdx.y, tile = blockIdx.x;
   for (int s = threadIdx.x; s < k; s += blockDim.x) place[s] = 0;
   __syncthreads();
-  place_tile(labels + (size_t)lb * n, tile * kTileRows, n, k, place);
+  place_tile(labels + (size_t)lb * n, tile * kTileRows, n, 0, k, place);
   for (int s = threadIdx.x; s < k; s += blockDim.x)
     offsets[((size_t)lb * k + s) * tiles + tile] = place[s];
 }
@@ -174,19 +217,20 @@ __global__ void scan_kernel(int* __restrict__ offsets, int k, int tiles,
 // word) whatever the labels' order.
 __global__ void scatter_kernel(const float* __restrict__ x,
                                const int* __restrict__ labels, int n, int k,
-                               int d, int tiles, int pad,
+                               int d, int tiles, int pad, int lane0,
                                const int* __restrict__ offsets,
                                float* __restrict__ gathered) {
   extern __shared__ int place[];
   __shared__ int row_of[kTileRows], place_of[kTileRows];
   __shared__ int valid_rows;
-  const int lb = blockIdx.y, tile = blockIdx.x, r0 = tile * kTileRows;
+  const int lb = lane0 + blockIdx.y, tile = blockIdx.x;
+  const int r0 = tile * kTileRows;
   const int* first = offsets + (size_t)lb * k * tiles + tile;  // [s * tiles]
   const int* lab = labels + (size_t)lb * n;
   for (int s = threadIdx.x; s < k; s += blockDim.x)
     place[s] = first[(size_t)s * tiles];
   __syncthreads();
-  const int at = place_tile(lab, r0, n, k, place);
+  const int at = place_tile(lab, r0, n, 0, k, place);
   // place[s]: the tile's members of segment s, then of the segments
   // before s (one warp scans k counts)
   for (int s = threadIdx.x; s < k; s += blockDim.x)
@@ -219,12 +263,104 @@ __global__ void scatter_kernel(const float* __restrict__ x,
   }
   __syncthreads();
   if (threadIdx.x >= valid_rows) return;
-  const int p = place_of[threadIdx.x];
-  const float* row = x + ((size_t)lb * n + r0 + row_of[threadIdx.x]) * d;
-  for (int j = 0; j < d; ++j) {
-    const int chunk = j / kCols, c = j - chunk * kCols;
-    const int w = min(kCols, d - chunk * kCols);
-    gathered[gathered_at(lb, chunk, pad, d, w, p, c)] = row[j];
+  copy_row(x, lb, n, d, pad, r0 + row_of[threadIdx.x], place_of[threadIdx.x],
+           gathered);
+}
+
+// Ranged partition, pass 1. table (b, tiles, k): members of segment s in
+// tile t of each lane. Block (tile + tiles range, lane - lane0); a tile
+// is `sub` runs of 256 rows.
+__global__ void count_ranged_kernel(const int* __restrict__ labels, int n,
+                                    int k, int tiles, int sub, int lane0,
+                                    int* __restrict__ table) {
+  extern __shared__ int place[];
+  const int lb = lane0 + blockIdx.y, tile = blockIdx.x % tiles;
+  const int lo = blockIdx.x / tiles * kRange, hi = min(k, lo + kRange);
+  for (int s = threadIdx.x; s < hi - lo; s += blockDim.x) place[s] = 0;
+  __syncthreads();
+  const int* lab = labels + (size_t)lb * n;
+  for (int j = 0; j < sub; ++j)
+    place_tile(lab, (tile * sub + j) * kTileRows, n, lo, hi, place);
+  int* row = table + ((size_t)lb * tiles + tile) * k + lo;
+  for (int s = threadIdx.x; s < hi - lo; s += blockDim.x) row[s] = place[s];
+}
+
+// Ranged partition, pass 2a: per (lane, segment), the table's column
+// becomes each tile's first member's place within the segment (an
+// exclusive prefix over tiles); sizes (b, k) the segment's members.
+__global__ void sizes_ranged_kernel(int* __restrict__ table, int b, int k,
+                                    int tiles, int* __restrict__ sizes) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= (long long)b * k) return;
+  const long long lb = g / k, s = g - lb * k;
+  int* col = table + lb * tiles * k + s;
+  int run = 0;
+  for (int t = 0; t < tiles; ++t) {
+    const int v = col[(size_t)t * k];
+    col[(size_t)t * k] = run;
+    run += v;
+  }
+  sizes[g] = run;
+}
+
+// Ranged partition, pass 2b: one block of 1024 threads per lane lays the
+// segments out in order, each padded to a multiple of 4 rows; thread i
+// takes segments [i per, (i + 1) per).
+__global__ void starts_ranged_kernel(const int* __restrict__ sizes, int k,
+                                     int* __restrict__ starts) {
+  __shared__ int warp_sums[32];
+  const unsigned all = 0xffffffffu;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int* sz = sizes + (size_t)blockIdx.x * k;
+  int* st = starts + (size_t)blockIdx.x * k;
+  const int per = (k + blockDim.x - 1) / blockDim.x;
+  const int lo = min(k, (int)threadIdx.x * per), hi = min(k, lo + per);
+  int sum = 0;
+  for (int s = lo; s < hi; ++s) sum += (sz[s] + 3) & ~3;
+  int inc = sum;
+  for (int m = 1; m < 32; m <<= 1) {
+    const int u = __shfl_up_sync(all, inc, m);
+    if (lane >= m) inc += u;
+  }
+  if (lane == 31) warp_sums[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0;
+    int wi = w;
+    for (int m = 1; m < 32; m <<= 1) {
+      const int u = __shfl_up_sync(all, wi, m);
+      if (lane >= m) wi += u;
+    }
+    warp_sums[lane] = wi - w;              // warps before this one
+  }
+  __syncthreads();
+  int run = warp_sums[warp] + inc - sum;
+  for (int s = lo; s < hi; ++s) {
+    st[s] = run;
+    run += (sz[s] + 3) & ~3;
+  }
+}
+
+// Ranged partition, pass 3: the grid of the count; each valid row in the
+// block's range is copied to its place.
+__global__ void scatter_ranged_kernel(
+    const float* __restrict__ x, const int* __restrict__ labels, int n, int k,
+    int d, int tiles, int sub, int pad, int lane0,
+    const int* __restrict__ table, const int* __restrict__ starts,
+    float* __restrict__ gathered) {
+  extern __shared__ int place[];
+  const int lb = lane0 + blockIdx.y, tile = blockIdx.x % tiles;
+  const int lo = blockIdx.x / tiles * kRange, hi = min(k, lo + kRange);
+  const int* row = table + ((size_t)lb * tiles + tile) * k;
+  const int* st = starts + (size_t)lb * k;
+  for (int s = lo + threadIdx.x; s < hi; s += blockDim.x)
+    place[s - lo] = st[s] + row[s];
+  __syncthreads();
+  const int* lab = labels + (size_t)lb * n;
+  for (int j = 0; j < sub; ++j) {
+    const int r0 = (tile * sub + j) * kTileRows;
+    const int at = place_tile(lab, r0, n, lo, hi, place);
+    if (at >= 0) copy_row(x, lb, n, d, pad, r0 + threadIdx.x, at, gathered);
   }
 }
 
@@ -453,10 +589,23 @@ __global__ void __launch_bounds__(kSumThreads)
   if (chunk == 0 && lane == 0) counts[seg] = (float)rows;
 }
 
-int tiles_of(int n) { return (n + kTileRows - 1) / kTileRows; }
+// Partition geometry of (n, k): rows of a tile, and segments of a range
+// (k itself up to kRange; kRange above it, the ranged partition).
+bool ranged(int k) { return k > kRange; }
+int subtiles_of(int k) {
+  return ranged(k) ? (k + kRangedRows - 1) / kRangedRows : 1;
+}
+int tiles_of(int n, int k) {
+  const long long rows = (long long)kTileRows * subtiles_of(k);
+  return (int)((n + rows - 1) / rows);
+}
+int ranges_of(int k) { return (k + kRange - 1) / kRange; }
 
-// rows of one lane's gathered region: every segment padded to 32
+// rows of one lane's gathered region: every segment padded to 32 (to 4,
+// and 32 rows after the last for the sum pass's whole-batch reads, where
+// the partition is ranged)
 long long pad_of(int n, int k) {
+  if (ranged(k)) return ((long long)n + 3LL * k + 3) / 4 * 4 + kRows;
   return ((long long)n + (long long)(kRows - 1) * k + kRows - 1) / kRows *
          kRows;
 }
@@ -483,17 +632,18 @@ __global__ void add_latency_kernel(float seed, int adds, long long* cycles,
 // the sum pass's item order.
 extern "C" long long segment_stats_workspace(int b, int n, int k, int d) {
   const long long chunks = (d + kCols - 1) / kCols;
-  return (long long)b * pad_of(n, k) * d + (long long)b * k * tiles_of(n) +
-         2LL * b * k + (long long)b * k * chunks;
+  return (long long)b * pad_of(n, k) * d +
+         (long long)b * k * tiles_of(n, k) + 2LL * b * k +
+         (long long)b * k * chunks;
 }
 
 // x (b, n, d) float32 and labels (b, n) int32, contiguous; outputs
 // sums/sumsq (b, k, d) and counts (b, k); work: segment_stats_workspace
 // words, 16-byte aligned. passes: bit mask of the passes to launch (1
 // count, 2 scan, 4 scatter, 8 sum with its order; 15 = all), so that each
-// can be timed on its own. geometry (3 ints, out): partition tiles,
-// sum-pass blocks, 1 if the order pass ran. Returns the CUDA error of the
-// launches (0 = ok).
+// can be timed on its own. geometry (5 ints, out): partition tiles,
+// sum-pass blocks, 1 if the order pass ran, rows of a partition tile,
+// segment ranges. Returns the CUDA error of the launches (0 = ok).
 extern "C" int segment_stats_f32(const float* x, const int* labels, int b,
                                  int n, int k, int d, float* sums,
                                  float* sumsq, float* counts, int* work,
@@ -501,12 +651,14 @@ extern "C" int segment_stats_f32(const float* x, const int* labels, int b,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b <= 0 || k <= 0 || d <= 0) return 0;
   const long long pad = pad_of(n, k);
-  if (b > 65535 || n < 0 || k > kMaxSegments || pad * d > (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  const int tiles = tiles_of(n);
+  if (n < 0 || pad * d > (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const bool wide = ranged(k);
+  const int sub = subtiles_of(k), tiles = tiles_of(n, k);
+  const int ranges = ranges_of(k);
   const int chunks = (d + kCols - 1) / kCols;
   const long long items64 = (long long)b * k * chunks;
-  if (items64 > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  if (items64 > (1LL << 30) || (long long)tiles * ranges > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   const int items = (int)items64;
   const int blocks = (items + kPairs - 1) / kPairs;
   float* gathered = reinterpret_cast<float*>(work);
@@ -514,19 +666,39 @@ extern "C" int segment_stats_f32(const float* x, const int* labels, int b,
   int* starts = offsets + (size_t)b * k * tiles;
   int* sizes = starts + (size_t)b * k;
   int* order = sizes + (size_t)b * k;
-  const size_t smem = (size_t)k * sizeof(int);
-  if (tiles > 0 && (passes & 1)) {
-    count_kernel<<<dim3(tiles, b), kTileRows, smem, st>>>(labels, n, k, tiles,
-                                                          offsets);
+  const size_t smem = (size_t)min(k, kRange) * sizeof(int);
+  for (int lane0 = 0; tiles > 0 && (passes & 1) && lane0 < b;
+       lane0 += kMaxLanes) {
+    const dim3 grid(tiles * ranges, min(kMaxLanes, b - lane0));
+    if (wide)
+      count_ranged_kernel<<<grid, kTileRows, smem, st>>>(
+          labels, n, k, tiles, sub, lane0, offsets);
+    else
+      count_kernel<<<grid, kTileRows, smem, st>>>(labels, n, k, tiles, lane0,
+                                                  offsets);
     if (cudaError_t e = cudaGetLastError()) return (int)e;
   }
   if (passes & 2) {
-    scan_kernel<<<b, 256, 0, st>>>(offsets, k, tiles, starts, sizes);
+    if (wide) {
+      sizes_ranged_kernel<<<(unsigned)(((long long)b * k + 255) / 256), 256,
+                            0, st>>>(offsets, b, k, tiles, sizes);
+      if (cudaError_t e = cudaGetLastError()) return (int)e;
+      starts_ranged_kernel<<<b, 1024, 0, st>>>(sizes, k, starts);
+    } else {
+      scan_kernel<<<b, 256, 0, st>>>(offsets, k, tiles, starts, sizes);
+    }
     if (cudaError_t e = cudaGetLastError()) return (int)e;
   }
-  if (tiles > 0 && (passes & 4)) {
-    scatter_kernel<<<dim3(tiles, b), kTileRows, smem, st>>>(
-        x, labels, n, k, d, tiles, (int)pad, offsets, gathered);
+  for (int lane0 = 0; tiles > 0 && (passes & 4) && lane0 < b;
+       lane0 += kMaxLanes) {
+    const dim3 grid(tiles * ranges, min(kMaxLanes, b - lane0));
+    if (wide)
+      scatter_ranged_kernel<<<grid, kTileRows, smem, st>>>(
+          x, labels, n, k, d, tiles, sub, (int)pad, lane0, offsets, starts,
+          gathered);
+    else
+      scatter_kernel<<<grid, kTileRows, smem, st>>>(
+          x, labels, n, k, d, tiles, (int)pad, lane0, offsets, gathered);
     if (cudaError_t e = cudaGetLastError()) return (int)e;
   }
   // the sum pass's blocks that fit on the card at once, found once per
@@ -555,6 +727,8 @@ extern "C" int segment_stats_f32(const float* x, const int* labels, int b,
     geometry[0] = tiles;
     geometry[1] = blocks;
     geometry[2] = ordered;
+    geometry[3] = kTileRows * sub;
+    geometry[4] = ranges;
   }
   if (!(passes & 8)) return 0;
   if (ordered) {

@@ -13,18 +13,29 @@ inputs, output in q's type. A CPU tensor takes the plain version
 ``csrc/flash_attention_sm90.cu`` (TMA + ``wgmma``), float32 to the SIMT
 kernel of ``csrc/flash_attention.cu``.
 
-Layout contract (both routes, both types): q, k and v may be any strided
-views whose last dimension is contiguous, whose other strides are
-multiples of 8 elements and whose data start on a 16-byte boundary — the
-``(b, h, s, d)`` views that ``x.reshape(b, s, h, d).transpose(1, 2)``
-makes of a projection's output qualify, and are read in place. Anything
-else raises ``ValueError``; nothing is copied behind the caller's back.
-The output is allocated ``(b, sq, hq, d)`` and returned as its
+Every head width d >= 1 is taken, as the reference's wrapper takes it
+(``kernel_plan``): d <= 32, 64 and 128 run the kernels' instantiations of
+those widths; wider heads run one block per 128 output columns, each
+computing the scores over the whole d (``flash_fwd_sm90_wide``, and the
+float32 kernel's ``WIDE`` instantiation).
+
+Layout contract (both routes, both types), at a width that is a multiple
+of 8: q, k and v may be any strided views whose last dimension is
+contiguous, whose other strides are multiples of 8 elements and whose
+data start on a 16-byte boundary — the ``(b, h, s, d)`` views that
+``x.reshape(b, s, h, d).transpose(1, 2)`` makes of a projection's output
+qualify, and are read in place. Anything else raises ``ValueError``;
+nothing is copied behind the caller's back. A width that is not a
+multiple of 8 cannot be read in place (TMA needs 16-byte strides): the
+kernel route copies q, k and v once into buffers whose d is padded with
+zeros to the next multiple of 8 (``last_dispatch()["padded_d"]``), as the
+reference's wrapper pads every call, and returns the output's first d
+columns. The output is allocated ``(b, sq, hq, d)`` and returned as its
 ``transpose(1, 2)`` view, so the caller's transpose back to
 ``(b, sq, hq * d)`` is a view too.
 
 The kernels read the real sequence lengths and head width and mask the
-ragged edge themselves, so nothing is padded and the reference's
+ragged edge themselves, so no sequence is padded and the reference's
 ``kv_start`` front-padding mask has no counterpart. Unlike the
 reference's wrapper, this one refuses causal calls with sq > skv: those
 rows would see no column (the reference's oracle gives NaN there, its
@@ -66,11 +77,11 @@ from .ref import flash_attention_ref
 
 __all__ = ["flash_attention", "last_dispatch", "launch_count",
            "reset_launch_count", "tensor_map_args", "flash_flops",
-           "MAX_HEAD_DIM", "BF16_ROWS", "F32_ROWS"]
+           "kernel_plan", "BF16_ROWS", "F32_ROWS", "COL_BLOCK"]
 
-MAX_HEAD_DIM = 128
 BF16_ROWS = 128          # query rows per block and keys per K/V tile (bf16)
 F32_ROWS = 64            # query rows per block of the float32 kernel
+COL_BLOCK = 128          # output columns of one block, both kernels
 # (source, C entry) of each type's kernel
 _ENTRY = {torch.float32: ("flash_attention", "flash_attention_f32"),
           torch.bfloat16: ("flash_attention_sm90", "flash_attention_bf16")}
@@ -98,8 +109,27 @@ def reset_launch_count() -> None:
 def last_dispatch() -> Optional[dict]:
     """Shape record of the latest kernel launch (``None`` before any):
     ``b``, ``hq``, ``hkv``, ``sq``, ``skv``, ``d``, ``causal``, ``dtype``,
-    ``source`` and ``grid``. Plain calls leave it untouched."""
+    ``source``, ``grid``, and the ``kernel_plan`` of d: ``padded_d`` (the
+    width of the zero-padded copies the kernel ran on, ``None`` where it
+    read the inputs in place), ``dp`` (the instantiation's width) and
+    ``col_blocks``. Plain calls leave it untouched."""
     return None if _last_dispatch is None else dict(_last_dispatch)
+
+
+def kernel_plan(d: int) -> dict:
+    """How the kernels take head width ``d`` (both types): ``padded_d``,
+    the width of the zero-padded copies the wrapper makes (the next
+    multiple of 8), or ``None`` where d is a multiple of 8 and read in
+    place; ``dp``, the instantiation (32, 64 or 128: a width padded in
+    shared memory and registers); ``col_blocks``, the blocks that split
+    the output's columns, 128 each (1 up to d = 128; each block computes
+    the scores over the whole width)."""
+    if d < 1:
+        raise ValueError(f"head width must be >= 1 (got {d})")
+    width = -(-d // 8) * 8
+    dp = 32 if width <= 32 else 64 if width <= 64 else COL_BLOCK
+    return {"padded_d": None if width == d else width, "dp": dp,
+            "col_blocks": -(-width // COL_BLOCK)}
 
 
 def _strides(shape, strides) -> tuple[int, int, int, int]:
@@ -121,8 +151,9 @@ def tensor_map_args(shape, strides, itemsize: int = 2
     ``(d, h, s, b)``, the byte strides of h, s and b (d is contiguous),
     and the box the kernel loads, ``(cols, 1, 128, 1)`` with cols 32 for
     d <= 32 (64-byte swizzle) and 64 otherwise (128-byte swizzle; d > 64
-    takes two boxes). Size-1 dimensions get the stride of a contiguous
-    tensor."""
+    takes two boxes, and above d = 128 each 128-column chunk two). Size-1
+    dimensions get the stride of a contiguous tensor. A width that is not
+    a multiple of 8 is mapped on its padded copy (``kernel_plan``)."""
     b, h, s, d = shape
     sb, sh, ss, _ = _strides(shape, strides)
     dims = (d, h, s, b)
@@ -158,9 +189,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv, skv = k.shape[1], k.shape[2]
     if hq % hkv:
         raise ValueError(f"GQA heads mismatch: {hq} % {hkv}")
-    if d > MAX_HEAD_DIM or d % 8:
-        raise ValueError(f"head width {d} must be a multiple of 8 and at "
-                         f"most {MAX_HEAD_DIM}")
+    if d < 1:
+        raise ValueError(f"head width must be >= 1 (got {d})")
     if sq < 1 or skv < 1:
         raise ValueError(f"need sq >= 1 and skv >= 1 (got sq={sq}, "
                          f"skv={skv})")
@@ -171,8 +201,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share one of {sorted(map(str, _ENTRY))}"
                          f"; got {q.dtype}, {k.dtype}, {v.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_layout(name, t)
+    if d % 8 == 0:               # read in place (else copied, padded)
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_layout(name, t)
 
 
 def bind(fn):
@@ -204,13 +235,14 @@ def launch(q, k, v, out, scale: float, entry=None, *,
     returns its grid."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
+    blocks = b * hq * kernel_plan(d)["col_blocks"]
     if q.dtype == torch.bfloat16:
         args = [_words(sum(tensor_map_args(t.shape, t.stride()), ()))
                 for t in (q, k, v)]
-        grid = (-(-sq // BF16_ROWS) * b * hq,)
+        grid = (-(-sq // BF16_ROWS) * blocks,)
     else:
         args = [_words(_strides(t.shape, t.stride())[:3]) for t in (q, k, v)]
-        grid = (b * hq, -(-sq // F32_ROWS))
+        grid = (-(-sq // F32_ROWS) * blocks,)
     args.append(_words(_strides(out.shape, out.stride())[:3]))
     entry = entry or _entry(q.dtype)
     code = entry(_backend.ptr(q), _backend.ptr(k), _backend.ptr(v),
@@ -224,40 +256,55 @@ def launch(q, k, v, out, scale: float, entry=None, *,
 def flash_flops(q_shape, k_shape, dtype: torch.dtype, causal: bool) -> int:
     """FLOPs of one kernel launch as the kernel does them: per ``(b,
     hq)``, query tile ``i`` (``R`` rows: 128 in bf16, 64 in float32)
-    takes ``n_i`` key tiles of ``K = R`` keys, each two ``R x K x d``
-    products done whole (ragged edges masked, not skipped), so
+    takes ``n_i`` key tiles of ``K = R`` keys, each an ``R x K x d``
+    product for the scores and one for P V, done whole (ragged edges
+    masked, not skipped), at the width ``d`` the kernel runs on (the
+    padded copies' where ``kernel_plan`` pads). Above d = 128 each of the
+    ``c = ceil(d / 128)`` column blocks computes the scores over the whole
+    d again, so
 
-        flops = 4 b hq R K d sum_i n_i,
+        flops = 2 b hq R K d (c + 1) sum_i n_i,
 
     with ``n_i = ceil(skv / K)`` bidirectional (every tile) and, causal,
     ``n_i = ceil((min((i + 1) R, sq) + skv - sq) / K)`` (the tiles on or
     below the end-aligned diagonal; those wholly above it are skipped).
-    Where ``sq = skv = n R`` that is ``2 b hq d s (s + R)`` causal and
-    ``4 b hq d s^2`` bidirectional."""
+    Up to d = 128 (c = 1), where ``sq = skv = n R``, that is ``2 b hq d s
+    (s + R)`` causal and ``4 b hq d s^2`` bidirectional."""
     b, hq, sq, d = q_shape
     skv = k_shape[2]
+    plan = kernel_plan(d)
+    width = plan["padded_d"] or d
     rows = BF16_ROWS if dtype == torch.bfloat16 else F32_ROWS
     tiles = 0
     for i in range(-(-sq // rows)):
         kv_end = min((i + 1) * rows, sq) + skv - sq if causal else skv
         tiles += -(-kv_end // rows)
-    return 4 * b * hq * rows * rows * d * tiles
+    return 2 * b * hq * rows * rows * width * (plan["col_blocks"] + 1) \
+        * tiles
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float, causal: bool) -> torch.Tensor:
     """The kernel of q's type on checked CUDA tensors: returns the
-    ``(b, sq, hq, d)`` output."""
+    ``(b, sq, hq, d)`` output. A width that is not a multiple of 8 runs
+    on copies of q, k and v padded with zeros (``kernel_plan``)."""
     b, hq, sq, d = q.shape
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    plan = kernel_plan(d)
+    width = plan["padded_d"] or d
+    if width != d:
+        q, k, v = (torch.nn.functional.pad(t, (0, width - d))
+                   for t in (q, k, v))
+    out = torch.empty((b, sq, hq, width), dtype=q.dtype, device=q.device)
     grid = launch(q, k, v, out.transpose(1, 2), scale, causal=causal)
+    if width != d:
+        out = out[..., :d].contiguous()
     global _last_dispatch
     _launches["causal" if causal else "non_causal"] += 1
     _last_dispatch = {"b": b, "hq": hq, "hkv": k.shape[1], "sq": sq,
                       "skv": k.shape[2], "d": d, "causal": bool(causal),
                       "dtype": q.dtype,
-                      "source": _ENTRY[q.dtype][0], "grid": grid}
+                      "source": _ENTRY[q.dtype][0], "grid": grid, **plan}
     return out
 
 

@@ -7,16 +7,20 @@ A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 the kernel or raises (``repro_torch.kernels.backend``). The kernel is
 built as two units that nvcc builds at once, asked in this order
 (``_UNITS``); a launch goes through the first whose library says it
-serves the launch's order and width (``kmeans_assign_serves``):
+serves the launch's order, width and centroid count
+(``kmeans_assign_serves``):
 
 * ``kmeans_assign.cu`` (``csrc/kmeans_assign.cuh``, a point's row held in
-  registers): the one-chain order at d <= 40, the interleaved orders at
-  d <= 48, the main path's fits (d = 15 and 38) among them;
+  registers, a lane's centroids in shared memory): the one-chain order
+  at d <= 40, the interleaved orders at d <= 48, where the centroids fit
+  (d = 15 to about k = 3,400, d = 38 to about 1,400); the main path's
+  fits (d = 15 and 38, k <= 500) among them;
 * ``kmeans_assign_tiled.cu`` (the depth streamed through shared memory):
-  every order at every d, so everything above d = 48, the one chain
-  above d = 40, and the one-centroid orders (``"vector"``, ``"gemv"``).
-  It takes scratch for the squared norms (``kmeans_assign_work``), which
-  the wrapper allocates.
+  every order at every d and k, so everything above d = 48, the one
+  chain above d = 40, more centroids than the first unit holds, and the
+  one-centroid orders (``"vector"``, ``"gemv"``). It takes scratch for
+  the squared norms (``kmeans_assign_work``), which the wrapper
+  allocates, and any number of lanes.
 
 The kernel reads the points and centroids at their real widths: there is
 no padding, so no padded centroid can win. Both the kernel and the plain
@@ -101,12 +105,12 @@ _UNITS = ("kmeans_assign", "kmeans_assign_tiled")
 @functools.lru_cache(maxsize=None)
 def _unit(unit: str):
     """``(serves, entry, work)`` of one build unit's library: whether it
-    serves a width and order (``kmeans_assign_serves``), its C entry and
-    its scratch query."""
+    serves a width, order and centroid count (``kmeans_assign_serves``),
+    its C entry and its scratch query."""
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib = _backend.library(unit)
     serves = lib.kmeans_assign_serves
-    serves.argtypes = [i, i]
+    serves.argtypes = [i, i, i]
     serves.restype = ctypes.c_int
     fn = lib.kmeans_assign_f32
     fn.argtypes = [vp, vp, i, i, i, i, i, i, i, i, i, vp, vp, vp, vp, vp]
@@ -118,15 +122,16 @@ def _unit(unit: str):
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(order: str, d: int, unit: Optional[str] = None):
+def _entry(order: str, d: int, k: int, unit: Optional[str] = None):
     """``(unit, entry, work)`` of the first build unit that serves this
-    order and width (or of ``unit``, which must serve it)."""
+    order, width and centroid count (or of ``unit``, which must serve
+    it)."""
     for name in _UNITS if unit is None else (unit,):
         serves, fn, work = _unit(name)
-        if serves(d, DOT_ORDER_NAMES.index(order)):
+        if serves(d, DOT_ORDER_NAMES.index(order), k):
             return name, fn, work
-    raise ValueError(f"no kmeans_assign build unit serves d = {d} in the "
-                     f"{order!r} dot order"
+    raise ValueError(f"no kmeans_assign build unit serves d = {d}, k = {k} "
+                     f"in the {order!r} dot order"
                      + ("" if unit is None else f" among ({unit!r},)"))
 
 
@@ -166,7 +171,7 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, *,
     _count_launch()
     _last_dispatch = {"batch": b, "batch_shape": batch_shape, "n": n,
                       "k": k, "d": d, "order": order,
-                      "unit": _entry(order, d)[0],
+                      "unit": _entry(order, d, k)[0],
                       "grid": (geometry[0],), "tiles": geometry[1],
                       "split": geometry[2]}
     return (labels.reshape(*batch_shape, n), mind2.reshape(*batch_shape, n))
@@ -201,7 +206,7 @@ def _launch(x: torch.Tensor, c: torch.Tensor, order: str,
     labels = torch.empty((b, n), dtype=torch.int32, device=x.device)
     mind2 = torch.empty((b, n), dtype=torch.float32, device=x.device)
     geometry = (ctypes.c_int * 3)()
-    _, fn, work_floats = _entry(order, d, unit)
+    _, fn, work_floats = _entry(order, d, k, unit)
     which = DOT_ORDER_NAMES.index(order)
     work = torch.empty(work_floats(b, n, k, d, which), dtype=torch.float32,
                        device=x.device)

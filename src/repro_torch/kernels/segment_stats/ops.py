@@ -7,7 +7,9 @@ plain version (``ref.py``); a CUDA tensor launches
 ``csrc/segment_stats.cu`` or raises (``repro_torch.kernels.backend``).
 The kernel adds each segment's rows in row order, as the plain version
 does, so two launches on the same input are bitwise equal, and equal to
-it.
+it. Like the reference's kernel it takes any number of segments and of
+lanes: above ``RANGE`` segments its partition is ranged
+(``partition_geometry``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from .ref import segment_stats_ref
 
 __all__ = ["segment_stats", "stratum_moments", "last_dispatch",
            "launch_count", "reset_launch_count",
-           "launch_counts_by_shard"]
+           "launch_counts_by_shard", "partition_geometry",
+           "workspace_words", "RANGE"]
 
 _launches = 0
 _by_shard: dict[int, int] = {}
@@ -61,12 +64,45 @@ def _count_launch() -> None:
 def last_dispatch() -> Optional[dict]:
     """Shape record of the latest kernel launch (``None`` before any):
     ``batch``, ``batch_shape``, ``n``, ``k``, ``d``, ``tiles`` (row tiles
-    of the partition passes), ``grid`` of the sum pass (blocks of two
-    (lane, segment, 16-column chunk) items) and ``ordered`` (whether the
-    items went longest segment first, which only a launch of more blocks
-    than fit on the card at once needs). Plain calls leave it
-    untouched."""
+    of the partition passes), ``tile_rows`` and ``ranges`` (their rows,
+    and the ranges of segments they take: ``partition_geometry``),
+    ``grid`` of the sum pass (blocks of two (lane, segment, 16-column
+    chunk) items) and ``ordered`` (whether the items went longest segment
+    first, which only a launch of more blocks than fit on the card at once
+    needs). Plain calls leave it untouched."""
     return None if _last_dispatch is None else dict(_last_dispatch)
+
+
+# segments whose places one block keeps in shared memory; above it the
+# partition is ranged (csrc/segment_stats.cu, kRange and kRangedRows)
+RANGE = 11264
+_RANGED_ROWS = 8192
+_TILE_ROWS, _SUM_ROWS, _COLS = 256, 32, 16
+
+
+def partition_geometry(n: int, k: int) -> dict:
+    """The kernel's partition of ``n`` rows into ``k`` segments, as
+    ``csrc/segment_stats.cu`` lays it out: ``tile_rows`` (256, or 256
+    ``ceil(k / 8192)`` where the partition is ranged), ``tiles``,
+    ``ranges`` (blocks of at most ``RANGE`` segments a tile), ``align``
+    (each segment's gathered rows start at a multiple of it: 32, or 4 where
+    ranged) and ``pad`` (gathered rows of a lane)."""
+    ranged = k > RANGE
+    tile_rows = _TILE_ROWS * (-(-k // _RANGED_ROWS) if ranged else 1)
+    align = 4 if ranged else _SUM_ROWS
+    pad = (-(-(n + 3 * k) // 4) * 4 + _SUM_ROWS if ranged
+           else -(-(n + (_SUM_ROWS - 1) * k) // _SUM_ROWS) * _SUM_ROWS)
+    return {"tile_rows": tile_rows, "tiles": -(-n // tile_rows),
+            "ranges": -(-k // RANGE), "align": align, "pad": pad}
+
+
+def workspace_words(b: int, n: int, k: int, d: int) -> int:
+    """4-byte words of scratch a launch at ``(b, n, k, d)`` takes (the
+    C entry ``segment_stats_workspace``): the gathered rows, the (tile,
+    segment) places, starts, sizes and the sum pass's item order."""
+    g = partition_geometry(n, k)
+    return (b * g["pad"] * d + b * k * g["tiles"] + 2 * b * k
+            + b * k * -(-d // _COLS))
 
 
 # the kernel's passes, as bits of the launch's pass mask ("sum" includes
@@ -95,7 +131,8 @@ def _launch(xb: torch.Tensor, lb: torch.Tensor, k: int,
     """Launch the kernel's passes on contiguous ``xb (b, n, d)`` float32
     and ``lb (b, n)`` int32; returns ``(sums, sumsq, counts, work,
     geometry)``, geometry being (partition tiles, sum-pass blocks,
-    ordered). A later call with the same ``work`` may run a single pass
+    ordered, tile rows, ranges). A later call with the same ``work`` may
+    run a single pass
     (``passes`` mask) on the state the earlier passes left: a timing
     hook."""
     b, n, d = xb.shape
@@ -108,7 +145,7 @@ def _launch(xb: torch.Tensor, lb: torch.Tensor, k: int,
     if work is None:
         work = torch.empty(max(int(workspace(b, n, k, d)), 1),
                            dtype=torch.int32, device=dev)
-    geometry = (ctypes.c_int * 3)()
+    geometry = (ctypes.c_int * 5)()
     p = _backend.ptr
     code = launch(p(xb), p(lb), b, n, k, d, p(sums), p(sumsq), p(counts),
                   p(work), passes, geometry, _backend.stream_handle(dev))
@@ -162,12 +199,14 @@ def segment_stats(x: torch.Tensor, labels: torch.Tensor, num_segments: int,
     b = math.prod(batch_shape)
     xb = x.reshape(b, n, d).float().contiguous()
     lb = labels.reshape(b, n).to(torch.int32).contiguous()
-    sums, sumsq, counts, _, (tiles, blocks, ordered) = _launch(xb, lb, k)
+    sums, sumsq, counts, _, (tiles, blocks, ordered, tile_rows, ranges) = \
+        _launch(xb, lb, k)
     global _last_dispatch
     if not torch.cuda.is_current_stream_capturing():
         _count_launch()
     _last_dispatch = {"batch": b, "batch_shape": batch_shape, "n": n,
-                      "k": k, "d": d, "tiles": tiles, "grid": (blocks,),
+                      "k": k, "d": d, "tiles": tiles, "tile_rows": tile_rows,
+                      "ranges": ranges, "grid": (blocks,),
                       "ordered": bool(ordered)}
     return (sums.reshape(*batch_shape, k, d),
             sumsq.reshape(*batch_shape, k, d),

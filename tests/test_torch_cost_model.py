@@ -36,7 +36,8 @@
   bf16 units of the output (2^-6 relative, atol 1e-2).
 * The flash kernel under a trace: the traced card program takes the
   kernel route, its FLOPs are ``flash_flops``, and the launch counter
-  does not move.
+  does not move; above d = 128 they count each column block's scores,
+  and a width that is not a multiple of 8 its padded copy's.
 """
 
 import dataclasses
@@ -407,6 +408,32 @@ def test_flash_is_traced_through_its_operator_and_counts_no_launch():
     # the plain route's two attention products, 4 b hq s^2 dh a layer
     assert kernel.flops == plain.flops - L * 4 * B * hq * S * S * dh \
         + L * flash
+
+
+@pytest.mark.parametrize("d,width,col_blocks", [(256, 256, 2),
+                                                 (60, 64, 1), (320, 320, 3)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_flops_count_column_blocks_and_padding(d, width, col_blocks,
+                                                     dtype):
+    """Above d = 128 each 128-column block computes the scores over the
+    whole width again; a width that is not a multiple of 8 runs on its
+    zero-padded copy: the count under a trace is ``flash_flops``, 2 b hq
+    R K width (c + 1) per key tile a query tile takes (causal, sq = skv =
+    256: 3 tiles in bf16 (R = 128), 10 in float32 (R = 64))."""
+    from torch.utils.flop_counter import FlopCounterMode
+    b, hq, hkv, s = 1, 4, 2, 256
+    with tracing("cuda") as dev:
+        q = torch.empty((b, hq, s, d), dtype=dtype, device=dev)
+        kv = torch.empty((b, hkv, s, d), dtype=dtype, device=dev)
+        with FlopCounterMode(display=False) as counter:
+            out = flash_ops.flash_attention(q, kv, kv)
+    assert out.shape == q.shape
+    rows = flash_ops.BF16_ROWS if dtype == torch.bfloat16 \
+        else flash_ops.F32_ROWS
+    tiles = 3 if dtype == torch.bfloat16 else 10
+    want = 2 * b * hq * rows * rows * width * (col_blocks + 1) * tiles
+    assert counter.get_total_flops() == want
+    assert flash_ops.flash_flops(q.shape, kv.shape, dtype, True) == want
 
 
 def test_abstract_construction_only_inside_a_trace():

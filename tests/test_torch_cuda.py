@@ -216,6 +216,86 @@ def test_segment_kernel_orders_items_beyond_one_wave(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 3])
+@pytest.mark.parametrize("k", [11264, 11265, 20000, 120000])
+def test_segment_kernel_bitwise_at_any_k(cuda, k, b):
+    """At and above the one-block partition's 11,264 segments (the
+    ranged partition: ``partition_geometry``), up to one segment a
+    region: bitwise equal to the plain version on the CPU, two launches
+    bitwise equal, the launch's geometry the wrapper's."""
+    from repro_torch.kernels.segment_stats.ref import segment_stats_ref
+    n, d = 120000, 16
+    gen = torch.Generator(device=cuda).manual_seed(k + b)
+    x = torch.randn((b, n, d), generator=gen, device=cuda)
+    lab = torch.randint(-1, k + 1, (b, n), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    got = segment_ops.segment_stats(x, lab, k)
+    rec = segment_ops.last_dispatch()
+    again = segment_ops.segment_stats(x, lab, k)
+    want = segment_stats_ref(x.cpu(), lab.cpu(), k)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g.cpu(), w)
+        assert torch.equal(g, a)
+    geometry = segment_ops.partition_geometry(n, k)
+    assert {key: rec[key] for key in ("tiles", "tile_rows", "ranges")} == {
+        key: geometry[key] for key in ("tiles", "tile_rows", "ranges")}
+    assert int(segment_ops._lib()[1](b, n, k, d)) == \
+        segment_ops.workspace_words(b, n, k, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [65536, 70000])
+def test_segment_kernel_bitwise_past_65535_lanes(cuda, b):
+    """More lanes than one launch's grid holds on its y axis."""
+    from repro_torch.kernels.segment_stats.ref import segment_stats_ref
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    x = torch.randn((b, 4, 3), generator=gen, device=cuda)
+    lab = torch.randint(-1, 3, (b, 4), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    got = segment_ops.segment_stats(x, lab, 2)
+    want = segment_stats_ref(x.cpu(), lab.cpu(), 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,d", [(1, 30000, 12000, 15),
+                                     (2, 5000, 2000, 38),
+                                     (1, 4000, 3000, 15)])
+def test_assign_kernel_bitwise_past_the_register_units_centroids(cuda, b, n,
+                                                                 k, d):
+    """More centroids than ``kmeans_assign.cu`` holds in shared memory
+    (d = 15 to about k = 3,400, d = 38 to about 1,400) go to the tiled
+    unit, bitwise equal to the plain version; fewer stay."""
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
+    gen = torch.Generator(device=cuda).manual_seed(n + k + d)
+    x = torch.randn((b, n, d), generator=gen, device=cuda)
+    c = torch.randn((b, k, d), generator=gen, device=cuda)
+    lab, d2 = assign_ops.kmeans_assign(x, c)
+    want_lab, want_d2 = kmeans_assign_ref(x.cpu(), c.cpu())
+    assert torch.equal(lab.cpu(), want_lab)
+    assert torch.equal(d2.cpu(), want_d2)
+    assert assign_ops.last_dispatch()["unit"] == (
+        "kmeans_assign" if k == 3000 else "kmeans_assign_tiled")
+
+
+@pytest.mark.cuda
+def test_tiled_assign_kernel_bitwise_past_65535_lanes(cuda):
+    """The tiled unit over 70,000 lanes of 4 points and 3 centroids."""
+    from repro_torch.kernels.kmeans_assign.ref import (dot_order,
+                                                       kmeans_assign_ref)
+    gen = torch.Generator(device=cuda).manual_seed(70000)
+    x = torch.randn((70000, 4, 5), generator=gen, device=cuda)
+    c = torch.randn((70000, 3, 5), generator=gen, device=cuda)
+    lab, d2, geometry = assign_ops._launch(x, c, dot_order(x, c),
+                                           "kmeans_assign_tiled")
+    want_lab, want_d2 = kmeans_assign_ref(x.cpu(), c.cpu())
+    assert torch.equal(lab.cpu(), want_lab)
+    assert torch.equal(d2.cpu(), want_d2)
+    assert geometry[1] == 70000
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d,k", [
     (3, 1001, 15, 20),      # n d 4 = 60060: tiles off 16 bytes per lane
     (5, 777, 38, 7),        # odd lanes start 8 bytes off 16
@@ -319,16 +399,41 @@ def test_flash_noncausal_kernel_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4, 7, 60, 100, 136, 192, 256, 320, 512])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_at_every_width(cuda, d, causal, dtype):
+    """Every head width, both branches, both types: below 8 and not a
+    multiple of 8 through the padded copy, above 128 in column blocks
+    (``kernel_plan``, recorded by ``last_dispatch``); GQA, ragged tiles."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    shape = (2, 4, 2, 200, 300 if causal else 170, d)
+    q, k, v = _qkv(shape, dtype, cuda, seed=d)
+    out = flash_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    rec = flash_ops.last_dispatch()
+    plan = flash_ops.kernel_plan(d)
+    assert {key: rec[key] for key in plan} == plan
+    rows = flash_ops.BF16_ROWS if dtype == torch.bfloat16 \
+        else flash_ops.F32_ROWS
+    assert rec["grid"] == (-(-200 // rows) * 2 * 4 * plan["col_blocks"],)
+    rtol, atol = FLASH_TOL[dtype]
+    torch.testing.assert_close(
+        out.float(), flash_attention_ref(q, k, v, causal=causal).float(),
+        rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["non_causal", "sq_gt_skv", "heads",
-                                  "d_over_128", "d_not_8", "dtypes"])
+                                  "dtypes"])
 def test_flash_kernel_raises(cuda, case):
     """Refused before any launch: a causal call with sq > skv, a
-    non-causal one with no key column, bad heads, widths and types."""
+    non-causal one with no key column, bad heads and types (every width
+    is taken: ``test_flash_kernel_matches_plain_at_every_width``)."""
     shape = {"non_causal": (1, 2, 2, 8, 0, 64),
              "sq_gt_skv": (1, 2, 2, 65, 64, 64),
-             "heads": (1, 3, 2, 8, 8, 64),
-             "d_over_128": (1, 2, 2, 8, 8, 136),
-             "d_not_8": (1, 2, 2, 8, 8, 60)}.get(case, (1, 2, 2, 8, 8, 64))
+             "heads": (1, 3, 2, 8, 8, 64)}.get(case, (1, 2, 2, 8, 8, 64))
     q, k, v = _qkv(shape, torch.float32, cuda, seed=1)
     if case == "dtypes":
         q = q.to(torch.bfloat16)

@@ -5,7 +5,11 @@ On the CPU the wrapper runs its plain version (``flash_attention_ref``);
 these tests hold it against the reference's Pallas kernel run in
 interpret mode (as ``tests/test_kernels.py`` runs it) and against the
 reference's oracle ``attention_ref`` with repeated kv heads, at the five
-shapes of that test in both types. The model's CPU attention route
+shapes of that test in both types, and at every kind of head width the
+reference's wrapper takes (it pads d to a multiple of 128): below 8, not
+a multiple of 8, and above 128 (``WIDTHS``), with GQA, on both branches
+(the bidirectional one against ``attention_ref`` alone: the reference's
+kernel wrapper is causal only). The model's CPU attention route
 (``models.attention._attend``: ``attention_ref``, or the streaming
 ``_attend_chunked`` past 2048 keys) is held against the reference's
 ``_attend`` (the non-causal branch and ``mha_attend``:
@@ -80,17 +84,67 @@ def test_model_cpu_route_matches_reference(shape, dtype):
     _close(got, want, dtype)
 
 
-@pytest.mark.parametrize("case", ["non_causal", "sq_gt_skv", "heads",
-                                  "d_over_128", "d_not_8"])
+# head widths the kernels once refused: below 8, not a multiple of 8
+# (both copied, padded), above 128 (column blocks); GQA at 70 rows
+# against 90 keys (end-aligned)
+WIDTHS = (1, 4, 7, 60, 100, 136, 192, 256, 320)
+WIDTH_SHAPE = (1, 4, 2, 70, 90)
+
+
+@pytest.mark.parametrize("against", ["pallas_interpret", "attention_ref"])
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_port_flash_matches_reference_at_every_width(d, dtype, against):
+    """Every head width answers, as the reference's wrapper does, and
+    matches its Pallas kernel (interpret mode) and its oracle."""
+    shape = WIDTH_SHAPE + (d,)
+    (q, k, v), (tq, tk, tv) = _inputs(shape, dtype, seed=d)
+    got = ops.flash_attention(tq, tk, tv)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    if against == "pallas_interpret":
+        want = jax_flash(q, k, v)
+    else:
+        want = jax_ref(q, jnp.repeat(k, 2, axis=1), jnp.repeat(v, 2, axis=1),
+                       causal=True)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("d", [136, 256])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_port_flash_bidirectional_above_128(d, dtype):
+    """The bidirectional branch above d = 128 against the reference's
+    oracle (90 query rows against 70 keys: every row sees every key)."""
+    shape = (1, 4, 2, 90, 70, d)
+    (q, k, v), (tq, tk, tv) = _inputs(shape, dtype, seed=d + 1)
+    got = ops.flash_attention(tq, tk, tv, causal=False)
+    want = jax_ref(q, jnp.repeat(k, 2, axis=1), jnp.repeat(v, 2, axis=1),
+                   causal=False)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("d,plan", [
+    (1, (8, 32, 1)), (4, (8, 32, 1)), (7, (8, 32, 1)), (8, (None, 32, 1)),
+    (40, (None, 64, 1)), (60, (64, 64, 1)), (64, (None, 64, 1)),
+    (100, (104, 128, 1)), (128, (None, 128, 1)), (136, (None, 128, 2)),
+    (192, (None, 128, 2)), (250, (256, 128, 2)), (256, (None, 128, 2)),
+    (320, (None, 128, 3)), (512, (None, 128, 4)), (1001, (1008, 128, 8))])
+def test_kernel_plan_by_width(d, plan):
+    """Which copy, instantiation and column split each width takes: a
+    width that is a multiple of 8 is read in place; up to 128 the
+    instantiation is the least of 32, 64, 128 that holds it, one block
+    a query tile; above, 128-column blocks."""
+    got = ops.kernel_plan(d)
+    assert (got["padded_d"], got["dp"], got["col_blocks"]) == plan
+
+
+@pytest.mark.parametrize("case", ["non_causal", "sq_gt_skv", "heads"])
 def test_flash_wrapper_raises(case):
     """Bad shapes raise ``ValueError`` on both branches: a causal call
     with sq > skv, and (``non_causal``, which otherwise takes any sq) a
     call with no key column."""
     b, hq, hkv, sq, skv, d = {"non_causal": (1, 2, 2, 8, 0, 64),
                               "sq_gt_skv": (1, 2, 2, 9, 8, 64),
-                              "heads": (1, 3, 2, 8, 8, 64),
-                              "d_over_128": (1, 2, 2, 8, 8, 136),
-                              "d_not_8": (1, 2, 2, 8, 8, 60)}[case]
+                              "heads": (1, 3, 2, 8, 8, 64)}[case]
     q = torch.zeros((b, hq, sq, d))
     kv = torch.zeros((b, hkv, skv, d))
     with pytest.raises(ValueError):
@@ -182,7 +236,9 @@ def test_tensor_map_args_prefill_layout():
 @pytest.mark.parametrize("bshd,contiguous_bhsd,box_cols", [
     ((1, 300, 3, 40), False, 64), ((2, 130, 8, 8), False, 32),
     ((3, 1, 4, 32), False, 32), ((1, 700, 1, 128), True, 64),
-    ((2, 5, 6, 72), True, 64)])
+    ((2, 5, 6, 72), True, 64),
+    ((4, 4096, 10, 256), False, 64), ((1, 300, 3, 136), False, 64),
+    ((2, 77, 4, 320), True, 64)])                  # column blocks
 def test_tensor_map_args_ragged(bshd, contiguous_bhsd, box_cols):
     """Ragged lengths and widths: every byte stride is a positive multiple
     of 16 (size-1 dimensions take a contiguous tensor's stride), and the
@@ -199,6 +255,21 @@ def test_tensor_map_args_ragged(bshd, contiguous_bhsd, box_cols):
                              (t.stride(1), t.stride(2), t.stride(0))):
         if size > 1:
             assert st == 2 * own
+
+
+@pytest.mark.parametrize("d", [1, 7, 60, 100, 250])
+def test_tensor_map_args_of_the_padded_copy(d):
+    """A width that is not a multiple of 8 is mapped on the zero-padded
+    contiguous copy the wrapper makes: dims carry the padded width, every
+    stride is a multiple of 16 bytes, and the box is that width's."""
+    width = ops.kernel_plan(d)["padded_d"]
+    t = torch.nn.functional.pad(
+        torch.empty((2, 3, 130, d), dtype=torch.bfloat16), (0, width - d))
+    dims, strides, box = ops.tensor_map_args(t.shape, t.stride())
+    assert dims == (width, 3, 130, 2)
+    assert strides == (130 * width * 2, width * 2, 3 * 130 * width * 2)
+    assert all(st % 16 == 0 for st in strides)
+    assert box == (32 if width <= 32 else 64, 1, 128, 1)
 
 
 def _emulate_bf16_kernel(q, k, v, *, split: bool, tile: int = 128):

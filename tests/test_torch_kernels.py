@@ -181,6 +181,134 @@ def test_segment_plain_matches_reference(shape, d, k):
             assert (err <= 1e-5 * scale + 1e-6).all(), err.max()
 
 
+# segment counts at and above the one-block partition's (RANGE = 11,264),
+# and more lanes than a CUDA grid's y axis holds (65,535)
+WIDE_SEGMENT_CASES = [(2, 300, 3, 11264), (2, 300, 3, 11265),
+                      (1, 500, 2, 20000), (65636, 3, 1, 2)]
+
+
+@pytest.mark.parametrize("b,n,d,k", WIDE_SEGMENT_CASES)
+def test_segment_plain_matches_reference_above_the_old_limits(b, n, d, k):
+    """Any k and any lane count, as the reference's kernel takes them:
+    bitwise equal to the reference's oracle (rows added in row order), and
+    to its Pallas kernel in interpret mode at the tolerance of
+    ``test_segment_plain_matches_reference`` (except past 65,535 lanes,
+    where interpret mode walks one grid step a lane: over 100 s here)."""
+    rng = np.random.default_rng(b + k)
+    x = rng.normal(size=(b, n, d)).astype(np.float32)
+    lab = rng.integers(-1, k + 1, (b, n)).astype(np.int32)
+    got = segment_ops.segment_stats(torch.from_numpy(x),
+                                    torch.from_numpy(lab), k)
+    want = jax_seg_ref(jnp.asarray(x), jnp.asarray(lab), k)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if b > 65535:
+        return
+    pallas = jax_segment(x, lab, k, backend="pallas")
+    magnitude = np.asarray(jax_seg_ref(jnp.asarray(np.abs(x)),
+                                       jnp.asarray(lab), k)[0])
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(pallas[2]))
+    for g, w, scale in ((got[0], pallas[0], magnitude),
+                        (got[1], pallas[1], np.asarray(pallas[1]))):
+        err = np.abs(g.numpy() - np.asarray(w))
+        assert (err <= 1e-5 * scale + 1e-6).all(), err.max()
+
+
+def _partition_places(labels: torch.Tensor, k: int) -> tuple:
+    """The kernel's partition of one lane's rows, emulated
+    (``csrc/segment_stats.cu``, passes 1-3, at ``partition_geometry``):
+    per tile, the members of each segment counted; per segment, the
+    counts' exclusive prefix over tiles, and its start (segments in order,
+    each padded to ``align`` rows); then each (tile, range) block walks
+    its tile 256 rows at a time, warp by warp, a row's place being its
+    segment's next place plus its rank among the warp's rows of that
+    label. Returns (places, -1 for a dead row; starts; sizes)."""
+    n = labels.shape[0]
+    g = segment_ops.partition_geometry(n, k)
+    rows, tiles = g["tile_rows"], g["tiles"]
+    valid = (labels >= 0) & (labels < k)
+    lab = torch.where(valid, labels, 0).long()
+    table = torch.zeros((tiles, k), dtype=torch.int64)
+    tile_of = torch.arange(n) // rows
+    table.index_put_((tile_of[valid], lab[valid]),
+                     torch.ones(int(valid.sum()), dtype=torch.int64),
+                     accumulate=True)
+    sizes = table.sum(0)
+    prefix = torch.cumsum(table, 0) - table
+    padded = -(-sizes // g["align"]) * g["align"]
+    starts = torch.cumsum(padded, 0) - padded
+    places = torch.full((n,), -1, dtype=torch.int64)
+    for t in range(tiles):
+        for r in range(g["ranges"]):
+            lo = r * segment_ops.RANGE
+            hi = min(k, lo + segment_ops.RANGE)
+            place = starts[lo:hi] + prefix[t, lo:hi]
+            for w0 in range(t * rows, min(n, (t + 1) * rows), 32):
+                w = torch.arange(w0, min(n, w0 + 32))
+                mine = valid[w] & (lab[w] >= lo) & (lab[w] < hi)
+                rel = lab[w] - lo
+                for i in torch.nonzero(mine).flatten().tolist():
+                    s = int(rel[i])
+                    places[w[i]] = place[s]
+                    place[s] += 1
+    return places, starts, sizes
+
+
+@pytest.mark.parametrize("n,k,pattern", [
+    (3000, 300, "random"), (3000, 11264, "random"), (3000, 11265, "random"),
+    (2000, 20000, "random"), (5000, 30000, "skewed"),
+    (1000, 24000, "dead")])
+def test_ranged_partition_equals_stable_argsort(n, k, pattern):
+    """The partition, emulated, gathers each segment's rows in row order:
+    its order of places equals a stable argsort of the valid rows by
+    label; each segment holds [start, start + size), starts are multiples
+    of the geometry's alignment and leave the sum pass's 32-row reads
+    inside the lane's padded rows; labels -1 and >= k get no place."""
+    rng = np.random.default_rng(n + k)
+    labels = rng.integers(-1, k + 2, n)
+    if pattern == "skewed":
+        labels[rng.random(n) < 0.6] = k - 1
+    if pattern == "dead":
+        labels[rng.random(n) < 0.5] = -1
+    labels = torch.from_numpy(labels.astype(np.int64))
+    places, starts, sizes = _partition_places(labels, k)
+    valid = (labels >= 0) & (labels < k)
+    assert bool((places[~valid] == -1).all())
+    rows = torch.nonzero(valid).flatten()
+    by_place = rows[torch.argsort(places[rows])]
+    want = rows[torch.argsort(labels[rows], stable=True)]
+    assert torch.equal(by_place, want)
+    g = segment_ops.partition_geometry(n, k)
+    assert g["align"] == (4 if k > segment_ops.RANGE else 32)
+    assert bool((starts % g["align"] == 0).all())
+    for s in torch.unique(labels[valid]).tolist():
+        got = torch.sort(places[labels == s]).values
+        assert torch.equal(got, starts[s] + torch.arange(int(sizes[s])))
+    assert int((starts + -(-sizes // 32) * 32).max()) <= g["pad"]
+
+
+@pytest.mark.parametrize("n,k,geometry", [
+    (120000, 20, (256, 469, 1, 32, 120640)),       # the BBV update
+    (120000, 50, (256, 469, 1, 32, 121568)),       # gcc's fit
+    (6861, 500, (256, 27, 1, 32, 22368)),          # Fig 12/13
+    (120000, 11264, (256, 469, 1, 32, 469184)),
+    (120000, 11265, (512, 235, 2, 4, 153828)),
+    (120000, 20000, (768, 157, 2, 4, 180032)),
+    (120000, 120000, (3840, 32, 11, 4, 480032)),
+    (4, 3, (256, 1, 1, 32, 128))])
+def test_segment_partition_geometry(n, k, geometry):
+    """Up to RANGE segments the partition is the one-block one, 256-row
+    tiles and segments padded to 32 rows (the main path's shapes keep
+    it); above, ranges of RANGE segments, tiles of 256 ceil(k / 8192)
+    rows, segments padded to 4. At (1, 120000, 16) with k = 120,000 the
+    scratch is 47.5 MB (the one-block layout would need 471 MB)."""
+    g = segment_ops.partition_geometry(n, k)
+    assert (g["tile_rows"], g["tiles"], g["ranges"], g["align"],
+            g["pad"]) == geometry
+    if (n, k) == (120000, 120000):
+        assert segment_ops.workspace_words(1, n, k, 16) * 4 == 47_522_048
+
+
 def test_segment_plain_bitwise_with_reference_oracle():
     """Rows add in index order, as the reference's segment_sum does."""
     rng = np.random.default_rng(7)
