@@ -72,7 +72,11 @@ after:
   plain attention route, prefill of 1 x 32768 tokens, the serve loop of
   ``repro_torch.launch.serve`` (each step a replay of one captured decode
   graph), and ``SampledEval`` over 16 eval batches, whose k-means runs
-  the two clustering kernels;
+  the two clustering kernels; then, on the same weights, the sharded
+  decode (``make_serve_fn(mesh=)``) on a (1, 3) mesh naming the card,
+  whose 4 x 3072-slot KV caches ``cache_specs`` splits over their
+  sequence, three steps from position 0 and three from drawn caches at
+  3069, each against the unsharded step (``sharded_decode``);
 * the MoE, hybrid and SSM families (``phase_families``) at full width:
   ``olmoe-1b-7b``, ``recurrentgemma-2b`` and ``rwkv6-7b`` whole,
   ``qwen3-moe-235b-a22b`` on 2 of its 94 layers: prefill through the
@@ -80,7 +84,9 @@ after:
   (flash launches on each MoE prefill, never on the hybrid's windowed
   attention or the SSM, whose routes are one computation), the serve
   loop, the tokens dropped for capacity, and ``SampledEval`` over 12
-  batches of the MoE model;
+  batches of the MoE model; ``rwkv6-7b``'s one row on a (2, 1) mesh
+  (``long_500k``'s layout), both data ranks computing it, bit for bit
+  the unsharded step;
 * the trainer (``repro_torch.launch.train``) of every family at full
   width (bf16 weights, float32 moments, 2 AdamW steps of 8 x 1024
   tokens): ``llama3.2-3b`` (28 layers, 2 microbatches) and
@@ -2849,8 +2855,9 @@ def compare_logits(tag: str, got, want, *, strict: bool = True) -> dict:
 
 
 def phase_lm() -> dict:
-    """The LM serving path at full width and ``LM_LAYERS`` layers; returns
-    the launches of the three kernels in it."""
+    """The LM serving path at full width and ``LM_LAYERS`` layers, and
+    its sharded decode by sequence (``SEQ_SPLIT``); returns the launches
+    of the three kernels in it."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3000,9 +3007,165 @@ def phase_lm() -> dict:
             raise AssertionError(f"SampledEval never launched {name}")
     if max(_LM_PEAKS) >= 80e9:
         raise AssertionError("peak memory at or above 80 GB")
+
+    # 5. the sharded decode with the KV caches split over their sequence,
+    # on the same weights (it launches no kernel of the port)
+    t0 = time.perf_counter()
+    rec = sharded_decode(f"{LM_ARCH} sequence split", cfg, params,
+                         gpu_name_and_limit(), bitwise=False, **SEQ_SPLIT)
+    if rec["runs"][0]["model_dims"][:2] != [3, 3]:
+        raise AssertionError(f"{LM_ARCH} on (1, 3): the KV caches are not "
+                             f"split over their sequence "
+                             f"({rec['runs'][0]['model_dims']})")
+    _step("sharded decode on (1, 3), the KV caches by sequence", t0)
+    log("sharded decode record " + json.dumps(rec))
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+# --------------------------------------------------- the sharded decode
+# the cache layouts the production meshes never reach at full width (16
+# divides every head width): llama3.2-3b's KV caches split over their
+# sequence on a (1, 3) mesh naming the card, 4 rows x 3072 slots (1,024 a
+# rank), from position 0 (ranks 1 and 2 see no slot) and from drawn
+# caches at 3069-3071 (every rank sees slots); and long_500k's layout of
+# rwkv6-7b, one row on two data ranks, every rank computing it, from a
+# zero state and from a drawn one at 524285-524287. Each step is held to
+# the unsharded step on the same caches
+SEQ_SPLIT = dict(dp=1, mp=3, rows=4, slots=3072, starts=(0, 3069))
+REPLICATED = dict(dp=2, mp=1, rows=1, slots=1, starts=(0, 524285))
+# a float32 cache leaf within the CPU tests' 1e-4 of its largest
+# magnitude; a bf16 one within two bf16 units at its largest magnitude:
+# each side rounds a step's k and v once, and past the first layer they
+# come from residuals that already differ by bf16 roundings, so 1e-4
+# cannot hold in bf16 once the ranks' sums differ from the whole sum
+CACHE_TOL = 1e-4
+CACHE_BF16_UNITS = 2
+
+
+def cache_leaves(tree) -> list:
+    """The tensors of a decode-cache tuple, in order."""
+    return [leaf for f in tree if f is not None
+            for leaf in (f if isinstance(f, tuple) else (f,))]
+
+
+def cache_bound(want) -> float:
+    """The largest |difference| a cache leaf ``want``'s counterpart may
+    show: ``CACHE_TOL`` of its largest magnitude (at least 1), or in
+    bf16 ``CACHE_BF16_UNITS`` units at its largest magnitude."""
+    import math
+    top = float(want.float().abs().max())
+    if str(want.dtype) == "torch.bfloat16":
+        return CACHE_BF16_UNITS * 2.0 ** (math.floor(math.log2(
+            max(top, 2.0 ** -126))) - 7)
+    return CACHE_TOL * max(top, 1.0)
+
+
+def sharded_decode(tag: str, cfg, params, card: str, *, dp: int, mp: int,
+                   rows: int, slots: int, starts, bitwise: bool) -> dict:
+    """Three greedy steps from each of ``starts`` of ``make_serve_fn(cfg,
+    mesh=)`` on a ``(dp, mp)`` mesh naming the card, on ``params`` (the
+    phase's bf16 model), against the unsharded step (``decode_fn``, the
+    step ``make_serve_fn(cfg)`` takes) on the same caches. Tokens must be
+    equal (with ``bitwise``) or differ only at near-ties
+    (``compare_logits``); every data rank's tokens equal rank 0's; every
+    cache leaf equal (``bitwise``), or else bit for bit at the KV slots
+    the run did not write and within ``cache_bound``. Prints the warm
+    steps' ms and the model axis's bytes a step beside the card."""
+    import copy
+    import torch
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import cache_specs, param_specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import decode_fn, make_decode_state
+    from repro_torch.train.step import make_serve_fn
+
+    mesh = make_host_mesh(mp, devices=["cuda:0"] * (dp * mp))
+    specs = param_specs(params, mesh, serving=True)
+    model = spmd.ShardedModel(params, mesh, specs, specs)
+    plain, step = decode_fn(cfg), make_serve_fn(cfg, mesh=mesh)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (rows, 3), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    rec = {"mesh": [dp, mp], "rows": rows, "slots": slots, "runs": []}
+
+    def ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for start in starts:
+        whole = make_decode_state(cfg, rows, slots)
+        if start:
+            for leaf in cache_leaves(whole):
+                if leaf.is_floating_point():
+                    leaf.normal_(generator=gen).mul_(0.5)
+        caches = spmd.ShardedCaches(copy.deepcopy(whole),
+                                    cache_specs(cfg, whole, mesh), mesh)
+        run = {"start": start, "model_dims": caches.model_dims,
+               "steps": []}
+        for j in range(3):
+            t, tok = start + j, toks[:, j:j + 1]
+            (want, whole), plain_ms = ms(lambda: plain(params, tok, whole,
+                                                       t))
+            (got, _), sharded_ms = ms(lambda: step(model, tok, caches, t))
+            last = model.last_step
+            if last["data_ranks"] != dp or any(
+                    not torch.equal(r, got[:, 0]) for r in last["tokens"]):
+                raise AssertionError(f"{tag} step {t}: not every data "
+                                     "rank computed the step's tokens")
+            want = want[:, -1]
+            if bitwise and not torch.equal(got[:, 0], want.argmax(-1)):
+                raise AssertionError(f"{tag} step {t}: tokens differ")
+            logits = compare_logits(f"{tag} step {t} sharded vs unsharded",
+                                    last["logits"][0], want)
+            leaves = []
+            for g, w in zip(cache_leaves(caches.gather()),
+                            cache_leaves(whole)):
+                delta = float((g.float() - w.float()).abs().max())
+                kept = True                     # the slots not written
+                if g.dim() == 5 and g.shape[3] == slots:
+                    kept = torch.equal(g[..., :start, :], w[..., :start, :]) \
+                        and torch.equal(g[..., t + 1:, :], w[..., t + 1:, :])
+                leaves.append({
+                    "bitwise": bool(torch.equal(g, w)),
+                    "unwritten_bitwise": bool(kept),
+                    "rel": delta / max(float(w.float().abs().max()), 1e-30),
+                    "ok": bool(kept) and delta <= cache_bound(w)})
+            group = last["group"]
+            run["steps"].append({
+                "position": t, "plain_ms": plain_ms,
+                "sharded_ms": sharded_ms, "logits": logits,
+                "leaves": leaves,
+                "model_axis_bytes": dict(group.traffic) if group else {}})
+        rec["runs"].append(run)
+    warm = rec["runs"][-1]["steps"][-1]
+    rec["warm_ms"] = {"sharded": warm["sharded_ms"],
+                      "unsharded": warm["plain_ms"]}
+    rec["model_axis_bytes_a_step"] = warm["model_axis_bytes"]
+    log(f"{tag}: warm step {warm['sharded_ms']:.2f} ms sharded on "
+        f"{(dp, mp)}, {warm['plain_ms']:.2f} ms unsharded; model axis "
+        f"bytes a step {warm['model_axis_bytes']}; cache dims "
+        f"{rec['runs'][0]['model_dims']} ({card})")
+    for run in rec["runs"]:
+        for st in run["steps"]:
+            log(f"{tag} position {st['position']}: leaves bitwise "
+                f"{[x['bitwise'] for x in st['leaves']]}, largest "
+                f"|delta| / largest |leaf| "
+                f"{max(x['rel'] for x in st['leaves']):.3g}")
+    for run in rec["runs"]:
+        for st in run["steps"]:
+            for x in st["leaves"]:
+                if not (x["bitwise"] if bitwise else x["ok"]):
+                    raise AssertionError(
+                        f"{tag} position {st['position']}: a cache leaf "
+                        f"differs from the unsharded step's ({x})")
+    del model
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ----------------------------------------------------------------- phase 4b
@@ -3154,6 +3317,14 @@ def phase_families(card: str) -> dict:
             f"{arch} serve first step (decode) vs prefill", out.first_logits,
             ref, strict=cfg.family != "moe")
         del out, ref
+        if arch == "rwkv6-7b":
+            # long_500k's layout: one row on two data ranks, both of which
+            # compute it, on the same weights
+            t0 = time.perf_counter()
+            rec["sharded_decode"] = sharded_decode(
+                f"{arch} one row on (2, 1)", cfg, params, card,
+                bitwise=True, **REPLICATED)
+            step("sharded decode on (2, 1), every data rank", t0)
 
         # 3. SampledEval: a census of the corpus, then the estimates,
         # each batch forwarded once (memoised); features: the loss, the

@@ -40,10 +40,12 @@ position; a piece held on another device is copied there.
 
 ``ShardedCaches`` keeps a decode step's caches as ``Sharded`` leaves by
 ``sharding.cache_specs`` (the batch over the data axes, on ``"model"`` a
-KV cache's heads, else its head width, and a recurrent state's longest
-dimension past the batch), on a mesh whose positions all name one
-device: each data rank's decode reads and writes its pieces in place,
-as views ``(R, ...)`` of its model positions' pieces (``rank_views``).
+KV cache's heads, else its head width, else its sequence, and a
+recurrent state's longest dimension past the batch), on a mesh whose
+positions all name one device: each data rank's decode reads and writes
+its pieces in place, as views ``(R, ...)`` of its model positions'
+pieces (``rank_views``); where the batch is replicated over the data
+ranks, each rank on its own copy.
 
 ``traffic(...)`` counts the bytes a step would move between distinct
 devices. With data-parallel compute: what each data-parallel rank
@@ -576,8 +578,13 @@ class ShardedCaches:
     ``sharding.cache_specs``). Every position of the mesh must name one
     device, which then holds every piece as one stack a leaf, so a data
     rank's pieces are views of it and a step updates them in place. A
-    leaf's ``model_dims`` entry is the dimension its spec puts on
-    ``"model"`` (None: whole on every model position)."""
+    leaf whose batch the data ranks do not divide is replicated over
+    them, and every data rank computes the whole batch: each rank past
+    the first keeps its own copy of it (``copies``), as each of the
+    reference's devices does, so each rank computes from the step's
+    starting state and each copy advances once a step. A leaf's
+    ``model_dims`` entry is the dimension its spec puts on ``"model"``
+    (None: whole on every model position)."""
 
     def __init__(self, caches, specs, mesh):
         devs = {str(d) for d in mesh.devices.flat}
@@ -596,6 +603,12 @@ class ShardedCaches:
         self.model_dims = [next((i for i, e in enumerate(sh.layout.spec)
                                  if "model" in _names(e)), None)
                            for sh in self.leaves]
+        dp = len(data_ranks(mesh))
+        self.copies = {i: [sh.stacks[self.device].clone()
+                           for _ in range(dp - 1)]
+                       for i, sh in enumerate(self.leaves)
+                       if len(sh.layout.shape) >= 3
+                       and sh.layout.counts[1] == 1 and dp > 1}
         self._whole: dict[int, torch.Tensor] = {}
 
     def dims(self):
@@ -607,9 +620,11 @@ class ShardedCaches:
         their structure: a leaf with a batch (dimension 1) is a view of
         the rank's pieces, ``(R, ...)`` stacked by model rank where the
         spec names ``"model"`` (its dimension cut in R), else the rank's
-        one piece; a leaf without one (the hybrid's ring positions, the
+        one piece (from the rank's own copy where the batch is
+        replicated); a leaf without one (the hybrid's ring positions, the
         enc-dec's memory positions) is the whole leaf, gathered once a
-        step and written back by ``commit``."""
+        step and written back by ``commit`` (every rank writes it alike).
+        """
         views = []
         for i, (sh, m) in enumerate(zip(self.leaves, self.model_dims)):
             lay = sh.layout
@@ -619,6 +634,8 @@ class ShardedCaches:
                 views.append(self._whole[i])
                 continue
             grid = sh.grid(self.device)
+            if data_index and i in self.copies:
+                grid = self.copies[i][data_index - 1].view(grid.shape)
             at = [slice(None) if d == m else
                   (data_index if d == 1 and lay.counts[1] > 1 else 0)
                   for d in range(len(lay.shape))]
@@ -634,7 +651,8 @@ class ShardedCaches:
         self._whole.clear()
 
     def gather(self):
-        """The whole caches on the mesh's device, in their structure."""
+        """The whole caches on the mesh's device, in their structure (data
+        rank 0's copy of a replicated batch)."""
         return _rebuild(self.structure,
                         iter([sh.gather(self.device) for sh in self.leaves]))
 

@@ -40,7 +40,11 @@ partial sums all-reduced. By head width (the KV heads do not divide):
 q, k and v computed once from the whole weights, each rank writes and
 reads its slice of every head's width, the ranks' partial q.k logits
 all-reduced (float32, rank order), the softmax replicated, each rank's
-slice of the value product all-gathered, and ``wo`` whole.
+slice of the value product all-gathered, and ``wo`` whole. By sequence
+(neither divides): q, k and v computed once from the whole weights, the
+new k and v written into the rank that owns the slot, each rank's
+logits over its slots, and the softmax combined as the reference's one
+program rounds it (``_seq_attend``), ``wo`` whole.
 """
 
 from __future__ import annotations
@@ -53,8 +57,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..distributed.tp import (copy_to_ranks, gather_from_ranks,
-                              ranked_matmul, reduce_from_ranks,
-                              split_to_ranks)
+                              max_from_ranks, ranked_matmul,
+                              reduce_from_ranks, split_to_ranks)
 from ..kernels import backend as _backend
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import attention_ref
@@ -62,7 +66,7 @@ from .common import ModelConfig, new_param, rope
 
 __all__ = ["Attention", "attention", "attention_tp", "mha_attend",
            "make_kv_cache", "repeat_kv", "decode_attention_tp",
-           "cross_attention_tp", "cache_split", "layer_of",
+           "cross_attention_tp", "cache_split", "cache_slots", "layer_of",
            "CHUNKED_KV_THRESHOLD", "KV_CHUNK", "BF16_ATTENTION_OPERANDS"]
 
 CHUNKED_KV_THRESHOLD = 2048
@@ -375,15 +379,17 @@ def _decode_attend(q, k, v, positions, *, window: Optional[int]
 def cache_split(model_dim) -> Optional[str]:
     """How a ``(b, h, s, dh)`` KV cache's model dimension (of its
     stacked ``(L, b, h, s, dh)`` leaf, ``ShardedCaches.model_dims``)
-    splits it: ``"heads"``, ``"width"`` or None (whole). A split of the
-    sequence (neither heads nor width divide) is refused."""
-    if model_dim is None:
-        return None
-    if model_dim in (2, 4):
-        return "heads" if model_dim == 2 else "width"
-    raise NotImplementedError(
-        "a KV cache split over its sequence (neither its heads nor its "
-        "head width divide the model ranks) has no per-rank decode")
+    splits it: ``"heads"`` (2), ``"seq"`` (3), ``"width"`` (4) or None
+    (whole) — every dimension ``sharding.cache_specs`` can put on
+    ``"model"``."""
+    return {None: None, 2: "heads", 3: "seq", 4: "width"}[model_dim]
+
+
+def cache_slots(t: torch.Tensor, dim, group) -> int:
+    """The slots of a stacked KV cache leaf as a data rank holds it
+    (``layer_of``'s ``t``, model dimension ``dim``), the whole cache's:
+    a sequence split holds ``S / R`` of them a rank."""
+    return t.shape[-2] * (group.size if dim == 3 else 1)
 
 
 def layer_of(t: torch.Tensor, i: int, dim) -> torch.Tensor:
@@ -408,7 +414,13 @@ def _heads(w: torch.Tensor, x: torch.Tensor, heads: int, dh: int, split,
 def _cache_write(cache: torch.Tensor, t: torch.Tensor, slot: torch.Tensor,
                  split, group) -> None:
     """The new ``t`` (``(R, b, h / R, 1, dh)`` by heads, else ``(b, h,
-    1, dh)``) into the rank's ``cache`` at ``slot``, in place."""
+    1, dh)``) into the rank's ``cache`` at ``slot`` ``(1,)``, in place:
+    by sequence into rank ``slot // (S / R)`` at ``slot % (S / R)``."""
+    if split == "seq":
+        per = cache.shape[-2]
+        cache[slot // per, :, :, slot % per] = \
+            t.to(cache.dtype).movedim(-2, 0)
+        return
     if split == "width":
         t = split_to_ranks(t, group, 3)
     cache.index_copy_(-2, slot, t.to(cache.dtype))
@@ -419,9 +431,12 @@ def _cache_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                   ) -> torch.Tensor:
     """Single-query attention of q (``(R, b, hq / R, 1, dh)`` by heads,
     else ``(b, hq, 1, dh)``) against a rank's cache (``(R, b, hkv / R,
-    S, dh)``, ``(R, b, hkv, S, dh / R)`` or whole ``(b, hkv, S, dh)``),
-    the slots ``valid`` ``(S,)`` visible (None: all), in float32 as
-    ``_decode_attend``; returns q's layout (whole by width)."""
+    S, dh)``, ``(R, b, hkv, S, dh / R)``, ``(R, b, hkv, S / R, dh)`` or
+    whole ``(b, hkv, S, dh)``), the slots ``valid`` (``S`` elements, the
+    whole cache's; None: all) visible, in float32 as ``_decode_attend``;
+    returns q's layout (whole by width and by sequence)."""
+    if split == "seq":
+        return _seq_attend(q, ck, cv, valid, group)
     dh = q.shape[-1]
     hkv = ck.shape[-3] * (group.size if split == "heads" else 1)
     lead = q.shape[:-3]
@@ -445,6 +460,35 @@ def _cache_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                            dh).to(q.dtype)
     out = torch.matmul(probs, cv.unsqueeze(-3).float())
     return out.reshape(q.shape).to(q.dtype)
+
+
+def _seq_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                valid: Optional[torch.Tensor], group) -> torch.Tensor:
+    """``_cache_attend`` against a cache split over its slots (``(R, b,
+    hkv, S / R, dh)``), q whole ``(b, hq, 1, dh)``. The softmax is
+    combined as the reference's one program rounds it, so the
+    probabilities are normalised before they are rounded to the cache's
+    type: the logits' largest over every rank (``max_from_ranks``),
+    each rank's ``exp(logit - max)``, the denominators added over the
+    ranks in rank order, the normalised probabilities cast to ``cv``'s
+    type, and the ranks' partial value products added in rank order. A
+    rank whose slots are all masked adds exactly 0 (the largest is
+    another rank's, finite)."""
+    b, hq, _, dh = q.shape
+    ranks, _, hkv, per, _ = ck.shape
+    qg = q.reshape(b, hkv, hq // hkv, 1, dh).float()
+    logits = torch.matmul(qg, ck.unsqueeze(-3).float().transpose(-1, -2)) \
+        * (1.0 / math.sqrt(dh))                 # (R, b, hkv, g, 1, S / R)
+    if valid is not None:
+        logits = logits.masked_fill(
+            ~valid.reshape(ranks, 1, 1, 1, 1, per), float("-inf"))
+    top = max_from_ranks(logits.amax(-1, keepdim=True), group)
+    e = torch.exp(logits - top)
+    den = reduce_from_ranks(e.sum(-1, keepdim=True), group)
+    probs = (e / den).to(cv.dtype).float()
+    out = reduce_from_ranks(torch.matmul(probs, cv.unsqueeze(-3).float()),
+                            group)
+    return out.reshape(b, hq, 1, dh).to(q.dtype)
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor, split, group

@@ -53,8 +53,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import (Attention, _decode_attend, attention_tp,
-                        cache_split, cross_attention_tp, decode_attention_tp,
-                        layer_of, make_kv_cache, mha_attend, repeat_kv)
+                        cache_slots, cache_split, cross_attention_tp,
+                        decode_attention_tp, layer_of, make_kv_cache,
+                        mha_attend, repeat_kv)
 from .common import (ModelConfig, cross_entropy_loss, embed_tp,
                      last_logits_tp, lm_head_loss_tp, new_param, normal_,
                      rms_norm, rope)
@@ -359,7 +360,7 @@ def decode_step_encdec_tp(params: EncDec, tokens: torch.Tensor,
     (``group``, the residual replicated): ``caches`` the rank's views of
     the ``spmd.ShardedCaches`` and ``dims`` each leaf's model dimension.
     Self-attention against its KV cache and cross-attention against the
-    precomputed cross K/V, each by heads or by head width
+    precomputed cross K/V, each by heads, by head width or by sequence
     (``attention.decode_attention_tp``, ``cross_attention_tp``; both
     rotated at the step's first position, as the reference), the MLP as
     in training, the embedding and head vocab parallel where they come
@@ -373,7 +374,8 @@ def decode_step_encdec_tp(params: EncDec, tokens: torch.Tensor,
     ck_all, cv_all = caches.self_kv
     kd, xd = dims.self_kv[0], dims.cross_k
     split, xsplit = cache_split(kd), cache_split(xd)
-    valid = torch.arange(ck_all.shape[-2], device=x.device)[None, :] \
+    valid = torch.arange(cache_slots(ck_all, kd, group),
+                         device=x.device)[None, :] \
         <= positions[:, None]
     for i, p in enumerate(params.dec_layers):
         h = rms_norm(x, p.ln1, cfg.norm_eps)

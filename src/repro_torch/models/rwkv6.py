@@ -227,23 +227,35 @@ def rwkv_time_mix_chunked_tp(params: RwkvTimeMix, x: torch.Tensor,
     return reduce_from_ranks(out, group)
 
 
+def _step_inputs(params: RwkvTimeMix, x: torch.Tensor, cfg: ModelConfig,
+                 x_prev: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """A decode step's r, k, v and decay ``w`` ``(b, h, dh)`` and the
+    bonus ``u`` ``(h, dh)``, float32, from the whole weights."""
+    b, _, d = x.shape
+    dh = cfg.rwkv_head_dim
+    r, k, v, logw = _project(params, x, x_prev[:, None, :])
+    return (r.reshape(b, -1, dh).float(), k.reshape(b, -1, dh).float(),
+            v.reshape(b, -1, dh).float(), torch.exp(logw.reshape(b, -1, dh)),
+            params.u_bonus.float().reshape(-1, dh))
+
+
+def _wkv_step(r, k, v, w, u, S) -> tuple[torch.Tensor, torch.Tensor]:
+    """One token's recurrence on float32 ``(.., h, dk)`` r, k, w, ``(..,
+    h, dv)`` v, ``u`` broadcasting as ``(.., h, dk)`` and the state ``S``
+    ``(.., h, dk, dv)``: the output ``(.., h, 1, dv)`` and the new
+    state."""
+    kv = k[..., :, None] * v[..., None, :]
+    out = torch.matmul(r[..., None, :], S + u[..., None] * kv)
+    return out, S * w[..., None] + kv
+
+
 def rwkv_time_mix_step(params: RwkvTimeMix, x: torch.Tensor,
                        cfg: ModelConfig, state: RwkvState
                        ) -> tuple[torch.Tensor, RwkvState]:
     """Single-token decode. x: ``(b, 1, d)`` -> ``(b, 1, d)``."""
     b, _, d = x.shape
-    dh = cfg.rwkv_head_dim
-    h = d // dh
-    r, k, v, logw = _project(params, x, state.x_prev[:, None, :])
-    u = params.u_bonus.float().reshape(h, dh)
-    r = r.reshape(b, h, dh).float()
-    k = k.reshape(b, h, dh).float()
-    v = v.reshape(b, h, dh).float()
-    w = torch.exp(logw.reshape(b, h, dh))
-    S = state.s.float()                                # (b, h, dk, dv)
-    kv = k[..., :, None] * v[..., None, :]
-    out = torch.matmul(r[..., None, :], S + u[None, :, :, None] * kv)
-    S_new = S * w[..., None] + kv
+    r, k, v, w, u = _step_inputs(params, x, cfg, state.x_prev)
+    out, S_new = _wkv_step(r, k, v, w, u, state.s.float())
     out = out.reshape(b, 1, d).to(x.dtype) @ params.wo
     return out, RwkvState(s=S_new.to(state.s.dtype), x_prev=x[:, -1, :])
 
@@ -258,10 +270,19 @@ def rwkv_time_mix_step_tp(params: RwkvTimeMix, x: torch.Tensor,
     ``s`` ``(R, b, h / R, dh, dh)`` (``sharding.cache_specs`` puts the
     heads on ``"model"``): the mixes and the decay LoRA once, each rank
     its heads' projections, decay and bonus, its heads' recurrence, its
-    rows of ``wo``, the partial sums all-reduced. Otherwise the whole
-    step once on the whole state ``(b, h, dh, dh)``. The state is
-    updated in place; returns ``(b, 1, d)``, replicated."""
+    rows of ``wo``, the partial sums all-reduced. Where the weights come
+    whole and the state as the ranks' value columns, ``s`` ``(R, b, h,
+    dh, dh / R)`` (the ranks divide the head width but not the heads):
+    r, k and v once, each rank its columns of the state and of ``k v``,
+    and of the output over the whole key width (so nothing is summed
+    over the ranks), the columns all-gathered in rank order and ``wo``
+    whole. Otherwise the whole step once on the whole state ``(b, h,
+    dh, dh)``. The state is updated in place; returns ``(b, 1, d)``,
+    replicated."""
     if params.wr.dim() == 2:
+        if s.dim() == 5:
+            return _time_mix_step_by_columns(params, x, cfg, group, s,
+                                             x_prev)
         out, st = rwkv_time_mix_step(params, x, cfg, RwkvState(s, x_prev))
         s.copy_(st.s)
         return out
@@ -279,14 +300,28 @@ def rwkv_time_mix_step_tp(params: RwkvTimeMix, x: torch.Tensor,
     r, k, v = project("r"), project("k"), project("v")
     logw = split_to_ranks(_log_decay(params, x, x_shift), group, 2)
     w = torch.exp(logw.reshape(ranks, b, mine, dh))
-    u = params.u_bonus.float().reshape(ranks, mine, dh)
-    S = s.float()                                     # (R, b, h / R, dh, dh)
-    kv = k[..., :, None] * v[..., None, :]
-    out = torch.matmul(r[..., None, :], S + u[:, None, :, :, None] * kv)
-    s.copy_((S * w[..., None] + kv).to(s.dtype))
+    u = params.u_bonus.float().reshape(ranks, 1, mine, dh)
+    out, S_new = _wkv_step(r, k, v, w, u, s.float())   # (R, b, h / R, ..)
+    s.copy_(S_new.to(s.dtype))
     out = ranked_matmul(out.reshape(ranks, b, 1, d // ranks).to(x.dtype),
                         params.wo)
     return reduce_from_ranks(out, group)
+
+
+def _time_mix_step_by_columns(params: RwkvTimeMix, x: torch.Tensor,
+                              cfg: ModelConfig, group, s: torch.Tensor,
+                              x_prev: torch.Tensor) -> torch.Tensor:
+    """``rwkv_time_mix_step_tp`` with the state ``(L, b, h, dk, dv)``
+    split over its value width, ``s`` ``(R, b, h, dk, dv / R)``. The
+    key width (dim 3) is never the split: ``cache_specs`` tries dim 4
+    before it and ``dk == dv``."""
+    b, _, d = x.shape
+    r, k, v, w, u = _step_inputs(params, x, cfg, x_prev)
+    out, S_new = _wkv_step(r, k, split_to_ranks(v, group, 2), w, u,
+                           s.float())             # (R, b, h, .., dv / R)
+    s.copy_(S_new.to(s.dtype))
+    out = gather_from_ranks(out, group, 3)        # (b, h, 1, dv)
+    return out.reshape(b, 1, d).to(x.dtype) @ params.wo
 
 
 def make_rwkv_state(cfg: ModelConfig, batch: int, n_layers: int, *,

@@ -40,9 +40,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..distributed.tp import gather_from_ranks, split_ranks
-from .attention import (Attention, attention, attention_tp, cache_split,
-                        decode_attention_tp, layer_of, make_kv_cache,
-                        repeat_kv)
+from .attention import (Attention, attention, attention_tp, cache_slots,
+                        cache_split, decode_attention_tp, layer_of,
+                        make_kv_cache, repeat_kv)
 from .common import (ModelConfig, cross_entropy_loss, embed_tp,
                      last_logits_tp, lm_head_loss_tp, new_param, normal_,
                      rms_norm, rope)
@@ -558,13 +558,14 @@ def decode_step_tp(params: LM, tokens: torch.Tensor, caches: DecodeCaches,
     rank's views of the ``spmd.ShardedCaches`` (``rank_views``) and
     ``dims`` each leaf's model dimension. The embedding and head vocab
     parallel where ``tp_module_on`` splits them; the dense and MoE
-    attention against their KV caches by heads or by head width
-    (``decode_attention_tp``), MLPs and experts as in training
+    attention against their KV caches by heads, by head width or by
+    sequence (``decode_attention_tp``), MLPs and experts as in training
     (``mlp_tp``, ``moe_tp``); the hybrid's RG-LRU steps on their
-    channels (``rglru_step_tp``) and its ring attention by heads or
-    width, its ring positions whole; the SSM's time mix on its heads
-    (``rwkv_time_mix_step_tp``) with the token-shift states' widths
-    all-gathered, and its channel mix as in training. Returns the next
+    channels (``rglru_step_tp``) and its ring attention by heads, width
+    or ring slots, its ring positions whole; the SSM's time mix on its
+    state's heads or value width, or whole (``rwkv_time_mix_step_tp``)
+    with the token-shift states' widths all-gathered, and its channel
+    mix as in training. Returns the next
     position's logits ``(b, vocab)``, replicated; the caches are updated
     in place."""
     b = tokens.shape[0]
@@ -573,10 +574,6 @@ def decode_step_tp(params: LM, tokens: torch.Tensor, caches: DecodeCaches,
     positions = pos + torch.arange(1, device=tokens.device)
     if cfg.family == "ssm":
         st, sd = caches.rwkv, dims.rwkv
-        if sd.s not in (None, 2):
-            raise NotImplementedError(
-                "an RWKV state split over its head width has no per-rank "
-                "decode (the ranks do not divide the heads)")
         for i, layer in enumerate(params.layers):
             h = rms_norm(x, layer.ln1, cfg.norm_eps)
             x = x + rwkv_time_mix_step_tp(
@@ -593,7 +590,7 @@ def decode_step_tp(params: LM, tokens: torch.Tensor, caches: DecodeCaches,
         kd = dims.kv[0]
         split = cache_split(kd)
         rg, rd, rp = caches.rglru, dims.rglru, caches.ring_pos
-        win = ck.shape[-2]
+        win = cache_slots(ck, kd, group)
         slot = positions % win
         window = cfg.window or win
 
@@ -623,7 +620,8 @@ def decode_step_tp(params: LM, tokens: torch.Tensor, caches: DecodeCaches,
         ck, cv = caches.kv
         kd = dims.kv[0]
         split = cache_split(kd)
-        valid = torch.arange(ck.shape[-2], device=x.device)[None, :] \
+        valid = torch.arange(cache_slots(ck, kd, group),
+                             device=x.device)[None, :] \
             <= positions[:, None]
         for i, layer in enumerate(params.layers):
             h = rms_norm(x, layer.ln1, cfg.norm_eps)

@@ -319,13 +319,19 @@ def make_serve_fn(cfg: ModelConfig, *, mesh=None):
     specs) and the caches as a ``spmd.ShardedCaches`` (by
     ``sharding.cache_specs``, on a mesh that names one device): the
     rows split over the data-parallel ranks in order, or, where the
-    ranks do not divide the batch, the whole batch runs once (the
-    reference replicates it: batch 1 at ``long_500k``). Each rank
-    computes under ``ctx.rank_local`` against its views of the caches;
-    on a ``"model"`` > 1 mesh per model rank (``registry.tp_decode_fn``,
+    ranks do not divide the batch (batch 1 at ``long_500k``), the whole
+    batch on every data rank, each rank on its own copy of the caches
+    from the step's starting state, as the reference's program computes
+    it; rank 0's tokens are returned. Each rank computes under
+    ``ctx.rank_local`` against its views of the caches; on a ``"model"``
+    > 1 mesh per model rank (``registry.tp_decode_fn``,
     ``seq_parallel=False``, the weights split as
-    ``registry.tp_decode_splits`` says), else with ``decode_fn``. What
-    the step computed with is left in ``params.last_step``."""
+    ``registry.tp_decode_splits`` says, the KV caches by heads, head
+    width or sequence and the recurrent states as ``cache_specs`` lays
+    them out), else with ``decode_fn``. What the step computed with is
+    left in ``params.last_step``: its splits and ``tp.Group``, the data
+    ranks that computed, and each rank's tokens and last logits
+    (``"tokens"``, ``"logits"``, in rank order)."""
     dfn = decode_fn(cfg)
     if mesh is not None:
         return _sharded_serve_fn(cfg, dfn, mesh)
@@ -349,30 +355,31 @@ def _sharded_serve_fn(cfg: ModelConfig, dfn, mesh):
             raise ValueError(f"parameters on {params.mesh}, caches on "
                              f"{caches.mesh}, step on {mesh}")
         rows = tokens.shape[0]
-        n = ranks if rows % ranks == 0 else 1
-        per = rows // n
+        split = rows % ranks == 0
+        per = rows // ranks if split else rows
         group = splits = None
         dims = caches.dims()
         if tp_dec is not None:
             group = tp.Group(mesh, seq_parallel=False)
             splits = tp_decode_splits(cfg, params.layouts, group, per, dims)
-        outs = []
-        for r, dev in enumerate(params.compute_devices()[:n]):
+        lasts, outs = [], []
+        for r, dev in enumerate(params.compute_devices()):
             module = params.module_on(dev) if group is None \
                 else params.tp_module_on(dev, splits)
-            sub = tokens[r * per:(r + 1) * per].to(dev)
+            sub = (tokens[r * per:(r + 1) * per] if split else tokens).to(dev)
             views = caches.rank_views(r)
             with ctx.rank_local():
                 if group is None:
                     last = dfn(module, sub, views, pos)[0][:, -1, :]
                 else:
                     last = tp_dec(module, sub, views, dims, pos, group)
-            outs.append(torch.argmax(last, dim=-1).to(torch.int32)
-                        .to(params.home))
+            lasts.append(last.to(params.home))
+            outs.append(torch.argmax(lasts[-1], dim=-1).to(torch.int32))
         caches.commit()
-        params.last_step = {"splits": splits, "group": group,
-                            "microbatches": 1, "data_ranks": n}
-        return torch.cat(outs)[:, None], caches
+        params.last_step = {
+            "splits": splits, "group": group, "microbatches": 1,
+            "data_ranks": ranks, "tokens": outs, "logits": lasts}
+        return (torch.cat(outs) if split else outs[0])[:, None], caches
 
     return serve_step
 
@@ -506,11 +513,13 @@ def lower_serve_step(cfg: ModelConfig, cell: ShapeCell, mesh,
     """Trace one sharded decode step (``make_serve_fn(mesh=)``): one
     token a row against caches of the cell's length (``s_src = min(s,
     4096)`` source positions for the enc-dec family) laid out by
-    ``cache_specs``, at position ``s - 1``; the caches donated. Where the
-    data ranks do not divide the batch (``long_500k``'s one row) the
-    port computes it once where the reference computes it on every data
-    rank, so its per-device FLOPs are the reference's over the data
-    ranks there."""
+    ``cache_specs``, at position ``s - 1``; the caches donated. Every
+    layout ``cache_specs`` gives is computed: the KV caches by heads,
+    head width or sequence, the RWKV state by heads or value width.
+    Where the data ranks do not divide the batch (``long_500k``'s one
+    row) every data rank computes the whole batch, as the reference's
+    program does, so the trace holds ``dp`` times the work of the same
+    step on a ``(1, mp)`` mesh."""
     b, s = cell.global_batch, cell.seq_len
     with tracing("cuda") as dev:
         tmesh = _traced_mesh(mesh, dev)

@@ -26,7 +26,11 @@
 * The collective counter reproduces ``tests/test_hlo_analysis.py``'s
   ``FAKE_HLO`` numbers through the port's own collectives, and the
   per-device model-axis bytes equal the closed forms of
-  ``tests/test_torch_train_tp.py`` in the reference's convention.
+  ``tests/test_torch_train_tp.py`` in the reference's convention, and a
+  closed form of the decode step with its KV caches split over their
+  sequence.
+* A batch the data ranks do not divide (``long_500k``'s one row) is
+  traced on every data rank: twice the FLOPs on (2, 1) as on (1, 1).
 * ``perf``'s ``fsdp_on`` and ``fsdp_off`` records equal ``baseline``
   (the lowering reads no fsdp flag, as the reference's does not);
   ``remat_off`` is refused. The roofline's ratios are not capped: one
@@ -324,6 +328,57 @@ def test_model_axis_bytes_per_device_closed_form(arch, dp, mp,
     for what, total in group.traffic.items():
         assert per[ca.COLLECTIVE_NAMES[what]].wire_bytes \
             == total / ((mp - 1) * dp)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b"])
+def test_a_replicated_batch_is_traced_on_every_data_rank(arch):
+    """``long_500k``'s layout at smoke size: one row on two data ranks,
+    which the reference's program computes on both, traces twice the
+    FLOPs of the same step on one."""
+    cfg = get_config(arch, smoke=True)
+    cell = ShapeCell("x", "decode", S, 1)
+    one = PS.lower_serve_step(cfg, cell, ONE).trace.flops
+    two = PS.lower_serve_step(cfg, cell, _Duck(data=2, model=1)).trace
+    assert two.n_devices == 2
+    assert two.flops == 2 * one > 0
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+def test_sequence_split_decode_model_axis_bytes_closed_form(dp):
+    """The dense decode step on (dp, 3) with 96 cache slots: neither the
+    2 KV heads nor the width 64 divide over 3, so the caches are split
+    over their slots, and everything else is whole at smoke size. Each
+    layer's attention then all-reduces, in float32, the logits' largest
+    and the softmax denominators (b hq values each) and the value
+    products' partial sums (b hq dh): the ring total over all positions
+    is L 2 (R - 1) 4 b hq (2 + dh), and nothing is gathered or
+    scattered. The traced step costs the unsharded step's FLOPs."""
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import cache_specs, param_specs
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_config("llama3.2-3b", smoke=True)
+    mp, s_max = 3, 96
+    base = TR.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    mesh = make_host_mesh(mp, devices=["cpu"] * (dp * mp))
+    specs = param_specs(base, mesh, serving=True)
+    model = spmd.ShardedModel(base, mesh, specs, specs)
+    whole = TR.make_decode_state(cfg, B, s_max, device="cpu")
+    caches = spmd.ShardedCaches(whole, cache_specs(cfg, whole, mesh), mesh)
+    assert caches.model_dims[0] == 3
+    toks = torch.zeros((B, 1), dtype=torch.int32)
+    PS.make_serve_fn(cfg, mesh=mesh)(model, toks, caches, 5)
+    group = model.last_step["group"]
+    L, hq, dh = cfg.n_layers, cfg.n_heads, cfg.head_dim
+    reduced = L * 2 * (mp - 1) * 4 * B * hq * (2 + dh)
+    assert group.traffic == {"all_gather": 0, "reduce_scatter": 0,
+                             "all_reduce": reduced}
+    per = ca.model_axis_collectives(group, dp)["all-reduce"]
+    assert per.count == 3 * L
+    assert per.wire_bytes == reduced / ((mp - 1) * dp)
+    cell = ShapeCell("x", "decode", s_max, B)
+    assert PS.lower_serve_step(cfg, cell, _Duck(data=dp, model=mp)) \
+        .trace.flops == PS.lower_serve_step(cfg, cell, ONE).trace.flops
 
 
 def test_perf_fsdp_variants_equal_baseline_and_remat_off_is_refused():

@@ -1724,34 +1724,62 @@ def test_traced_and_real_flops_are_equal_on_the_card(cuda, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-7b"])
-def test_sharded_serving_on_the_card_equals_the_unsharded(cuda, arch):
-    """The sharded prefill and three sharded decode steps on a (2, 2)
-    mesh naming the card, float32 at smoke size, against the unsharded
-    steps on the card: logits within 1e-4, tokens equal."""
+@pytest.mark.parametrize("arch,dp,mp,rows,s_max,overrides", [
+    pytest.param("llama3.2-3b", 2, 2, 4, 32, {}, id="llama3.2-3b"),
+    pytest.param("rwkv6-7b", 2, 2, 4, 32, {}, id="rwkv6-7b"),
+    pytest.param("llama3.2-3b", 1, 3, 4, 96, {}, id="llama3.2-3b-seq"),
+    pytest.param("rwkv6-7b", 1, 4, 4, 32, {"rwkv_head_dim": 128},
+                 id="rwkv6-7b-value-width"),
+    pytest.param("rwkv6-7b", 2, 1, 1, 32, {}, id="rwkv6-7b-batch-1")])
+def test_sharded_serving_on_the_card_equals_the_unsharded(
+        cuda, arch, dp, mp, rows, s_max, overrides):
+    """The sharded prefill and three sharded decode steps on a mesh
+    naming the card, float32 at smoke size, against the unsharded steps
+    on the card: logits within 1e-4, tokens equal, every cache leaf
+    within 1e-4 of its largest magnitude after each step. (2, 2): the caches by
+    heads; (1, 3): the KV caches by sequence; two RWKV heads of 128 on
+    (1, 4): the state by value width; one row on (2, 1): every data rank
+    computes it (no prefill: the sharded prefill refuses rows the data
+    ranks do not divide), each rank's tokens equal."""
     import copy
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.distributed import spmd
     from repro_torch.distributed.sharding import cache_specs, param_specs
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.registry import init_params, make_decode_state
     from repro_torch.train.step import make_prefill_fn, make_serve_fn
-    cfg = get_config(arch, smoke=True)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **overrides)
     params = init_params(cfg, generator=torch.Generator(
         device=cuda).manual_seed(1))
-    mesh = make_host_mesh(2, devices=["cuda:0"] * 4)
+    mesh = make_host_mesh(mp, devices=["cuda:0"] * (dp * mp))
     specs = param_specs(params, mesh, serving=True)
     model = spmd.ShardedModel(copy.deepcopy(params), mesh, specs, specs)
-    toks = torch.randint(0, cfg.vocab, (4, 128), dtype=torch.int32,
+    toks = torch.randint(0, cfg.vocab, (rows, 128), dtype=torch.int32,
                          device=cuda)
-    want = make_prefill_fn(cfg, backend="plain")(params, {"tokens": toks})
-    got = make_prefill_fn(cfg, mesh=mesh)(model, {"tokens": toks})
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    caches = make_decode_state(cfg, 4, 32)
+    if rows % dp == 0:
+        want = make_prefill_fn(cfg, backend="plain")(params,
+                                                     {"tokens": toks})
+        got = make_prefill_fn(cfg, mesh=mesh)(model, {"tokens": toks})
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    caches = make_decode_state(cfg, rows, s_max)
     whole = copy.deepcopy(caches)
     sharded = spmd.ShardedCaches(whole, cache_specs(cfg, whole, mesh), mesh)
+    if overrides:
+        assert sharded.model_dims[0] == 4
+    elif mp == 3:
+        assert sharded.model_dims[0] == 3
     plain, step = make_serve_fn(cfg), make_serve_fn(cfg, mesh=mesh)
     for t in range(3):
         nu, caches = plain(params, toks[:, t:t + 1], caches, t)
         ns, _ = step(model, toks[:, t:t + 1], sharded, t)
         assert torch.equal(ns, nu)
+        assert model.last_step["data_ranks"] == dp
+        for got in model.last_step["tokens"][1:] if rows % dp else ():
+            assert torch.equal(got, ns[:, 0])
+        leaves = [[leaf for f in tree if f is not None
+                   for leaf in (f if isinstance(f, tuple) else (f,))]
+                  for tree in (sharded.gather(), caches)]
+        for g, w in zip(*leaves):
+            scale = max(float(w.float().abs().max()), 1.0)
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
