@@ -66,7 +66,7 @@ from .common import ModelConfig, new_param, rope
 
 __all__ = ["Attention", "attention", "attention_tp", "mha_attend",
            "make_kv_cache", "repeat_kv", "decode_attention_tp",
-           "cross_attention_tp", "cache_split", "cache_slots", "layer_of",
+           "cross_attention_tp", "cache_split", "layer_of",
            "CHUNKED_KV_THRESHOLD", "KV_CHUNK", "BF16_ATTENTION_OPERANDS"]
 
 CHUNKED_KV_THRESHOLD = 2048
@@ -385,13 +385,6 @@ def cache_split(model_dim) -> Optional[str]:
     return {None: None, 2: "heads", 3: "seq", 4: "width"}[model_dim]
 
 
-def cache_slots(t: torch.Tensor, dim, group) -> int:
-    """The slots of a stacked KV cache leaf as a data rank holds it
-    (``layer_of``'s ``t``, model dimension ``dim``), the whole cache's:
-    a sequence split holds ``S / R`` of them a rank."""
-    return t.shape[-2] * (group.size if dim == 3 else 1)
-
-
 def layer_of(t: torch.Tensor, i: int, dim) -> torch.Tensor:
     """Layer ``i`` of a stacked cache leaf as a data rank holds it:
     ``(R, L, ...)`` by model rank where ``dim`` (its model dimension,
@@ -506,17 +499,24 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor, split, group
 def decode_attention_tp(params: Attention, x: torch.Tensor,
                         cfg: ModelConfig, group, positions: torch.Tensor,
                         ck: torch.Tensor, cv: torch.Tensor, split, *,
-                        slot: torch.Tensor, valid: torch.Tensor,
+                        slot: torch.Tensor,
+                        valid: Optional[torch.Tensor] = None,
                         rope_at: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """A decode step's self-attention of the replicated ``x`` ``(b, 1,
     d)`` on a data rank's model positions against their cache parts
     ``ck``/``cv`` (split ``split``, ``cache_split``): RoPE at ``rope_at``
     (``positions`` when None), the new k and v written at ``slot`` in
-    place, the slots ``valid`` visible. ``params`` comes split by heads
-    (``(R, d, n / R)``, ``(R, n / R, d)``) where ``split`` is
+    place, the slots ``valid`` visible (the whole cache's ``S``; None:
+    every slot up to ``positions``, the whole count taken here, as a
+    sequence split holds ``S / R`` a rank). ``params`` comes split by
+    heads (``(R, d, n / R)``, ``(R, n / R, d)``) where ``split`` is
     ``"heads"``, else whole. Returns ``(b, 1, d)``, replicated."""
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if valid is None:
+        slots = ck.shape[-2] * (group.size if split == "seq" else 1)
+        valid = torch.arange(slots, device=x.device)[None, :] \
+            <= positions[:, None]
     at = positions if rope_at is None else rope_at
     q = rope(_heads(params.wq, x, hq, dh, split, group), at, cfg.rope_theta)
     k = rope(_heads(params.wk, x, hkv, dh, split, group), at,

@@ -53,9 +53,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import (Attention, _decode_attend, attention_tp,
-                        cache_slots, cache_split, cross_attention_tp,
-                        decode_attention_tp, layer_of, make_kv_cache,
-                        mha_attend, repeat_kv)
+                        cache_split, cross_attention_tp, decode_attention_tp,
+                        layer_of, make_kv_cache, mha_attend, repeat_kv)
 from .common import (ModelConfig, cross_entropy_loss, embed_tp,
                      last_logits_tp, lm_head_loss_tp, new_param, normal_,
                      rms_norm, rope)
@@ -374,15 +373,11 @@ def decode_step_encdec_tp(params: EncDec, tokens: torch.Tensor,
     ck_all, cv_all = caches.self_kv
     kd, xd = dims.self_kv[0], dims.cross_k
     split, xsplit = cache_split(kd), cache_split(xd)
-    valid = torch.arange(cache_slots(ck_all, kd, group),
-                         device=x.device)[None, :] \
-        <= positions[:, None]
     for i, p in enumerate(params.dec_layers):
         h = rms_norm(x, p.ln1, cfg.norm_eps)
         x = x + decode_attention_tp(
             p.self_attn, h, cfg, group, positions, layer_of(ck_all, i, kd),
-            layer_of(cv_all, i, kd), split, slot=positions, valid=valid,
-            rope_at=first)
+            layer_of(cv_all, i, kd), split, slot=positions, rope_at=first)
         hx = rms_norm(x, p.ln_x, cfg.norm_eps)
         x = x + cross_attention_tp(
             p.cross_attn, hx, cfg, group, layer_of(caches.cross_k, i, xd),

@@ -40,9 +40,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..distributed.tp import gather_from_ranks, split_ranks
-from .attention import (Attention, attention, attention_tp, cache_slots,
-                        cache_split, decode_attention_tp, layer_of,
-                        make_kv_cache, repeat_kv)
+from .attention import (Attention, attention, attention_tp, cache_split,
+                        decode_attention_tp, layer_of, make_kv_cache,
+                        repeat_kv)
 from .common import (ModelConfig, cross_entropy_loss, embed_tp,
                      last_logits_tp, lm_head_loss_tp, new_param, normal_,
                      rms_norm, rope)
@@ -590,7 +590,7 @@ def decode_step_tp(params: LM, tokens: torch.Tensor, caches: DecodeCaches,
         kd = dims.kv[0]
         split = cache_split(kd)
         rg, rd, rp = caches.rglru, dims.rglru, caches.ring_pos
-        win = cache_slots(ck, kd, group)
+        win = rp.shape[-1]                      # the whole ring's slots
         slot = positions % win
         window = cfg.window or win
 
@@ -620,14 +620,11 @@ def decode_step_tp(params: LM, tokens: torch.Tensor, caches: DecodeCaches,
         ck, cv = caches.kv
         kd = dims.kv[0]
         split = cache_split(kd)
-        valid = torch.arange(cache_slots(ck, kd, group),
-                             device=x.device)[None, :] \
-            <= positions[:, None]
         for i, layer in enumerate(params.layers):
             h = rms_norm(x, layer.ln1, cfg.norm_eps)
             x = x + decode_attention_tp(
                 layer.attn, h, cfg, group, positions, layer_of(ck, i, kd),
-                layer_of(cv, i, kd), split, slot=positions, valid=valid)
+                layer_of(cv, i, kd), split, slot=positions)
             h2 = rms_norm(x, layer.ln2, cfg.norm_eps)
             x = x + (moe_tp(layer.ffn, h2, cfg, group, shape)
                      if cfg.family == "moe" else

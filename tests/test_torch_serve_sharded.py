@@ -230,6 +230,20 @@ def test_sharded_decode_matches_unsharded_and_reference(arch, dp, mp):
     _check_decode(arch, dp, mp)
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "seamless-m4t-large-v2"])
+def test_a_vocabulary_the_model_ranks_do_not_divide_keeps_the_head_whole(
+        arch):
+    """Vocabulary 1001 on (1, 4): the head is whole on every rank; the
+    prefill's logits over every position split by sequence (the last
+    rank's last row kept), the decode's replicated."""
+    v = 1001
+    group = _check_prefill(arch, 1, 4, vocab=v)
+    assert ("logits_v", (B, _seq(get_config(arch, smoke=True)), v), 1) \
+        in group.layouts
+    group = _check_decode(arch, 1, 4, vocab=v)
+    assert ("logits_v", (B, 1, v), None) in group.layouts
+
+
 def _seq_overrides(arch):
     # a 48-slot ring: the smoke's 64-slot window would not divide over 3
     return {"window": 48} if arch == "recurrentgemma-2b" else {}
